@@ -1,0 +1,123 @@
+"""Config dataclasses of the port: the hydro scenario and the aggregation
+knobs this slice runs.
+
+``HydroConfig`` is the reference's as it is.  ``AggregationConfig`` keeps
+only the fields the port reads; a value the port does not run yet (another
+strategy, host staging) raises ``NotImplementedError`` naming ROADMAP.md
+instead of being ignored.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Tuple
+
+# strategies the port registers; the reference's others wait in ROADMAP.md
+PORTED_STRATEGIES = ("fused", "s3", "s2+s3")
+ROADMAP_STRATEGIES = ("s1", "s2", "mixed", "s4", "sharded")
+
+
+@dataclass(frozen=True)
+class AggregationConfig:
+    """The paper's strategies as runtime knobs.
+
+    strategy 2: ``n_executors``    — concurrent launch queues (CUDA streams)
+    strategy 3: ``max_aggregated`` — on-the-fly fusion cap (bucketed)
+    """
+    strategy: str = "s3"              # "s3" | "s2+s3" | "fused"
+    n_executors: int = 1
+    max_aggregated: int = 32
+    buckets: Tuple[int, ...] = ()     # () -> powers of two up to max_aggregated
+    launch_watermark: int = 1         # queue depth that forces a launch
+    staging: str = "device"           # ranges read their parent in place
+
+    def __post_init__(self):
+        if self.strategy in ROADMAP_STRATEGIES:
+            raise NotImplementedError(
+                f"strategy {self.strategy!r} is not ported yet (see "
+                f"ROADMAP.md); the port runs {PORTED_STRATEGIES}")
+        if self.staging != "device":
+            raise NotImplementedError(
+                f"staging={self.staging!r} is not ported yet (see "
+                f"ROADMAP.md); the port stages on the device only")
+        if self.n_executors < 1:
+            raise ValueError(f"n_executors must be >= 1, got "
+                             f"{self.n_executors}")
+        if self.max_aggregated < 1:
+            raise ValueError(f"max_aggregated must be >= 1, got "
+                             f"{self.max_aggregated}")
+        if self.launch_watermark < 1:
+            raise ValueError(f"launch_watermark must be >= 1, got "
+                             f"{self.launch_watermark}")
+
+    def bucket_sizes(self) -> Tuple[int, ...]:
+        if self.buckets:
+            return validate_ladder(self.buckets, self.max_aggregated)
+        out, b = [], 1
+        while b < self.max_aggregated:
+            out.append(b)
+            b *= 2
+        out.append(self.max_aggregated)
+        return tuple(dict.fromkeys(out))
+
+
+def validate_ladder(buckets, cap: int) -> Tuple[int, ...]:
+    """Validate a custom bucket ladder: positive ints, deduped, sorted
+    ascending, containing 1, none above the ``max_aggregated`` cap.
+
+    Bucket 1 is non-negotiable: the greedy drain covers any queue length k
+    exactly only if a remainder of 1 has a bucket.
+    """
+    b = tuple(int(x) for x in buckets)
+    problems = []
+    if any(x <= 0 for x in b):
+        problems.append("all bucket sizes must be positive")
+    if len(set(b)) != len(b):
+        problems.append("bucket sizes must be unique")
+    if list(b) != sorted(b):
+        problems.append("bucket sizes must be sorted ascending")
+    if 1 not in b:
+        problems.append(
+            "the ladder must contain bucket size 1 — the greedy drain "
+            "needs it to cover remainders exactly (no padding, no launch "
+            "over garbage slots)")
+    if b and max(b) > cap:
+        problems.append(
+            f"bucket {max(b)} exceeds max_aggregated={cap} and could "
+            f"never launch — raise max_aggregated or drop the bucket")
+    if problems:
+        raise ValueError(
+            f"invalid bucket ladder {buckets!r}: " + "; ".join(problems))
+    return b
+
+
+@dataclass(frozen=True)
+class HydroConfig:
+    """Octo-Tiger-style Sedov blast-wave scenario (paper Table II)."""
+    name: str = "sedov"
+    subgrid: int = 8                  # cells per edge (strategy-1 knob)
+    ghost: int = 3                    # ghost-layer thickness (PPM needs 3)
+    levels: int = 3                   # octree levels with AMR off
+    n_fields: int = 5                 # rho, Sx, Sy, Sz, E
+    gamma: float = 7.0 / 5.0
+    cfl: float = 0.4
+    blast_energy: float = 1.0
+    rho0: float = 1.0
+    domain: float = 1.0               # cube edge length
+    dtype: str = "float32"
+
+    @property
+    def grids_per_edge(self) -> int:
+        # AMR off: 2^levels leaf sub-grids per edge (paper Table II)
+        return 2 ** self.levels
+
+    @property
+    def n_subgrids(self) -> int:
+        return self.grids_per_edge ** 3
+
+    @property
+    def cells_total(self) -> int:
+        return self.n_subgrids * self.subgrid ** 3
+
+    @property
+    def padded(self) -> int:
+        return self.subgrid + 2 * self.ghost

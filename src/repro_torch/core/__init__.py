@@ -1,0 +1,13 @@
+"""Aggregation runtime of the port: executors (CUDA streams), the
+aggregation executor, scenarios and strategies."""
+from repro_torch.core.aggregation import (  # noqa: F401
+    AggregationExecutor, RangeFuture, SlotView, TaskFuture, TaskSignature,
+    gather_futures, greedy_decomposition,
+)
+from repro_torch.core.executor import DeviceExecutor, ExecutorPool  # noqa: F401
+from repro_torch.core.scenario import (  # noqa: F401
+    KernelFamily, Scenario, TaskPopulation, UniformSedovScenario,
+)
+from repro_torch.core.strategies import (  # noqa: F401
+    StrategyRunner, available_strategies,
+)

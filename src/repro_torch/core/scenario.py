@@ -1,0 +1,128 @@
+"""Scenario protocol: declarative workload descriptions for StrategyRunner.
+
+A **Scenario** declares WHAT one solver iteration computes — its kernel
+families (id + batched body), the per-iteration task populations (parent
+tensors with a leading task axis), the assembly around them, and the fused
+reference every strategy must reproduce bit for bit.  A **Strategy**
+(``repro_torch.core.strategies``) decides HOW the populations launch.
+
+This slice ports the uniform Sedov scenario (the paper's Table II/III
+workload).  AMR, gravity and the epilogue-fused stage populations wait in
+ROADMAP.md.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.configs.base import HydroConfig
+from repro_torch.hydro.state import assemble_global, extract_subgrids
+from repro_torch.kernels.ops import hydro_batched_body
+
+
+@dataclass(frozen=True)
+class KernelFamily:
+    """One aggregable kernel family: the ``TaskSignature`` kernel id and its
+    batched body ``(*stacked_args) -> stacked_out`` (leading slot axis on
+    every arg and output)."""
+
+    kernel: str
+    batched_body: Callable
+
+
+@dataclass(frozen=True)
+class TaskPopulation:
+    """One iteration's submission wave for one family: per-task parent
+    tensors (leading task axis).  Task ``i`` consumes ``parents[j][i]``."""
+
+    kernel: str
+    parents: Tuple[torch.Tensor, ...]
+
+    @property
+    def n_tasks(self) -> int:
+        return self.parents[0].shape[0]
+
+    def submit_to(self, executor):
+        """Bulk-submit the whole population as ONE range entry."""
+        return executor.submit_range(self.parents, 0, self.n_tasks,
+                                     kernel=self.kernel)
+
+
+class Scenario:
+    """Base class / protocol.  Subclasses implement ``families()``,
+    ``populations(state)``, ``assemble(state, outs)`` and
+    ``warmup_parent_specs()`` — ``(kernel, ((shape, dtype), ...))`` pairs
+    describing the submission waves — and may override ``finalize_step``.
+    ``reference_rhs``, one launch per family through the same assemble
+    path, is the oracle every strategy must match bit for bit."""
+
+    name: str = "scenario"
+
+    def families(self) -> Tuple[KernelFamily, ...]:
+        raise NotImplementedError
+
+    def populations(self, state) -> Tuple[TaskPopulation, ...]:
+        raise NotImplementedError
+
+    def assemble(self, state, outs: Sequence[Any]):
+        raise NotImplementedError
+
+    def warmup_parent_specs(self) -> Tuple[Tuple[str, Tuple[Any, ...]], ...]:
+        return ()
+
+    def finalize_step(self, state):
+        """Post-RK3-combine hook; identity unless levels need re-syncing."""
+        return state
+
+    def family(self, kernel: str) -> KernelFamily:
+        for fam in self.families():
+            if fam.kernel == kernel:
+                return fam
+        raise KeyError(f"scenario {self.name!r} has no kernel family "
+                       f"{kernel!r}")
+
+    def reference_rhs(self, state):
+        """Fused per-family reference: one launch of each family's body
+        over its whole population."""
+        outs = [self.family(p.kernel).batched_body(*p.parents)
+                for p in self.populations(state)]
+        return self.assemble(state, outs)
+
+
+class UniformSedovScenario(Scenario):
+    """AMR-off Sedov blast: one kernel family, one task per sub-grid.
+
+    The cell width is uniform, so the body takes it as a float.  The default
+    body is ``kernels.ops.hydro_rhs``: the CUDA kernel for tensors on the
+    card, the plain PyTorch version on the CPU; ``batched_body`` swaps in
+    another (e.g. ``hydro_rhs_plain`` on the card, as a reference).
+    """
+
+    def __init__(self, cfg: HydroConfig, bc: str = "outflow",
+                 batched_body: Optional[Callable] = None):
+        self.cfg = cfg
+        self.bc = bc
+        n = cfg.grids_per_edge * cfg.subgrid
+        self.h = cfg.domain / n
+        self.batched_body = batched_body or hydro_batched_body(cfg, self.h)
+        self.name = cfg.name
+        self._families = (KernelFamily("hydro_rhs", self.batched_body),)
+
+    def families(self):
+        return self._families
+
+    def populations(self, state):
+        subs = extract_subgrids(state, self.cfg.subgrid, self.cfg.ghost,
+                                self.bc)
+        return (TaskPopulation("hydro_rhs", (subs,)),)
+
+    def assemble(self, state, outs):
+        return assemble_global(outs[0], self.cfg.subgrid)
+
+    def warmup_parent_specs(self):
+        cfg = self.cfg
+        p = cfg.padded
+        shape = (cfg.n_subgrids, cfg.n_fields, p, p, p)
+        return (("hydro_rhs", ((shape, getattr(torch, cfg.dtype)),)),)

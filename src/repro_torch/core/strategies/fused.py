@@ -1,0 +1,20 @@
+"""``fused``: the whole-graph upper bound — one launch per family over its
+whole population.  It runs the scenario's own reference path, so it IS the
+bit-exact reference by construction."""
+from __future__ import annotations
+
+from repro_torch.core.strategies.base import (
+    RunContext, Strategy, register_strategy,
+)
+
+
+@register_strategy("fused")
+class FusedStrategy(Strategy):
+    name = "fused"
+
+    def run_iteration(self, scenario, state, ctx: RunContext):
+        pops = scenario.populations(state)
+        outs = [scenario.family(p.kernel).batched_body(*p.parents)
+                for p in pops]
+        ctx.stats["kernel_launches"] += len(pops)
+        return scenario.assemble(state, outs)

@@ -1,0 +1,112 @@
+"""The execution facade: ``StrategyRunner(scenario, agg, device=...)``.
+
+The runner owns the executor pool (one CUDA stream per executor on the
+card), the aggregation executor with every scenario family registered
+(strategies that use one), the stats, and the scenario-agnostic loops:
+RK3 stepping, warmup and per-step timing.  The device defaults to the card
+and a missing card raises; ``device="cpu"`` runs the plain PyTorch path.
+"""
+from __future__ import annotations
+
+import time
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch.configs.base import AggregationConfig
+from repro_torch.core.aggregation import AggregationExecutor
+from repro_torch.core.executor import ExecutorPool
+from repro_torch.core.scenario import Scenario
+from repro_torch.core.strategies.base import RunContext, get_strategy_class
+from repro_torch.device import DeviceLike, resolve_device
+
+
+class StrategyRunner:
+    """Drives a :class:`~repro_torch.core.scenario.Scenario` under a
+    registered strategy.  ``stats["kernel_launches"]`` and
+    ``stats["iterations"]`` accumulate per call; ``stats["regions"]`` is
+    the aggregation executor's per-family bucket histograms."""
+
+    def __init__(self, scenario: Scenario, agg: AggregationConfig,
+                 device: DeviceLike = None):
+        strategy_cls = get_strategy_class(agg.strategy)   # fail fast
+        self.device = resolve_device(device)
+        self.scenario = scenario
+        self.agg = agg
+        self.strategy = agg.strategy
+        self._strategy = strategy_cls()
+        self.pool = ExecutorPool(agg.n_executors, device=self.device)
+        self._agg_exec: Optional[AggregationExecutor] = None
+        self.stats: Dict[str, Any] = {"kernel_launches": 0, "iterations": 0,
+                                      "staging_s": 0.0, "regions": {}}
+        if strategy_cls.uses_executor:
+            self._agg_exec = AggregationExecutor(
+                None, agg, pool=self.pool, name=scenario.name,
+                device=self.device)
+            for fam in scenario.families():
+                self._agg_exec.register(fam.kernel, fam.batched_body)
+            self.stats["regions"] = self._agg_exec.stats["regions"]
+        self.ctx = RunContext(config=agg, pool=self.pool,
+                              executor=self._agg_exec, stats=self.stats)
+
+    @property
+    def executor(self) -> Optional[AggregationExecutor]:
+        """The aggregation executor (s3 / s2+s3), else None."""
+        return self._agg_exec
+
+    def warmup(self) -> None:
+        """Launch every family's bucket ladder once at the shapes of the
+        scenario's submission waves (executor strategies), or each family's
+        body once over its whole wave (``fused``).  Builds the CUDA kernel
+        at first use."""
+        seen = set()
+        for kernel, specs in self.scenario.warmup_parent_specs():
+            key = (kernel, specs)
+            if key in seen:
+                continue
+            seen.add(key)
+            if self._agg_exec is not None:
+                self._agg_exec.warmup(specs, kernel=kernel)
+                continue
+            parents = [torch.zeros(shape, dtype=dtype, device=self.device)
+                       for shape, dtype in specs]
+            self.scenario.family(kernel).batched_body(*parents)
+        self._sync()
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _check_state(self, state: torch.Tensor) -> None:
+        if state.device != self.device:
+            raise ValueError(f"state lives on {state.device}, the runner on "
+                             f"{self.device}")
+
+    # -- one solver iteration ----------------------------------------------
+    def rhs(self, state):
+        self._check_state(state)
+        self.stats["iterations"] += 1
+        return self._strategy.run_iteration(self.scenario, state, self.ctx)
+
+    # -- RK3 (three iterations per time-step, as in the paper) -------------
+    def rk3_step(self, state, dt):
+        """Shu-Osher TVD-RK3.  ``dt`` is a float or a 0-dim tensor (e.g.
+        ``courant_dt``'s, which stays on the device)."""
+        l0 = self.rhs(state)
+        u1 = state + dt * l0
+        l1 = self.rhs(u1)
+        u2 = 0.75 * state + 0.25 * (u1 + dt * l1)
+        l2 = self.rhs(u2)
+        out = (1.0 / 3.0) * state + (2.0 / 3.0) * (u2 + dt * l2)
+        return self.scenario.finalize_step(out)
+
+    def time_step(self, state, dt, n_steps: int = 1) -> float:
+        """Average wall seconds per time-step (the Table III metric), the
+        device synchronised before and after."""
+        self._sync()
+        t0 = time.perf_counter()
+        out = state
+        for _ in range(n_steps):
+            out = self.rk3_step(out, dt)
+        self._sync()
+        return (time.perf_counter() - t0) / n_steps

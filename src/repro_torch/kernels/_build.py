@@ -1,0 +1,98 @@
+"""Build and load the port's CUDA kernels: nvcc into a shared library with a
+plain C interface, loaded with ``ctypes``.
+
+A library is built at first use into ``src/repro_torch/_build/<hash>/``,
+keyed by a hash of its source and the nvcc flags, so an edited source
+rebuilds and an unchanged one loads at once.  Nothing is built or loaded
+when this module is imported.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+from typing import Callable, Dict, Optional
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+# sm_90a keeps wgmma/setmaxnreg available; no --use_fast_math: the KNP flux
+# needs IEEE sqrt and division to stay within the reference's tolerance
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LOCK = threading.Lock()
+_LIBS: Dict[str, ctypes.CDLL] = {}
+BUILD_LOG: Dict[str, dict] = {}     # name -> {"seconds", "ptxas", "path"}
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else nvcc on PATH."""
+    for home in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
+                 "/usr/local/cuda"):
+        if home and (Path(home) / "bin" / "nvcc").is_file():
+            return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (looked in $CUDA_HOME, $CUDA_PATH, "
+            "/usr/local/cuda and PATH): the CUDA kernels build only on a "
+            "machine with the CUDA toolkit")
+    return found
+
+
+def _digest(source: Path) -> str:
+    h = hashlib.sha256(source.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def load(name: str,
+         declare: Optional[Callable[[ctypes.CDLL], None]] = None
+         ) -> ctypes.CDLL:
+    """Build ``csrc/<name>.cu`` if needed and load it (cached per process).
+    ``declare(lib)`` runs once, on load, to set argtypes and restypes."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is not None:
+            return lib
+        source = CSRC / f"{name}.cu"
+        out_dir = BUILD_DIR / _digest(source)
+        target = out_dir / f"lib{name}.so"
+        seconds: Optional[float] = None
+        ptxas = ""
+        if not target.is_file():
+            out_dir.mkdir(parents=True, exist_ok=True)
+            # build under a temporary name, then rename: a concurrent or
+            # interrupted build never leaves a half-written library behind
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+            os.close(fd)
+            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(source)]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            seconds = time.perf_counter() - t0
+            ptxas = proc.stderr + proc.stdout
+            if proc.returncode != 0:
+                os.unlink(tmp)
+                raise RuntimeError(
+                    f"nvcc failed to build {source.name} "
+                    f"(exit {proc.returncode}):\n{ptxas}")
+            os.replace(tmp, target)
+            (out_dir / f"{name}.ptxas.txt").write_text(ptxas)
+        else:
+            log = out_dir / f"{name}.ptxas.txt"
+            ptxas = log.read_text() if log.is_file() else ""
+        lib = ctypes.CDLL(str(target))
+        if declare is not None:
+            declare(lib)
+        BUILD_LOG[name] = {"seconds": seconds, "ptxas": ptxas,
+                           "path": str(target)}
+        _LIBS[name] = lib
+        return lib

@@ -1,0 +1,113 @@
+"""Where an RK3 step's time goes on the card, per strategy.
+
+  PYTHONPATH=src python -m repro_torch.profile_step \
+      [--out results/profile_step.json]
+
+On the Sedov ``CONFIG`` (512 sub-grids of 8^3), for each strategy row
+(fused, s3 at caps 32 and 512, s2+s3 with 4 streams) it warms up, times
+3 RK3 steps on the host clock (synchronised), then profiles the same
+steps with ``torch.profiler`` and prints the host operations with the most self CPU time, the kernels with the most device
+time, the device time summed over kernels and copies, and the device's
+idle share of the step (1 - device busy / wall; kernels that overlap on
+several streams count once each, so the share is a lower bound there).
+Needs a CUDA device.
+"""
+import argparse
+import json
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from repro_torch.configs.base import AggregationConfig
+from repro_torch.configs.sedov import CONFIG
+from repro_torch.core import StrategyRunner, UniformSedovScenario
+from repro_torch.hydro.state import sedov_init
+from repro_torch.hydro.stepper import courant_dt
+
+STEPS = 3            # RK3 steps timed, then profiled, per row
+TOP = 8              # host operations and kernels listed per row
+ROWS = (("fused", dict(strategy="fused")),
+        ("s3 cap 32", dict(strategy="s3", max_aggregated=32)),
+        ("s3 cap 512", dict(strategy="s3", max_aggregated=512)),
+        ("s2+s3 4 streams cap 32", dict(strategy="s2+s3", n_executors=4,
+                                        max_aggregated=32)))
+
+
+def _on_device(evt) -> bool:
+    """A kernel or memcpy on the card (an aten op's own event carries its
+    kernels' time too, so summing every event would count it twice)."""
+    return getattr(evt, "device_type", None) == torch.autograd.DeviceType.CUDA
+
+
+def _device_us(evt) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def profile_row(cfg, agg, steps, dev):
+    runner = StrategyRunner(UniformSedovScenario(cfg), agg, device=dev)
+    runner.warmup()
+    u0 = sedov_init(cfg, device=dev).u
+    dt = courant_dt(u0, cfg)
+    wall_ms = runner.time_step(u0, dt, steps) * 1e3
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        u = u0
+        for _ in range(steps):
+            u = runner.rk3_step(u, dt)
+        torch.cuda.synchronize(dev)
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    events = prof.key_averages()
+    kernels = [e for e in events if _on_device(e)]
+    device_ms = sum(_device_us(e) for e in kernels) / 1e3 / steps
+    host = sorted((e for e in events if not _on_device(e)),
+                  key=lambda e: e.self_cpu_time_total, reverse=True)[:TOP]
+    device = sorted(kernels, key=_device_us, reverse=True)[:TOP]
+    return dict(
+        ms_per_step=wall_ms, profiled_ms_per_step=prof_wall_ms,
+        device_busy_ms_per_step=device_ms,
+        device_idle_share=max(0.0, 1.0 - device_ms / prof_wall_ms),
+        top_host_ops=[dict(name=e.key, calls=e.count,
+                           self_cpu_ms_per_step=e.self_cpu_time_total
+                           / 1e3 / steps,
+                           device_ms_per_step=_device_us(e) / 1e3 / steps)
+                      for e in host],
+        top_device_ops=[dict(name=e.key, calls=e.count,
+                             device_ms_per_step=_device_us(e) / 1e3 / steps)
+                        for e in device])
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_step needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    out = {"device": torch.cuda.get_device_name(0), "rows": {}}
+    for label, kw in ROWS:
+        row = profile_row(CONFIG, AggregationConfig(**kw), STEPS, dev)
+        out["rows"][label] = row
+        print(f"{label}: {row['ms_per_step']:.3f} ms/step (profiled "
+              f"{row['profiled_ms_per_step']:.3f}), device busy "
+              f"{row['device_busy_ms_per_step']:.3f} ms/step, idle share "
+              f"{row['device_idle_share']:.3f}", flush=True)
+        for op in row["top_host_ops"]:
+            print(f"    {op['self_cpu_ms_per_step']:9.3f} ms cpu "
+                  f"{op['device_ms_per_step']:9.3f} ms dev "
+                  f"{op['calls']:6d}x  {op['name']}", flush=True)
+        for op in row["top_device_ops"]:
+            print(f"    device {op['device_ms_per_step']:9.3f} ms "
+                  f"{op['calls']:6d}x  {op['name'][:90]}", flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(out, f, indent=1)
+
+
+if __name__ == "__main__":
+    main()

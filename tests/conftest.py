@@ -9,6 +9,12 @@ import jax  # noqa: E402
 jax.config.update("jax_enable_x64", False)
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "requires_cuda: needs an NVIDIA GPU; skips on a host "
+        "without one")
+
+
 def greedy_launches(q: int, buckets) -> int:
     """Shared oracle: launches the executor's greedy bucket decomposition
     performs for a queue of length q (import from tests as

@@ -1,0 +1,350 @@
+"""The port's hydro modules and kernel module against the JAX reference.
+
+The same inputs, made with numpy from a seed, go through ``repro`` (on the
+CPU) and ``repro_torch``.  Kernel-level cases use the reference's own
+kernel tolerance (tests/test_kernels.py): ``atol=2e-6*max(scale, 1)``,
+``rtol=2e-5``.  The CUDA kernel itself is tested on the card by
+tests/test_torch_cuda.py.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs.base import HydroConfig as JHydroConfig  # noqa: E402
+from repro.hydro import flux as jflux  # noqa: E402
+from repro.hydro import ppm as jppm  # noqa: E402
+from repro.hydro import state as jstate  # noqa: E402
+from repro.hydro import stepper as jstepper  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels.hydro_rhs import hydro_rhs_pallas  # noqa: E402
+
+from repro_torch.configs.base import HydroConfig  # noqa: E402
+from repro_torch.configs.sedov import CONFIG_16  # noqa: E402
+from repro_torch.hydro import flux, ppm, state, stepper  # noqa: E402
+from repro_torch.kernels import hydro_rhs as kern  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+
+KW = dict(h=0.01, gamma=1.4, ghost=3, subgrid=8)
+JCFG = JHydroConfig(levels=1)
+CFG = HydroConfig(levels=1)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small tensors: torch's thread pool only adds contention here."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _tol(want):
+    scale = float(np.max(np.abs(want)))
+    return dict(atol=2e-6 * max(scale, 1.0), rtol=2e-5)
+
+
+def random_slots(seed, n, s=8, g=3):
+    """Random smooth-ish conserved states (n, 5, P, P, P) float32, as the
+    reference's kernel tests draw them."""
+    rng = np.random.default_rng(seed)
+    p = s + 2 * g
+    rho = 1.0 + 0.3 * rng.random((n, 1, p, p, p))
+    v = 0.2 * rng.standard_normal((n, 3, p, p, p))
+    pr = 1.0 + 0.5 * rng.random((n, 1, p, p, p))
+    e = pr / 0.4 + 0.5 * rho * np.sum(v * v, axis=1, keepdims=True)
+    return np.concatenate([rho, rho * v, e], axis=1).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def sedov_slots():
+    """Padded sub-grids of the reference's Sedov IC at levels=1 (the blast
+    sits across all 8): near-vacuum pressure, floors and a strong jump."""
+    u = jstate.sedov_init(JCFG).u
+    return np.asarray(jstate.extract_subgrids(u, 8, 3))
+
+
+def T(x):
+    return torch.from_numpy(np.array(x, copy=True))
+
+
+# ---------------------------------------------------------------------------
+# tables and modules
+# ---------------------------------------------------------------------------
+
+def test_tables_match_reference():
+    assert ppm.DIR_PAIRS == jppm.DIR_PAIRS
+    assert len(ppm.DIR_PAIRS) == 13
+    assert flux.FACE_QUAD == jflux.FACE_QUAD
+    assert all(len(flux.FACE_QUAD[a]) == 9 for a in range(3))
+
+
+def test_ppm_reconstruct_all_matches_reference():
+    u = random_slots(1, 1)[0]
+    want = np.asarray(jppm.ppm_reconstruct_all(jnp.asarray(u)))
+    got = ppm.ppm_reconstruct_all(T(u)).numpy()
+    assert got.shape == want.shape == (13, 2, 5, 14, 14, 14)
+    np.testing.assert_allclose(got, want, **_tol(want))
+
+
+def test_ppm_reconstruct_batched_equals_per_slot():
+    u = T(random_slots(2, 3))
+    batched = ppm.ppm_reconstruct_all(u)
+    for i in range(3):
+        assert torch.equal(batched[i], ppm.ppm_reconstruct_all(u[i]))
+
+
+def test_flux_divergence_matches_reference():
+    u = random_slots(3, 1)[0]
+    recon = np.asarray(jppm.ppm_reconstruct_all(jnp.asarray(u)))
+    want = np.asarray(jflux.flux_divergence(jnp.asarray(recon), **KW))
+    got = flux.flux_divergence(T(recon), **KW).numpy()
+    np.testing.assert_allclose(got, want, **_tol(want))
+
+
+@pytest.mark.parametrize("source", ["random", "sedov"])
+def test_subgrid_rhs_matches_reference(source, sedov_slots):
+    u = random_slots(4, 1)[0] if source == "random" else sedov_slots[0]
+    h = KW["h"] if source == "random" else 1.0 / 16
+    kw = dict(KW, h=h)
+    want = np.asarray(jstepper.subgrid_rhs(jnp.asarray(u), **kw))
+    got = stepper.subgrid_rhs(T(u), **kw).numpy()
+    np.testing.assert_allclose(got, want, **_tol(want))
+
+
+# ---------------------------------------------------------------------------
+# the kernel module: plain version, dispatch, argument checks
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def ref_three_slots():
+    u = random_slots(11, 3)
+    return u, np.asarray(jref.hydro_rhs_ref(jnp.asarray(u), **KW))
+
+
+@pytest.mark.parametrize("n_slots", [1, 3])
+def test_hydro_rhs_plain_matches_ref(n_slots, ref_three_slots):
+    u, ref = ref_three_slots
+    want = ref[:n_slots]
+    got = kern.hydro_rhs_plain(T(u[:n_slots]), **KW).numpy()
+    assert got.shape == (n_slots, 5, 8, 8, 8)
+    np.testing.assert_allclose(got, want, **_tol(want))
+
+
+def test_hydro_rhs_plain_matches_pallas_interpret(sedov_slots):
+    """Two slots through the Pallas slot_grid kernel as the reference's
+    tests run it on the CPU (interpret mode)."""
+    u = np.concatenate([random_slots(20, 1), sedov_slots[:1]])
+    want = np.asarray(hydro_rhs_pallas(jnp.asarray(u), layout="slot_grid",
+                                       interpret=True, **KW))
+    got = kern.hydro_rhs_plain(T(u), **KW).numpy()
+    np.testing.assert_allclose(got, want, **_tol(want))
+
+
+def test_hydro_rhs_plain_h_slots_equals_per_width():
+    """Per-slot widths: each slot equals the scalar-width call bit for bit
+    (the traced-h mode of the reference's _kernel_slot_grid_h)."""
+    u = T(random_slots(30, 4))
+    hs = torch.tensor([0.02, 0.01, 0.02, 0.01], dtype=torch.float32)
+    kw = dict(gamma=1.4, ghost=3, subgrid=8)
+    mixed = kern.hydro_rhs_plain(u, h_slots=hs, **kw)
+    for i in range(4):
+        one = kern.hydro_rhs_plain(u[i:i + 1], h=float(hs[i]), **kw)
+        assert torch.equal(mixed[i:i + 1], one)
+
+
+def test_ops_dispatches_cpu_tensors_to_plain():
+    u = T(random_slots(40, 2))
+    before = kern.hydro_rhs_cuda.launches
+    got = ops.hydro_rhs(u, **KW)
+    assert torch.equal(got, kern.hydro_rhs_plain(u, **KW))
+    assert kern.hydro_rhs_cuda.launches == before
+
+
+def test_kernel_wrapper_rejects_what_the_kernel_does_not_take():
+    u = T(random_slots(41, 1))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kern.hydro_rhs_cuda(u, **KW)
+    kw = dict(h=0.01, h_slots=None)
+    with pytest.raises(NotImplementedError, match="ghost=3"):
+        kern.check_kernel_args(u, ghost=2, subgrid=10, **kw)
+    p16 = CONFIG_16.padded
+    u16 = torch.zeros((1, 5, p16, p16, p16))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        kern.check_kernel_args(u16, ghost=3, subgrid=16, **kw)
+    with pytest.raises(TypeError, match="float32"):
+        kern.check_kernel_args(u.double(), ghost=3, subgrid=8, **kw)
+    with pytest.raises(ValueError, match="expected"):
+        kern.check_kernel_args(u[:, :4], ghost=3, subgrid=8, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        kern.check_kernel_args(u.transpose(2, 3), ghost=3, subgrid=8, **kw)
+    with pytest.raises(ValueError, match="exactly one"):
+        kern.check_kernel_args(u, 0.01, torch.ones(1), 3, 8)
+    with pytest.raises(ValueError, match="h_slots"):
+        kern.check_kernel_args(u, None, torch.ones(2), 3, 8)
+    kern.check_kernel_args(u, None, torch.ones(1), 3, 8)
+    # the main path's shape fits: ~66 KB per block, 3 blocks per SM
+    assert kern.smem_bytes(8) == 66_400
+
+
+def _coords(lin, p):
+    return lin // (p * p), (lin // p) % p, lin % p
+
+
+def test_kernel_quadrature_table_and_bounds():
+    """The table the kernel keeps equals FACE_QUAD and DIR_PAIRS, and every
+    sample it takes for a consumed face lies inside the padded block (so
+    direct indexing equals the reference's roll)."""
+    s, g = 8, 3
+    p = s + 2 * g
+    weights, table = kern._quad_table()
+    t = np.asarray(table).reshape(3, 9, 8)
+    w = np.asarray(weights).reshape(3, 9)
+    lo, hi = p, -1
+    for a in range(3):
+        for q, (wq, pl, sl, pr, sr) in enumerate(flux.FACE_QUAD[a]):
+            assert w[a, q] == np.float32(wq)
+            assert (t[a, q, 3], t[a, q, 7]) == (sl, sr)
+            for d, pair, shift in ((t[a, q, :3], pl, 0),
+                                   (t[a, q, 4:7], pr, 1)):
+                assert tuple(d) == tuple(ppm.DIR_PAIRS[pair])
+                for x in range(s + (a == 0)):
+                    for y in range(s + (a == 1)):
+                        for z in range(s + (a == 2)):
+                            c = np.array([g + x - (a == 0), g + y - (a == 1),
+                                          g + z - (a == 2)])
+                            c[a] += shift
+                            for k in (-2, 2):
+                                cc = c + k * d
+                                lo, hi = min(lo, cc.min()), max(hi, cc.max())
+    assert 0 <= lo and hi <= p - 1
+
+
+def _emulate_kernel(u, h, gamma, s=8, g=3):
+    """numpy float32 mirror of csrc/hydro_rhs.cu's face layout and index
+    arithmetic, vectorised over slots and faces."""
+    n, nf, p = u.shape[0], u.shape[1], u.shape[2]
+    flat = u.reshape(n, nf, p ** 3)
+    weights, table = kern._quad_table()
+    w = np.asarray(weights, np.float32).reshape(3, 9)
+    t = np.asarray(table).reshape(3, 9, 8)
+    strides = np.array([p * p, p, 1])
+    f32 = np.float32
+
+    def side(c, d, plus):
+        um2, um1, u0, up1, up2 = (flat[:, :, c + k * d] for k in range(-2, 3))
+        ul = f32(7 / 12) * (um1 + u0) - f32(1 / 12) * (um2 + up1)
+        ur = f32(7 / 12) * (u0 + up1) - f32(1 / 12) * (um1 + up2)
+        ext = (ur - u0) * (u0 - ul) <= 0
+        du, u6 = ur - ul, f32(6) * (u0 - f32(0.5) * (ul + ur))
+        if plus:
+            v = np.where(-(du * du) > du * u6, f32(3) * u0 - f32(2) * ul, ur)
+        else:
+            v = np.where(du * u6 > du * du, f32(3) * u0 - f32(2) * ur, ul)
+        return np.where(ext, u0, v)
+
+    def prim(q):
+        rho = np.maximum(q[:, 0], f32(1e-10))
+        vel = q[:, 1:4] / rho[:, None]
+        ke = f32(0.5) * rho * (vel[:, 0] ** 2 + vel[:, 1] ** 2
+                               + vel[:, 2] ** 2)
+        pr = np.maximum(f32(gamma - 1.0) * (q[:, 4] - ke), f32(1e-12))
+        return rho, vel, pr
+
+    def phys(q, vel, pr, a):
+        v = vel[:, a]
+        f = q * v[:, None]
+        f[:, 4] = (q[:, 4] + pr) * v
+        f[:, 1 + a] += pr
+        return f
+
+    out = None
+    for a in range(3):
+        ny, nz = s + (a == 1), s + (a == 2)
+        fi = np.arange((s + (a == 0)) * ny * nz)
+        z, y, x = fi % nz, (fi // nz) % ny, fi // (nz * ny)
+        c = ((g + x - (a == 0)) * p * p + (g + y - (a == 1)) * p
+             + (g + z - (a == 2)))
+        e = (p * p, p, 1)[a]
+        acc = None
+        for q in range(9):
+            qL = side(c, t[a, q, :3] @ strides, t[a, q, 3])
+            qR = side(c + e, t[a, q, 4:7] @ strides, t[a, q, 7])
+            (rL, vL, pL), (rR, vR, pR) = prim(qL), prim(qR)
+            cL = np.sqrt(f32(gamma) * pL / rL)
+            cR = np.sqrt(f32(gamma) * pR / rR)
+            ap = np.maximum(np.maximum(vL[:, a] + cL, vR[:, a] + cR), 0)
+            am = np.minimum(np.minimum(vL[:, a] - cL, vR[:, a] - cR), 0)
+            fL, fR = phys(qL, vL, pL, a), phys(qR, vR, pR, a)
+            span = ap - am
+            ok = span > f32(1e-12)
+            inv = np.where(ok, f32(1) / np.maximum(span, f32(1e-12)), 0)
+            ap, am, inv, ok = (v[:, None] for v in (ap, am, inv, ok))
+            fl = np.where(ok, (ap * fL - am * fR) * inv
+                          + (ap * am) * inv * (qR - qL),
+                          f32(0.5) * (fL + fR))
+            acc = w[a, q] * fl if acc is None else acc + w[a, q] * fl
+        ci = np.arange(s ** 3)
+        z, y, x = ci % s, (ci // s) % s, ci // (s * s)
+        lo = (x * ny + y) * nz + z
+        d = (acc[:, :, lo + (ny * nz, nz, 1)[a]] - acc[:, :, lo]) / f32(h)
+        out = -d if out is None else out - d
+    return out.reshape(n, nf, s, s, s)
+
+
+def test_kernel_index_arithmetic_emulated_matches_plain(sedov_slots):
+    """The kernel's face layout, quadrature table and divergence indexing,
+    replayed in numpy, give the plain version's result."""
+    u = np.concatenate([random_slots(50, 1), sedov_slots[3:4]])
+    want = kern.hydro_rhs_plain(T(u), **KW).numpy()
+    got = _emulate_kernel(u, KW["h"], KW["gamma"])
+    np.testing.assert_allclose(got, want, **_tol(want))
+
+
+# ---------------------------------------------------------------------------
+# state: initial condition, decomposition, carrying a state across
+# ---------------------------------------------------------------------------
+
+def test_sedov_init_matches_reference():
+    want = np.asarray(jstate.sedov_init(JCFG).u)
+    got = state.sedov_init(CFG, device="cpu").u.numpy()
+    assert got.dtype == np.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("bc", ["outflow", "periodic"])
+def test_extract_subgrids_matches_reference_and_round_trips(bc):
+    u = np.random.default_rng(60).random((5, 16, 16, 16), dtype=np.float32)
+    want = np.asarray(jstate.extract_subgrids(jnp.asarray(u), 8, 3, bc))
+    subs = state.extract_subgrids(T(u), 8, 3, bc)
+    np.testing.assert_array_equal(subs.numpy(), want)
+    interior = subs[:, :, 3:-3, 3:-3, 3:-3]
+    assert torch.equal(state.assemble_global(interior, 8), T(u))
+    np.testing.assert_array_equal(
+        state.assemble_global(interior, 8).numpy(),
+        np.asarray(jstate.assemble_global(jnp.asarray(interior.numpy()), 8)))
+
+
+def test_state_carries_across_exactly():
+    u = np.asarray(jstate.sedov_init(JCFG).u)
+    t = state.state_from_numpy(u, "cpu")
+    assert t.dtype == torch.float32 and t.device.type == "cpu"
+    np.testing.assert_array_equal(state.state_to_numpy(t), u)
+
+
+def test_diagnostics_match_reference():
+    ju = jstate.sedov_init(JCFG).u
+    u = state.state_from_numpy(np.asarray(ju), "cpu")
+    h = 1.0 / 16
+    np.testing.assert_allclose(float(stepper.courant_dt(u, CFG)),
+                               float(jstepper.courant_dt(ju, JCFG)),
+                               rtol=1e-6)
+    # sums run in another order than XLA's: a few float32 ulps of the total
+    np.testing.assert_allclose(stepper.total_conserved(u, h).numpy(),
+                               np.asarray(jstepper.total_conserved(ju, h)),
+                               rtol=1e-5)
+    np.testing.assert_allclose(float(stepper.shock_radius(u, CFG)),
+                               float(jstepper.shock_radius(ju, JCFG)),
+                               rtol=1e-6)
