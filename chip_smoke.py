@@ -4,20 +4,34 @@
     python3 chip_smoke.py [--out results/chip_smoke.json]
 
 1. Prints the card's name and power limit, then builds the hand-written
-   CUDA kernel ``src/repro_torch/csrc/hydro_rhs.cu`` with nvcc for sm_90a.
-2. Holds the kernel against its plain PyTorch version on the card, with
-   atol scaled per slot and field: on the main path's own input (the Sedov
-   IC's 512 padded sub-grids, (512, 5, 14, 14, 14) fp32) with a scalar
-   width and with per-slot widths, on smooth random states, and on a cold
-   flow that holds every pressure on its floor.  Times the kernel on the
-   main path's input against its plain version and its bound.
+   CUDA kernels ``src/repro_torch/csrc/{hydro_rhs,gravity,hydro_split}.cu``
+   with nvcc for sm_90a, all three at once.
+2. Holds the fused hydro kernel against its plain PyTorch version on the
+   card, with atol scaled per slot and field: on the main path's own input
+   (the Sedov IC's 512 padded sub-grids, (512, 5, 14, 14, 14) fp32) with a
+   scalar width and with per-slot widths, on smooth random states, and on
+   a cold flow that holds every pressure on its floor.  Times the kernel on
+   the main path's input against its plain version and its bound.
 3. Drives the main path — uniform Sedov ``CONFIG`` (512 sub-grids of 8^3)
    stepped by TVD-RK3 through ``StrategyRunner`` — under ``fused``, ``s3``
    (caps 32 and 512) and ``s2+s3`` (4 streams, cap 32), counting the
    kernel's launches in each run; every strategy must equal ``fused`` bit
    for bit and agree with the plain PyTorch path on the card.
-4. Prints one JSON line of kernels, the card line, and as its last line
-   ``{"ok": true, "device": {...}}``.
+4. Holds the gravity kernel and the split pair (Reconstruct, Flux) against
+   their plain versions at 512 slots of the Sedov IC and on random slots,
+   and times each against its plain version and its bound.
+5. Path A: the self-gravitating Sedov blast at the paper's grid
+   (``GravityHydroConfig(hydro=CONFIG)``, 512 sub-grids), hydro (``h_slots``
+   mode) and gravity as two families through one executor, under the same
+   four strategy rows, and the repo's ``configs/gravity.CONFIG`` (64
+   sub-grids) under ``s3``; per-family launches must equal the greedy
+   decomposition, every row equal ``fused`` bit for bit and agree with the
+   plain bodies on the card.
+6. Path B: uniform Sedov ``CONFIG`` with the split pair as the batched body,
+   under ``fused`` and ``s3`` (caps 32 and 512), bit-identical across rows
+   and in agreement with the fused-kernel path.
+7. Prints one line naming the kernels, one JSON line of kernels, the card
+   line, and as its last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the run exits non-zero and prints no result;
 so does a host without a CUDA device, or a directory without the repo.
@@ -29,6 +43,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -81,6 +96,7 @@ def time_cuda_ms(fn, reps, warm=2):
 
 
 FIELDS = ("rho", "Sx", "Sy", "Sz", "E")
+GRAVITY_FIELDS = ("phi", "gx", "gy", "gz")
 
 
 def slot_field_max(x):
@@ -88,7 +104,7 @@ def slot_field_max(x):
     return x.abs().flatten(2).amax(2)
 
 
-def compare(label, got, want, scale, atol_scale, rtol):
+def compare(label, got, want, scale, atol_scale, rtol, names=FIELDS):
     """Hold ``got`` to ``want`` elementwise, |got - want| <= atol + rtol *
     |want|, with atol = atol_scale * scale taken per slot and field, so the
     blast slots do not set the tolerance of the ambient ones.  Prints the
@@ -101,7 +117,7 @@ def compare(label, got, want, scale, atol_scale, rtol):
     print(f"{label}: max abs err {float(diff.max()):.3e}, max rel err "
           f"{rel:.3e} (atol {atol_scale:g} x max|want| per slot and field, "
           f"rtol {rtol:g})", flush=True)
-    for f, name in enumerate(FIELDS):
+    for f, name in enumerate(names):
         a = atol_scale * scale[:, f]
         print(f"  {name}: atol median {float(a.median()):.3e} (max "
               f"{float(a.max()):.3e}); median |want| "
@@ -363,6 +379,402 @@ def phase_main_path(cfg, dev, steps, results):
                                 plain_path_max_abs_diff=diff,
                                 mass_drift=mass, energy_drift=energy)
     results["kernel"]["launches"] = rows["s3 cap 32"]["kernel_launches"]
+    return dts, fused
+
+
+# ---------------------------------------------------------------------------
+# the gravity kernel and the split pair against their plain versions
+# ---------------------------------------------------------------------------
+
+def gravity_ops(n, subgrid, ghost, n_iter):
+    """fp32 operations the gravity function needs for n slots: the
+    right-hand side (2 per cell off the frame, and h*h and 0.5/h once); the
+    first sweep from phi = 0 (1 per cell: -rhs / 6); each later sweep 7 per
+    cell (5 adds, a subtract, a divide), but the last only on the cells the
+    gradient reads (the interior and one layer beyond each face, S^3 +
+    6 S^2); the gradient 2 per cell and axis."""
+    m = subgrid + 2 * ghost - 2
+    last = subgrid ** 3 + 6 * subgrid ** 2
+    per_slot = (2 * m ** 3 + 2 + m ** 3 + 7 * m ** 3 * max(n_iter - 2, 0)
+                + 7 * last * (n_iter >= 2) + 6 * subgrid ** 3)
+    return n * per_slot
+
+
+def reconstruct_ops(n, p):
+    """fp32 operations of Reconstruct for n slots: per (pair, field, cell)
+    of the padded block, one interface value (5; each is shared by the two
+    cells beside it), the limiter's extremum test, du, u6 and tests (11),
+    and both sides (5 toward +d, 4 toward -d)."""
+    return n * 13 * 5 * p ** 3 * (5 + 11 + 9)
+
+
+def flux_ops(n, subgrid, ghost=3):
+    """fp32 operations of Flux for n slots: ``hydro_rhs_ops`` without the
+    reconstruction, i.e. per staged state read, primitives and sound speed
+    (17); per face point, signal speeds, physical fluxes, span, test and
+    KNP flux (63); per face, weights and accumulation (85); per cell, field
+    and axis, the divergence (3)."""
+    from repro_torch.kernels.hydro_split import flux_read_states
+
+    faces = (subgrid + 1) * subgrid * subgrid
+    per_slot = (17 * len(flux_read_states(subgrid, ghost))
+                + 63 * 3 * 9 * faces + 85 * 3 * faces
+                + 3 * 3 * 5 * subgrid ** 3)
+    return n * per_slot
+
+
+def recon_by_field(recon):
+    """(n, 13, 2, F, P, P, P) -> (n, F, 26 P, P, P), so ``compare`` takes
+    its scale per slot and field over every pair, side and cell."""
+    n, _, _, f, p = recon.shape[:5]
+    return recon.permute(0, 3, 1, 2, 4, 5, 6).reshape(n, f, 26 * p, p, p)
+
+
+def kernel_entry(name, source, replaces, errs, ms, plain_ms, n_bytes,
+                 n_ops):
+    b_ms, b_by = bound_ms(n_bytes, n_ops)
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                max_abs_err=max(e[0] for e in errs), ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+
+
+def print_timing(name, n, ms, ms_32, plain_ms, entry, n_bytes, n_ops):
+    print(f"{name} time on the Sedov IC, {n} slots: {ms:.4f} ms (32 slots "
+          f"{ms_32:.4f} ms); plain version {plain_ms:.3f} ms; bound "
+          f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}: "
+          f"{n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.4f} GFLOP), so the kernel "
+          f"takes {ms / entry['bound_ms']:.1f}x its bound", flush=True)
+
+
+def phase_gravity_kernel(gcfg, dev, results):
+    from repro_torch.hydro.state import extract_subgrids, sedov_init
+    from repro_torch.kernels import gravity as grav
+    from repro_torch.kernels import hydro_rhs as kern
+
+    hc = gcfg.hydro
+    kw = dict(ghost=hc.ghost, subgrid=hc.subgrid, g_const=gcfg.g_const,
+              n_iter=gcfg.relax_iters)
+    h = hc.domain / (hc.grids_per_edge * hc.subgrid)
+    tol = dict(atol_scale=ATOL_SCALE, rtol=RTOL)
+    u = extract_subgrids(sedov_init(hc, device=dev).u, hc.subgrid, hc.ghost)
+    n = u.shape[0]
+    hs = torch.full((n,), h, dtype=torch.float32, device=dev)
+    got = grav.gravity_cuda(u, hs, **kw)
+    want = grav.gravity_plain(u, hs, **kw)
+    tol = dict(tol, names=GRAVITY_FIELDS)
+    errs = [compare(f"gravity kernel vs plain, Sedov IC sub-grids "
+                    f"{tuple(u.shape)}", got, want, slot_field_max(want),
+                    **tol)]
+    differ = int((got != want).sum())
+    hs2 = torch.where(torch.arange(n, device=dev) % 2 == 0,
+                      torch.tensor(2 * h, device=dev),
+                      torch.tensor(h, device=dev)).float().contiguous()
+    got2 = grav.gravity_cuda(u, hs2, **kw)
+    want2 = grav.gravity_plain(u, hs2, **kw)
+    errs.append(compare("gravity kernel vs plain, widths 2h, h alternating",
+                        got2, want2, slot_field_max(want2), **tol))
+    differ2 = int((got2 != want2).sum())
+    check(torch.equal(got2[1::2], got[1::2]),
+          "gravity: slots of width h differ between the two launches")
+    check(torch.equal(grav.gravity_cuda(u[32:64], hs[32:64], **kw),
+                      got[32:64]),
+          "gravity: a 32-slot launch differs from the same slots in a 512 "
+          "launch")
+    rng = np.random.default_rng(3)
+    ur = torch.from_numpy(rng.standard_normal(
+        (64,) + tuple(u.shape[1:])).astype(np.float32))
+    ur[:, 0] = torch.from_numpy(
+        (0.5 + rng.random((64,) + tuple(u.shape[2:]))).astype(np.float32))
+    ur = ur.to(dev)
+    hr = torch.full((64,), h, dtype=torch.float32, device=dev)
+    want_r = grav.gravity_plain(ur, hr, **kw)
+    got_r = grav.gravity_cuda(ur, hr, **kw)
+    errs.append(compare("gravity kernel vs plain, random positive "
+                        "densities (64 slots)", got_r, want_r,
+                        slot_field_max(want_r), **tol))
+    differ_r = int((got_r != want_r).sum())
+    print(f"gravity: elements that differ from the plain version: {differ} "
+          f"(uniform h), {differ2} (2h, h), {differ_r} (random), of "
+          f"{got.numel()}, {got2.numel()}, {got_r.numel()}", flush=True)
+
+    ms = time_cuda_ms(lambda: grav.gravity_cuda(u, hs, **kw), reps=50)
+    ms_32 = time_cuda_ms(lambda: grav.gravity_cuda(u[:32], hs[:32], **kw),
+                         reps=50)
+    plain_ms = time_cuda_ms(lambda: grav.gravity_plain(u, hs, **kw), reps=5,
+                            warm=1)
+    p, s = hc.padded, hc.subgrid
+    n_bytes = n * (4 * p ** 3 + 4 + 4 * 4 * s ** 3)
+    n_ops = gravity_ops(n, s, hc.ghost, gcfg.relax_iters)
+    entry = kernel_entry("gravity", "src/repro_torch/csrc/gravity.cu",
+                         "src/repro/kernels/gravity.py:130", errs, ms,
+                         plain_ms, n_bytes, n_ops)
+    print_timing("gravity kernel", n, ms, ms_32, plain_ms, entry, n_bytes,
+                 n_ops)
+    # Path A's hydro family: the fused hydro kernel in h_slots mode on the
+    # same input, against its plain version
+    hkw = dict(gamma=hc.gamma, ghost=hc.ghost, subgrid=hc.subgrid)
+    ms_h = time_cuda_ms(lambda: kern.hydro_rhs_cuda(u, h_slots=hs, **hkw),
+                        reps=50)
+    plain_h = time_cuda_ms(
+        lambda: kern.hydro_rhs_plain(u, h_slots=hs, **hkw), reps=3, warm=1)
+    print(f"hydro_rhs kernel, h_slots mode, on Path A's input ({n} slots): "
+          f"{ms_h:.4f} ms; plain version {plain_h:.3f} ms", flush=True)
+    results["gravity_kernel"] = entry
+    results["gravity_kernel_detail"] = dict(
+        slots=n, ms_32_slots=ms_32, bytes=n_bytes, flop=n_ops,
+        elements_differing=[differ, differ2, differ_r],
+        hydro_rhs_h_slots_ms=ms_h, hydro_rhs_h_slots_plain_ms=plain_h)
+
+
+def phase_split_kernels(cfg, dev, results):
+    from repro_torch.hydro.state import extract_subgrids, sedov_init
+    from repro_torch.kernels import hydro_rhs as kern
+    from repro_torch.kernels import hydro_split as split
+
+    kw = dict(gamma=cfg.gamma, ghost=cfg.ghost, subgrid=cfg.subgrid)
+    h = cfg.domain / (cfg.grids_per_edge * cfg.subgrid)
+    tol = dict(atol_scale=ATOL_SCALE, rtol=RTOL)
+    u = extract_subgrids(sedov_init(cfg, device=dev).u, cfg.subgrid,
+                         cfg.ghost)
+    ur = random_slots(64, cfg.padded, dev, seed=4)
+    errs_r, errs_f = [], []
+    for label, x, hx in ((f"Sedov IC sub-grids {tuple(u.shape)}", u, h),
+                         ("random smooth states (64 slots)", ur, 0.01)):
+        rk = split.hydro_reconstruct_cuda(x)
+        rp = split.hydro_reconstruct_plain(x)
+        errs_r.append(compare(f"reconstruct kernel vs plain at every cell, "
+                              f"{label}", recon_by_field(rk),
+                              recon_by_field(rp),
+                              slot_field_max(recon_by_field(rp)), **tol))
+        del rk
+        fk = split.hydro_flux_cuda(rp, h=hx, **kw)
+        fp = split.hydro_flux_plain(rp, h=hx, **kw)
+        errs_f.append(compare(f"flux kernel vs plain on the same "
+                              f"reconstruction, {label}", fk, fp,
+                              slot_field_max(fp), **tol))
+        del rp
+        pair = split.hydro_flux_cuda(split.hydro_reconstruct_cuda(x), h=hx,
+                                     **kw)
+        fused = kern.hydro_rhs_cuda(x, h=hx, **kw)
+        compare(f"the pair vs the fused hydro_rhs kernel, {label}", pair,
+                fused, slot_field_max(fused), atol_scale=3e-6, rtol=RTOL)
+    rk = split.hydro_reconstruct_cuda(u)
+    check(torch.equal(split.hydro_reconstruct_cuda(u[32:64]), rk[32:64]),
+          "reconstruct: a 32-slot launch differs from the same slots in a "
+          "512 launch")
+    fk = split.hydro_flux_cuda(rk, h=h, **kw)
+    check(torch.equal(split.hydro_flux_cuda(rk[32:64].contiguous(), h=h,
+                                            **kw), fk[32:64]),
+          "flux: a 32-slot launch differs from the same slots in a 512 "
+          "launch")
+
+    n, p, s = u.shape[0], cfg.padded, cfg.subgrid
+    ms_r = time_cuda_ms(lambda: split.hydro_reconstruct_cuda(u), reps=50)
+    ms_r32 = time_cuda_ms(lambda: split.hydro_reconstruct_cuda(u[:32]),
+                          reps=50)
+    ms_f = time_cuda_ms(lambda: split.hydro_flux_cuda(rk, h=h, **kw),
+                        reps=50)
+    ms_f32 = time_cuda_ms(
+        lambda: split.hydro_flux_cuda(rk[:32], h=h, **kw), reps=50)
+    ms_pair = time_cuda_ms(lambda: split.hydro_flux_cuda(
+        split.hydro_reconstruct_cuda(u), h=h, **kw), reps=50)
+    ms_fused = time_cuda_ms(lambda: kern.hydro_rhs_cuda(u, h=h, **kw),
+                            reps=50)
+    plain_r = time_cuda_ms(lambda: split.hydro_reconstruct_plain(u), reps=3,
+                           warm=1)
+    plain_f = time_cuda_ms(lambda: split.hydro_flux_plain(rk, h=h, **kw),
+                           reps=3, warm=1)
+    r_bytes = n * 5 * p ** 3 * 4 * (1 + 26)
+    r_ops = reconstruct_ops(n, p)
+    f_bytes = split.flux_read_bytes(n, s, cfg.ghost) + n * 5 * s ** 3 * 4
+    f_ops = flux_ops(n, s, cfg.ghost)
+    rec = kernel_entry("hydro_reconstruct",
+                       "src/repro_torch/csrc/hydro_split.cu",
+                       "src/repro/kernels/hydro_rhs.py:301", errs_r, ms_r,
+                       plain_r, r_bytes, r_ops)
+    flx = kernel_entry("hydro_flux", "src/repro_torch/csrc/hydro_split.cu",
+                       "src/repro/kernels/hydro_rhs.py:327", errs_f, ms_f,
+                       plain_f, f_bytes, f_ops)
+    print_timing("reconstruct kernel", n, ms_r, ms_r32, plain_r, rec,
+                 r_bytes, r_ops)
+    print_timing("flux kernel", n, ms_f, ms_f32, plain_f, flx, f_bytes,
+                 f_ops)
+    print(f"split pair at {n} slots: {ms_pair:.4f} ms against the fused "
+          f"hydro_rhs kernel's {ms_fused:.4f} ms in this call "
+          f"({ms_pair / ms_fused:.2f}x); the reconstruction it stages is "
+          f"{n * 26 * 5 * p ** 3 * 4 / 1e6:.1f} MB", flush=True)
+    results["reconstruct_kernel"] = rec
+    results["flux_kernel"] = flx
+    results["split_detail"] = dict(
+        slots=n, reconstruct_ms_32_slots=ms_r32, flux_ms_32_slots=ms_f32,
+        pair_ms=ms_pair, fused_ms=ms_fused, reconstruct_bytes=r_bytes,
+        reconstruct_flop=r_ops, flux_bytes=f_bytes, flux_flop=f_ops)
+
+
+# ---------------------------------------------------------------------------
+# Path A (gravity) and Path B (the split body)
+# ---------------------------------------------------------------------------
+
+def drive(runner, u0, dts, counters):
+    """One row: warm up, take one untimed step, zero the kernels' counters,
+    then time len(dts) RK3 steps on the host clock (synchronised).  Returns
+    the state and the row's numbers, the counters read just after."""
+    runner.warmup()
+    runner.rk3_step(u0, dts[0])
+    sync()
+    fam0 = dict(runner.launches_by_family)
+    launches0 = runner.stats["kernel_launches"]
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    u = u0
+    for dt in dts:
+        u = runner.rk3_step(u, dt)
+    sync()
+    wall = time.perf_counter() - t0
+    steps = len(dts)
+    fam = {k: v - fam0.get(k, 0)
+           for k, v in runner.launches_by_family.items()}
+    return u, dict(ms_per_step=wall / steps * 1e3,
+                   launches_per_step=(runner.stats["kernel_launches"]
+                                      - launches0) / steps,
+                   launches_by_family=fam,
+                   kernel_launches={c.__name__: c.launches
+                                    for c in counters},
+                   peak_mib=torch.cuda.max_memory_allocated() / 2 ** 20)
+
+
+def per_stage_launches(agg, n):
+    from repro_torch.core.aggregation import greedy_decomposition
+
+    return 1 if agg.strategy == "fused" else len(
+        greedy_decomposition(n, agg.bucket_sizes()))
+
+
+def phase_gravity_path(gcfg, dev, steps, rows, results, key):
+    from repro_torch.core import GravityScenario, StrategyRunner
+    from repro_torch.configs.base import AggregationConfig
+    from repro_torch.hydro.state import sedov_init
+    from repro_torch.hydro.stepper import courant_dt, total_conserved
+    from repro_torch.kernels import gravity as grav
+    from repro_torch.kernels import hydro_rhs as kern
+
+    hc = gcfg.hydro
+    u0 = sedov_init(hc, device=dev).u
+    h = hc.domain / u0.shape[-1]
+
+    # the same scenario on the plain bodies, on the card: the reference,
+    # and the source of the dts every row reuses
+    def plain_hydro(x, hs):
+        return kern.hydro_rhs_plain(x, h_slots=hs, gamma=hc.gamma,
+                                    ghost=hc.ghost, subgrid=hc.subgrid)
+
+    plain = StrategyRunner(GravityScenario(
+        gcfg, hydro_body=plain_hydro,
+        gravity_body=grav.gravity_batched_body(
+            hc.ghost, hc.subgrid, gcfg.g_const, gcfg.relax_iters)),
+        AggregationConfig(strategy="fused"), device=dev)
+    u_ref, dts = u0, []
+    for _ in range(steps):
+        dts.append(courant_dt(u_ref, hc))
+        u_ref = plain.rk3_step(u_ref, dts[-1])
+    sync()
+
+    outs, table = {}, {}
+    for label, agg in rows:
+        runner = StrategyRunner(GravityScenario(gcfg), agg, device=dev)
+        u, row = drive(runner, u0, dts,
+                       (kern.hydro_rhs_cuda, grav.gravity_cuda))
+        want = 3 * steps * per_stage_launches(agg, hc.n_subgrids)
+        counts = row["kernel_launches"]
+        print(f"{gcfg.name} {hc.n_subgrids} sub-grids, {label}: "
+              f"{row['ms_per_step']:.3f} ms/step, "
+              f"{row['launches_per_step']:g} launches/step, by family "
+              f"{row['launches_by_family']}, kernel launches over {steps} "
+              f"steps {counts}", flush=True)
+        check(counts["hydro_rhs_cuda"] > 0 and counts["gravity_cuda"] > 0,
+              f"{label}: a kernel of the gravity path was never launched")
+        check(counts["hydro_rhs_cuda"] == counts["gravity_cuda"] == want,
+              f"{label}: kernel launches {counts}, greedy decomposition "
+              f"{want} per family")
+        check(row["launches_per_step"] * steps == 2 * want,
+              f"{label}: runner launches {row['launches_per_step']}/step")
+        if agg.strategy != "fused":
+            check(row["launches_by_family"] == {"hydro_rhs": want,
+                                                "gravity": want},
+                  f"{label}: launches by family {row['launches_by_family']}")
+        outs[label] = u
+        table[label] = row
+
+    fused = outs[rows[0][0]]
+    for label, u in outs.items():
+        check(torch.equal(u, fused), f"{label} is not bit-identical to fused")
+    check(not bool(torch.isnan(fused).any()), "the solution went NaN")
+    ref = blocks(u_ref, hc)
+    diff, _ = compare(f"{gcfg.name} kernel path vs plain path after {steps} "
+                      f"steps, per sub-grid", blocks(fused, hc), ref,
+                      block_scale(ref), atol_scale=1e-6, rtol=1e-5)
+    c0, c1 = total_conserved(u0, h), total_conserved(fused, h)
+    mass = abs(float((c1[0] - c0[0]) / c0[0]))
+    print(f"{gcfg.name}: mass drift after {steps} steps {mass:.2e} (energy "
+          f"is not conserved under the gravity source)", flush=True)
+    check(mass < 1e-5, "mass drift too large")
+    results[key] = dict(config=gcfg.name, n_subgrids=hc.n_subgrids,
+                        steps=steps, runs=table, plain_path_max_abs_diff=diff,
+                        mass_drift=mass)
+    return table
+
+
+def phase_split_path(cfg, dev, dts, fused_kernel_path, results):
+    from repro_torch.configs.base import AggregationConfig
+    from repro_torch.core import StrategyRunner, UniformSedovScenario
+    from repro_torch.hydro.state import sedov_init
+    from repro_torch.kernels import hydro_split as split
+    from repro_torch.kernels import ops
+
+    u0 = sedov_init(cfg, device=dev).u
+    h = cfg.domain / u0.shape[-1]
+    rows = (("fused", AggregationConfig(strategy="fused")),
+            ("s3 cap 32", AggregationConfig(strategy="s3",
+                                            max_aggregated=32)),
+            ("s3 cap 512", AggregationConfig(strategy="s3",
+                                             max_aggregated=512)))
+    outs, table = {}, {}
+    for label, agg in rows:
+        sc = UniformSedovScenario(
+            cfg, batched_body=ops.hydro_split_batched_body(cfg, h))
+        runner = StrategyRunner(sc, agg, device=dev)
+        u, row = drive(runner, u0, dts, (split.hydro_reconstruct_cuda,
+                                         split.hydro_flux_cuda))
+        want = 3 * len(dts) * per_stage_launches(agg, cfg.n_subgrids)
+        counts = row["kernel_launches"]
+        print(f"split body, {label}: {row['ms_per_step']:.3f} ms/step, "
+              f"{row['launches_per_step']:g} launches/step, kernel launches "
+              f"over {len(dts)} steps {counts}, peak memory "
+              f"{row['peak_mib']:.0f} MiB", flush=True)
+        check(counts["hydro_reconstruct_cuda"] > 0
+              and counts["hydro_flux_cuda"] > 0,
+              f"split {label}: a kernel of the split path was never launched")
+        check(counts["hydro_reconstruct_cuda"] == counts["hydro_flux_cuda"]
+              == want == row["launches_per_step"] * len(dts),
+              f"split {label}: kernel launches {counts}, greedy "
+              f"decomposition {want}")
+        outs[label] = u
+        table[label] = row
+    first = outs["fused"]
+    for label, u in outs.items():
+        check(torch.equal(u, first),
+              f"split {label} is not bit-identical to split fused")
+    check(not bool(torch.isnan(first).any()), "the split path went NaN")
+    ref = blocks(fused_kernel_path, cfg)
+    diff, _ = compare(f"split path vs fused-kernel path after {len(dts)} "
+                      f"steps, per sub-grid", blocks(first, cfg), ref,
+                      block_scale(ref), atol_scale=1e-6, rtol=1e-5)
+    results["split_path"] = dict(steps=len(dts), runs=table,
+                                 fused_kernel_path_max_abs_diff=diff)
+    return table
 
 
 def main(argv=None):
@@ -375,34 +787,76 @@ def main(argv=None):
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(HERE, "src"))
+    from repro_torch.configs.base import AggregationConfig, GravityHydroConfig
+    from repro_torch.configs.gravity import CONFIG as GRAVITY_CONFIG
     from repro_torch.configs.sedov import CONFIG
     from repro_torch.kernels import _build
+    from repro_torch.kernels import gravity as grav
     from repro_torch.kernels import hydro_rhs as kern
+    from repro_torch.kernels import hydro_split as split
 
     dev = torch.device("cuda", 0)
     card = card_line()
     print(f"card: {card} (torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.get_device_name(0)})",
           flush=True)
+    # one nvcc per source, all started together
     t0 = time.perf_counter()
-    kern.build()
-    info = _build.BUILD_LOG["hydro_rhs"]
-    built = (f"built in {info['seconds']:.1f} s" if info["seconds"]
-             is not None else "cached build")
-    print(f"build: csrc/hydro_rhs.cu, nvcc sm_90a, {built}, loaded in "
+    libs = {"hydro_rhs": kern, "gravity": grav, "hydro_split": split}
+    with ThreadPoolExecutor(len(libs)) as pool:
+        for fut in [pool.submit(m.build) for m in libs.values()]:
+            fut.result()
+    print(f"build: {len(libs)} libraries loaded in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    for line in info["ptxas"].splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}", flush=True)
+    for name in libs:
+        info = _build.BUILD_LOG[name]
+        built = (f"built in {info['seconds']:.1f} s" if info["seconds"]
+                 is not None else "cached build")
+        print(f"build: csrc/{name}.cu, nvcc sm_90a, {built}", flush=True)
+        for line in info["ptxas"].splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas: {line.strip()}", flush=True)
 
     results = {"card": card, "device": torch.cuda.get_device_name(0),
                "torch": torch.__version__, "cuda": torch.version.cuda}
     phase_kernel(CONFIG, dev, results)
-    phase_main_path(CONFIG, dev, STEPS, results)
+    dts, fused_kernel_path = phase_main_path(CONFIG, dev, STEPS, results)
 
+    gravity_512 = GravityHydroConfig(name="gravity_sedov_512", hydro=CONFIG)
+    phase_gravity_kernel(gravity_512, dev, results)
+    phase_split_kernels(CONFIG, dev, results)
+    path_a = phase_gravity_path(gravity_512, dev, STEPS, (
+        ("fused", AggregationConfig(strategy="fused")),
+        ("s3 cap 32", AggregationConfig(strategy="s3", max_aggregated=32)),
+        ("s3 cap 512", AggregationConfig(strategy="s3",
+                                         max_aggregated=512)),
+        ("s2+s3 4 streams cap 32", AggregationConfig(
+            strategy="s2+s3", n_executors=4, max_aggregated=32))),
+        results, "gravity_path")
+    phase_gravity_path(GRAVITY_CONFIG, dev, STEPS, (
+        ("fused", AggregationConfig(strategy="fused")),
+        ("s3 cap 16", AggregationConfig(strategy="s3", max_aggregated=16))),
+        results, "gravity_path_64")
+    path_b = phase_split_path(CONFIG, dev, dts, fused_kernel_path, results)
+
+    # launches on each kernel's own path, the s3 cap 32 row
+    entries = [results["kernel"], results["gravity_kernel"],
+               results["reconstruct_kernel"], results["flux_kernel"]]
+    entries[1]["launches"] = \
+        path_a["s3 cap 32"]["kernel_launches"]["gravity_cuda"]
+    entries[2]["launches"] = \
+        path_b["s3 cap 32"]["kernel_launches"]["hydro_reconstruct_cuda"]
+    entries[3]["launches"] = \
+        path_b["s3 cap 32"]["kernel_launches"]["hydro_flux_cuda"]
     k = results["kernel"]
     print(f"kernels: hydro_rhs (cuda, {k['source']}, replaces "
-          f"{k['replaces']} and its h_slots twin :146)", flush=True)
+          f"{k['replaces']} and its h_slots twin :146, on the main path "
+          f"and Path A); gravity (cuda, src/repro_torch/csrc/gravity.cu, "
+          f"replaces src/repro/kernels/gravity.py:130, Path A); "
+          f"hydro_reconstruct and hydro_flux (cuda, "
+          f"src/repro_torch/csrc/hydro_split.cu, replace "
+          f"src/repro/kernels/hydro_rhs.py:301 and :327, Path B)",
+          flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -410,7 +864,8 @@ def main(argv=None):
             json.dump(results, f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{key: k[key] for key in keys}]}))
+    print(json.dumps({"kernels": [{key: e[key] for key in keys}
+                                  for e in entries]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

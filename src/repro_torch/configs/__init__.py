@@ -1,3 +1,3 @@
 from repro_torch.configs.base import (  # noqa: F401
-    AggregationConfig, HydroConfig, validate_ladder,
+    AggregationConfig, GravityHydroConfig, HydroConfig, validate_ladder,
 )

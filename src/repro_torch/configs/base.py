@@ -1,14 +1,14 @@
-"""Config dataclasses of the port: the hydro scenario and the aggregation
-knobs this slice runs.
+"""Config dataclasses of the port: the hydro scenarios and the aggregation
+knobs the port runs.
 
-``HydroConfig`` is the reference's as it is.  ``AggregationConfig`` keeps
-only the fields the port reads; a value the port does not run yet (another
-strategy, host staging) raises ``NotImplementedError`` naming ROADMAP.md
-instead of being ignored.
+``HydroConfig`` and ``GravityHydroConfig`` are the reference's as they
+are.  ``AggregationConfig`` keeps only the fields the port reads; a value
+the port does not run yet (another strategy, host staging) raises
+``NotImplementedError`` naming ROADMAP.md instead of being ignored.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Tuple
 
 # strategies the port registers; the reference's others wait in ROADMAP.md
@@ -121,3 +121,16 @@ class HydroConfig:
     @property
     def padded(self) -> int:
         return self.subgrid + 2 * self.ghost
+
+
+@dataclass(frozen=True)
+class GravityHydroConfig:
+    """Self-gravitating Sedov scenario: every iteration submits TWO kernel
+    families, the hydro RHS tasks and a per-sub-grid gravity solve
+    (``repro_torch.kernels.gravity``), interleaved through one
+    ``AggregationExecutor``, as Octo-Tiger's runtime aggregates its hydro
+    and FMM kernels."""
+    name: str = "gravity_sedov"
+    hydro: HydroConfig = field(default_factory=HydroConfig)
+    g_const: float = 1.0              # gravitational constant (scaled units)
+    relax_iters: int = 8              # Jacobi sweeps per gravity task

@@ -6,20 +6,24 @@ tensors with a leading task axis), the assembly around them, and the fused
 reference every strategy must reproduce bit for bit.  A **Strategy**
 (``repro_torch.core.strategies``) decides HOW the populations launch.
 
-This slice ports the uniform Sedov scenario (the paper's Table II/III
-workload).  AMR, gravity and the epilogue-fused stage populations wait in
+The port has the uniform Sedov scenario (the paper's Table II/III
+workload) and the self-gravitating Sedov scenario (two kernel families per
+iteration).  AMR and the epilogue-fused stage populations wait in
 ROADMAP.md.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.configs.base import HydroConfig
+from repro_torch.configs.base import GravityHydroConfig, HydroConfig
 from repro_torch.hydro.state import assemble_global, extract_subgrids
-from repro_torch.kernels.ops import hydro_batched_body
+from repro_torch.kernels.gravity import gravity_source_update
+from repro_torch.kernels.ops import (
+    gravity_batched_body, hydro_batched_body, level_batched_body,
+)
 
 
 @dataclass(frozen=True)
@@ -126,3 +130,70 @@ class UniformSedovScenario(Scenario):
         p = cfg.padded
         shape = (cfg.n_subgrids, cfg.n_fields, p, p, p)
         return (("hydro_rhs", ((shape, getattr(torch, cfg.dtype)),)),)
+
+
+class GravityScenario(Scenario):
+    """Sedov blast under self-gravity: TWO kernel families per iteration.
+
+    Both families read the SAME ghost-exchanged sub-grids (one parent
+    tensor) and the same per-task cell widths (one ``(n,)`` parent), so
+    each takes h per task.  Under s3 / s2+s3 their tasks go interleaved
+    into one ``AggregationExecutor``, which routes them by kernel id into
+    two ``TaskSignature`` families with their own bucket ladders.  The
+    gravity output enters the hydro RHS at ``assemble`` as the source
+    ``gravity_source_update`` adds, on the caller's stream.
+
+    The default bodies are ``kernels.ops``'s: the CUDA kernels for tensors
+    on the card, the plain versions on the CPU; ``hydro_body`` and
+    ``gravity_body`` swap in others (e.g. the plain versions on the card,
+    as a reference).  The epilogue-fused stage path (``stage_families``
+    and the rest) waits in ROADMAP.md.
+    """
+
+    def __init__(self, cfg: GravityHydroConfig, bc: str = "outflow",
+                 hydro_body: Optional[Callable] = None,
+                 gravity_body: Optional[Callable] = None):
+        self.cfg = cfg
+        self.bc = bc
+        self.name = cfg.name
+        hc = cfg.hydro
+        self.h = hc.domain / (hc.grids_per_edge * hc.subgrid)
+        self._dtype = getattr(torch, hc.dtype)
+        self._h_vec: Dict[torch.device, torch.Tensor] = {}
+        self._families = (
+            KernelFamily("hydro_rhs", hydro_body or level_batched_body(
+                hc.gamma, hc.ghost, hc.subgrid)),
+            KernelFamily("gravity", gravity_body or gravity_batched_body(cfg)),
+        )
+
+    def families(self):
+        return self._families
+
+    def h_vec(self, device: torch.device) -> torch.Tensor:
+        """The per-task widths ``(n,)`` on ``device``, made once."""
+        h = self._h_vec.get(device)
+        if h is None:
+            h = torch.full((self.cfg.hydro.n_subgrids,), self.h,
+                           dtype=self._dtype, device=device)
+            self._h_vec[device] = h
+        return h
+
+    def populations(self, state):
+        hc = self.cfg.hydro
+        subs = extract_subgrids(state, hc.subgrid, hc.ghost, self.bc)
+        h = self.h_vec(state.device)
+        return (TaskPopulation("hydro_rhs", (subs, h)),
+                TaskPopulation("gravity", (subs, h)))
+
+    def assemble(self, state, outs):
+        hc = self.cfg.hydro
+        dudt = assemble_global(outs[0], hc.subgrid)
+        pg = assemble_global(outs[1], hc.subgrid)
+        return gravity_source_update(state, dudt, pg)
+
+    def warmup_parent_specs(self):
+        hc = self.cfg.hydro
+        p = hc.padded
+        subs = ((hc.n_subgrids, hc.n_fields, p, p, p), self._dtype)
+        h = ((hc.n_subgrids,), self._dtype)
+        return (("hydro_rhs", (subs, h)), ("gravity", (subs, h)))

@@ -54,6 +54,12 @@ class StrategyRunner:
         """The aggregation executor (s3 / s2+s3), else None."""
         return self._agg_exec
 
+    @property
+    def launches_by_family(self) -> dict:
+        """The pool's launch counts per kernel family (executor strategies;
+        ``fused`` launches outside the pool)."""
+        return self.pool.launches_by_family
+
     def warmup(self) -> None:
         """Launch every family's bucket ladder once at the shapes of the
         scenario's submission waves (executor strategies), or each family's

@@ -94,7 +94,7 @@ def face_flux(recon: torch.Tensor, axis: int, gamma: float) -> torch.Tensor:
     return total
 
 
-def _as_width(h, like: torch.Tensor):
+def as_width(h, like: torch.Tensor):
     """A scalar width stays a float; per-slot widths (n,) broadcast over
     (n, F, S, S, S)."""
     if isinstance(h, torch.Tensor) and h.dim() > 0:
@@ -120,6 +120,6 @@ def flux_divergence(recon: torch.Tensor, h, gamma: float, ghost: int,
         lo[axis] -= 1
         hi[axis] -= 1
         f_lo = fp[..., lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]]
-        d = (f_hi - f_lo) / _as_width(h, f_hi)
+        d = (f_hi - f_lo) / as_width(h, f_hi)
         out = -d if out is None else out - d
     return out

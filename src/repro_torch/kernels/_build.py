@@ -2,9 +2,9 @@
 plain C interface, loaded with ``ctypes``.
 
 A library is built at first use into ``src/repro_torch/_build/<hash>/``,
-keyed by a hash of its source and the nvcc flags, so an edited source
-rebuilds and an unchanged one loads at once.  Nothing is built or loaded
-when this module is imported.
+keyed by a hash of its source, every header beside it (``csrc/*.cuh``) and
+the nvcc flags, so an edited source or header rebuilds and an unchanged one
+loads at once.  Nothing is built or loaded when this module is imported.
 """
 from __future__ import annotations
 
@@ -28,7 +28,10 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_LOCK = threading.Lock()
+SMEM_PER_BLOCK = 232_448      # bytes of shared memory one sm_90 block may use
+
+_LOCK = threading.Lock()                     # guards _NAME_LOCKS
+_NAME_LOCKS: Dict[str, threading.Lock] = {}  # one per library
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_LOG: Dict[str, dict] = {}     # name -> {"seconds", "ptxas", "path"}
 
@@ -48,8 +51,22 @@ def nvcc_path() -> str:
     return found
 
 
+def raise_on(err: int, error_string: Callable[[int], bytes],
+             what: str) -> None:
+    """Raise if a library call returned a CUDA error (``err`` != 0);
+    ``error_string`` is the library's own cudaGetErrorString wrapper."""
+    if err != 0:
+        raise RuntimeError(f"{what} failed: CUDA error {err} "
+                           f"({error_string(err).decode()})")
+
+
 def _digest(source: Path) -> str:
+    """Key of one library: its source, every header in the source's
+    directory (any of them may be included) and the nvcc flags."""
     h = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 
@@ -58,8 +75,12 @@ def load(name: str,
          declare: Optional[Callable[[ctypes.CDLL], None]] = None
          ) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` if needed and load it (cached per process).
-    ``declare(lib)`` runs once, on load, to set argtypes and restypes."""
+    ``declare(lib)`` runs once, on load, to set argtypes and restypes.
+    Threads may load different libraries at once: their nvcc processes run
+    in parallel."""
     with _LOCK:
+        name_lock = _NAME_LOCKS.setdefault(name, threading.Lock())
+    with name_lock:
         lib = _LIBS.get(name)
         if lib is not None:
             return lib

@@ -22,9 +22,9 @@ from repro_torch.hydro.flux import FACE_QUAD
 from repro_torch.hydro.ppm import DIR_PAIRS
 from repro_torch.hydro.stepper import subgrid_rhs
 from repro_torch.kernels import _build
+from repro_torch.kernels._build import SMEM_PER_BLOCK
 
 KERNEL_GHOST = 3                  # the kernel's index bounds assume g = 3
-SMEM_PER_BLOCK = 232_448          # bytes of shared memory one sm_90 block may use
 
 
 def hydro_rhs_plain(u_slots: torch.Tensor, *, h: Optional[float] = None,
@@ -109,13 +109,6 @@ def _declare(lib: ctypes.CDLL) -> None:
 _READY_DEVICES: set = set()     # devices whose constant table is uploaded
 
 
-def _raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:
-    if err != 0:
-        msg = lib.hydro_rhs_error_string(err).decode()
-        raise RuntimeError(f"hydro_rhs kernel {what} failed: CUDA error "
-                           f"{err} ({msg})")
-
-
 def build() -> ctypes.CDLL:
     """Build (first use) and load the kernel library."""
     return _build.load("hydro_rhs", _declare)
@@ -139,7 +132,9 @@ def hydro_rhs_cuda(u_slots: torch.Tensor, *, h: Optional[float] = None,
         return out
     with torch.cuda.device(u_slots.device):
         if u_slots.device.index not in _READY_DEVICES:
-            _raise_on(lib, lib.hydro_rhs_init(*_quad_table()), "set-up")
+            _build.raise_on(lib.hydro_rhs_init(*_quad_table()),
+                            lib.hydro_rhs_error_string,
+                            "hydro_rhs kernel set-up")
             _READY_DEVICES.add(u_slots.device.index)
         stream = torch.cuda.current_stream(u_slots.device).cuda_stream
         err = lib.hydro_rhs_launch(
@@ -147,7 +142,7 @@ def hydro_rhs_cuda(u_slots: torch.Tensor, *, h: Optional[float] = None,
             None if h_slots is None else h_slots.data_ptr(),
             out.data_ptr(), n, s, 0.0 if h is None else float(h), gamma,
             gamma - 1.0, smem_bytes(s, ghost), stream)
-    _raise_on(lib, err, "launch")
+    _build.raise_on(err, lib.hydro_rhs_error_string, "hydro_rhs kernel launch")
     hydro_rhs_cuda.launches += 1
     return out
 

@@ -1,28 +1,66 @@
 """Public wrappers for the port's kernels, dispatching on the tensor's
 device: the CUDA kernel for CUDA tensors, the plain PyTorch version for CPU
 tensors.  A CUDA tensor never falls back to the plain version.
+
+The ``*_batched_body`` factories build the aggregation-region bodies the
+scenarios register: the uniform hydro RHS (scalar h), the hydro RHS with a
+per-task width (``level_batched_body``), the gravity solve, and the
+paper's two-kernel Reconstruct + Flux body.
 """
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import Callable, Optional
 
 import torch
 
-from repro_torch.configs.base import HydroConfig
+from repro_torch.configs.base import GravityHydroConfig, HydroConfig
+from repro_torch.kernels.gravity import gravity_cuda, gravity_plain
 from repro_torch.kernels.hydro_rhs import hydro_rhs_cuda, hydro_rhs_plain
+from repro_torch.kernels.hydro_split import (
+    hydro_flux_cuda, hydro_flux_plain, hydro_reconstruct_cuda,
+    hydro_reconstruct_plain,
+)
+
+
+def _dispatch(x: torch.Tensor, name: str, cuda: Callable, plain: Callable,
+              *args, **kw) -> torch.Tensor:
+    if x.device.type == "cuda":
+        return cuda(x, *args, **kw)
+    if x.device.type == "cpu":
+        return plain(x, *args, **kw)
+    raise ValueError(f"no {name} path for device {x.device}")
 
 
 def hydro_rhs(u_slots: torch.Tensor, *, h: Optional[float] = None,
               h_slots: Optional[torch.Tensor] = None, gamma: float,
               ghost: int, subgrid: int) -> torch.Tensor:
     """(n, F, P, P, P) -> (n, F, S, S, S)."""
-    kw = dict(h=h, h_slots=h_slots, gamma=gamma, ghost=ghost,
-              subgrid=subgrid)
-    if u_slots.device.type == "cuda":
-        return hydro_rhs_cuda(u_slots, **kw)
-    if u_slots.device.type == "cpu":
-        return hydro_rhs_plain(u_slots, **kw)
-    raise ValueError(f"no hydro_rhs path for device {u_slots.device}")
+    return _dispatch(u_slots, "hydro_rhs", hydro_rhs_cuda, hydro_rhs_plain,
+                     h=h, h_slots=h_slots, gamma=gamma, ghost=ghost,
+                     subgrid=subgrid)
+
+
+def hydro_reconstruct(u_slots: torch.Tensor) -> torch.Tensor:
+    """(n, F, P, P, P) -> (n, 13, 2, F, P, P, P)."""
+    return _dispatch(u_slots, "hydro_reconstruct", hydro_reconstruct_cuda,
+                     hydro_reconstruct_plain)
+
+
+def hydro_flux(recon: torch.Tensor, *, h: float, gamma: float, ghost: int,
+               subgrid: int) -> torch.Tensor:
+    """(n, 13, 2, F, P, P, P) -> (n, F, S, S, S)."""
+    return _dispatch(recon, "hydro_flux", hydro_flux_cuda, hydro_flux_plain,
+                     h=h, gamma=gamma, ghost=ghost, subgrid=subgrid)
+
+
+def gravity(u_slots: torch.Tensor, h_slots: torch.Tensor, *, ghost: int,
+            subgrid: int, g_const: float = 1.0,
+            n_iter: int = 8) -> torch.Tensor:
+    """(n, F, P, P, P), (n,) -> (n, 4, S, S, S): [phi, gx, gy, gz]."""
+    return _dispatch(u_slots, "gravity", gravity_cuda, gravity_plain,
+                     h_slots, ghost=ghost, subgrid=subgrid, g_const=g_const,
+                     n_iter=n_iter)
 
 
 def hydro_batched_body(cfg: HydroConfig, h: float) -> Callable:
@@ -32,4 +70,38 @@ def hydro_batched_body(cfg: HydroConfig, h: float) -> Callable:
     def batched(u_slots: torch.Tensor) -> torch.Tensor:
         return hydro_rhs(u_slots, h=h, gamma=cfg.gamma, ghost=cfg.ghost,
                          subgrid=cfg.subgrid)
+    return batched
+
+
+@lru_cache(maxsize=None)
+def level_batched_body(gamma: float, ghost: int, subgrid: int) -> Callable:
+    """The hydro body with a per-task cell width: ``(k, F, P, P, P), (k,)
+    -> (k, F, S, S, S)``.  Cached, so every scenario sharing (gamma, ghost,
+    subgrid) registers the same callable."""
+    def batched(u_slots: torch.Tensor, h_slots: torch.Tensor) -> torch.Tensor:
+        return hydro_rhs(u_slots, h_slots=h_slots, gamma=gamma, ghost=ghost,
+                         subgrid=subgrid)
+    return batched
+
+
+@lru_cache(maxsize=None)
+def gravity_batched_body(cfg: GravityHydroConfig) -> Callable:
+    """The gravity family's body: ``(k, F, P, P, P), (k,) -> (k, 4, S, S,
+    S)``.  Cached per config."""
+    hc = cfg.hydro
+
+    def batched(u_slots: torch.Tensor, h_slots: torch.Tensor) -> torch.Tensor:
+        return gravity(u_slots, h_slots, ghost=hc.ghost, subgrid=hc.subgrid,
+                       g_const=cfg.g_const, n_iter=cfg.relax_iters)
+    return batched
+
+
+def hydro_split_batched_body(cfg: HydroConfig, h: float) -> Callable:
+    """The paper's two-kernel hydro body, drop-in for
+    ``UniformSedovScenario(batched_body=...)``: Reconstruct writes every
+    surface value, then Flux reads them back; ``(n, F, P, P, P) -> (n, F,
+    S, S, S)``."""
+    def batched(u_slots: torch.Tensor) -> torch.Tensor:
+        return hydro_flux(hydro_reconstruct(u_slots), h=h, gamma=cfg.gamma,
+                          ghost=cfg.ghost, subgrid=cfg.subgrid)
     return batched

@@ -1,16 +1,24 @@
 """Where an RK3 step's time goes on the card, per strategy.
 
   PYTHONPATH=src python -m repro_torch.profile_step \
+      [--scenario sedov|gravity] [--body fused|split] \
       [--out results/profile_step.json]
 
-On the Sedov ``CONFIG`` (512 sub-grids of 8^3), for each strategy row
-(fused, s3 at caps 32 and 512, s2+s3 with 4 streams) it warms up, times
-3 RK3 steps on the host clock (synchronised), then profiles the same
-steps with ``torch.profiler`` and prints the host operations with the most self CPU time, the kernels with the most device
-time, the device time summed over kernels and copies, and the device's
-idle share of the step (1 - device busy / wall; kernels that overlap on
-several streams count once each, so the share is a lower bound there).
-Needs a CUDA device.
+At the paper's grid (512 sub-grids of 8^3), for each strategy row (fused,
+s3 at caps 32 and 512, s2+s3 with 4 streams) it warms up, times 3 RK3
+steps on the host clock (synchronised), then profiles the same steps with
+``torch.profiler`` and prints the host operations with the most self CPU
+time, the kernels with the most device time, the device time summed over
+kernels and copies, and the device's idle share of the step (1 - device
+busy / wall; kernels that overlap on several streams count once each, so
+the share is a lower bound there).
+
+``--scenario sedov`` (default) steps the uniform Sedov ``CONFIG``;
+``--scenario gravity`` steps the self-gravitating blast on the same grid,
+``GravityHydroConfig(hydro=CONFIG)`` (hydro and gravity families).
+``--body split`` runs the uniform Sedov scenario on the split
+Reconstruct + Flux body instead of the fused hydro kernel.  Needs a CUDA
+device.
 """
 import argparse
 import json
@@ -19,9 +27,12 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from repro_torch.configs.base import AggregationConfig
+from repro_torch.configs.base import AggregationConfig, GravityHydroConfig
 from repro_torch.configs.sedov import CONFIG
-from repro_torch.core import StrategyRunner, UniformSedovScenario
+from repro_torch.core import (
+    GravityScenario, StrategyRunner, UniformSedovScenario,
+)
+from repro_torch.kernels.ops import hydro_split_batched_body
 from repro_torch.hydro.state import sedov_init
 from repro_torch.hydro.stepper import courant_dt
 
@@ -47,8 +58,22 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def profile_row(cfg, agg, steps, dev):
-    runner = StrategyRunner(UniformSedovScenario(cfg), agg, device=dev)
+def make_scenario(scenario: str, body: str):
+    """The profiled scenario at the paper's grid (``CONFIG``)."""
+    if scenario == "gravity":
+        if body != "fused":
+            raise SystemExit("--body split runs with --scenario sedov only")
+        return GravityScenario(GravityHydroConfig(name="gravity_sedov_512",
+                                                  hydro=CONFIG))
+    if body == "split":
+        h = CONFIG.domain / (CONFIG.grids_per_edge * CONFIG.subgrid)
+        return UniformSedovScenario(
+            CONFIG, batched_body=hydro_split_batched_body(CONFIG, h))
+    return UniformSedovScenario(CONFIG)
+
+
+def profile_row(scenario, cfg, agg, steps, dev):
+    runner = StrategyRunner(scenario, agg, device=dev)
     runner.warmup()
     u0 = sedov_init(cfg, device=dev).u
     dt = courant_dt(u0, cfg)
@@ -84,14 +109,22 @@ def profile_row(cfg, agg, steps, dev):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--scenario", default="sedov",
+                    choices=("sedov", "gravity"))
+    ap.add_argument("--body", default="fused", choices=("fused", "split"))
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA device")
     dev = torch.device("cuda", 0)
-    out = {"device": torch.cuda.get_device_name(0), "rows": {}}
+    out = {"device": torch.cuda.get_device_name(0), "scenario": args.scenario,
+           "body": args.body, "rows": {}}
+    print(f"profile_step: scenario {args.scenario}, body {args.body}, "
+          f"{CONFIG.n_subgrids} sub-grids of {CONFIG.subgrid}^3 on "
+          f"{out['device']}", flush=True)
     for label, kw in ROWS:
-        row = profile_row(CONFIG, AggregationConfig(**kw), STEPS, dev)
+        row = profile_row(make_scenario(args.scenario, args.body), CONFIG,
+                          AggregationConfig(**kw), STEPS, dev)
         out["rows"][label] = row
         print(f"{label}: {row['ms_per_step']:.3f} ms/step (profiled "
               f"{row['profiled_ms_per_step']:.3f}), device busy "

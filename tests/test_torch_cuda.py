@@ -1,4 +1,4 @@
-"""The port's CUDA kernel and CUDA streams, on the card.
+"""The port's CUDA kernels and CUDA streams, on the card.
 
 Every test here needs an NVIDIA GPU (sm_90) and skips without one.  The
 file imports neither JAX nor the reference, so it runs on a machine that
@@ -6,7 +6,7 @@ has only PyTorch and the CUDA toolkit:
 
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-(``--noconftest``: tests/conftest.py imports JAX.)  The kernel is held to
+(``--noconftest``: tests/conftest.py imports JAX.)  Each kernel is held to
 its plain PyTorch version with the reference's kernel tolerance
 (tests/test_kernels.py), ``atol=2e-6*scale``, ``rtol=2e-5``, with the scale
 taken per slot and field: a slot of small values is held to its own scale,
@@ -18,10 +18,15 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs.base import AggregationConfig, HydroConfig  # noqa: E402
-from repro_torch.core import StrategyRunner, UniformSedovScenario  # noqa: E402
+from repro_torch.configs.gravity import CONFIG_SMALL as GCFG  # noqa: E402
+from repro_torch.core import (  # noqa: E402
+    GravityScenario, StrategyRunner, UniformSedovScenario,
+)
 from repro_torch.hydro.state import extract_subgrids, sedov_init  # noqa: E402
 from repro_torch.hydro.stepper import courant_dt  # noqa: E402
+from repro_torch.kernels import gravity as grav  # noqa: E402
 from repro_torch.kernels import hydro_rhs as kern  # noqa: E402
+from repro_torch.kernels import hydro_split as split  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 
 pytestmark = pytest.mark.requires_cuda
@@ -48,10 +53,11 @@ def random_slots(seed, n, dev, s=8, g=3):
     return torch.from_numpy(u).to(dev)
 
 
-def assert_within_kernel_tol(got, want):
+def assert_within_kernel_tol(got, want, atol_scale=2e-6):
     got, want = got.cpu().numpy(), want.cpu().numpy()
     scale = np.abs(want).reshape(want.shape[:2] + (-1,)).max(-1)
-    bound = 2e-6 * scale[:, :, None, None, None] + 2e-5 * np.abs(want)
+    scale = scale.reshape(scale.shape + (1,) * (want.ndim - 2))
+    bound = atol_scale * scale + 2e-5 * np.abs(want)
     excess = np.abs(got - want) - bound
     worst = np.unravel_index(np.argmax(excess), excess.shape)
     assert excess[worst] <= 0, (
@@ -111,5 +117,73 @@ def test_streams_bit_identical_to_fused(dev):
         runner = StrategyRunner(UniformSedovScenario(CFG), agg, device=dev)
         runner.warmup()
         outs.append(runner.rk3_step(u0, dt))
+    torch.cuda.synchronize(dev)
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+
+
+GKW = dict(ghost=3, subgrid=8, g_const=1.0, n_iter=8)
+
+
+def test_gravity_kernel_matches_plain(dev):
+    sedov = extract_subgrids(sedov_init(CFG, device=dev).u, 8, 3)
+    u = torch.cat([random_slots(80, 3, dev), sedov]).contiguous()
+    hs = torch.where(torch.arange(u.shape[0], device=dev) % 2 == 0,
+                     torch.tensor(0.125, device=dev),
+                     torch.tensor(0.0625, device=dev)).float().contiguous()
+    before = grav.gravity_cuda.launches
+    got = grav.gravity_cuda(u, hs, **GKW)
+    torch.cuda.synchronize(dev)
+    assert grav.gravity_cuda.launches == before + 1
+    assert_within_kernel_tol(got, grav.gravity_plain(u, hs, **GKW))
+    for i in (0, 5):
+        assert torch.equal(grav.gravity_cuda(u[i:i + 1], hs[i:i + 1], **GKW),
+                           got[i:i + 1])
+    assert torch.equal(ops.gravity(u, hs, **GKW), got)
+    zero = grav.gravity_cuda(torch.zeros_like(u[:2]), hs[:2], **GKW)
+    assert not bool(zero.any())
+    with pytest.raises(ValueError, match="h_slots"):
+        grav.gravity_cuda(u, hs.cpu(), **GKW)
+
+
+def test_split_kernels_match_plain(dev):
+    sedov = extract_subgrids(sedov_init(CFG, device=dev).u, 8, 3)
+    u = torch.cat([random_slots(81, 3, dev), sedov]).contiguous()
+    before = (split.hydro_reconstruct_cuda.launches,
+              split.hydro_flux_cuda.launches)
+    recon = split.hydro_reconstruct_cuda(u)
+    want_recon = split.hydro_reconstruct_plain(u)
+    n = u.shape[0]
+    by_field = (lambda r: r.permute(0, 3, 1, 2, 4, 5, 6)
+                .reshape(n, 5, 26 * 14, 14, 14))
+    assert_within_kernel_tol(by_field(recon), by_field(want_recon))
+    out = split.hydro_flux_cuda(want_recon, **KW)
+    assert_within_kernel_tol(out, split.hydro_flux_plain(want_recon, **KW))
+    pair = split.hydro_flux_cuda(recon, **KW)
+    assert_within_kernel_tol(pair, kern.hydro_rhs_cuda(u, **KW),
+                             atol_scale=3e-6)
+    assert (split.hydro_reconstruct_cuda.launches,
+            split.hydro_flux_cuda.launches) == (before[0] + 1,
+                                                before[1] + 2)
+    assert torch.equal(split.hydro_reconstruct_cuda(u[2:4]), recon[2:4])
+    assert torch.equal(split.hydro_flux_cuda(recon[2:4], **KW), pair[2:4])
+    body = ops.hydro_split_batched_body(CFG, KW["h"])
+    assert torch.equal(body(u), pair)
+
+
+def test_gravity_path_streams_bit_identical_to_fused(dev):
+    hc = GCFG.hydro
+    u0 = sedov_init(hc, device=dev).u
+    dt = courant_dt(u0, hc)
+    outs = []
+    for agg in (AggregationConfig(strategy="fused"),
+                AggregationConfig(strategy="s3", max_aggregated=2),
+                AggregationConfig(strategy="s2+s3", max_aggregated=2,
+                                  n_executors=4)):
+        runner = StrategyRunner(GravityScenario(GCFG), agg, device=dev)
+        runner.warmup()
+        outs.append(runner.rk3_step(u0, dt))
+        if agg.strategy != "fused":
+            assert runner.launches_by_family == {"hydro_rhs": 12,
+                                                 "gravity": 12}
     torch.cuda.synchronize(dev)
     assert all(torch.equal(o, outs[0]) for o in outs[1:])

@@ -1,0 +1,360 @@
+"""The port's split hydro pair (Reconstruct, then Flux) against the JAX
+reference, and the build cache's key.
+
+The same inputs, made with numpy from a seed, go through ``repro`` (on the
+CPU, its Pallas kernels in interpret mode) and ``repro_torch``.  Kernel-level
+cases use the reference's kernel tolerance (tests/test_kernels.py):
+``atol=2e-6*max|want|`` per slot and field, ``rtol=2e-5``; the pair against
+the fused body uses that test's ``atol=3e-6*max|want|``.  The CUDA kernels
+themselves are tested on the card by tests/test_torch_cuda.py.
+"""
+import shutil
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs.base import HydroConfig as JHydroConfig  # noqa: E402
+from repro.hydro import state as jstate  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels.hydro_rhs import (  # noqa: E402
+    hydro_flux_pallas, hydro_reconstruct_pallas,
+)
+
+from repro_torch.configs.base import AggregationConfig, HydroConfig  # noqa: E402
+from repro_torch.core import StrategyRunner, UniformSedovScenario  # noqa: E402
+from repro_torch.hydro import flux, ppm  # noqa: E402
+from repro_torch.hydro.state import sedov_init  # noqa: E402
+from repro_torch.hydro.stepper import courant_dt  # noqa: E402
+from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels import hydro_rhs as kern  # noqa: E402
+from repro_torch.kernels import hydro_split as split  # noqa: E402
+
+KW = dict(h=0.01, gamma=1.4, ghost=3, subgrid=8)
+CFG = HydroConfig(levels=1)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small tensors: torch's thread pool only adds contention here."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def T(x):
+    return torch.from_numpy(np.array(x, copy=True))
+
+
+def assert_tol(got, want, atol_scale=2e-6, field_dim=1):
+    """rtol 2e-5, atol ``atol_scale`` x max|want| of each slot and field
+    (the field axis is ``field_dim``)."""
+    got, want = np.asarray(got), np.asarray(want)
+    axes = tuple(a for a in range(1, want.ndim) if a != field_dim)
+    scale = np.abs(want).max(axis=axes, keepdims=True)
+    excess = np.abs(got - want) - (atol_scale * scale + 2e-5 * np.abs(want))
+    worst = np.unravel_index(np.argmax(excess), excess.shape)
+    assert excess[worst] <= 0, (worst, got[worst], want[worst])
+
+
+def random_slots(seed, n, s=8, g=3):
+    """Random smooth-ish conserved states (n, 5, P, P, P) float32, as the
+    reference's kernel tests draw them."""
+    rng = np.random.default_rng(seed)
+    p = s + 2 * g
+    rho = 1.0 + 0.3 * rng.random((n, 1, p, p, p))
+    v = 0.2 * rng.standard_normal((n, 3, p, p, p))
+    pr = 1.0 + 0.5 * rng.random((n, 1, p, p, p))
+    e = pr / 0.4 + 0.5 * rho * np.sum(v * v, axis=1, keepdims=True)
+    return np.concatenate([rho, rho * v, e], axis=1).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def slots():
+    """Two random slots and two of the reference's Sedov IC (the blast
+    across them: near-vacuum pressure, floors and a strong jump)."""
+    sedov = np.asarray(jstate.extract_subgrids(
+        jstate.sedov_init(JHydroConfig(levels=1)).u, 8, 3))
+    return np.concatenate([random_slots(1, 2), sedov[:2]])
+
+
+@pytest.fixture(scope="module")
+def ref_pair(slots):
+    """The reference's jnp oracles on the same slots."""
+    recon = np.asarray(jref.hydro_reconstruct_ref(jnp.asarray(slots)))
+    out = np.asarray(jref.hydro_flux_ref(jnp.asarray(recon), **KW))
+    return recon, out
+
+
+# ---------------------------------------------------------------------------
+# plain versions against the reference
+# ---------------------------------------------------------------------------
+
+def test_reconstruct_plain_matches_reference_everywhere(slots, ref_pair):
+    """Every cell, the frame included (the shifts wrap as roll does)."""
+    want, _ = ref_pair
+    got = split.hydro_reconstruct_plain(T(slots)).numpy()
+    assert got.shape == want.shape == (4, 13, 2, 5, 14, 14, 14)
+    assert_tol(got, want, field_dim=3)
+
+
+def test_flux_plain_matches_reference(ref_pair):
+    recon, want = ref_pair
+    got = split.hydro_flux_plain(T(recon), **KW).numpy()
+    assert got.shape == want.shape == (4, 5, 8, 8, 8)
+    assert_tol(got, want)
+
+
+def test_plain_pair_matches_pallas_interpret(slots):
+    """Two slots through the reference's split Pallas kernels as its tests
+    run them on the CPU (interpret mode)."""
+    u = slots[1:3]
+    recon = hydro_reconstruct_pallas(jnp.asarray(u), interpret=True)
+    want_out = np.asarray(hydro_flux_pallas(recon, interpret=True, **KW))
+    got = split.hydro_reconstruct_plain(T(u))
+    assert_tol(got.numpy(), np.asarray(recon), field_dim=3)
+    assert_tol(split.hydro_flux_plain(got, **KW).numpy(), want_out)
+
+
+def test_pair_composition_matches_fused_body(slots):
+    """Reconstruct then Flux == the fused RHS, at the tolerance the
+    reference holds its split kernels to (tests/test_kernels.py)."""
+    u = T(slots)
+    want = kern.hydro_rhs_plain(u, **KW).numpy()
+    got = split.hydro_flux_plain(split.hydro_reconstruct_plain(u),
+                                 **KW).numpy()
+    assert_tol(got, want, atol_scale=3e-6)
+
+
+def test_ops_split_body_dispatches_cpu_tensors_to_plain(slots):
+    u = T(slots)
+    before = (split.hydro_reconstruct_cuda.launches,
+              split.hydro_flux_cuda.launches)
+    body = ops.hydro_split_batched_body(CFG, KW["h"])
+    recon = ops.hydro_reconstruct(u)
+    assert torch.equal(recon, split.hydro_reconstruct_plain(u))
+    assert torch.equal(ops.hydro_flux(recon, **KW),
+                       split.hydro_flux_plain(recon, **KW))
+    assert torch.equal(body(u), split.hydro_flux_plain(recon, **KW))
+    assert (split.hydro_reconstruct_cuda.launches,
+            split.hydro_flux_cuda.launches) == before
+
+
+@pytest.mark.parametrize("agg", [
+    AggregationConfig(strategy="s3", max_aggregated=4),
+    AggregationConfig(strategy="s2+s3", n_executors=2, max_aggregated=2)],
+    ids=["s3", "s2+s3"])
+def test_split_body_on_the_uniform_path(agg):
+    """Path B on the CPU: the split body through the executor equals its
+    fused launch bit for bit, and the fused-kernel body within the
+    per-stage tolerance compounded over 3 stages."""
+    h = CFG.domain / (CFG.grids_per_edge * CFG.subgrid)
+    u0 = sedov_init(CFG, device="cpu").u
+    dt = courant_dt(u0, CFG)
+
+    def run(agg_cfg, body=None):
+        sc = UniformSedovScenario(CFG, batched_body=body)
+        return StrategyRunner(sc, agg_cfg, device="cpu").rk3_step(u0, dt)
+
+    body = ops.hydro_split_batched_body(CFG, h)
+    fused = run(AggregationConfig(strategy="fused"), body)
+    assert torch.equal(run(agg, body), fused)
+    want = run(AggregationConfig(strategy="fused")).numpy()
+    np.testing.assert_allclose(fused.numpy(), want, rtol=1e-5,
+                               atol=1e-6 * float(np.abs(want).max()))
+
+
+# ---------------------------------------------------------------------------
+# the kernels' index arithmetic, replayed in numpy
+# ---------------------------------------------------------------------------
+
+def _reconstruct_replay(u):
+    """numpy mirror of csrc/hydro_split.cu::reconstruct_kernel: every cell,
+    five samples along each pair's direction with indices wrapped mod P."""
+    n, nf, p = u.shape[0], u.shape[1], u.shape[2]
+    f32 = np.float32
+    _, dirs = split._split_tables()
+    dirs = np.asarray(dirs).reshape(13, 3)
+    x, y, z = np.meshgrid(*(np.arange(p),) * 3, indexing="ij")
+    out = np.empty((n, 13, 2, nf, p, p, p), np.float32)
+    for pair, d in enumerate(dirs):
+        s = [u[:, :, (x + k * d[0]) % p, (y + k * d[1]) % p,
+               (z + k * d[2]) % p] for k in range(-2, 3)]
+        um2, um1, u0, up1, up2 = s
+        ul = f32(7 / 12) * (um1 + u0) - f32(1 / 12) * (um2 + up1)
+        ur = f32(7 / 12) * (u0 + up1) - f32(1 / 12) * (um1 + up2)
+        ext = (ur - u0) * (u0 - ul) <= 0
+        du, u6 = ur - ul, f32(6) * (u0 - f32(0.5) * (ul + ur))
+        lo = np.where(du * u6 > du * du, f32(3) * u0 - f32(2) * ur, ul)
+        hi = np.where(-(du * du) > du * u6, f32(3) * u0 - f32(2) * ul, ur)
+        out[:, pair, 0] = np.where(ext, u0, lo)
+        out[:, pair, 1] = np.where(ext, u0, hi)
+    return out
+
+
+def test_reconstruct_replay_matches_plain(slots):
+    """The kernel's wrapped indexing reproduces the plain version (roll) at
+    every cell, frame included."""
+    got = _reconstruct_replay(slots[:2])
+    want = split.hydro_reconstruct_plain(T(slots[:2])).numpy()
+    assert_tol(got, want, field_dim=3)
+
+
+def _flux_replay(recon, h, gamma, s=8, g=3):
+    """numpy float32 mirror of csrc/hydro_split.cu::flux_kernel: the fused
+    kernel's face layout, with each quadrature state read from the staged
+    reconstruction at (pair, side) of the face cell (left) and the face
+    cell + e_axis (right).  Returns the result and the range of every cell
+    index read."""
+    n, nf, p = recon.shape[0], recon.shape[3], recon.shape[4]
+    flat = recon.reshape(n, 13, 2, nf, p ** 3)
+    weights, table = kern._quad_table()
+    pairs, _ = split._split_tables()
+    w = np.asarray(weights, np.float32).reshape(3, 9)
+    t = np.asarray(table).reshape(3, 9, 8)
+    pq = np.asarray(pairs).reshape(3, 9, 2)
+    f32 = np.float32
+    lo_idx, hi_idx = p ** 3, -1
+
+    def prim(q):
+        rho = np.maximum(q[:, 0], f32(1e-10))
+        vel = q[:, 1:4] / rho[:, None]
+        ke = f32(0.5) * rho * (vel[:, 0] ** 2 + vel[:, 1] ** 2
+                               + vel[:, 2] ** 2)
+        pr = np.maximum(f32(gamma - 1.0) * (q[:, 4] - ke), f32(1e-12))
+        return rho, vel, pr
+
+    def phys(q, vel, pr, a):
+        v = vel[:, a]
+        f = q * v[:, None]
+        f[:, 4] = (q[:, 4] + pr) * v
+        f[:, 1 + a] += pr
+        return f
+
+    out = None
+    for a in range(3):
+        ny, nz = s + (a == 1), s + (a == 2)
+        fi = np.arange((s + (a == 0)) * ny * nz)
+        z, y, x = fi % nz, (fi // nz) % ny, fi // (nz * ny)
+        c = ((g + x - (a == 0)) * p * p + (g + y - (a == 1)) * p
+             + (g + z - (a == 2)))
+        e = (p * p, p, 1)[a]
+        lo_idx, hi_idx = min(lo_idx, c.min()), max(hi_idx, (c + e).max())
+        acc = None
+        for q in range(9):
+            qL = flat[:, pq[a, q, 0], t[a, q, 3]][:, :, c]
+            qR = flat[:, pq[a, q, 1], t[a, q, 7]][:, :, c + e]
+            (rL, vL, pL), (rR, vR, pR) = prim(qL), prim(qR)
+            cL = np.sqrt(f32(gamma) * pL / rL)
+            cR = np.sqrt(f32(gamma) * pR / rR)
+            ap = np.maximum(np.maximum(vL[:, a] + cL, vR[:, a] + cR), 0)
+            am = np.minimum(np.minimum(vL[:, a] - cL, vR[:, a] - cR), 0)
+            fL, fR = phys(qL, vL, pL, a), phys(qR, vR, pR, a)
+            span = ap - am
+            ok = span > f32(1e-12)
+            inv = np.where(ok, f32(1) / np.maximum(span, f32(1e-12)), 0)
+            ap, am, inv, ok = (v[:, None] for v in (ap, am, inv, ok))
+            fl = np.where(ok, (ap * fL - am * fR) * inv
+                          + (ap * am) * inv * (qR - qL),
+                          f32(0.5) * (fL + fR))
+            acc = w[a, q] * fl if acc is None else acc + w[a, q] * fl
+        ci = np.arange(s ** 3)
+        z, y, x = ci % s, (ci // s) % s, ci // (s * s)
+        lo = (x * ny + y) * nz + z
+        d = (acc[:, :, lo + (ny * nz, nz, 1)[a]] - acc[:, :, lo]) / f32(h)
+        out = -d if out is None else out - d
+    return out.reshape(n, nf, s, s, s), (lo_idx, hi_idx)
+
+
+def test_flux_replay_stays_in_block_and_matches_plain(ref_pair):
+    """The Flux kernel's face layout, pair table and divergence indexing,
+    replayed in numpy, read only cells of the padded block and give the
+    plain version's result."""
+    recon, _ = ref_pair
+    got, (lo, hi) = _flux_replay(recon, KW["h"], KW["gamma"])
+    assert 0 <= lo and hi <= 14 ** 3 - 1
+    want = split.hydro_flux_plain(T(recon), **KW).numpy()
+    assert_tol(got, want)
+
+
+def test_split_tables_match_face_quad():
+    pairs, dirs = split._split_tables()
+    assert [tuple(np.asarray(dirs).reshape(13, 3)[i])
+            for i in range(13)] == ppm.DIR_PAIRS
+    pq = np.asarray(pairs).reshape(3, 9, 2)
+    for a in range(3):
+        for q, (_, pl, _, pr, _) in enumerate(flux.FACE_QUAD[a]):
+            assert tuple(pq[a, q]) == (pl, pr)
+
+
+def test_flux_read_count_is_pinned():
+    """The distinct (pair, side, field, cell) values the Flux function
+    reads, which set its bound's bytes: the count chip_smoke.py uses."""
+    states = split.flux_read_states(8)
+    # 3 axes x 9 entries x 2 states x 576 faces = 31,104 reads, of which
+    # 16,768 distinct: 171.7 MB for 512 slots
+    assert len(states) == 16_768
+    assert split.flux_read_bytes(512, 8) == 512 * 16_768 * 5 * 4
+    # every one lies inside the padded block
+    assert all(0 <= x < 14 for (_, _, c) in states for x in c)
+    # the reconstruction Reconstruct writes, for the same 512 slots
+    assert 512 * 13 * 2 * 5 * 14 ** 3 * 4 == 730_562_560
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+def test_wrappers_reject_what_the_kernels_do_not_take(slots):
+    u = T(slots[:2])
+    recon = split.hydro_reconstruct_plain(u)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        split.hydro_reconstruct_cuda(u)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        split.hydro_flux_cuda(recon, **KW)
+    with pytest.raises(TypeError, match="float32"):
+        split.check_reconstruct_args(u.double())
+    with pytest.raises(ValueError, match="expected"):
+        split.check_reconstruct_args(u[:, :4])
+    with pytest.raises(ValueError, match="contiguous"):
+        split.check_reconstruct_args(u.transpose(2, 3))
+    with pytest.raises(ValueError, match="P >= 3"):
+        split.check_reconstruct_args(torch.zeros((1, 5, 2, 2, 2)))
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        split.check_reconstruct_args(torch.zeros((1, 5, 24, 24, 24)))
+    split.check_reconstruct_args(u)
+    with pytest.raises(NotImplementedError, match="ghost=3"):
+        split.check_flux_args(recon, ghost=2, subgrid=10)
+    with pytest.raises(ValueError, match="expected"):
+        split.check_flux_args(recon[:, :12], ghost=3, subgrid=8)
+    with pytest.raises(ValueError, match="contiguous"):
+        split.check_flux_args(recon.transpose(5, 6), ghost=3, subgrid=8)
+    split.check_flux_args(recon, ghost=3, subgrid=8)
+    assert split.recon_smem_bytes(14) == 54_880
+    assert split.flux_smem_bytes(8) == 11_520
+
+
+# ---------------------------------------------------------------------------
+# the build cache's key covers the shared header
+# ---------------------------------------------------------------------------
+
+def test_build_digest_covers_headers(tmp_path):
+    """Editing a header that a source includes changes the source's
+    library key, so an edited header rebuilds instead of loading a stale
+    library."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    keys = {name: _build._digest(csrc / f"{name}.cu")
+            for name in ("hydro_rhs", "hydro_split", "gravity")}
+    assert keys["hydro_rhs"] == _build._digest(_build.CSRC / "hydro_rhs.cu")
+    header = csrc / "hydro_common.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    for name in ("hydro_rhs", "hydro_split"):
+        assert _build._digest(csrc / f"{name}.cu") != keys[name]
+    (csrc / "hydro_rhs.cu").write_text(
+        (csrc / "hydro_rhs.cu").read_text() + "\n")
+    assert _build._digest(csrc / "hydro_rhs.cu") != keys["hydro_rhs"]
