@@ -4,8 +4,8 @@
     python3 chip_smoke.py [--out results/chip_smoke.json]
 
 1. Prints the card's name and power limit, then builds the hand-written
-   CUDA kernels ``src/repro_torch/csrc/{hydro_rhs,gravity,hydro_split}.cu``
-   with nvcc for sm_90a, all three at once.
+   CUDA kernels ``src/repro_torch/csrc/{hydro_rhs,gravity,hydro_split,
+   hydro_rhs_lane}.cu`` with nvcc for sm_90a, all four at once.
 2. Holds the fused hydro kernel against its plain PyTorch version on the
    card, with atol scaled per slot and field: on the main path's own input
    (the Sedov IC's 512 padded sub-grids, (512, 5, 14, 14, 14) fp32) with a
@@ -30,7 +30,24 @@
 6. Path B: uniform Sedov ``CONFIG`` with the split pair as the batched body,
    under ``fused`` and ``s3`` (caps 32 and 512), bit-identical across rows
    and in agreement with the fused-kernel path.
-7. Prints one line naming the kernels, one JSON line of kernels, the card
+7. Holds the lane kernel (the slot_lane layout, tasks across each warp)
+   against its plain version at 512 x 8^3 (scalar and per-slot widths) and
+   64 x 16^3, against the slot_grid kernel at 8^3, and checks that every
+   slot equals its result from buckets of 1, 3 and 32 slots; times it
+   beside the two transposes and its bound.
+8. Path C: the two-level AMR blast, ``AMRSedovScenario`` at 1,024 tasks
+   per iteration (a 64^3 coarse level and a 64^3 fine patch, 512 sub-grids
+   of 8^3 each, one family) on each layout under the four strategy rows,
+   and the repo's ``configs/amr_sedov`` ``CONFIG`` (both layouts) and
+   ``CONFIG_MIXED`` (two families, slot_lane; slot_grid must refuse its
+   16^3 family): every row bit-identical to ``fused`` on both levels,
+   launches equal to the greedy decomposition, each level in agreement
+   with the plain bodies, the layouts with each other, and physical.
+9. Path D: uniform Sedov on the lane kernel at ``CONFIG`` and ``CONFIG_16``
+   (64 sub-grids of 16^3) under ``fused``, ``s3`` cap 32 and ``s2+s3``:
+   bit-identical rows, conservation, agreement with the slot_grid main
+   path (``CONFIG``) or the plain path (``CONFIG_16``).
+10. Prints one line naming the kernels, one JSON line of kernels, the card
    line, and as its last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the run exits non-zero and prints no result;
@@ -140,6 +157,13 @@ def random_slots(n, p, device, seed):
                             .astype(np.float32)).to(device)
 
 
+def alternating_widths(n, h, dev):
+    """Widths 2h, h, 2h, ... (n,), as two refinement levels in one bucket."""
+    return torch.where(torch.arange(n, device=dev) % 2 == 0,
+                       torch.tensor(2 * h, device=dev),
+                       torch.tensor(h, device=dev)).float().contiguous()
+
+
 def cold_flow_slots(n, p, device, seed):
     """Pressureless flow: density 1 + 0.3U, velocity 0.2N and zero total
     energy, so every state the kernel reconstructs sits on the pressure
@@ -222,9 +246,7 @@ def phase_kernel(cfg, dev, results):
                     got, want, slot_field_max(want), **tol)]
 
     # per-slot widths (the traced-h twin): alternate 2h and h
-    hs = torch.where(torch.arange(n, device=dev) % 2 == 0,
-                     torch.tensor(2 * h, device=dev),
-                     torch.tensor(h, device=dev)).float().contiguous()
+    hs = alternating_widths(n, h, dev)
     got_h = kern.hydro_rhs_cuda(u, h_slots=hs, **kw)
     want_h = kern.hydro_rhs_plain(u, h_slots=hs, **kw)
     errs.append(compare("kernel vs plain, h_slots (2h, h alternating)",
@@ -278,9 +300,10 @@ def phase_kernel(cfg, dev, results):
         achieved_tflops=n_ops / (ms * 1e-3) / 1e12)
 
 
-def blocks(u, cfg):
-    """A global state (F, N, N, N) as its sub-grids, (n, F, S, S, S)."""
-    g, s = cfg.grids_per_edge, cfg.subgrid
+def blocks(u, s):
+    """A global state (F, N, N, N) as its sub-grids of s^3, (n, F, S, S,
+    S)."""
+    g = u.shape[-1] // s
     return (u.reshape(u.shape[0], g, s, g, s, g, s)
             .permute(1, 3, 5, 0, 2, 4, 6).reshape(g ** 3, u.shape[0], s, s, s))
 
@@ -365,9 +388,10 @@ def phase_main_path(cfg, dev, steps, results):
     check(not bool(torch.isnan(fused).any()), "the solution went NaN")
     # the kernel path against the plain path, sub-grid by sub-grid: the
     # per-stage kernel tolerance compounded over 3 stages per step
-    ref = blocks(u_ref, cfg)
+    ref = blocks(u_ref, cfg.subgrid)
     diff, _ = compare(f"kernel path vs plain path after {steps} steps, per "
-                      f"sub-grid", blocks(fused, cfg), ref, block_scale(ref),
+                      f"sub-grid", blocks(fused, cfg.subgrid), ref,
+                      block_scale(ref),
                       atol_scale=1e-6, rtol=1e-5)
     c0, c1 = total_conserved(u0, h), total_conserved(fused, h)
     mass = abs(float((c1[0] - c0[0]) / c0[0]))
@@ -467,9 +491,7 @@ def phase_gravity_kernel(gcfg, dev, results):
                     f"{tuple(u.shape)}", got, want, slot_field_max(want),
                     **tol)]
     differ = int((got != want).sum())
-    hs2 = torch.where(torch.arange(n, device=dev) % 2 == 0,
-                      torch.tensor(2 * h, device=dev),
-                      torch.tensor(h, device=dev)).float().contiguous()
+    hs2 = alternating_widths(n, h, dev)
     got2 = grav.gravity_cuda(u, hs2, **kw)
     want2 = grav.gravity_plain(u, hs2, **kw)
     errs.append(compare("gravity kernel vs plain, widths 2h, h alternating",
@@ -613,18 +635,170 @@ def phase_split_kernels(cfg, dev, results):
 
 
 # ---------------------------------------------------------------------------
+# the lane kernel (slot_lane layout) against its plain version
+# ---------------------------------------------------------------------------
+
+def lane_major(u):
+    """(n, F, ...) -> (F, ..., n), contiguous: the lane kernel's input."""
+    return u.permute(*range(1, u.dim()), 0).contiguous()
+
+
+def slot_major(x):
+    """(F, ..., n) -> (n, F, ...), a view: the lane kernel's output the way
+    ``compare`` takes it (scale per slot and field)."""
+    return x.permute(x.dim() - 1, *range(x.dim() - 1))
+
+
+def check_lane_buckets(label, u, want_t, widths, **kw):
+    """Every slot of a whole-wave launch equals that slot from launches of
+    1, 3 and 32 slots (ragged tails included), bit for bit."""
+    from repro_torch.kernels import hydro_rhs as kern
+
+    n = u.shape[0]
+    for size in (1, 3, 32):
+        for a in range(0, n, size):
+            b = min(a + size, n)
+            wk = (dict(h_slots=widths[a:b]) if isinstance(widths, torch.Tensor)
+                  else dict(h=widths))
+            part = kern.hydro_rhs_lane_cuda(lane_major(u[a:b]), **wk, **kw)
+            check(torch.equal(part, want_t[..., a:b]),
+                  f"{label}: slots [{a}, {b}) launched as a bucket of "
+                  f"{b - a} differ from the same slots in a {n}-slot launch")
+    print(f"{label}: every slot equals its result from buckets of 1, 3 and "
+          f"32 slots ({n} slots)", flush=True)
+
+
+def phase_lane_kernel(cfg, cfg16, dev, results):
+    """The lane kernel at 512 x 8^3 (static h and widths h, 2h) and at
+    64 x 16^3 (the size the slot_grid kernel cannot take): against its
+    plain version, against the slot_grid kernel at 8^3, bucket independence,
+    and its times beside the two transposes and its bound."""
+    from repro_torch.hydro.state import extract_subgrids, sedov_init
+    from repro_torch.kernels import hydro_rhs as kern
+
+    tol = dict(atol_scale=ATOL_SCALE, rtol=RTOL)
+    errs, detail = [], {}
+    for c in (cfg, cfg16):
+        s, label = c.subgrid, f"{c.n_subgrids} x {c.subgrid}^3"
+        kw = dict(gamma=c.gamma, ghost=c.ghost, subgrid=s)
+        h = c.domain / (c.grids_per_edge * s)
+        u = extract_subgrids(sedov_init(c, device=dev).u, s, c.ghost)
+        n = u.shape[0]
+        ut = lane_major(u)
+        got = kern.hydro_rhs_lane_cuda(ut, h=h, **kw)
+        want = kern.hydro_rhs_lane_plain(ut, h=h, **kw)
+        errs.append(compare(f"lane kernel vs plain, Sedov IC ({label})",
+                            slot_major(got), slot_major(want),
+                            slot_field_max(slot_major(want)), **tol))
+        ur = lane_major(random_slots(64, c.padded, dev, seed=5))
+        want_r = kern.hydro_rhs_lane_plain(ur, h=0.01, **kw)
+        errs.append(compare(f"lane kernel vs plain, random smooth states "
+                            f"(64 x {s}^3)",
+                            slot_major(kern.hydro_rhs_lane_cuda(ur, h=0.01,
+                                                                **kw)),
+                            slot_major(want_r),
+                            slot_field_max(slot_major(want_r)), **tol))
+        check_lane_buckets(f"lane kernel, Sedov IC ({label})", u, got, h,
+                           **kw)
+        ms = time_cuda_ms(lambda: kern.hydro_rhs_lane_cuda(ut, h=h, **kw),
+                          reps=50)
+        plain_ms = time_cuda_ms(
+            lambda: kern.hydro_rhs_lane_plain(ut, h=h, **kw), reps=3, warm=1)
+        n_bytes = (u.numel() + got.numel()) * 4
+        n_ops = hydro_rhs_ops(n, s, c.ghost)
+        b_ms, b_by = bound_ms(n_bytes, n_ops)
+        row = dict(slots=n, subgrid=s, ms=ms, plain_ms=plain_ms,
+                   bound_ms=b_ms, bound_by=b_by, bytes=n_bytes, flop=n_ops)
+        if s == cfg.subgrid:
+            hs = alternating_widths(n, h, dev)
+            got_h = kern.hydro_rhs_lane_cuda(ut, h_slots=hs, **kw)
+            want_h = kern.hydro_rhs_lane_plain(ut, h_slots=hs, **kw)
+            errs.append(compare("lane kernel vs plain, h_slots (2h, h "
+                                "alternating)", slot_major(got_h),
+                                slot_major(want_h),
+                                slot_field_max(slot_major(want_h)), **tol))
+            check(torch.equal(got_h[..., 1::2], got[..., 1::2]),
+                  "lane h_slots slots of width h differ from the scalar-h "
+                  "launch")
+            check_lane_buckets("lane kernel, widths 2h, h", u, got_h, hs,
+                               **kw)
+            uc = lane_major(cold_flow_slots(n, c.padded, dev, seed=2))
+            want_c = kern.hydro_rhs_lane_plain(uc, h=h, **kw)
+            got_c = kern.hydro_rhs_lane_cuda(uc, h=h, **kw)
+            errs.append(compare(f"lane kernel vs plain, cold flow on the "
+                                f"pressure floor ({n} slots)",
+                                slot_major(got_c), slot_major(want_c),
+                                slot_field_max(slot_major(want_c)), **tol))
+            # the two layouts: same device math, same order
+            grid = kern.hydro_rhs_cuda(u, h=h, **kw)
+            grid_h = kern.hydro_rhs_cuda(u, h_slots=hs, **kw)
+            grid_c = kern.hydro_rhs_cuda(slot_major(uc).contiguous(), h=h,
+                                         **kw)
+            differ = []
+            for lab, a, b in (("Sedov IC", got, grid),
+                              ("2h, h", got_h, grid_h),
+                              ("cold flow", got_c, grid_c)):
+                compare(f"lane kernel vs slot_grid kernel, {lab}",
+                        slot_major(a), b, slot_field_max(b), **tol)
+                differ.append(int((slot_major(a) != b).sum()))
+            print(f"lane vs slot_grid kernel: elements that differ "
+                  f"{differ} (Sedov IC, 2h/h, cold flow) of {grid.numel()} "
+                  f"each", flush=True)
+            u32 = lane_major(u[:32])
+            out_t = got.clone()
+            row.update(
+                ms_32_slots=time_cuda_ms(
+                    lambda: kern.hydro_rhs_lane_cuda(u32, h=h, **kw),
+                    reps=50),
+                ms_h_slots=time_cuda_ms(
+                    lambda: kern.hydro_rhs_lane_cuda(ut, h_slots=hs, **kw),
+                    reps=50),
+                ms_cold_flow=time_cuda_ms(
+                    lambda: kern.hydro_rhs_lane_cuda(uc, h=h, **kw), reps=50),
+                permute_in_ms=time_cuda_ms(lambda: lane_major(u), reps=50),
+                permute_out_ms=time_cuda_ms(
+                    lambda: slot_major(out_t).contiguous(), reps=50),
+                slot_grid_ms=time_cuda_ms(
+                    lambda: kern.hydro_rhs_cuda(u, h=h, **kw), reps=50),
+                elements_differing_from_slot_grid=differ)
+            print(f"lane kernel, {label}: 32 slots {row['ms_32_slots']:.4f} "
+                  f"ms; h_slots mode {row['ms_h_slots']:.4f} ms; cold flow "
+                  f"{row['ms_cold_flow']:.4f} ms; transposes in "
+                  f"{row['permute_in_ms']:.4f} ms, out "
+                  f"{row['permute_out_ms']:.4f} ms; slot_grid kernel in this "
+                  f"call {row['slot_grid_ms']:.4f} ms", flush=True)
+        print(f"lane kernel time on the Sedov IC, {label}: {ms:.4f} ms; "
+              f"plain version {plain_ms:.3f} ms; bound {b_ms:.4f} ms "
+              f"({b_by}: {n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.3f} GFLOP), "
+              f"so the kernel takes {ms / b_ms:.1f}x its bound", flush=True)
+        detail[f"s{s}"] = row
+    first = detail[f"s{cfg.subgrid}"]
+    results["lane_kernel"] = dict(
+        name="hydro_rhs_lane", route="cuda",
+        source="src/repro_torch/csrc/hydro_rhs_lane.cu",
+        replaces="src/repro/kernels/hydro_rhs.py:154",
+        max_abs_err=max(e[0] for e in errs), ms=first["ms"],
+        plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
+        bound_by=first["bound_by"], library_ms=None)
+    results["lane_kernel_detail"] = detail
+
+
+# ---------------------------------------------------------------------------
 # Path A (gravity) and Path B (the split body)
 # ---------------------------------------------------------------------------
 
 def drive(runner, u0, dts, counters):
     """One row: warm up, take one untimed step, zero the kernels' counters,
     then time len(dts) RK3 steps on the host clock (synchronised).  Returns
-    the state and the row's numbers, the counters read just after."""
+    the state and the row's numbers, the counters read just after.  A state
+    may be a tuple of levels."""
     runner.warmup()
     runner.rk3_step(u0, dts[0])
     sync()
     fam0 = dict(runner.launches_by_family)
     launches0 = runner.stats["kernel_launches"]
+    hist0 = {k: dict(v["aggregated_hist"])
+             for k, v in runner.stats["regions"].items()}
     torch.cuda.reset_peak_memory_stats()
     for c in counters:
         c.launches = 0
@@ -637,10 +811,13 @@ def drive(runner, u0, dts, counters):
     steps = len(dts)
     fam = {k: v - fam0.get(k, 0)
            for k, v in runner.launches_by_family.items()}
+    hists = {k: {b: c - hist0.get(k, {}).get(b, 0)
+                 for b, c in v["aggregated_hist"].items()}
+             for k, v in runner.stats["regions"].items()}
     return u, dict(ms_per_step=wall / steps * 1e3,
                    launches_per_step=(runner.stats["kernel_launches"]
                                       - launches0) / steps,
-                   launches_by_family=fam,
+                   launches_by_family=fam, bucket_hists=hists,
                    kernel_launches={c.__name__: c.launches
                                     for c in counters},
                    peak_mib=torch.cuda.max_memory_allocated() / 2 ** 20)
@@ -712,9 +889,9 @@ def phase_gravity_path(gcfg, dev, steps, rows, results, key):
     for label, u in outs.items():
         check(torch.equal(u, fused), f"{label} is not bit-identical to fused")
     check(not bool(torch.isnan(fused).any()), "the solution went NaN")
-    ref = blocks(u_ref, hc)
+    ref = blocks(u_ref, hc.subgrid)
     diff, _ = compare(f"{gcfg.name} kernel path vs plain path after {steps} "
-                      f"steps, per sub-grid", blocks(fused, hc), ref,
+                      f"steps, per sub-grid", blocks(fused, hc.subgrid), ref,
                       block_scale(ref), atol_scale=1e-6, rtol=1e-5)
     c0, c1 = total_conserved(u0, h), total_conserved(fused, h)
     mass = abs(float((c1[0] - c0[0]) / c0[0]))
@@ -768,12 +945,251 @@ def phase_split_path(cfg, dev, dts, fused_kernel_path, results):
         check(torch.equal(u, first),
               f"split {label} is not bit-identical to split fused")
     check(not bool(torch.isnan(first).any()), "the split path went NaN")
-    ref = blocks(fused_kernel_path, cfg)
+    ref = blocks(fused_kernel_path, cfg.subgrid)
     diff, _ = compare(f"split path vs fused-kernel path after {len(dts)} "
-                      f"steps, per sub-grid", blocks(first, cfg), ref,
+                      f"steps, per sub-grid", blocks(first, cfg.subgrid), ref,
                       block_scale(ref), atol_scale=1e-6, rtol=1e-5)
     results["split_path"] = dict(steps=len(dts), runs=table,
                                  fused_kernel_path_max_abs_diff=diff)
+    return table
+
+
+# ---------------------------------------------------------------------------
+# Path C (two-level AMR) and Path D (uniform Sedov on the lane kernel)
+# ---------------------------------------------------------------------------
+
+def amr_level_bodies(acfg, layout, plain):
+    """The AMR scenario's family-body factory, sub-grid size -> body ``(k,
+    F, P, P, P), (k,) -> (k, F, S, S, S)``: the layout's kernel through
+    ``kernels.ops``, or its plain version called directly (the card's
+    reference)."""
+    import functools
+
+    from repro_torch.kernels import hydro_rhs as kern
+    from repro_torch.kernels.ops import level_batched_body
+
+    if not plain:
+        return functools.partial(level_batched_body, acfg.gamma, acfg.ghost,
+                                 layout=layout)
+
+    def factory(s):
+        kw = dict(gamma=acfg.gamma, ghost=acfg.ghost, subgrid=s)
+        if layout == "slot_grid":
+            return lambda x, hs: kern.hydro_rhs_plain(x, h_slots=hs, **kw)
+        return lambda x, hs: slot_major(kern.hydro_rhs_lane_plain(
+            lane_major(x), h_slots=hs, **kw)).contiguous()
+    return factory
+
+
+def amr_reference(acfg, dev, steps, level_body=None, dts=None):
+    """``steps`` RK3 steps of the per-level fused reference
+    (``amr_reference_step``) from the AMR Sedov IC; the Courant dts are
+    computed on the way unless given.  Returns (state, dts)."""
+    from repro_torch.hydro.state import amr_sedov_init
+    from repro_torch.hydro.stepper import amr_courant_dt, amr_reference_step
+
+    st = amr_sedov_init(acfg, device=dev)
+    state, out = (st.uc, st.uf), []
+    for k in range(steps):
+        out.append(amr_courant_dt(*state, acfg) if dts is None else dts[k])
+        state = amr_reference_step(*state, out[-1], acfg,
+                                   level_body=level_body)
+    sync()
+    return state, out
+
+
+def check_physical(label, levels):
+    """Finite, rho > 0 and E - KE > -1e-2 max E on every level (the
+    reference's tests/test_amr.py bound: the unlimited scheme may undershoot
+    internal energy at the front)."""
+    for name, u in zip(("coarse", "fine"), levels):
+        check(bool(torch.isfinite(u).all()), f"{label}: {name} not finite")
+        check(bool((u[0] > 0).all()), f"{label}: {name} density <= 0")
+        ke = 0.5 * (u[1] ** 2 + u[2] ** 2 + u[3] ** 2) / u[0]
+        check(bool((u[4] - ke > -1e-2 * u[4].max()).all()),
+              f"{label}: {name} internal energy below -1e-2 max E")
+
+
+def phase_amr_path(acfg, layout, rows, dev, ref, dts, results, key,
+                   hists=None):
+    """Path C on one layout: ``AMRSedovScenario`` through every row,
+    bit-identical to the first (``fused``) on both levels, launches equal
+    to the greedy decomposition of each level's population, each level in
+    agreement with ``ref`` (the same scenario on the plain bodies) per
+    sub-grid, and physical.  ``hists`` is each region's expected bucket
+    histogram per step under the executor rows.  Returns (fused state,
+    rows)."""
+    from repro_torch.core import AMRSedovScenario, StrategyRunner
+    from repro_torch.hydro.state import amr_sedov_init
+    from repro_torch.kernels import hydro_rhs as kern
+
+    steps = len(dts)
+    st = amr_sedov_init(acfg, device=dev)
+    u0 = (st.uc, st.uf)
+    counter, other = ((kern.hydro_rhs_lane_cuda, kern.hydro_rhs_cuda)
+                      if layout == "slot_lane" else
+                      (kern.hydro_rhs_cuda, kern.hydro_rhs_lane_cuda))
+    name = f"{acfg.name} {layout}"
+    outs, table = {}, {}
+    for label, agg in rows:
+        runner = StrategyRunner(AMRSedovScenario(
+            acfg, hydro_body=amr_level_bodies(acfg, layout, plain=False)),
+            agg, device=dev)
+        u, row = drive(runner, u0, dts, (counter, other))
+        want = 3 * steps * sum(per_stage_launches(agg, n) for n in (
+            acfg.n_subgrids_coarse, acfg.n_subgrids_fine))
+        counts = row["kernel_launches"]
+        print(f"{name}, {acfg.n_subgrids_coarse}+{acfg.n_subgrids_fine} "
+              f"sub-grids, {label}: {row['ms_per_step']:.3f} ms/step, "
+              f"{row['launches_per_step']:g} launches/step, kernel launches "
+              f"over {steps} steps {counts}, buckets {row['bucket_hists']}",
+              flush=True)
+        check(counts[counter.__name__] > 0,
+              f"{name} {label}: the {layout} kernel was never launched")
+        check(counts[counter.__name__] == want
+              == row["launches_per_step"] * steps,
+              f"{name} {label}: kernel launches {counts}, runner "
+              f"{row['launches_per_step']}/step, greedy decomposition {want}")
+        check(counts[other.__name__] == 0,
+              f"{name} {label}: the other layout's kernel was launched")
+        if hists is not None and agg.strategy != "fused":
+            per_step = {k: {b: c * steps for b, c in v.items()}
+                        for k, v in hists.items()}
+            check(row["bucket_hists"] == per_step,
+                  f"{name} {label}: buckets {row['bucket_hists']}, want "
+                  f"{per_step} over {steps} steps")
+        outs[label] = u
+        table[label] = row
+    fused = outs[rows[0][0]]
+    for label, u in outs.items():
+        check(torch.equal(u[0], fused[0]) and torch.equal(u[1], fused[1]),
+              f"{name} {label} is not bit-identical to fused")
+    check_physical(name, fused)
+    diffs = []
+    for lvl, got, want, s in (("coarse", fused[0], ref[0],
+                               acfg.coarse_subgrid),
+                              ("fine", fused[1], ref[1], acfg.fine_subgrid)):
+        wb = blocks(want, s)
+        diffs.append(compare(f"{name}: {lvl} level, kernel path vs plain "
+                             f"path after {steps} steps, per sub-grid",
+                             blocks(got, s), wb, block_scale(wb),
+                             atol_scale=1e-6, rtol=1e-5)[0])
+    hc = acfg.h_coarse
+    m0, m1 = (float(x[0].sum()) * hc ** 3 for x in (u0[0], fused[0]))
+    drift = abs((m1 - m0) / m0)
+    print(f"{name}: coarse-level mass drift after {steps} steps {drift:.2e} "
+          f"(not bounded: no refluxing at the coarse-fine face)", flush=True)
+    results[key] = dict(config=acfg.name, layout=layout,
+                        n_subgrids=[acfg.n_subgrids_coarse,
+                                    acfg.n_subgrids_fine],
+                        steps=steps, runs=table,
+                        plain_path_max_abs_diff=diffs,
+                        coarse_mass_drift=drift)
+    return fused, table
+
+
+def compare_layouts(label, lane, grid, acfg):
+    """The slot_lane rows against the slot_grid rows, per level and
+    sub-grid, with the path tolerance."""
+    for lvl, a, b, s in (("coarse", lane[0], grid[0], acfg.coarse_subgrid),
+                         ("fine", lane[1], grid[1], acfg.fine_subgrid)):
+        wb = blocks(b, s)
+        compare(f"{label}: {lvl} level, slot_lane vs slot_grid", blocks(a, s),
+                wb, block_scale(wb), atol_scale=1e-6, rtol=1e-5)
+        print(f"  elements that differ: {int((a != b).sum())} of "
+              f"{a.numel()}", flush=True)
+
+
+def phase_mixed_slot_grid_refuses(acfg, dev, dts):
+    """CONFIG_MIXED's 16^3 family cannot run on the slot_grid kernel: the
+    wrapper's check must refuse it with NotImplementedError."""
+    from repro_torch.configs.base import AggregationConfig
+    from repro_torch.core import AMRSedovScenario, StrategyRunner
+    from repro_torch.hydro.state import amr_sedov_init
+
+    st = amr_sedov_init(acfg, device=dev)
+    runner = StrategyRunner(AMRSedovScenario(acfg),
+                            AggregationConfig(strategy="fused"), device=dev)
+    try:
+        runner.rk3_step((st.uc, st.uf), dts[0])
+    except NotImplementedError as err:
+        print(f"{acfg.name} slot_grid: refused as expected "
+              f"(NotImplementedError: {str(err)[:80]}...)", flush=True)
+    else:
+        raise CheckFailed(f"{acfg.name}: the slot_grid kernel took a "
+                          f"{acfg.coarse_subgrid}^3 family")
+
+
+def phase_lane_path(cfg, dev, steps, results, key, dts=None, grid_path=None):
+    """Path D: uniform Sedov on the lane kernel (``hydro_batched_body(...,
+    layout="slot_lane")``) under fused, s3 cap 32 and s2+s3 4 x 32:
+    bit-identical rows, launches equal to the greedy decomposition,
+    conservation, and agreement per sub-grid with the slot_grid main path
+    (``grid_path``, same dts) or, where there is none, the plain path."""
+    from repro_torch.configs.base import AggregationConfig
+    from repro_torch.core import StrategyRunner, UniformSedovScenario
+    from repro_torch.hydro.state import sedov_init
+    from repro_torch.hydro.stepper import courant_dt, rk3_step, total_conserved
+    from repro_torch.kernels import hydro_rhs as kern
+    from repro_torch.kernels import ops
+
+    u0 = sedov_init(cfg, device=dev).u
+    h = cfg.domain / u0.shape[-1]
+    ref, what = grid_path, "the slot_grid main path"
+    if ref is None:
+        ref, dts, what = u0, [], "the plain path"
+        for _ in range(steps):
+            dts.append(courant_dt(ref, cfg))
+            ref = rk3_step(ref, dts[-1], cfg)
+        sync()
+    rows = (("fused", AggregationConfig(strategy="fused")),
+            ("s3 cap 32", AggregationConfig(strategy="s3",
+                                            max_aggregated=32)),
+            ("s2+s3 4 streams cap 32", AggregationConfig(
+                strategy="s2+s3", n_executors=4, max_aggregated=32)))
+    outs, table = {}, {}
+    for label, agg in rows:
+        sc = UniformSedovScenario(cfg, batched_body=ops.hydro_batched_body(
+            cfg, h, layout="slot_lane"))
+        runner = StrategyRunner(sc, agg, device=dev)
+        u, row = drive(runner, u0, dts, (kern.hydro_rhs_lane_cuda,
+                                         kern.hydro_rhs_cuda))
+        want = 3 * len(dts) * per_stage_launches(agg, cfg.n_subgrids)
+        counts = row["kernel_launches"]
+        print(f"{cfg.name} on the lane kernel ({cfg.n_subgrids} x "
+              f"{cfg.subgrid}^3), {label}: {row['ms_per_step']:.3f} ms/step, "
+              f"{row['launches_per_step']:g} launches/step, kernel launches "
+              f"over {len(dts)} steps {counts}", flush=True)
+        check(counts["hydro_rhs_lane_cuda"] > 0,
+              f"{cfg.name} {label}: the lane kernel was never launched")
+        check(counts["hydro_rhs_lane_cuda"] == want
+              == row["launches_per_step"] * len(dts)
+              and counts["hydro_rhs_cuda"] == 0,
+              f"{cfg.name} {label}: kernel launches {counts}, greedy "
+              f"decomposition {want}")
+        outs[label] = u
+        table[label] = row
+    fused = outs["fused"]
+    for label, u in outs.items():
+        check(torch.equal(u, fused),
+              f"{cfg.name} lane {label} is not bit-identical to fused")
+    check(bool(torch.isfinite(fused).all()), f"{cfg.name} lane path not "
+          f"finite")
+    wb = blocks(ref, cfg.subgrid)
+    diff, _ = compare(f"{cfg.name} lane path vs {what} after {len(dts)} "
+                      f"steps, per sub-grid", blocks(fused, cfg.subgrid), wb,
+                      block_scale(wb), atol_scale=1e-6, rtol=1e-5)
+    c0, c1 = total_conserved(u0, h), total_conserved(fused, h)
+    mass = abs(float((c1[0] - c0[0]) / c0[0]))
+    energy = abs(float((c1[4] - c0[4]) / c0[4]))
+    print(f"{cfg.name} lane path: mass drift {mass:.2e}, energy drift "
+          f"{energy:.2e} after {len(dts)} steps", flush=True)
+    check(mass < 1e-5 and energy < 1e-5, f"{cfg.name} lane path: "
+          f"conservation drift too large")
+    results[key] = dict(config=cfg.name, n_subgrids=cfg.n_subgrids,
+                        subgrid=cfg.subgrid, steps=len(dts), runs=table,
+                        reference=what, reference_max_abs_diff=diff,
+                        mass_drift=mass, energy_drift=energy)
     return table
 
 
@@ -787,24 +1203,30 @@ def main(argv=None):
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(HERE, "src"))
-    from repro_torch.configs.base import AggregationConfig, GravityHydroConfig
+    from repro_torch.configs.amr_sedov import CONFIG as AMR_CONFIG
+    from repro_torch.configs.amr_sedov import CONFIG_MIXED
+    from repro_torch.configs.base import (
+        AggregationConfig, AMRHydroConfig, GravityHydroConfig,
+    )
     from repro_torch.configs.gravity import CONFIG as GRAVITY_CONFIG
-    from repro_torch.configs.sedov import CONFIG
+    from repro_torch.configs.sedov import CONFIG, CONFIG_16
     from repro_torch.kernels import _build
     from repro_torch.kernels import gravity as grav
     from repro_torch.kernels import hydro_rhs as kern
     from repro_torch.kernels import hydro_split as split
 
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
     card = card_line()
     print(f"card: {card} (torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.get_device_name(0)})",
           flush=True)
     # one nvcc per source, all started together
     t0 = time.perf_counter()
-    libs = {"hydro_rhs": kern, "gravity": grav, "hydro_split": split}
+    libs = {"hydro_rhs": kern.build, "gravity": grav.build,
+            "hydro_split": split.build, "hydro_rhs_lane": kern.build_lane}
     with ThreadPoolExecutor(len(libs)) as pool:
-        for fut in [pool.submit(m.build) for m in libs.values()]:
+        for fut in [pool.submit(build) for build in libs.values()]:
             fut.result()
     print(f"build: {len(libs)} libraries loaded in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -825,38 +1247,80 @@ def main(argv=None):
     gravity_512 = GravityHydroConfig(name="gravity_sedov_512", hydro=CONFIG)
     phase_gravity_kernel(gravity_512, dev, results)
     phase_split_kernels(CONFIG, dev, results)
-    path_a = phase_gravity_path(gravity_512, dev, STEPS, (
+    four_rows = (
         ("fused", AggregationConfig(strategy="fused")),
         ("s3 cap 32", AggregationConfig(strategy="s3", max_aggregated=32)),
         ("s3 cap 512", AggregationConfig(strategy="s3",
                                          max_aggregated=512)),
         ("s2+s3 4 streams cap 32", AggregationConfig(
-            strategy="s2+s3", n_executors=4, max_aggregated=32))),
-        results, "gravity_path")
+            strategy="s2+s3", n_executors=4, max_aggregated=32)))
+    path_a = phase_gravity_path(gravity_512, dev, STEPS, four_rows, results,
+                                "gravity_path")
     phase_gravity_path(GRAVITY_CONFIG, dev, STEPS, (
         ("fused", AggregationConfig(strategy="fused")),
         ("s3 cap 16", AggregationConfig(strategy="s3", max_aggregated=16))),
         results, "gravity_path_64")
     path_b = phase_split_path(CONFIG, dev, dts, fused_kernel_path, results)
 
+    # the lane kernel, then Path C (AMR, both layouts) and Path D
+    phase_lane_kernel(CONFIG, CONFIG_16, dev, results)
+    amr_1024 = AMRHydroConfig(name="amr_sedov_1024", coarse_grids_per_edge=8,
+                              cover=32)
+    rows_16 = (("fused", AggregationConfig(strategy="fused")),
+               ("s3 cap 16", AggregationConfig(strategy="s3",
+                                               max_aggregated=16)))
+    family_8 = {"hydro_rhs_s8[5x14x14x14,scalar]": {8: 6}}
+    path_c = {}
+    for acfg, rows, hists in ((amr_1024, four_rows, None),
+                              (AMR_CONFIG, rows_16, family_8)):
+        ref, amr_dts = amr_reference(acfg, dev, STEPS)
+        fused = {}
+        for layout in ("slot_grid", "slot_lane"):
+            if layout == "slot_lane":
+                ref, _ = amr_reference(acfg, dev, STEPS, amr_level_bodies(
+                    acfg, layout, plain=True), amr_dts)
+            fused[layout], path_c[(acfg.name, layout)] = phase_amr_path(
+                acfg, layout, rows, dev, ref, amr_dts, results,
+                f"amr_path_{acfg.name}_{layout}", hists)
+        compare_layouts(acfg.name, fused["slot_lane"], fused["slot_grid"],
+                        acfg)
+    lane_plain = amr_level_bodies(CONFIG_MIXED, "slot_lane", plain=True)
+    ref, mixed_dts = amr_reference(CONFIG_MIXED, dev, STEPS, lane_plain)
+    phase_amr_path(CONFIG_MIXED, "slot_lane", rows_16, dev, ref, mixed_dts,
+                   results, "amr_path_mixed_slot_lane", {
+                       "hydro_rhs_s16[5x22x22x22,scalar]": {1: 3},
+                       "hydro_rhs_s8[5x14x14x14,scalar]": {8: 3}})
+    phase_mixed_slot_grid_refuses(CONFIG_MIXED, dev, mixed_dts)
+    phase_lane_path(CONFIG, dev, STEPS, results, "lane_path", dts=dts,
+                    grid_path=fused_kernel_path)
+    phase_lane_path(CONFIG_16, dev, STEPS, results, "lane_path_16")
+
     # launches on each kernel's own path, the s3 cap 32 row
     entries = [results["kernel"], results["gravity_kernel"],
-               results["reconstruct_kernel"], results["flux_kernel"]]
+               results["reconstruct_kernel"], results["flux_kernel"],
+               results["lane_kernel"]]
     entries[1]["launches"] = \
         path_a["s3 cap 32"]["kernel_launches"]["gravity_cuda"]
     entries[2]["launches"] = \
         path_b["s3 cap 32"]["kernel_launches"]["hydro_reconstruct_cuda"]
     entries[3]["launches"] = \
         path_b["s3 cap 32"]["kernel_launches"]["hydro_flux_cuda"]
+    entries[4]["launches"] = path_c[(amr_1024.name, "slot_lane")][
+        "s3 cap 32"]["kernel_launches"]["hydro_rhs_lane_cuda"]
+    results["seconds"] = time.perf_counter() - t_start
+    print(f"chip_smoke: every phase passed in {results['seconds']:.1f} s, "
+          f"the builds included", flush=True)
     k = results["kernel"]
     print(f"kernels: hydro_rhs (cuda, {k['source']}, replaces "
-          f"{k['replaces']} and its h_slots twin :146, on the main path "
-          f"and Path A); gravity (cuda, src/repro_torch/csrc/gravity.cu, "
-          f"replaces src/repro/kernels/gravity.py:130, Path A); "
-          f"hydro_reconstruct and hydro_flux (cuda, "
-          f"src/repro_torch/csrc/hydro_split.cu, replace "
-          f"src/repro/kernels/hydro_rhs.py:301 and :327, Path B)",
-          flush=True)
+          f"{k['replaces']} and its h_slots twin :146, on the main path, "
+          f"Path A and Path C slot_grid); gravity (cuda, "
+          f"src/repro_torch/csrc/gravity.cu, replaces "
+          f"src/repro/kernels/gravity.py:130, Path A); hydro_reconstruct and "
+          f"hydro_flux (cuda, src/repro_torch/csrc/hydro_split.cu, replace "
+          f"src/repro/kernels/hydro_rhs.py:301 and :327, Path B); "
+          f"hydro_rhs_lane (cuda, src/repro_torch/csrc/hydro_rhs_lane.cu, "
+          f"replaces src/repro/kernels/hydro_rhs.py:154 and its h_slots twin "
+          f":160, Path C slot_lane and Path D)", flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

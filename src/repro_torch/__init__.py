@@ -1,6 +1,7 @@
-"""PyTorch/CUDA port of ``repro``: the uniform Sedov blast wave under the
-paper's aggregation strategies, with the fused hydro RHS as a hand-written
-CUDA kernel for Hopper (``csrc/hydro_rhs.cu``).
+"""PyTorch/CUDA port of ``repro``: the Sedov blast wave (uniform,
+self-gravitating and two-level AMR) under the paper's aggregation
+strategies, with every hydro and gravity kernel hand-written in CUDA for
+Hopper (``csrc/``).
 
 Module and function names follow ``repro`` so each module's counterpart is
 easy to find.  The port imports ``torch`` and ``numpy`` only; the JAX

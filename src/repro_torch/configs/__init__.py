@@ -1,3 +1,4 @@
 from repro_torch.configs.base import (  # noqa: F401
-    AggregationConfig, GravityHydroConfig, HydroConfig, validate_ladder,
+    AggregationConfig, AMRHydroConfig, GravityHydroConfig, HydroConfig,
+    validate_ladder,
 )

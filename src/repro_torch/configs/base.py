@@ -1,10 +1,11 @@
 """Config dataclasses of the port: the hydro scenarios and the aggregation
 knobs the port runs.
 
-``HydroConfig`` and ``GravityHydroConfig`` are the reference's as they
-are.  ``AggregationConfig`` keeps only the fields the port reads; a value
-the port does not run yet (another strategy, host staging) raises
-``NotImplementedError`` naming ROADMAP.md instead of being ignored.
+``HydroConfig``, ``AMRHydroConfig`` and ``GravityHydroConfig`` are the
+reference's as they are.  ``AggregationConfig`` keeps only the fields the
+port reads; a value the port does not run yet (another strategy, host
+staging) raises ``NotImplementedError`` naming ROADMAP.md instead of being
+ignored.
 """
 from __future__ import annotations
 
@@ -121,6 +122,81 @@ class HydroConfig:
     @property
     def padded(self) -> int:
         return self.subgrid + 2 * self.ghost
+
+
+@dataclass(frozen=True)
+class AMRHydroConfig:
+    """Two-level refined Sedov scenario: a coarse grid over the whole domain
+    plus one centred fine patch at ``refine_ratio`` times the resolution.
+
+    The fine level covers the central ``cover`` coarse cells per edge.  Each
+    level decomposes into its own sub-grids; the per-level cell width ``h``
+    is a per-task argument, so levels whose sub-grid shapes agree share one
+    kernel family (one ``TaskSignature``), while mixed sub-grid sizes make
+    two families aggregating through one executor.
+    """
+    name: str = "amr_sedov"
+    coarse_subgrid: int = 8           # cells per coarse sub-grid edge
+    fine_subgrid: int = 8             # cells per fine sub-grid edge
+    ghost: int = 3                    # ghost-layer thickness (PPM needs 3)
+    coarse_grids_per_edge: int = 2    # coarse level: (2*8)^3 cells
+    cover: int = 8                    # coarse cells per edge under the patch
+    refine_ratio: int = 2
+    n_fields: int = 5
+    gamma: float = 7.0 / 5.0
+    cfl: float = 0.4
+    blast_energy: float = 1.0
+    rho0: float = 1.0
+    domain: float = 1.0
+    dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.n_fine % self.fine_subgrid:
+            raise ValueError("fine grid not divisible into fine sub-grids")
+        if (self.n_coarse - self.cover) % 2:
+            raise ValueError("fine patch cannot be centred on the coarse grid")
+        # the prolongation ghost band must stay inside the coarse domain
+        if self.offset < self.coarse_ghost_pad:
+            raise ValueError("fine patch too close to the domain boundary "
+                             "for the coarse-fine ghost exchange")
+
+    @property
+    def n_coarse(self) -> int:
+        return self.coarse_grids_per_edge * self.coarse_subgrid
+
+    @property
+    def n_fine(self) -> int:
+        return self.cover * self.refine_ratio
+
+    @property
+    def fine_grids_per_edge(self) -> int:
+        return self.n_fine // self.fine_subgrid
+
+    @property
+    def offset(self) -> int:
+        """Fine-patch origin, in coarse cells."""
+        return (self.n_coarse - self.cover) // 2
+
+    @property
+    def h_coarse(self) -> float:
+        return self.domain / self.n_coarse
+
+    @property
+    def h_fine(self) -> float:
+        return self.h_coarse / self.refine_ratio
+
+    @property
+    def coarse_ghost_pad(self) -> int:
+        """Coarse cells needed to prolongate one fine ghost band (ceil)."""
+        return -(-self.ghost // self.refine_ratio)
+
+    @property
+    def n_subgrids_coarse(self) -> int:
+        return self.coarse_grids_per_edge ** 3
+
+    @property
+    def n_subgrids_fine(self) -> int:
+        return self.fine_grids_per_edge ** 3
 
 
 @dataclass(frozen=True)

@@ -6,8 +6,8 @@ from repro_torch.core.aggregation import (  # noqa: F401
 )
 from repro_torch.core.executor import DeviceExecutor, ExecutorPool  # noqa: F401
 from repro_torch.core.scenario import (  # noqa: F401
-    GravityScenario, KernelFamily, Scenario, TaskPopulation,
-    UniformSedovScenario,
+    AMRSedovScenario, GravityScenario, KernelFamily, Scenario,
+    TaskPopulation, UniformSedovScenario,
 )
 from repro_torch.core.strategies import (  # noqa: F401
     StrategyRunner, available_strategies,

@@ -7,9 +7,10 @@ reference every strategy must reproduce bit for bit.  A **Strategy**
 (``repro_torch.core.strategies``) decides HOW the populations launch.
 
 The port has the uniform Sedov scenario (the paper's Table II/III
-workload) and the self-gravitating Sedov scenario (two kernel families per
-iteration).  AMR and the epilogue-fused stage populations wait in
-ROADMAP.md.
+workload), the self-gravitating Sedov scenario (two kernel families per
+iteration) and the two-level AMR Sedov scenario (coarse and fine tasks in
+one family, or two where the levels' sub-grid sizes differ).  The
+epilogue-fused stage populations wait in ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -18,8 +19,13 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.configs.base import GravityHydroConfig, HydroConfig
-from repro_torch.hydro.state import assemble_global, extract_subgrids
+from repro_torch.configs.base import (
+    AMRHydroConfig, GravityHydroConfig, HydroConfig,
+)
+from repro_torch.hydro.state import (
+    assemble_global, extract_subgrids, extract_subgrids_multilevel,
+    sync_coarse,
+)
 from repro_torch.kernels.gravity import gravity_source_update
 from repro_torch.kernels.ops import (
     gravity_batched_body, hydro_batched_body, level_batched_body,
@@ -197,3 +203,87 @@ class GravityScenario(Scenario):
         subs = ((hc.n_subgrids, hc.n_fields, p, p, p), self._dtype)
         h = ((hc.n_subgrids,), self._dtype)
         return (("hydro_rhs", (subs, h)), ("gravity", (subs, h)))
+
+
+class AMRSedovScenario(Scenario):
+    """Two-level refined Sedov: the state is ``(uc, uf)``; every iteration
+    yields one population per level, each task with its level's cell width
+    (an ``(n,)`` parent beside the sub-grids).  Levels whose sub-grid sizes
+    agree share one kernel family, ``hydro_rhs_s<S>`` (one bucket ladder
+    serves both levels); different sizes make two families that aggregate
+    through one executor.  ``finalize_step`` re-syncs the covered coarse
+    cells.
+
+    ``hydro_body(subgrid)`` gives the family body of one sub-grid size,
+    ``(k, F, P, P, P), (k,) -> (k, F, S, S, S)``; the default is
+    ``kernels.ops.level_batched_body`` in the slot_grid layout (the kernel's
+    ``h_slots`` mode on the card, the plain version on the CPU).  Pass
+    ``functools.partial(level_batched_body, gamma, ghost,
+    layout="slot_lane")`` for the lane kernel, or a plain factory for the
+    card's reference.  The epilogue-fused stage path waits in ROADMAP.md.
+    """
+
+    LEVELS = ("coarse", "fine")
+
+    def __init__(self, cfg: AMRHydroConfig, bc: str = "outflow",
+                 hydro_body: Optional[Callable[[int], Callable]] = None):
+        self.cfg = cfg
+        self.bc = bc
+        self.name = cfg.name
+        self._dtype = getattr(torch, cfg.dtype)
+        self._subgrid = {"coarse": cfg.coarse_subgrid,
+                         "fine": cfg.fine_subgrid}
+        self._n_level = {"coarse": cfg.n_subgrids_coarse,
+                         "fine": cfg.n_subgrids_fine}
+        self._width = {"coarse": cfg.h_coarse, "fine": cfg.h_fine}
+        self._h_vec: Dict[Tuple[str, torch.device], torch.Tensor] = {}
+        # one family per DISTINCT sub-grid size; equal sizes share it
+        self._kernel = {lvl: f"hydro_rhs_s{s}"
+                        for lvl, s in self._subgrid.items()}
+        if hydro_body is None:
+            def hydro_body(s):
+                return level_batched_body(cfg.gamma, cfg.ghost, s)
+        self._families = tuple(
+            KernelFamily(f"hydro_rhs_s{s}", hydro_body(s))
+            for s in dict.fromkeys(self._subgrid.values()))
+
+    def families(self):
+        return self._families
+
+    def h_vec(self, level: str, device: torch.device) -> torch.Tensor:
+        """The level's per-task widths ``(n,)`` on ``device``, made once."""
+        key = (level, device)
+        h = self._h_vec.get(key)
+        if h is None:
+            h = torch.full((self._n_level[level],), self._width[level],
+                           dtype=self._dtype, device=device)
+            self._h_vec[key] = h
+        return h
+
+    def populations(self, state):
+        uc, uf = state
+        subs = dict(zip(self.LEVELS, extract_subgrids_multilevel(
+            uc, uf, self.cfg, self.bc)))
+        return tuple(
+            TaskPopulation(self._kernel[lvl],
+                           (subs[lvl], self.h_vec(lvl, uc.device)))
+            for lvl in self.LEVELS)
+
+    def assemble(self, state, outs):
+        return tuple(assemble_global(out, self._subgrid[lvl])
+                     for lvl, out in zip(self.LEVELS, outs))
+
+    def finalize_step(self, state):
+        uc, uf = state
+        return sync_coarse(uc, uf, self.cfg), uf
+
+    def warmup_parent_specs(self):
+        cfg = self.cfg
+        specs = []
+        for lvl in self.LEVELS:
+            n = self._n_level[lvl]
+            p = self._subgrid[lvl] + 2 * cfg.ghost
+            specs.append((self._kernel[lvl], (
+                ((n, cfg.n_fields, p, p, p), self._dtype),
+                ((n,), self._dtype))))
+        return tuple(specs)

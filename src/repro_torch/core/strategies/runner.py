@@ -3,13 +3,15 @@
 The runner owns the executor pool (one CUDA stream per executor on the
 card), the aggregation executor with every scenario family registered
 (strategies that use one), the stats, and the scenario-agnostic loops:
-RK3 stepping, warmup and per-step timing.  The device defaults to the card
-and a missing card raises; ``device="cpu"`` runs the plain PyTorch path.
+RK3 stepping, warmup and per-step timing.  A state is a tensor, or a tuple
+of tensors (one per AMR level) combined level by level.  The device
+defaults to the card and a missing card raises; ``device="cpu"`` runs the
+plain PyTorch path.
 """
 from __future__ import annotations
 
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -19,6 +21,13 @@ from repro_torch.core.executor import ExecutorPool
 from repro_torch.core.scenario import Scenario
 from repro_torch.core.strategies.base import RunContext, get_strategy_class
 from repro_torch.device import DeviceLike, resolve_device
+
+
+def per_level(fn: Callable, *states):
+    """``fn`` over a tensor state, or level by level over tuple states."""
+    if isinstance(states[0], tuple):
+        return tuple(fn(*levels) for levels in zip(*states))
+    return fn(*states)
 
 
 class StrategyRunner:
@@ -83,10 +92,11 @@ class StrategyRunner:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _check_state(self, state: torch.Tensor) -> None:
-        if state.device != self.device:
-            raise ValueError(f"state lives on {state.device}, the runner on "
-                             f"{self.device}")
+    def _check_state(self, state) -> None:
+        for u in state if isinstance(state, tuple) else (state,):
+            if u.device != self.device:
+                raise ValueError(f"state lives on {u.device}, the runner "
+                                 f"on {self.device}")
 
     # -- one solver iteration ----------------------------------------------
     def rhs(self, state):
@@ -96,14 +106,19 @@ class StrategyRunner:
 
     # -- RK3 (three iterations per time-step, as in the paper) -------------
     def rk3_step(self, state, dt):
-        """Shu-Osher TVD-RK3.  ``dt`` is a float or a 0-dim tensor (e.g.
-        ``courant_dt``'s, which stays on the device)."""
+        """Shu-Osher TVD-RK3 over a tensor or a tuple of levels, each level
+        combined in the same expression order (``hydro.stepper``'s
+        ``rk3_step`` and ``amr_rk3_step``).  ``dt`` is a float or a 0-dim
+        tensor (e.g. ``courant_dt``'s, which stays on the device)."""
         l0 = self.rhs(state)
-        u1 = state + dt * l0
+        u1 = per_level(lambda u, l: u + dt * l, state, l0)
         l1 = self.rhs(u1)
-        u2 = 0.75 * state + 0.25 * (u1 + dt * l1)
+        u2 = per_level(lambda u, a, l: 0.75 * u + 0.25 * (a + dt * l),
+                       state, u1, l1)
         l2 = self.rhs(u2)
-        out = (1.0 / 3.0) * state + (2.0 / 3.0) * (u2 + dt * l2)
+        out = per_level(
+            lambda u, a, l: (1.0 / 3.0) * u + (2.0 / 3.0) * (a + dt * l),
+            state, u2, l2)
         return self.scenario.finalize_step(out)
 
     def time_step(self, state, dt, n_steps: int = 1) -> float:

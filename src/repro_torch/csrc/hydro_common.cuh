@@ -1,6 +1,7 @@
-// Device math shared by the hydro kernels (hydro_rhs.cu, hydro_split.cu):
-// the CW84 PPM surface value, the KNP central-upwind flux, the quadrature
-// table in constant memory, and the per-axis face and divergence passes of
+// Device math shared by the hydro kernels (hydro_rhs.cu, hydro_split.cu,
+// hydro_rhs_lane.cu): the CW84 PPM surface value, the KNP central-upwind
+// flux, the quadrature table in constant memory, the Simpson-integrated
+// flux through one face, and the per-axis face and divergence passes of
 // one slot.  Each .cu file builds into its own library, so each gets its
 // own copy of the constant table and uploads it itself.
 #pragma once
@@ -221,9 +222,54 @@ struct StagedStates {
   }
 };
 
-// Simpson-integrated flux through the +AXIS face of every cell whose face
-// the interior divergence reads; stored field-major into `face`.  `states`
-// supplies each quadrature entry's left and right state.
+// The two states of quadrature entry q of an AXIS face read straight from
+// lane-major device memory (the lane kernel): (F, P, P, P, n) with the
+// thread's lane folded into `u`, so one cell step is n floats apart and
+// the 32 lanes of a warp read 32 neighbouring floats.
+struct LaneStates {
+  const float* __restrict__ u;    // &u_t[0][0][0][0][lane]
+  int P, n;
+
+  template <int AXIS>
+  __device__ __forceinline__ void load(int q, int c, int e,
+                                       float (&qL)[kFields],
+                                       float (&qR)[kFields]) const {
+    const int P2 = P * P, P3 = P2 * P;
+    const int* l = c_tab.dir_l[AXIS][q];
+    const int* r = c_tab.dir_r[AXIS][q];
+    const int dl = (l[0] * P2 + l[1] * P + l[2]) * n;
+    const int dr = (r[0] * P2 + r[1] * P + r[2]) * n;
+    const int pl = c_tab.plus_l[AXIS][q], pr = c_tab.plus_r[AXIS][q];
+#pragma unroll
+    for (int f = 0; f < kFields; ++f) {
+      qL[f] = ppm_side(u + (f * P3 + c) * n, dl, pl);
+      qR[f] = ppm_side(u + (f * P3 + c + e) * n, dr, pr);
+    }
+  }
+};
+
+// Simpson-integrated flux through the +AXIS face of the cell at padded
+// index c (its neighbour across the face at c + e): the weighted KNP flux
+// of the 9 quadrature entries, accumulated in the reference's order.
+template <int AXIS, class States>
+__device__ __forceinline__ void face_flux(const States& states, int c, int e,
+                                          float gamma, float gm1,
+                                          float (&acc)[kFields]) {
+#pragma unroll 1
+  for (int q = 0; q < kQuad; ++q) {
+    float qL[kFields], qR[kFields], flux[kFields];
+    states.template load<AXIS>(q, c, e, qL, qR);
+    knp_flux<AXIS>(qL, qR, gamma, gm1, flux);
+    const float w = c_tab.w[AXIS][q];
+#pragma unroll
+    for (int f = 0; f < kFields; ++f)
+      acc[f] = q == 0 ? w * flux[f] : acc[f] + w * flux[f];
+  }
+}
+
+// face_flux at every face the interior divergence reads; stored
+// field-major into `face`.  `states` supplies each quadrature entry's left
+// and right state.
 template <int AXIS, class States>
 __device__ void face_pass(const States& states, float* __restrict__ face,
                           int P, int S, float gamma, float gm1) {
@@ -237,16 +283,7 @@ __device__ void face_pass(const States& states, float* __restrict__ face,
     const int c = (kGhost + x - (AXIS == 0)) * P2 +
                   (kGhost + y - (AXIS == 1)) * P + (kGhost + z - (AXIS == 2));
     float acc[kFields];
-#pragma unroll 1
-    for (int q = 0; q < kQuad; ++q) {
-      float qL[kFields], qR[kFields], flux[kFields];
-      states.template load<AXIS>(q, c, e, qL, qR);
-      knp_flux<AXIS>(qL, qR, gamma, gm1, flux);
-      const float w = c_tab.w[AXIS][q];
-#pragma unroll
-      for (int f = 0; f < kFields; ++f)
-        acc[f] = q == 0 ? w * flux[f] : acc[f] + w * flux[f];
-    }
+    face_flux<AXIS>(states, c, e, gamma, gm1, acc);
 #pragma unroll
     for (int f = 0; f < kFields; ++f) face[f * nface + fi] = acc[f];
   }

@@ -20,9 +20,10 @@ P_FLOOR = 1e-12
 FIELD_DIM = -4
 
 
-def cons_to_prim(u: torch.Tensor, gamma: float):
-    """(..., 5, X, Y, Z) conserved -> (rho, vx, vy, vz, p)."""
-    rho_raw, sx, sy, sz, en = u.unbind(FIELD_DIM)
+def cons_to_prim(u: torch.Tensor, gamma: float, dim: int = FIELD_DIM):
+    """(..., 5, X, Y, Z) conserved -> (rho, vx, vy, vz, p); ``dim`` is the
+    field axis (0 in the lane-major layout)."""
+    rho_raw, sx, sy, sz, en = u.unbind(dim)
     rho = torch.clamp_min(rho_raw, RHO_FLOOR)
     vx, vy, vz = sx / rho, sy / rho, sz / rho
     ke = 0.5 * rho * (vx * vx + vy * vy + vz * vz)
@@ -39,15 +40,17 @@ def sound_speed(rho, p, gamma: float):
     return torch.sqrt(gamma * p / rho)
 
 
-def euler_flux(u: torch.Tensor, axis: int, gamma: float) -> torch.Tensor:
-    """Physical flux F_axis(U): (..., 5, X, Y, Z) -> same shape."""
-    rho, vx, vy, vz, p = cons_to_prim(u, gamma)
+def euler_flux(u: torch.Tensor, axis: int, gamma: float,
+               dim: int = FIELD_DIM) -> torch.Tensor:
+    """Physical flux F_axis(U): (..., 5, X, Y, Z) -> same shape; ``dim``
+    is the field axis."""
+    rho, vx, vy, vz, p = cons_to_prim(u, gamma, dim)
     v = (vx, vy, vz)[axis]
-    _, sx, sy, sz, en = u.unbind(FIELD_DIM)
+    _, sx, sy, sz, en = u.unbind(dim)
     f = [rho * v, sx * v, sy * v, sz * v, (en + p) * v]
     # pressure contribution to the momentum component along `axis`
     f[SX + axis] = f[SX + axis] + p
-    return torch.stack(f, dim=FIELD_DIM)
+    return torch.stack(f, dim=dim)
 
 
 def max_signal_speed(u: torch.Tensor, gamma: float) -> torch.Tensor:

@@ -15,7 +15,9 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.hydro.euler import cons_to_prim, euler_flux, sound_speed
+from repro_torch.hydro.euler import (
+    FIELD_DIM, cons_to_prim, euler_flux, sound_speed,
+)
 from repro_torch.hydro.ppm import PAIR_INDEX, _shift
 
 # (weight, transverse offset) for the 3-point Simpson rule
@@ -58,23 +60,24 @@ _build_face_quad()
 
 
 def central_upwind(uL: torch.Tensor, uR: torch.Tensor, axis: int,
-                   gamma: float) -> torch.Tensor:
-    """Kurganov-Noelle-Petrova central-upwind flux.  u*: (..., F, X, Y, Z)."""
-    rhoL, vxL, vyL, vzL, pL = cons_to_prim(uL, gamma)
-    rhoR, vxR, vyR, vzR, pR = cons_to_prim(uR, gamma)
+                   gamma: float, dim: int = FIELD_DIM) -> torch.Tensor:
+    """Kurganov-Noelle-Petrova central-upwind flux.  u*: (..., F, X, Y, Z),
+    or any layout whose field axis is ``dim``."""
+    rhoL, vxL, vyL, vzL, pL = cons_to_prim(uL, gamma, dim)
+    rhoR, vxR, vyR, vzR, pR = cons_to_prim(uR, gamma, dim)
     vL = (vxL, vyL, vzL)[axis]
     vR = (vxR, vyR, vzR)[axis]
     cL = sound_speed(rhoL, pL, gamma)
     cR = sound_speed(rhoR, pR, gamma)
     ap = torch.clamp_min(torch.maximum(vL + cL, vR + cR), 0.0)
     am = torch.clamp_max(torch.minimum(vL - cL, vR - cR), 0.0)
-    fL = euler_flux(uL, axis, gamma)
-    fR = euler_flux(uR, axis, gamma)
+    fL = euler_flux(uL, axis, gamma, dim)
+    fR = euler_flux(uR, axis, gamma, dim)
     span = ap - am
     # guard the degenerate (vacuum-like) case
     ok = span > 1e-12
     inv = torch.where(ok, 1.0 / torch.clamp_min(span, 1e-12), 0.0)
-    ap, am, inv, ok = (x.unsqueeze(-4) for x in (ap, am, inv, ok))
+    ap, am, inv, ok = (x.unsqueeze(dim) for x in (ap, am, inv, ok))
     flux = (ap * fL - am * fR) * inv + (ap * am) * inv * (uR - uL)
     return torch.where(ok, flux, 0.5 * (fL + fR))
 

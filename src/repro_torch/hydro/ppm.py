@@ -41,25 +41,29 @@ PAIR_INDEX = {d: i for i, d in enumerate(DIR_PAIRS)}
 N_PAIRS = len(DIR_PAIRS)  # 13
 
 
-def _shift(u: torch.Tensor, d: Tuple[int, int, int], k: int) -> torch.Tensor:
-    """u(i + k*d) over the three trailing spatial dims (roll)."""
+def _shift(u: torch.Tensor, d: Tuple[int, int, int], k: int,
+           dims: Tuple[int, int, int] = SPATIAL_DIMS) -> torch.Tensor:
+    """u(i + k*d) over the spatial dims ``dims``, by default the three
+    trailing ones (roll)."""
     if k == 0:
         return u
     return torch.roll(u, shifts=(-k * d[0], -k * d[1], -k * d[2]),
-                      dims=SPATIAL_DIMS)
+                      dims=dims)
 
 
-def ppm_pair(u: torch.Tensor, d: Tuple[int, int, int]):
+def ppm_pair(u: torch.Tensor, d: Tuple[int, int, int],
+             dims: Tuple[int, int, int] = SPATIAL_DIMS):
     """Limited-parabola surface values of every cell toward -d and +d.
 
-    u: (..., X, Y, Z).  Returns (u_minus, u_plus), same shape as u.
-    Colella & Woodward (1984): 4th-order interface interpolation followed by
-    monotonicity limiting of the per-cell parabola.
+    u: (..., X, Y, Z), or any layout whose spatial dims are ``dims``.
+    Returns (u_minus, u_plus), same shape as u.  Colella & Woodward (1984):
+    4th-order interface interpolation followed by monotonicity limiting of
+    the per-cell parabola.
     """
-    um2 = _shift(u, d, -2)
-    um1 = _shift(u, d, -1)
-    up1 = _shift(u, d, 1)
-    up2 = _shift(u, d, 2)
+    um2 = _shift(u, d, -2, dims)
+    um1 = _shift(u, d, -1, dims)
+    up1 = _shift(u, d, 1, dims)
+    up2 = _shift(u, d, 2, dims)
 
     # interface values u_{i-1/2}, u_{i+1/2} along the d-line
     ul = (7.0 / 12.0) * (um1 + u) - (1.0 / 12.0) * (um2 + up1)

@@ -1,4 +1,5 @@
-"""TVD-RK3 time stepping over the sub-grid decomposition (uniform grid).
+"""TVD-RK3 time stepping over the sub-grid decomposition: the uniform grid
+and the two-level AMR grid.
 
 One time-step is three hydro-solver iterations (paper §VI-A), each a ghost
 exchange followed by per-sub-grid Reconstruct + Flux and the conserved-
@@ -10,14 +11,17 @@ aggregated body the reference gets with ``vmap``.
 """
 from __future__ import annotations
 
+from typing import Callable, Optional
+
 import torch
 
-from repro_torch.configs.base import HydroConfig
+from repro_torch.configs.base import AMRHydroConfig, HydroConfig
 from repro_torch.hydro.euler import max_signal_speed
 from repro_torch.hydro.flux import flux_divergence
 from repro_torch.hydro.ppm import ppm_reconstruct_all
 from repro_torch.hydro.state import (
-    HydroState, assemble_global, extract_subgrids,
+    AMRState, HydroState, assemble_global, extract_subgrids,
+    extract_subgrids_multilevel, sync_coarse,
 )
 
 
@@ -84,3 +88,93 @@ def shock_radius(u: torch.Tensor, cfg: HydroConfig) -> torch.Tensor:
     # mass-weighted radius of the over-dense shell
     w = torch.clamp_min(u[0] - cfg.rho0, 0.0)
     return torch.sum(w * r) / torch.clamp_min(torch.sum(w), 1e-30)
+
+
+# ---------------------------------------------------------------------------
+# Two-level AMR stepping
+# ---------------------------------------------------------------------------
+
+LevelBody = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+LevelFactory = Callable[[int], LevelBody]     # sub-grid size -> level body
+
+
+def plain_level_body(gamma: float, ghost: int, subgrid: int) -> LevelBody:
+    """The plain PyTorch level body ``(k, F, P, P, P), (k,) -> (k, F, S, S,
+    S)``, one width per task: ``subgrid_rhs`` on any device."""
+    def body(subs: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+        return subgrid_rhs(subs, h, gamma, ghost, subgrid)
+    return body
+
+
+def amr_rk3_step(rhs_fn, uc: torch.Tensor, uf: torch.Tensor, dt,
+                 cfg: AMRHydroConfig):
+    """TVD-RK3 over both levels in lockstep (shared dt).
+
+    ``rhs_fn(uc, uf) -> (duc, duf)`` is a strategy runner's rhs or the
+    reference below; the combine is written per level in the expression
+    order ``StrategyRunner.rk3_step`` uses, so runner-vs-reference
+    equivalence reduces to rhs equivalence.  The covered coarse cells are
+    re-synced from the fine solution at the end of the step.
+    """
+    dc0, df0 = rhs_fn(uc, uf)
+    uc1, uf1 = uc + dt * dc0, uf + dt * df0
+    dc1, df1 = rhs_fn(uc1, uf1)
+    uc2 = 0.75 * uc + 0.25 * (uc1 + dt * dc1)
+    uf2 = 0.75 * uf + 0.25 * (uf1 + dt * df1)
+    dc2, df2 = rhs_fn(uc2, uf2)
+    uc_new = (1.0 / 3.0) * uc + (2.0 / 3.0) * (uc2 + dt * dc2)
+    uf_new = (1.0 / 3.0) * uf + (2.0 / 3.0) * (uf2 + dt * df2)
+    return sync_coarse(uc_new, uf_new, cfg), uf_new
+
+
+def amr_reference_rhs(uc: torch.Tensor, uf: torch.Tensor,
+                      cfg: AMRHydroConfig, bc: str = "outflow",
+                      level_body: Optional[LevelFactory] = None):
+    """Per-level FUSED reference: each level's whole task batch as one call
+    of the level body with per-task widths.  ``level_body(subgrid)`` gives
+    the body of one sub-grid size (default: the plain PyTorch version,
+    ``plain_level_body``); pass the scenario's own factory to get the
+    reference every aggregation strategy must match bit for bit."""
+    if level_body is None:
+        def level_body(s):
+            return plain_level_body(cfg.gamma, cfg.ghost, s)
+    subs_c, subs_f = extract_subgrids_multilevel(uc, uf, cfg, bc)
+    hc = torch.full((subs_c.shape[0],), cfg.h_coarse, dtype=subs_c.dtype,
+                    device=subs_c.device)
+    hf = torch.full((subs_f.shape[0],), cfg.h_fine, dtype=subs_f.dtype,
+                    device=subs_f.device)
+    duc = level_body(cfg.coarse_subgrid)(subs_c, hc)
+    duf = level_body(cfg.fine_subgrid)(subs_f, hf)
+    return (assemble_global(duc, cfg.coarse_subgrid),
+            assemble_global(duf, cfg.fine_subgrid))
+
+
+def amr_reference_step(uc: torch.Tensor, uf: torch.Tensor, dt,
+                       cfg: AMRHydroConfig, bc: str = "outflow",
+                       level_body: Optional[LevelFactory] = None):
+    """One RK3 step of the per-level fused reference."""
+    return amr_rk3_step(
+        lambda a, b: amr_reference_rhs(a, b, cfg, bc, level_body),
+        uc, uf, dt, cfg)
+
+
+def amr_courant_dt(uc: torch.Tensor, uf: torch.Tensor,
+                   cfg: AMRHydroConfig) -> torch.Tensor:
+    """Shared two-level Courant dt (the fine level is the binding one), as
+    a 0-dim tensor on the levels' device (no host sync)."""
+    sc = max_signal_speed(uc, cfg.gamma)
+    sf = max_signal_speed(uf, cfg.gamma)
+    return cfg.cfl * torch.minimum(
+        torch.div(torch.full_like(sc, cfg.h_coarse), sc),
+        torch.div(torch.full_like(sf, cfg.h_fine), sf))
+
+
+def amr_run(state: AMRState, cfg: AMRHydroConfig, n_steps: int,
+            bc: str = "outflow", level_body: Optional[LevelFactory] = None
+            ) -> AMRState:
+    uc, uf, t = state.uc, state.uf, state.t
+    for _ in range(n_steps):
+        dt = amr_courant_dt(uc, uf, cfg)
+        uc, uf = amr_reference_step(uc, uf, dt, cfg, bc, level_body)
+        t = t + float(dt)
+    return AMRState(uc=uc, uf=uf, t=t, step=state.step + n_steps)

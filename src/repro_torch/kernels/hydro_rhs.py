@@ -1,13 +1,19 @@
-"""Aggregated hydro RHS (Reconstruct + Flux + divergence, fused) as a CUDA
-kernel for Hopper, beside its plain PyTorch version.
+"""Aggregated hydro RHS (Reconstruct + Flux + divergence, fused) as CUDA
+kernels for Hopper, beside their plain PyTorch versions, in the reference's
+two layouts.
 
-``hydro_rhs_cuda`` launches ``csrc/hydro_rhs.cu`` on the current stream for
-a CUDA tensor ``(n, F, P, P, P)`` and returns ``(n, F, S, S, S)``; it
-raises for anything the kernel does not take and never falls back.  The
-cell width is a float ``h`` (uniform grid) or one width per slot,
-``h_slots`` (n,): one kernel serves both of the reference's slot_grid
-Pallas kernels.  ``hydro_rhs_plain`` is the same function in PyTorch, the
-counterpart of ``repro.kernels.ref.hydro_rhs_ref``.
+``slot_grid``: ``hydro_rhs_cuda`` launches ``csrc/hydro_rhs.cu`` on the
+current stream for a CUDA tensor ``(n, F, P, P, P)`` and returns ``(n, F,
+S, S, S)``.  ``slot_lane``: ``hydro_rhs_lane_cuda`` launches
+``csrc/hydro_rhs_lane.cu`` for the lane-major ``(F, P, P, P, n)`` and
+returns ``(F, S, S, S, n)``.  Both raise for anything their kernel does not
+take and never fall back.  The cell width is a float ``h`` (uniform grid)
+or one width per slot, ``h_slots`` (n,): one kernel serves each layout's
+two Pallas kernels.  ``hydro_rhs_plain`` is the same function in PyTorch,
+the counterpart of ``repro.kernels.ref.hydro_rhs_ref``;
+``hydro_rhs_lane_plain`` is the reference's Pallas body on the lane-major
+array (``repro.kernels.hydro_rhs._rhs_field_block`` over axes (-4, -3,
+-2)).
 """
 from __future__ import annotations
 
@@ -18,13 +24,15 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.hydro.euler import N_FIELDS
-from repro_torch.hydro.flux import FACE_QUAD
-from repro_torch.hydro.ppm import DIR_PAIRS
+from repro_torch.hydro.flux import AXIS_VECS, FACE_QUAD, central_upwind
+from repro_torch.hydro.ppm import DIR_PAIRS, _shift, ppm_pair
 from repro_torch.hydro.stepper import subgrid_rhs
 from repro_torch.kernels import _build
 from repro_torch.kernels._build import SMEM_PER_BLOCK
 
-KERNEL_GHOST = 3                  # the kernel's index bounds assume g = 3
+KERNEL_GHOST = 3                  # the kernels' index bounds assume g = 3
+LAYOUTS = ("slot_grid", "slot_lane")
+LANE_AXES = (-4, -3, -2)          # spatial axes of a lane-major block
 
 
 def hydro_rhs_plain(u_slots: torch.Tensor, *, h: Optional[float] = None,
@@ -37,6 +45,47 @@ def hydro_rhs_plain(u_slots: torch.Tensor, *, h: Optional[float] = None,
                        ghost, subgrid)
 
 
+def hydro_rhs_lane_plain(u_t: torch.Tensor, *, h: Optional[float] = None,
+                         h_slots: Optional[torch.Tensor] = None,
+                         gamma: float, ghost: int,
+                         subgrid: int) -> torch.Tensor:
+    """(F, P, P, P, n) -> (F, S, S, S, n) in plain PyTorch, any device: the
+    reference's slot_lane kernel body with the tasks on the last axis.
+    Every shift rolls the spatial axes (-4, -3, -2), the KNP flux reads the
+    field axis 0, and a per-slot width ``h_slots`` (n,) broadcasts over the
+    last axis.  Each (pair, side) surface value is computed once and reused
+    by the quadrature entries that read it (the same values the reference
+    recomputes)."""
+    if (h is None) == (h_slots is None):
+        raise ValueError("pass exactly one of h / h_slots")
+    width = h if h_slots is None else h_slots
+    g, s = ghost, subgrid
+    sides = {}
+
+    def side(pair: int, plus: int) -> torch.Tensor:
+        if pair not in sides:
+            sides[pair] = ppm_pair(u_t, DIR_PAIRS[pair], LANE_AXES)
+        return sides[pair][plus]
+
+    def interior(x: torch.Tensor, lo) -> torch.Tensor:
+        return x[:, lo[0]:lo[0] + s, lo[1]:lo[1] + s, lo[2]:lo[2] + s, :]
+
+    acc = None
+    for axis in range(3):
+        e = AXIS_VECS[axis]
+        face = None
+        for (w, pl, sl, pr, sr) in FACE_QUAD[axis]:
+            u_right = _shift(side(pr, sr), e, 1, LANE_AXES)   # cell i+e_a
+            f = w * central_upwind(side(pl, sl), u_right, axis, gamma,
+                                   dim=0)
+            face = f if face is None else face + f
+        lo = [g, g, g]
+        lo[axis] -= 1
+        d = (interior(face, (g, g, g)) - interior(face, lo)) / width
+        acc = -d if acc is None else acc - d
+    return acc
+
+
 def smem_bytes(subgrid: int, ghost: int = KERNEL_GHOST) -> int:
     """Dynamic shared memory of one block: the padded slot, then one axis'
     face fluxes (the layout ``csrc/hydro_rhs.cu`` reads)."""
@@ -44,39 +93,70 @@ def smem_bytes(subgrid: int, ghost: int = KERNEL_GHOST) -> int:
     return 4 * N_FIELDS * (p ** 3 + (subgrid + 1) * subgrid ** 2)
 
 
-def check_kernel_args(u_slots: torch.Tensor, h: Optional[float],
-                      h_slots: Optional[torch.Tensor], ghost: int,
-                      subgrid: int) -> None:
-    """Raise for anything the kernel does not take (device aside)."""
+def _check_width_and_ghost(h: Optional[float],
+                           h_slots: Optional[torch.Tensor],
+                           ghost: int) -> None:
+    """What both layouts' kernels ask of the width form and the ghost
+    depth."""
     if (h is None) == (h_slots is None):
         raise ValueError("pass exactly one of h / h_slots")
     if ghost != KERNEL_GHOST:
         raise NotImplementedError(
-            f"the hydro_rhs kernel takes ghost={KERNEL_GHOST} only, got "
+            f"the hydro_rhs kernels take ghost={KERNEL_GHOST} only, got "
             f"{ghost} (see ROADMAP.md)")
+
+
+def _check_state(u: torch.Tensor, shape: Tuple[int, ...], expect: str,
+                 h_slots: Optional[torch.Tensor], n: int) -> None:
+    """A contiguous float32 ``u`` of ``shape``, and ``h_slots`` (if any) a
+    contiguous float32 (n,) on its device."""
+    if u.dtype != torch.float32:
+        raise TypeError(f"hydro_rhs kernel takes float32, got {u.dtype}")
+    if tuple(u.shape) != shape:
+        raise ValueError(f"expected {expect}, got {tuple(u.shape)}")
+    if not u.is_contiguous():
+        raise ValueError("hydro_rhs kernel needs a contiguous input")
+    if h_slots is not None and (
+            h_slots.dtype != torch.float32 or h_slots.dim() != 1
+            or h_slots.shape[0] != n or not h_slots.is_contiguous()
+            or h_slots.device != u.device):
+        raise ValueError(f"h_slots must be a contiguous float32 ({n},) "
+                         f"tensor on {u.device}")
+
+
+def check_kernel_args(u_slots: torch.Tensor, h: Optional[float],
+                      h_slots: Optional[torch.Tensor], ghost: int,
+                      subgrid: int) -> None:
+    """Raise for anything the slot_grid kernel does not take (device
+    aside)."""
+    _check_width_and_ghost(h, h_slots, ghost)
     need = smem_bytes(subgrid, ghost)
     if need > SMEM_PER_BLOCK:
         raise NotImplementedError(
             f"subgrid={subgrid} needs {need} B of shared memory per block, "
             f"above the {SMEM_PER_BLOCK} B an sm_90 block may use; larger "
-            f"sub-grids need a tiled kernel (see ROADMAP.md)")
+            f"sub-grids need a tiled kernel or layout='slot_lane' (see "
+            f"ROADMAP.md)")
     p = subgrid + 2 * ghost
-    if u_slots.dtype != torch.float32:
-        raise TypeError(f"hydro_rhs kernel takes float32, got "
-                        f"{u_slots.dtype}")
-    if u_slots.dim() != 5 or tuple(u_slots.shape[1:]) != (N_FIELDS, p, p, p):
-        raise ValueError(f"expected (n, {N_FIELDS}, {p}, {p}, {p}), got "
-                         f"{tuple(u_slots.shape)}")
-    if not u_slots.is_contiguous():
-        raise ValueError("hydro_rhs kernel needs a contiguous input")
-    if h_slots is not None:
-        if (h_slots.dtype != torch.float32 or h_slots.dim() != 1
-                or h_slots.shape[0] != u_slots.shape[0]
-                or not h_slots.is_contiguous()
-                or h_slots.device != u_slots.device):
-            raise ValueError(
-                f"h_slots must be a contiguous float32 ({u_slots.shape[0]},) "
-                f"tensor on {u_slots.device}")
+    n = u_slots.shape[0] if u_slots.dim() else 0
+    _check_state(u_slots, (n, N_FIELDS, p, p, p),
+                 f"(n, {N_FIELDS}, {p}, {p}, {p})", h_slots, n)
+
+
+def check_lane_args(u_t: torch.Tensor, h: Optional[float],
+                    h_slots: Optional[torch.Tensor], ghost: int,
+                    subgrid: int) -> None:
+    """Raise for anything the lane kernel does not take (device aside):
+    a contiguous float32 ``(F, P, P, P, n)``, ghost 3, any sub-grid size
+    (nothing of size P^3 is staged, so S=16 fits), int32 offsets."""
+    _check_width_and_ghost(h, h_slots, ghost)
+    p = subgrid + 2 * ghost
+    n = u_t.shape[-1] if u_t.dim() else 0
+    _check_state(u_t, (N_FIELDS, p, p, p, n),
+                 f"({N_FIELDS}, {p}, {p}, {p}, n)", h_slots, n)
+    if u_t.numel() >= 2 ** 31:
+        raise ValueError(f"the lane kernel indexes with int32: {n} slots "
+                         f"of {p}^3 are too many for one launch")
 
 
 @lru_cache(maxsize=None)
@@ -148,3 +228,59 @@ def hydro_rhs_cuda(u_slots: torch.Tensor, *, h: Optional[float] = None,
 
 
 hydro_rhs_cuda.launches = 0
+
+
+def _declare_lane(lib: ctypes.CDLL) -> None:
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.hydro_rhs_lane_init.argtypes = [ctypes.POINTER(cf),
+                                        ctypes.POINTER(ci)]
+    lib.hydro_rhs_lane_init.restype = ci
+    lib.hydro_rhs_lane_launch.argtypes = [vp, vp, vp, ci, ci, cf, cf, cf, vp]
+    lib.hydro_rhs_lane_launch.restype = ci
+    lib.hydro_rhs_lane_error_string.argtypes = [ci]
+    lib.hydro_rhs_lane_error_string.restype = ctypes.c_char_p
+
+
+_LANE_READY_DEVICES: set = set()    # devices whose constant table is uploaded
+
+
+def build_lane() -> ctypes.CDLL:
+    """Build (first use) and load the lane kernel's library."""
+    return _build.load("hydro_rhs_lane", _declare_lane)
+
+
+def hydro_rhs_lane_cuda(u_t: torch.Tensor, *, h: Optional[float] = None,
+                        h_slots: Optional[torch.Tensor] = None, gamma: float,
+                        ghost: int, subgrid: int) -> torch.Tensor:
+    """Launch the lane kernel on the current stream: (F, P, P, P, n) ->
+    (F, S, S, S, n), one task per thread across each warp.  Counts each
+    launch in ``hydro_rhs_lane_cuda.launches``."""
+    if u_t.device.type != "cuda":
+        raise ValueError(
+            f"hydro_rhs_lane_cuda needs a CUDA tensor, got one on "
+            f"{u_t.device}; hydro_rhs_lane_plain is the CPU path")
+    check_lane_args(u_t, h, h_slots, ghost, subgrid)
+    lib = build_lane()
+    n, s = u_t.shape[-1], subgrid
+    out = torch.empty((N_FIELDS, s, s, s, n), dtype=torch.float32,
+                      device=u_t.device)
+    if n == 0:
+        return out
+    with torch.cuda.device(u_t.device):
+        if u_t.device.index not in _LANE_READY_DEVICES:
+            _build.raise_on(lib.hydro_rhs_lane_init(*_quad_table()),
+                            lib.hydro_rhs_lane_error_string,
+                            "hydro_rhs_lane kernel set-up")
+            _LANE_READY_DEVICES.add(u_t.device.index)
+        stream = torch.cuda.current_stream(u_t.device).cuda_stream
+        err = lib.hydro_rhs_lane_launch(
+            u_t.data_ptr(), None if h_slots is None else h_slots.data_ptr(),
+            out.data_ptr(), n, s, 0.0 if h is None else float(h), gamma,
+            gamma - 1.0, stream)
+    _build.raise_on(err, lib.hydro_rhs_lane_error_string,
+                    "hydro_rhs_lane kernel launch")
+    hydro_rhs_lane_cuda.launches += 1
+    return out
+
+
+hydro_rhs_lane_cuda.launches = 0

@@ -2,6 +2,12 @@
 device: the CUDA kernel for CUDA tensors, the plain PyTorch version for CPU
 tensors.  A CUDA tensor never falls back to the plain version.
 
+The hydro RHS keeps the reference's two layouts (``layout=``):
+``slot_grid`` hands the ``(n, F, P, P, P)`` slots to the one-block-per-slot
+kernel, ``slot_lane`` transposes them to ``(F, P, P, P, n)``, runs the
+lane kernel (tasks across each warp) and transposes back, as the reference
+does around its ``pallas_call``.
+
 The ``*_batched_body`` factories build the aggregation-region bodies the
 scenarios register: the uniform hydro RHS (scalar h), the hydro RHS with a
 per-task width (``level_batched_body``), the gravity solve, and the
@@ -16,7 +22,10 @@ import torch
 
 from repro_torch.configs.base import GravityHydroConfig, HydroConfig
 from repro_torch.kernels.gravity import gravity_cuda, gravity_plain
-from repro_torch.kernels.hydro_rhs import hydro_rhs_cuda, hydro_rhs_plain
+from repro_torch.kernels.hydro_rhs import (
+    LAYOUTS, hydro_rhs_cuda, hydro_rhs_lane_cuda, hydro_rhs_lane_plain,
+    hydro_rhs_plain,
+)
 from repro_torch.kernels.hydro_split import (
     hydro_flux_cuda, hydro_flux_plain, hydro_reconstruct_cuda,
     hydro_reconstruct_plain,
@@ -32,13 +41,32 @@ def _dispatch(x: torch.Tensor, name: str, cuda: Callable, plain: Callable,
     raise ValueError(f"no {name} path for device {x.device}")
 
 
+def check_layout(layout: str) -> str:
+    if layout not in LAYOUTS:
+        raise ValueError(f"unknown layout {layout!r} — valid layouts: "
+                         f"{', '.join(LAYOUTS)}")
+    return layout
+
+
 def hydro_rhs(u_slots: torch.Tensor, *, h: Optional[float] = None,
               h_slots: Optional[torch.Tensor] = None, gamma: float,
-              ghost: int, subgrid: int) -> torch.Tensor:
-    """(n, F, P, P, P) -> (n, F, S, S, S)."""
-    return _dispatch(u_slots, "hydro_rhs", hydro_rhs_cuda, hydro_rhs_plain,
-                     h=h, h_slots=h_slots, gamma=gamma, ghost=ghost,
-                     subgrid=subgrid)
+              ghost: int, subgrid: int,
+              layout: str = "slot_grid") -> torch.Tensor:
+    """(n, F, P, P, P) -> (n, F, S, S, S), in either layout.  Under
+    ``slot_lane`` the two transposes are copies: the lane kernel reads a
+    contiguous ``(F, P, P, P, n)`` and the result comes back contiguous."""
+    kw = dict(h=h, h_slots=h_slots, gamma=gamma, ghost=ghost,
+              subgrid=subgrid)
+    if check_layout(layout) == "slot_grid":
+        return _dispatch(u_slots, "hydro_rhs", hydro_rhs_cuda,
+                         hydro_rhs_plain, **kw)
+    if u_slots.dim() != 5:
+        raise ValueError(f"expected (n, F, P, P, P), got "
+                         f"{tuple(u_slots.shape)}")
+    u_t = u_slots.permute(1, 2, 3, 4, 0).contiguous()
+    out_t = _dispatch(u_t, "hydro_rhs_lane", hydro_rhs_lane_cuda,
+                      hydro_rhs_lane_plain, **kw)
+    return out_t.permute(4, 0, 1, 2, 3).contiguous()
 
 
 def hydro_reconstruct(u_slots: torch.Tensor) -> torch.Tensor:
@@ -63,24 +91,31 @@ def gravity(u_slots: torch.Tensor, h_slots: torch.Tensor, *, ghost: int,
                      n_iter=n_iter)
 
 
-def hydro_batched_body(cfg: HydroConfig, h: float) -> Callable:
+def hydro_batched_body(cfg: HydroConfig, h: float,
+                       layout: str = "slot_grid") -> Callable:
     """The uniform-grid batched task body ``(n, F, P, P, P) -> (n, F, S, S,
-    S)`` with the cell width fixed: the kernel on the card, the plain
-    version on the CPU."""
+    S)`` with the cell width fixed: the layout's kernel on the card, its
+    plain version on the CPU (``pallas_batched_body``'s counterpart)."""
+    check_layout(layout)
+
     def batched(u_slots: torch.Tensor) -> torch.Tensor:
         return hydro_rhs(u_slots, h=h, gamma=cfg.gamma, ghost=cfg.ghost,
-                         subgrid=cfg.subgrid)
+                         subgrid=cfg.subgrid, layout=layout)
     return batched
 
 
 @lru_cache(maxsize=None)
-def level_batched_body(gamma: float, ghost: int, subgrid: int) -> Callable:
+def level_batched_body(gamma: float, ghost: int, subgrid: int,
+                       layout: str = "slot_grid") -> Callable:
     """The hydro body with a per-task cell width: ``(k, F, P, P, P), (k,)
-    -> (k, F, S, S, S)``.  Cached, so every scenario sharing (gamma, ghost,
-    subgrid) registers the same callable."""
+    -> (k, F, S, S, S)`` (``pallas_batched_body_h``'s counterpart).
+    Cached, so every scenario sharing (gamma, ghost, subgrid, layout)
+    registers the same callable."""
+    check_layout(layout)
+
     def batched(u_slots: torch.Tensor, h_slots: torch.Tensor) -> torch.Tensor:
         return hydro_rhs(u_slots, h_slots=h_slots, gamma=gamma, ghost=ghost,
-                         subgrid=subgrid)
+                         subgrid=subgrid, layout=layout)
     return batched
 
 

@@ -1,8 +1,8 @@
 """Where an RK3 step's time goes on the card, per strategy.
 
   PYTHONPATH=src python -m repro_torch.profile_step \
-      [--scenario sedov|gravity] [--body fused|split] \
-      [--out results/profile_step.json]
+      [--scenario sedov|gravity|amr] [--body fused|split] \
+      [--layout slot_grid|slot_lane] [--out results/profile_step.json]
 
 At the paper's grid (512 sub-grids of 8^3), for each strategy row (fused,
 s3 at caps 32 and 512, s2+s3 with 4 streams) it warms up, times 3 RK3
@@ -15,28 +15,40 @@ the share is a lower bound there).
 
 ``--scenario sedov`` (default) steps the uniform Sedov ``CONFIG``;
 ``--scenario gravity`` steps the self-gravitating blast on the same grid,
-``GravityHydroConfig(hydro=CONFIG)`` (hydro and gravity families).
-``--body split`` runs the uniform Sedov scenario on the split
-Reconstruct + Flux body instead of the fused hydro kernel.  Needs a CUDA
-device.
+``GravityHydroConfig(hydro=CONFIG)`` (hydro and gravity families);
+``--scenario amr`` steps the two-level AMR blast at 1,024 tasks per
+iteration (``AMR_1024``: a 64^3 coarse level and a 64^3 fine patch, 512
+sub-grids of 8^3 each, one family).  ``--body split`` runs the uniform
+Sedov scenario on the split Reconstruct + Flux body instead of the fused
+hydro kernel.  ``--layout slot_lane`` runs the hydro family on the lane
+kernel (tasks across each warp) instead of the one-block-per-slot kernel.
+Needs a CUDA device.
 """
 import argparse
+import functools
 import json
 import time
 
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from repro_torch.configs.base import AggregationConfig, GravityHydroConfig
+from repro_torch.configs.base import (
+    AggregationConfig, AMRHydroConfig, GravityHydroConfig,
+)
 from repro_torch.configs.sedov import CONFIG
 from repro_torch.core import (
-    GravityScenario, StrategyRunner, UniformSedovScenario,
+    AMRSedovScenario, GravityScenario, StrategyRunner, UniformSedovScenario,
 )
-from repro_torch.kernels.ops import hydro_split_batched_body
-from repro_torch.hydro.state import sedov_init
-from repro_torch.hydro.stepper import courant_dt
+from repro_torch.hydro.state import amr_sedov_init, sedov_init
+from repro_torch.hydro.stepper import amr_courant_dt, courant_dt
+from repro_torch.kernels.hydro_rhs import LAYOUTS
+from repro_torch.kernels.ops import (
+    hydro_batched_body, hydro_split_batched_body, level_batched_body,
+)
 
 STEPS = 3            # RK3 steps timed, then profiled, per row
+AMR_1024 = AMRHydroConfig(name="amr_sedov_1024", coarse_grids_per_edge=8,
+                          cover=32)
 TOP = 8              # host operations and kernels listed per row
 ROWS = (("fused", dict(strategy="fused")),
         ("s3 cap 32", dict(strategy="s3", max_aggregated=32)),
@@ -58,25 +70,38 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def make_scenario(scenario: str, body: str):
-    """The profiled scenario at the paper's grid (``CONFIG``)."""
+def make_case(scenario: str, body: str, layout: str, dev):
+    """The profiled scenario, its initial state and its first Courant dt:
+    the uniform and gravity scenarios at the paper's grid (``CONFIG``),
+    the AMR scenario at ``AMR_1024``."""
+    if body == "split" and (scenario != "sedov" or layout != "slot_grid"):
+        raise SystemExit("--body split runs with --scenario sedov and the "
+                         "slot_grid layout only")
+    if scenario == "amr":
+        cfg = AMR_1024
+        st = amr_sedov_init(cfg, device=dev)
+        sc = AMRSedovScenario(cfg, hydro_body=functools.partial(
+            level_batched_body, cfg.gamma, cfg.ghost, layout=layout))
+        return sc, (st.uc, st.uf), amr_courant_dt(st.uc, st.uf, cfg)
+    u0 = sedov_init(CONFIG, device=dev).u
+    dt = courant_dt(u0, CONFIG)
     if scenario == "gravity":
-        if body != "fused":
-            raise SystemExit("--body split runs with --scenario sedov only")
-        return GravityScenario(GravityHydroConfig(name="gravity_sedov_512",
-                                                  hydro=CONFIG))
+        hc = CONFIG
+        return GravityScenario(
+            GravityHydroConfig(name="gravity_sedov_512", hydro=hc),
+            hydro_body=level_batched_body(hc.gamma, hc.ghost, hc.subgrid,
+                                          layout=layout)), u0, dt
+    h = CONFIG.domain / (CONFIG.grids_per_edge * CONFIG.subgrid)
     if body == "split":
-        h = CONFIG.domain / (CONFIG.grids_per_edge * CONFIG.subgrid)
         return UniformSedovScenario(
-            CONFIG, batched_body=hydro_split_batched_body(CONFIG, h))
-    return UniformSedovScenario(CONFIG)
+            CONFIG, batched_body=hydro_split_batched_body(CONFIG, h)), u0, dt
+    return UniformSedovScenario(CONFIG, batched_body=hydro_batched_body(
+        CONFIG, h, layout=layout)), u0, dt
 
 
-def profile_row(scenario, cfg, agg, steps, dev):
+def profile_row(scenario, u0, dt, agg, steps, dev):
     runner = StrategyRunner(scenario, agg, device=dev)
     runner.warmup()
-    u0 = sedov_init(cfg, device=dev).u
-    dt = courant_dt(u0, cfg)
     wall_ms = runner.time_step(u0, dt, steps) * 1e3
     torch.cuda.synchronize(dev)
     with profile(activities=[ProfilerActivity.CPU,
@@ -110,21 +135,26 @@ def profile_row(scenario, cfg, agg, steps, dev):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scenario", default="sedov",
-                    choices=("sedov", "gravity"))
+                    choices=("sedov", "gravity", "amr"))
     ap.add_argument("--body", default="fused", choices=("fused", "split"))
+    ap.add_argument("--layout", default="slot_grid", choices=LAYOUTS)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA device")
     dev = torch.device("cuda", 0)
     out = {"device": torch.cuda.get_device_name(0), "scenario": args.scenario,
-           "body": args.body, "rows": {}}
-    print(f"profile_step: scenario {args.scenario}, body {args.body}, "
-          f"{CONFIG.n_subgrids} sub-grids of {CONFIG.subgrid}^3 on "
+           "body": args.body, "layout": args.layout, "rows": {}}
+    tasks = (AMR_1024.n_subgrids_coarse + AMR_1024.n_subgrids_fine
+             if args.scenario == "amr" else CONFIG.n_subgrids)
+    print(f"profile_step: scenario {args.scenario}, body {args.body}, layout "
+          f"{args.layout}, {tasks} tasks of 8^3 per iteration on "
           f"{out['device']}", flush=True)
     for label, kw in ROWS:
-        row = profile_row(make_scenario(args.scenario, args.body), CONFIG,
-                          AggregationConfig(**kw), STEPS, dev)
+        scenario, u0, dt = make_case(args.scenario, args.body, args.layout,
+                                     dev)
+        row = profile_row(scenario, u0, dt, AggregationConfig(**kw), STEPS,
+                          dev)
         out["rows"][label] = row
         print(f"{label}: {row['ms_per_step']:.3f} ms/step (profiled "
               f"{row['profiled_ms_per_step']:.3f}), device busy "

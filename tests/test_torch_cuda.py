@@ -12,18 +12,26 @@ its plain PyTorch version with the reference's kernel tolerance
 taken per slot and field: a slot of small values is held to its own scale,
 not to the largest slot's.
 """
+import functools
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.configs.amr_sedov import CONFIG as ACFG  # noqa: E402
+from repro_torch.configs.amr_sedov import CONFIG_MIXED  # noqa: E402
 from repro_torch.configs.base import AggregationConfig, HydroConfig  # noqa: E402
 from repro_torch.configs.gravity import CONFIG_SMALL as GCFG  # noqa: E402
 from repro_torch.core import (  # noqa: E402
-    GravityScenario, StrategyRunner, UniformSedovScenario,
+    AMRSedovScenario, GravityScenario, StrategyRunner, UniformSedovScenario,
 )
-from repro_torch.hydro.state import extract_subgrids, sedov_init  # noqa: E402
-from repro_torch.hydro.stepper import courant_dt  # noqa: E402
+from repro_torch.hydro.state import (  # noqa: E402
+    amr_sedov_init, extract_subgrids, sedov_init,
+)
+from repro_torch.hydro.stepper import (  # noqa: E402
+    amr_courant_dt, amr_reference_step, courant_dt,
+)
 from repro_torch.kernels import gravity as grav  # noqa: E402
 from repro_torch.kernels import hydro_rhs as kern  # noqa: E402
 from repro_torch.kernels import hydro_split as split  # noqa: E402
@@ -187,3 +195,104 @@ def test_gravity_path_streams_bit_identical_to_fused(dev):
                                                  "gravity": 12}
     torch.cuda.synchronize(dev)
     assert all(torch.equal(o, outs[0]) for o in outs[1:])
+
+
+LKW = dict(gamma=1.4, ghost=3)
+
+
+def lane_major(u):
+    return u.permute(1, 2, 3, 4, 0).contiguous()
+
+
+def slot_major(x):
+    return x.permute(4, 0, 1, 2, 3)
+
+
+def assert_buckets_independent(u, whole, widths, s):
+    """Every slot of ``whole`` equals that slot from buckets of 1 and 3,
+    bit for bit."""
+    n = u.shape[0]
+    for size in (1, 3):
+        for a in range(0, n, size):
+            b = min(a + size, n)
+            kw = (dict(h_slots=widths[a:b].contiguous())
+                  if isinstance(widths, torch.Tensor) else dict(h=widths))
+            part = kern.hydro_rhs_lane_cuda(lane_major(u[a:b]), subgrid=s,
+                                            **kw, **LKW)
+            assert torch.equal(part, whole[..., a:b]), (size, a)
+
+
+def test_lane_kernel_matches_plain_and_slot_grid(dev):
+    sedov = extract_subgrids(sedov_init(CFG, device=dev).u, 8, 3)
+    u = torch.cat([random_slots(74, 3, dev), sedov]).contiguous()
+    ut = lane_major(u)
+    hs = torch.where(torch.arange(u.shape[0], device=dev) % 2 == 0,
+                     torch.tensor(0.02, device=dev),
+                     torch.tensor(0.01, device=dev)).float().contiguous()
+    for widths in (0.01, hs):
+        kw = (dict(h_slots=widths) if isinstance(widths, torch.Tensor)
+              else dict(h=widths))
+        before = kern.hydro_rhs_lane_cuda.launches
+        got = kern.hydro_rhs_lane_cuda(ut, subgrid=8, **kw, **LKW)
+        torch.cuda.synchronize(dev)
+        assert kern.hydro_rhs_lane_cuda.launches == before + 1
+        want = kern.hydro_rhs_lane_plain(ut, subgrid=8, **kw, **LKW)
+        assert_within_kernel_tol(slot_major(got), slot_major(want))
+        assert_within_kernel_tol(
+            slot_major(got), kern.hydro_rhs_cuda(u, subgrid=8, **kw, **LKW))
+        assert_buckets_independent(u, got, widths, 8)
+        assert torch.equal(
+            ops.hydro_rhs(u, subgrid=8, layout="slot_lane", **kw, **LKW),
+            slot_major(got).contiguous())
+    empty = kern.hydro_rhs_lane_cuda(ut[..., :0].contiguous(), h=0.01,
+                                     subgrid=8, **LKW)
+    assert empty.shape == (5, 8, 8, 8, 0)
+    with pytest.raises(ValueError, match="h_slots"):
+        kern.hydro_rhs_lane_cuda(ut, h_slots=hs.cpu(), subgrid=8, **LKW)
+    with pytest.raises(ValueError, match="contiguous"):
+        kern.hydro_rhs_lane_cuda(ut.transpose(1, 2), h=0.01, subgrid=8,
+                                 **LKW)
+
+
+def test_lane_kernel_at_16(dev):
+    """64^3 of 16^3 sub-grids: the size the slot_grid kernel refuses."""
+    c16 = HydroConfig(subgrid=16, levels=1)
+    sedov = extract_subgrids(sedov_init(c16, device=dev).u, 16, 3)
+    u = torch.cat([random_slots(75, 2, dev, s=16), sedov]).contiguous()
+    ut = lane_major(u)
+    got = kern.hydro_rhs_lane_cuda(ut, h=0.01, subgrid=16, **LKW)
+    assert got.shape == (5, 16, 16, 16, u.shape[0])
+    want = kern.hydro_rhs_lane_plain(ut, h=0.01, subgrid=16, **LKW)
+    assert_within_kernel_tol(slot_major(got), slot_major(want))
+    assert_buckets_independent(u, got, 0.01, 16)
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        kern.hydro_rhs_cuda(u, h=0.01, subgrid=16, **LKW)
+
+
+def test_amr_path_both_layouts_bit_identical_to_reference(dev):
+    """AMR CONFIG on both layouts and CONFIG_MIXED on slot_lane: every
+    strategy equals the per-level fused reference on the same bodies;
+    CONFIG_MIXED's 16^3 family is refused on slot_grid."""
+    for cfg, layouts in ((ACFG, ("slot_grid", "slot_lane")),
+                         (CONFIG_MIXED, ("slot_lane",))):
+        st = amr_sedov_init(cfg, device=dev)
+        dt = amr_courant_dt(st.uc, st.uf, cfg)
+        for layout in layouts:
+            body = functools.partial(ops.level_batched_body, cfg.gamma,
+                                     cfg.ghost, layout=layout)
+            ref = amr_reference_step(st.uc, st.uf, dt, cfg, level_body=body)
+            for agg in (AggregationConfig(strategy="fused"),
+                        AggregationConfig(strategy="s3", max_aggregated=2),
+                        AggregationConfig(strategy="s2+s3",
+                                          max_aggregated=2, n_executors=4)):
+                runner = StrategyRunner(AMRSedovScenario(
+                    cfg, hydro_body=body), agg, device=dev)
+                runner.warmup()
+                out = runner.rk3_step((st.uc, st.uf), dt)
+                torch.cuda.synchronize(dev)
+                assert torch.equal(out[0], ref[0]), (cfg.name, layout, agg)
+                assert torch.equal(out[1], ref[1]), (cfg.name, layout, agg)
+    runner = StrategyRunner(AMRSedovScenario(CONFIG_MIXED),
+                            AggregationConfig(strategy="fused"), device=dev)
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        runner.rk3_step((st.uc, st.uf), dt)
