@@ -5,7 +5,8 @@
 
 1. Prints the card's name and power limit, then builds the hand-written
    CUDA kernels ``src/repro_torch/csrc/{hydro_rhs,gravity,hydro_split,
-   hydro_rhs_lane}.cu`` with nvcc for sm_90a, all four at once.
+   hydro_rhs_lane,decode_attention,grouped_gemm}.cu`` with nvcc for
+   sm_90a, all six at once.
 2. Holds the fused hydro kernel against its plain PyTorch version on the
    card, with atol scaled per slot and field: on the main path's own input
    (the Sedov IC's 512 padded sub-grids, (512, 5, 14, 14, 14) fp32) with a
@@ -47,7 +48,30 @@
    (64 sub-grids of 16^3) under ``fused``, ``s3`` cap 32 and ``s2+s3``:
    bit-identical rows, conservation, agreement with the slot_grid main
    path (``CONFIG``) or the plain path (``CONFIG_16``).
-10. Prints one line naming the kernels, one JSON line of kernels, the card
+10. Holds the serving kernels (``csrc/decode_attention.cu``,
+   ``csrc/grouped_gemm.cu``) against their plain versions at the full-width
+   qwen2-moe-a2.7b shapes in bf16 (8 requests, a 1,024-position cache with
+   ragged lengths 1 to 1,024; 60 experts of (2048, 1408) and (1408, 2048)
+   routed by a full-width router), in fp32 and at granite-8b's GQA shape;
+   checks that each request and each expert row is independent of the rest
+   of its launch bit for bit and that rows past group_len are exactly 0;
+   times each against its plain version, one PyTorch call and its bound.
+11. The serving path: qwen2-moe-a2.7b at full width and depth in bf16
+   (14.3 B weights from a seeded generator on the card) behind
+   ``ServingEngine(max_batch=8, max_len=1024)`` on 12 requests (prompts of
+   8-96 tokens and one of 640, 8-24 new tokens each): every request done,
+   the kernels launched 24x and 72x per engine launch, buckets 1-8 used;
+   each emitted token replayed alone is the replay's argmax unless its
+   top-2 margin is below ``LOGIT_TOL`` x max|logit|.  Three of the replays
+   run again through ``decode_step``'s kernels hook: with every kernel
+   launch held to its plain version on the same inputs; with the plain
+   versions alone (the bf16 divergence is printed: a rounding difference
+   that flips a top-4 routing choice moves the rest of a replay); and in
+   fp32 at full width and ``F32_LAYERS`` layers, where the plain versions'
+   logits must stay within ``F32_LOGIT_TOL`` of the kernels'.
+   Prints tokens/s, ms per launch by bucket, the cache gather and scatter
+   copies' device time and peak memory.
+12. Prints one line naming the kernels, one JSON line of kernels, the card
    line, and as its last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the run exits non-zero and prints no result;
@@ -67,9 +91,11 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM data sheet: HBM3 bandwidth and fp32 rate outside the tensor cores
+# H100 SXM data sheet: HBM3 bandwidth, fp32 rate outside the tensor cores
+# and the dense bf16 tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 # the reference's kernel tolerance (tests/test_kernels.py)
 RTOL, ATOL_SCALE = 2e-5, 2e-6
 STEPS = 3            # RK3 steps of the main path per strategy
@@ -222,9 +248,9 @@ def hydro_rhs_ops(n, subgrid, ghost=3):
     return n * per_slot
 
 
-def bound_ms(n_bytes, n_ops):
+def bound_ms(n_bytes, n_ops, flop_per_s=FP32_FLOP_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = n_ops / FP32_FLOP_PER_S
+    t_ops = n_ops / flop_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -455,12 +481,12 @@ def recon_by_field(recon):
 
 
 def kernel_entry(name, source, replaces, errs, ms, plain_ms, n_bytes,
-                 n_ops):
-    b_ms, b_by = bound_ms(n_bytes, n_ops)
+                 n_ops, flop_per_s=FP32_FLOP_PER_S, library_ms=None):
+    b_ms, b_by = bound_ms(n_bytes, n_ops, flop_per_s)
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 max_abs_err=max(e[0] for e in errs), ms=ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None)
+                library_ms=library_ms)
 
 
 def print_timing(name, n, ms, ms_32, plain_ms, entry, n_bytes, n_ops):
@@ -1193,6 +1219,527 @@ def phase_lane_path(cfg, dev, steps, results, key, dts=None, grid_path=None):
     return table
 
 
+# ---------------------------------------------------------------------------
+# the serving path: decode attention, the grouped GEMM, qwen2-moe-a2.7b
+# ---------------------------------------------------------------------------
+
+MAX_LEN = 1024          # the serving phase's engine max_len (cache length S)
+MAX_BATCH = 8
+# the reference's kernel tolerances (tests/test_kernels.py), atol = rtol
+DA_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+GG_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# bf16 logits after 24 layers: 16 bf16 rounding units (2^-8 each) of the
+# row's largest |logit|
+LOGIT_TOL = 2.0 ** -4
+# fp32 replays, kernels against plain versions: each launch within 1e-5 of
+# its plain version, a few layers deep, two orders of magnitude of margin
+F32_LAYERS = 4
+F32_LOGIT_TOL = 1e-3
+
+
+class CheckedKernels:
+    """A ``kernels`` hook for ``decode_step``: launches each serving kernel
+    and holds its output to the plain version on the same inputs at the
+    dtype's kernel tolerance, then returns the kernel's output."""
+
+    def __init__(self):
+        self.calls = {"decode_attention": 0, "grouped_gemm": 0}
+        self.max_err = {"decode_attention": 0.0, "grouped_gemm": 0.0}
+
+    def _hold(self, name, got, want, tol):
+        diff = (got.float() - want.float()).abs()
+        check(bool((diff <= tol + tol * want.float().abs()).all()),
+              f"{name} on the serving path: the kernel is outside "
+              f"{tol:g} of its plain version")
+        self.calls[name] += 1
+        self.max_err[name] = max(self.max_err[name], float(diff.max()))
+        return got
+
+    def decode_attention(self, q, k, v, cache_len):
+        from repro_torch.kernels import decode_attention as da
+        return self._hold("decode_attention",
+                          da.decode_attention_cuda(q, k, v, cache_len),
+                          da.decode_attention_plain(q, k, v, cache_len),
+                          DA_TOL[q.dtype])
+
+    def grouped_gemm(self, x, w, group_len):
+        from repro_torch.kernels import grouped_gemm as gg
+        return self._hold("grouped_gemm",
+                          gg.grouped_gemm_cuda(x, w, group_len),
+                          gg.grouped_gemm_plain(x, w, group_len),
+                          GG_TOL[x.dtype])
+
+
+class RoutingRecorder:
+    """A ``kernels`` hook for ``decode_step`` that passes every call on to
+    ``inner`` and keeps each MoE layer's routing: the experts with rows in
+    its first grouped GEMM (gate) of every step."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.live = []
+        self._calls = 0
+
+    def decode_attention(self, q, k, v, cache_len):
+        return self.inner.decode_attention(q, k, v, cache_len)
+
+    def grouped_gemm(self, x, w, group_len):
+        if self._calls % 3 == 0:
+            self.live.append(tuple(torch.nonzero(group_len).flatten()
+                                   .tolist()))
+        self._calls += 1
+        return self.inner.grouped_gemm(x, w, group_len)
+
+
+def flop_rate(dtype):
+    return BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
+
+
+def allclose_err(label, got, want, tol):
+    """Hold ``got`` to ``want`` elementwise, |got - want| <= tol + tol
+    |want| (the reference's allclose with atol = rtol = tol); prints and
+    returns the max abs error."""
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    print(f"{label}: max abs err {err:.3e} (atol = rtol = {tol:g}, max "
+          f"|want| {float(w.abs().max()):.3e})", flush=True)
+    check(bool(torch.isfinite(g).all()), f"{label}: output not finite")
+    check(bool((diff <= tol + tol * w.abs()).all()),
+          f"{label}: outside the tolerance")
+    return err
+
+
+def draw(rng, shape, dtype, dev, scale=1.0):
+    x = (scale * rng.standard_normal(shape)).astype(np.float32)
+    return torch.from_numpy(x).to(dev).to(dtype)
+
+
+def attention_bytes_ops(q, k, lens):
+    """The function's bytes (q, the K and V rows below each cache_len, the
+    output) and operations (4 per live row, query head and dimension)."""
+    b, hq, d = q.shape
+    hkv, elt = k.shape[2], k.element_size()
+    rows = int(lens.sum())
+    return (2 * q.numel() * elt + rows * hkv * d * 2 * elt,
+            4 * rows * hq * d)
+
+
+def gg_bytes_ops(x, w, gl):
+    """The function's bytes (the live x rows, the w of experts with rows,
+    the whole output) and operations (2 K N per live row)."""
+    e, c, k = x.shape
+    n, elt = w.shape[2], x.element_size()
+    rows = int(gl.sum())
+    live = int((gl > 0).sum())
+    return (rows * k * elt + live * k * n * elt + e * c * n * elt,
+            2 * rows * k * n)
+
+
+def phase_lm_kernels(dev, card, results):
+    """The two serving kernels against their plain versions at the
+    full-width qwen2-moe-a2.7b shapes (bf16), at fp32 and at granite-8b's
+    GQA shape; row independence; exact zeros; times beside the plain
+    version, one PyTorch call and the bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs.qwen2_moe_a2_7b import CONFIG as QWEN
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import grouped_gemm as gg
+    from repro_torch.models import moe
+    from repro_torch.models.common import Init
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    rng = np.random.default_rng(14)
+    b, s, d = MAX_BATCH, MAX_LEN, QWEN.resolved_head_dim
+    lens = np.concatenate([[1, s], rng.integers(2, s, b - 2)]).astype(np.int32)
+    cl = torch.from_numpy(lens).to(dev)
+    print(f"decode_attention at B={b}, S={s}, D={d}, cache_len "
+          f"{lens.tolist()} ({card})", flush=True)
+
+    # --- decode attention ---
+    errs, main = [], None
+    for label, hq, hkv, dtype in (
+            ("qwen2-moe MHA 16/16 bf16", QWEN.n_heads, QWEN.n_kv_heads, bf16),
+            ("qwen2-moe MHA 16/16 f32", QWEN.n_heads, QWEN.n_kv_heads, f32),
+            ("granite-8b GQA 32/8 bf16", 32, 8, bf16),
+            ("granite-8b GQA 32/8 f32", 32, 8, f32)):
+        q = draw(rng, (b, hq, d), dtype, dev)
+        k = draw(rng, (b, s, hkv, d), dtype, dev)
+        v = draw(rng, (b, s, hkv, d), dtype, dev)
+        got = da.decode_attention_cuda(q, k, v, cl)
+        want = da.decode_attention_plain(q, k, v, cl)
+        errs.append((allclose_err(f"decode_attention kernel vs plain, "
+                                  f"{label}", got, want, DA_TOL[dtype]),))
+        for i in range(b):
+            solo = da.decode_attention_cuda(q[i:i + 1], k[i:i + 1],
+                                            v[i:i + 1], cl[i:i + 1])
+            check(torch.equal(solo[0], got[i]),
+                  f"decode_attention {label}: request {i} differs between "
+                  f"its solo launch and the bucket of {b}")
+        if main is None:
+            main = (q, k, v, got)
+    q, k, v, got = main
+    cl0 = cl.clone()
+    cl0[0] = 0
+    got0 = da.decode_attention_cuda(q, k, v, cl0)
+    check(not bool(got0[0].any()) and torch.equal(got0[1:], got[1:]),
+          "decode_attention: cache_len 0 must give exactly 0 and leave the "
+          "other requests as they were")
+    print(f"decode_attention: every request equals its solo launch bit for "
+          f"bit (4 shapes); cache_len 0 gives 0", flush=True)
+
+    ms = time_cuda_ms(lambda: da.decode_attention_cuda(q, k, v, cl), 200)
+    plain_ms = time_cuda_ms(lambda: da.decode_attention_plain(q, k, v, cl),
+                            20)
+    # one PyTorch call for the same function: SDPA with the boolean length
+    # mask (built, like the GQA expansion, outside the timed call)
+    g = q.shape[1] // k.shape[2]
+    qs = q[:, :, None, :]
+    ks = k.transpose(1, 2).repeat_interleave(g, dim=1)
+    vs = v.transpose(1, 2).repeat_interleave(g, dim=1)
+    mask = (torch.arange(s, device=dev)[None, :] < cl[:, None])[:, None,
+                                                                 None, :]
+    sdpa = lambda: F.scaled_dot_product_attention(qs, ks, vs,  # noqa: E731
+                                                  attn_mask=mask)
+    allclose_err("library call (scaled_dot_product_attention) vs plain",
+                 sdpa()[:, :, 0], da.decode_attention_plain(q, k, v, cl),
+                 DA_TOL[bf16])
+    library_ms = time_cuda_ms(sdpa, 200)
+    n_bytes, n_ops = attention_bytes_ops(q, k, lens)
+    entry = kernel_entry("decode_attention",
+                         "src/repro_torch/csrc/decode_attention.cu",
+                         "src/repro/kernels/decode_attention.py:28", errs,
+                         ms, plain_ms, n_bytes, n_ops, flop_rate(bf16),
+                         library_ms)
+    print(f"decode_attention time, qwen2-moe bf16 B={b} S={s}: {ms:.4f} ms; "
+          f"plain {plain_ms:.4f} ms; scaled_dot_product_attention "
+          f"{library_ms:.4f} ms; bound {entry['bound_ms']:.5f} ms "
+          f"({entry['bound_by']}: {n_bytes / 1e6:.2f} MB, {n_ops / 1e9:.4f} "
+          f"GFLOP), so the kernel takes {ms / entry['bound_ms']:.1f}x its "
+          f"bound ({card})", flush=True)
+    results["decode_attention_kernel"] = entry
+    results["decode_attention_detail"] = dict(
+        batch=b, cache=s, cache_len=lens.tolist(), bytes=n_bytes, flop=n_ops)
+
+    # --- grouped GEMM, routed by a full-width router ---
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(14)
+    layer = moe.MoE(QWEN, Init(gen, dev), bf16)
+    xt = draw(rng, (b, QWEN.d_model), bf16, dev)
+    r = moe.route(layer, xt, QWEN)
+    x, gl = r.x_cap, r.group_len
+    e, c = x.shape[:2]
+    gll = gl.tolist()
+    print(f"grouped_gemm: {b} tokens top-{QWEN.top_k} over {e} experts, "
+          f"capacity {c}: {sum(1 for n in gll if n)} live experts, "
+          f"{sum(gll)} rows, group_len {gll} ({card})", flush=True)
+    errs = []
+    gate = gg.grouped_gemm_cuda(x, layer.w_gate, gl)
+    up = gg.grouped_gemm_cuda(x, layer.w_up, gl)
+    h = (F.silu(gate) * up).contiguous()
+    down = gg.grouped_gemm_cuda(h, layer.w_down, gl)
+    for name, xi, w, out in (("gate", x, layer.w_gate, gate),
+                             ("down", h, layer.w_down, down)):
+        label = f"{name} (K {w.shape[1]}, N {w.shape[2]})"
+        errs.append((allclose_err(f"grouped_gemm kernel vs plain, {label}, "
+                                  f"bf16", out, gg.grouped_gemm_plain(
+                                      xi, w, gl), GG_TOL[bf16]),))
+        x32, w32 = xi.float(), w.float()
+        errs.append((allclose_err(
+            f"grouped_gemm kernel vs plain, {label}, f32",
+            gg.grouped_gemm_cuda(x32, w32, gl),
+            gg.grouped_gemm_plain(x32, w32, gl), GG_TOL[f32]),))
+        del x32, w32
+        dead = torch.arange(c, device=dev)[None, :] >= gl[:, None]
+        check(not bool(out[dead].any()),
+              f"grouped_gemm {label}: a row past group_len is not 0")
+    ex = next(i for i, n in enumerate(gll) if n)
+    x2 = draw(rng, x.shape, bf16, dev)
+    x2[ex, 0] = x[ex, 0]
+    gate2 = gg.grouped_gemm_cuda(x2, layer.w_gate, torch.full_like(gl, c))
+    check(torch.equal(gate2[ex, 0], gate[ex, 0]),
+          "grouped_gemm: a row changed when the other rows changed")
+    print(f"grouped_gemm: rows past group_len and the {gll.count(0)} empty "
+          f"experts are exactly 0; expert {ex} row 0 equals itself bit for "
+          f"bit with every other row changed", flush=True)
+
+    live_rows = (torch.arange(c, device=dev)[None, :]
+                 < gl[:, None])[..., None].to(bf16)
+    shapes = (("gate/up", x, layer.w_gate), ("down", h, layer.w_down))
+    t = {}
+    for label, xi, w in shapes:
+        t[label] = dict(
+            ms=time_cuda_ms(lambda: gg.grouped_gemm_cuda(xi, w, gl), 50),
+            plain_ms=time_cuda_ms(lambda: gg.grouped_gemm_plain(xi, w, gl),
+                                  5),
+            library_ms=time_cuda_ms(
+                lambda: torch.bmm(xi, w).mul_(live_rows), 50),
+            bytes_ops=gg_bytes_ops(xi, w, gl))
+        n_bytes, n_ops = t[label]["bytes_ops"]
+        b_ms, b_by = bound_ms(n_bytes, n_ops, flop_rate(bf16))
+        t[label]["bound_ms"] = b_ms
+        print(f"grouped_gemm time, {label}: {t[label]['ms']:.4f} ms; plain "
+              f"{t[label]['plain_ms']:.4f} ms; torch.bmm + mask "
+              f"{t[label]['library_ms']:.4f} ms; bound {b_ms:.4f} ms "
+              f"({b_by}: {n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.4f} GFLOP), "
+              f"so the kernel takes {t[label]['ms'] / b_ms:.1f}x its bound "
+              f"({card})", flush=True)
+    # one layer's three launches (gate, up, down), per launch
+    per = lambda key: (2 * t["gate/up"][key] + t["down"][key]) / 3  # noqa: E731
+    n_bytes = (2 * t["gate/up"]["bytes_ops"][0]
+               + t["down"]["bytes_ops"][0]) / 3
+    n_ops = (2 * t["gate/up"]["bytes_ops"][1] + t["down"]["bytes_ops"][1]) / 3
+    entry = kernel_entry("grouped_gemm", "src/repro_torch/csrc/grouped_gemm.cu",
+                         "src/repro/kernels/grouped_gemm.py:30", errs,
+                         per("ms"), per("plain_ms"), n_bytes, n_ops,
+                         flop_rate(bf16), per("library_ms"))
+    print(f"grouped_gemm per launch over a layer's gate, up and down: "
+          f"{entry['ms']:.4f} ms against a bound of {entry['bound_ms']:.4f} "
+          f"ms ({entry['ms'] / entry['bound_ms']:.1f}x)", flush=True)
+    results["grouped_gemm_kernel"] = entry
+    results["grouped_gemm_detail"] = dict(
+        tokens=b, group_len=gll, shapes={k2: {kk: vv for kk, vv in v2.items()
+                                              if kk != "bytes_ops"}
+                                         for k2, v2 in t.items()})
+
+
+def phase_serving_path(dev, card, results):
+    """qwen2-moe-a2.7b at full width and depth in bf16 behind
+    ``ServingEngine(max_batch=8, max_len=1024)``: 12 requests, every one
+    done, the kernels launched 24x and 72x per engine launch, each emitted
+    token the argmax of its solo replay (or within LOGIT_TOL of it); three
+    replays through the kernels hook (item 11 of the module docstring)."""
+    from repro_torch.configs.qwen2_moe_a2_7b import CONFIG as cfg
+    from repro_torch.data.pipeline import length_bucket
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import grouped_gemm as gg
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as model_mod
+    from repro_torch.serving import Request, ServingEngine
+
+    class TimedEngine(ServingEngine):
+        """Host time of every launch by bucket (each launch ends in the
+        argmax's copy to the host, so it is synchronised)."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.launch_ms = {}
+
+        def _launch(self, slots, toks):
+            bucket = length_bucket(len(slots), self.buckets)
+            t0 = time.perf_counter()
+            out = super()._launch(slots, toks)
+            self.launch_ms.setdefault(bucket, []).append(
+                (time.perf_counter() - t0) * 1e3)
+            return out
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    m = model_mod.init_params(cfg, seed=0, device=dev)
+    sync()
+    init_s = time.perf_counter() - t0
+    pbytes = sum(p.numel() * p.element_size() for p in m.parameters())
+    init_peak = torch.cuda.max_memory_allocated(dev)
+    print(f"serving: {cfg.name} at full width and depth ({cfg.n_layers} "
+          f"layers, d_model {cfg.d_model}, {cfg.n_experts} experts "
+          f"top-{cfg.top_k}), {cfg.dtype}, {pbytes / 1e9:.2f} GB of weights "
+          f"({cfg.param_count() / 1e9:.2f} B by ModelConfig) drawn on the card in "
+          f"{init_s:.1f} s, peak {init_peak / 2**30:.2f} GiB ({card})",
+          flush=True)
+
+    kw = dict(max_batch=MAX_BATCH, max_len=MAX_LEN, device=dev)
+    warm = ServingEngine(cfg, m, **kw)      # every bucket once
+    for i in range(MAX_BATCH):
+        warm.submit(Request(-1 - i, [1 + i, 2 + i], max_new_tokens=1 + i))
+    warm.run()
+    check(set(warm.stats["aggregated_hist"]) == {1, 2, 4, 8},
+          f"warmup buckets {warm.stats['aggregated_hist']}")
+    del warm
+
+    rng = np.random.default_rng(2026)
+    plens = [int(n) for n in rng.integers(8, 97, 11)] + [640]
+    news = [int(n) for n in rng.integers(8, 25, 12)]
+    reqs = [Request(i, [int(t) for t in rng.integers(0, cfg.vocab_size, n)],
+                    max_new_tokens=new)
+            for i, (n, new) in enumerate(zip(plens, news))]
+    eng = TimedEngine(cfg, m, **kw)
+    for r in reqs:
+        eng.submit(r)
+    torch.cuda.reset_peak_memory_stats(dev)
+    sync()
+    da.decode_attention_cuda.launches = 0
+    gg.grouped_gemm_cuda.launches = 0
+    t0 = time.perf_counter()
+    eng.run(max_steps=10_000)
+    sync()
+    wall = time.perf_counter() - t0
+    n_da = da.decode_attention_cuda.launches
+    n_gg = gg.grouped_gemm_cuda.launches
+    peak = torch.cuda.max_memory_allocated(dev)
+    launches = eng.stats["launches"]
+    hist = dict(sorted(eng.stats["aggregated_hist"].items()))
+    check(all(r.done and not r.failed and len(r.output) == r.max_new_tokens
+              for r in reqs), "not every request was served")
+    check(n_da == cfg.n_layers * launches and
+          n_gg == 3 * cfg.n_layers * launches,
+          f"kernel launches decode_attention {n_da}, grouped_gemm {n_gg}, "
+          f"engine launches {launches}: want {cfg.n_layers}x and "
+          f"{3 * cfg.n_layers}x")
+    check(set(hist) == {1, 2, 4, 8}, f"buckets {hist}: want 1, 2, 4 and 8")
+    prefill = sum(len(r.prompt) - 1 for r in reqs)
+    tokens = eng.stats["tokens"]
+    step_ms = {bk: float(np.mean(v)) for bk, v in
+               sorted(eng.launch_ms.items())}
+    print(f"serving: {len(reqs)} requests (prompts {plens}, new tokens "
+          f"{news}) served in {wall:.2f} s after warmup: {tokens} tokens "
+          f"emitted, {tokens / wall:.2f} tok/s ({(tokens + prefill) / wall:.2f}"
+          f" tok/s counting the {prefill} prefill tokens); {launches} engine "
+          f"launches, buckets {hist}; decode_attention_cuda {n_da} launches, "
+          f"grouped_gemm_cuda {n_gg}; peak {peak / 2**30:.2f} GiB ({card})",
+          flush=True)
+    print("serving: ms per engine launch by bucket: " + ", ".join(
+        f"{bk}: {v:.2f}" for bk, v in step_ms.items()), flush=True)
+    copies = {}
+    for bk in (1, 2, 4, 8):
+        idx = torch.arange(bk, device=dev)
+        sub = eng._gather(idx)
+        copies[bk] = dict(
+            gather_ms=time_cuda_ms(lambda: eng._gather(idx), 10),
+            scatter_ms=time_cuda_ms(lambda: eng._scatter(idx, sub), 10),
+            bytes_each_way=sum(t.numel() * t.element_size()
+                               for t in sub.values()))
+        print(f"serving: bucket {bk}: gather {copies[bk]['gather_ms']:.4f} ms"
+              f", scatter {copies[bk]['scatter_ms']:.4f} ms "
+              f"({copies[bk]['bytes_each_way'] / 1e9:.3f} GB each way; "
+              f"{card})", flush=True)
+        del sub
+
+    # replay each request alone (bucket 1), fed the engine's own tokens
+    def replay(model, req, kernels):
+        cache = model_mod.init_cache(model, 1, MAX_LEN)
+        for tok in req.prompt[:-1]:
+            model_mod.decode_step(model, cache,
+                                  torch.tensor([[tok]], device=dev),
+                                  kernels=kernels)
+        tok, rows = req.prompt[-1], []
+        for nxt in req.output:
+            lg, cache = model_mod.decode_step(
+                model, cache, torch.tensor([[tok]], device=dev),
+                kernels=kernels)
+            rows.append(lg[0].float())
+            tok = nxt
+        return torch.stack(rows)
+
+    t0 = time.perf_counter()
+    kept, n_steps, n_near = {}, 0, 0
+    worst_margin_ratio = 0.0
+    by_steps = sorted(reqs, key=lambda r: len(r.prompt) + len(r.output))
+    plain_ids = {r.rid for r in by_steps[:3]}
+    for r in reqs:
+        hook = RoutingRecorder(ops) if r.rid in plain_ids else ops
+        lg = replay(m, r, hook)
+        top = lg.topk(2, dim=-1)
+        margin = top.values[:, 0] - top.values[:, 1]
+        tol = LOGIT_TOL * lg.abs().amax(dim=-1)
+        emitted = torch.tensor(r.output, device=dev)
+        differ = top.indices[:, 0] != emitted
+        check(bool((~differ | (margin < tol)).all()),
+              f"request {r.rid}: an emitted token is not the replay's argmax "
+              f"and the replay's top-2 margin exceeds {LOGIT_TOL:g} x max "
+              f"|logit|")
+        n_steps += len(r.output)
+        n_near += int(differ.sum())
+        worst_margin_ratio = max(worst_margin_ratio, float(
+            (margin[differ] / tol[differ]).max()) if bool(differ.any())
+            else 0.0)
+        if r.rid in plain_ids:
+            kept[r.rid] = (lg, hook.live)
+    replay_s = time.perf_counter() - t0
+    print(f"serving: replay of every request alone: {n_steps} emitted "
+          f"tokens, {n_near} not the replay's argmax (each within the top-2 "
+          f"margin tolerance {LOGIT_TOL:g} x max|logit|; worst margin "
+          f"{worst_margin_ratio:.3f} of it), {replay_s:.1f} s", flush=True)
+    # the plain versions swapped in through decode_step's kernels hook.
+    # (1) bf16, full depth: a hook that launches each kernel and holds it to
+    # its plain version on the same inputs, all along three replays
+    held = CheckedKernels()
+    for r in by_steps[:3]:
+        replay(m, r, held)
+    print(f"serving: requests {sorted(plain_ids)} replayed with every kernel "
+          f"launch held to its plain version on the same inputs: "
+          f"decode_attention {held.calls['decode_attention']} launches, max "
+          f"abs err {held.max_err['decode_attention']:.3e}; grouped_gemm "
+          f"{held.calls['grouped_gemm']} launches, max abs err "
+          f"{held.max_err['grouped_gemm']:.3e} (atol = rtol = "
+          f"{DA_TOL[torch.bfloat16]:g})", flush=True)
+    # (2) bf16, full depth, the plain versions alone: a rounding difference
+    # that flips one of the 60-way top-4 routing choices moves the rest of
+    # the replay, so this divergence is printed (with the routing choices
+    # that differ), not bounded
+    diverge = []
+    for r in by_steps[:3]:
+        lg, live = kept[r.rid]
+        rec = RoutingRecorder(ops.PLAIN_LM)
+        pl = replay(m, r, rec)
+        rel = (pl - lg).abs().amax(dim=-1) / lg.abs().amax(dim=-1)
+        flips = [i for i, (a, b) in enumerate(zip(live, rec.live)) if a != b]
+        first = divmod(flips[0], cfg.n_layers) if flips else None
+        diverge.append(dict(rid=r.rid, steps=len(r.output),
+                            max_rel=float(rel.max()),
+                            median_rel=float(rel.median()),
+                            argmax_differs=int((pl.argmax(-1)
+                                                != lg.argmax(-1)).sum()),
+                            routing_choices=len(live),
+                            routing_differs=len(flips),
+                            first_differs_step_layer=first))
+        print(f"serving: request {r.rid} replayed with the plain versions "
+              f"({cfg.dtype}, {cfg.n_layers} layers): logits differ from the "
+              f"kernels' by {diverge[-1]['median_rel']:.4f} (median) to "
+              f"{diverge[-1]['max_rel']:.4f} (max) of max|logit| over "
+              f"{len(r.output)} steps; argmax differs at "
+              f"{diverge[-1]['argmax_differs']}; {len(flips)} of {len(live)} "
+              f"layer routings differ, the first at (step, layer) {first} "
+              f"(not bounded)", flush=True)
+    # (3) fp32 at full width, F32_LAYERS layers: the same replays with the
+    # kernels and with the plain versions agree within F32_LOGIT_TOL
+    cfg32 = cfg.replace(n_layers=F32_LAYERS, dtype="float32")
+    m32 = model_mod.init_params(cfg32, seed=0, device=dev)
+    f32_rel = []
+    for r in by_steps[:3]:
+        rk, rp = RoutingRecorder(ops), RoutingRecorder(ops.PLAIN_LM)
+        lk = replay(m32, r, rk)
+        lp = replay(m32, r, rp)
+        rel = (lp - lk).abs().amax(dim=-1) / lk.abs().amax(dim=-1)
+        f32_rel.append(float(rel.max()))
+        flips = sum(a != b for a, b in zip(rk.live, rp.live))
+        check(bool((rel <= F32_LOGIT_TOL).all()),
+              f"request {r.rid}, fp32 {F32_LAYERS} layers: the plain "
+              f"versions' logits differ from the kernels' by "
+              f"{f32_rel[-1]:.3e} > {F32_LOGIT_TOL:g} of max|logit|")
+        print(f"serving: request {r.rid} replayed in fp32 ({F32_LAYERS} "
+              f"layers, full width) with the kernels and with the plain "
+              f"versions: logits within {f32_rel[-1]:.3e} of max|logit| "
+              f"(bound {F32_LOGIT_TOL:g}) over {len(r.output)} steps; "
+              f"{flips} of {len(rk.live)} layer routings differ", flush=True)
+    del m32
+    results["serving_path"] = dict(
+        config=cfg.name, params_bytes=pbytes, init_s=init_s,
+        init_peak_bytes=init_peak, requests=len(reqs), prompt_lens=plens,
+        new_tokens=news, wall_s=wall, tokens=tokens, prefill_tokens=prefill,
+        tokens_per_s=tokens / wall, launches=launches, buckets=hist,
+        ms_per_launch_by_bucket=step_ms, copies=copies, peak_bytes=peak,
+        decode_attention_launches=n_da, grouped_gemm_launches=n_gg,
+        replay_steps=n_steps, replay_not_argmax=n_near,
+        replay_worst_margin_over_tol=worst_margin_ratio,
+        logit_tol=LOGIT_TOL, held_calls=held.calls,
+        held_max_err=held.max_err, plain_divergence=diverge,
+        f32_layers=F32_LAYERS, f32_plain_max_rel=f32_rel,
+        f32_logit_tol=F32_LOGIT_TOL)
+    results["decode_attention_kernel"]["launches"] = n_da
+    results["grouped_gemm_kernel"]["launches"] = n_gg
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -1211,11 +1758,15 @@ def main(argv=None):
     from repro_torch.configs.gravity import CONFIG as GRAVITY_CONFIG
     from repro_torch.configs.sedov import CONFIG, CONFIG_16
     from repro_torch.kernels import _build
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import gravity as grav
+    from repro_torch.kernels import grouped_gemm as gg
     from repro_torch.kernels import hydro_rhs as kern
     from repro_torch.kernels import hydro_split as split
 
     dev = torch.device("cuda", 0)
+    # fp32 products in full fp32 (the plain versions' reference arithmetic)
+    torch.backends.cuda.matmul.allow_tf32 = False
     t_start = time.perf_counter()
     card = card_line()
     print(f"card: {card} (torch {torch.__version__}, CUDA "
@@ -1224,7 +1775,8 @@ def main(argv=None):
     # one nvcc per source, all started together
     t0 = time.perf_counter()
     libs = {"hydro_rhs": kern.build, "gravity": grav.build,
-            "hydro_split": split.build, "hydro_rhs_lane": kern.build_lane}
+            "hydro_split": split.build, "hydro_rhs_lane": kern.build_lane,
+            "decode_attention": da.build, "grouped_gemm": gg.build}
     with ThreadPoolExecutor(len(libs)) as pool:
         for fut in [pool.submit(build) for build in libs.values()]:
             fut.result()
@@ -1295,10 +1847,15 @@ def main(argv=None):
                     grid_path=fused_kernel_path)
     phase_lane_path(CONFIG_16, dev, STEPS, results, "lane_path_16")
 
+    # the serving kernels, then the serving path (qwen2-moe-a2.7b)
+    phase_lm_kernels(dev, card, results)
+    phase_serving_path(dev, card, results)
+
     # launches on each kernel's own path, the s3 cap 32 row
     entries = [results["kernel"], results["gravity_kernel"],
                results["reconstruct_kernel"], results["flux_kernel"],
-               results["lane_kernel"]]
+               results["lane_kernel"], results["decode_attention_kernel"],
+               results["grouped_gemm_kernel"]]
     entries[1]["launches"] = \
         path_a["s3 cap 32"]["kernel_launches"]["gravity_cuda"]
     entries[2]["launches"] = \
@@ -1320,7 +1877,12 @@ def main(argv=None):
           f"src/repro/kernels/hydro_rhs.py:301 and :327, Path B); "
           f"hydro_rhs_lane (cuda, src/repro_torch/csrc/hydro_rhs_lane.cu, "
           f"replaces src/repro/kernels/hydro_rhs.py:154 and its h_slots twin "
-          f":160, Path C slot_lane and Path D)", flush=True)
+          f":160, Path C slot_lane and Path D); decode_attention (cuda, "
+          f"src/repro_torch/csrc/decode_attention.cu, replaces "
+          f"src/repro/kernels/decode_attention.py:28, the serving path); "
+          f"grouped_gemm (cuda, src/repro_torch/csrc/grouped_gemm.cu, "
+          f"replaces src/repro/kernels/grouped_gemm.py:30, the serving path)",
+          flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

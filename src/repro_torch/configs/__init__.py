@@ -1,4 +1,73 @@
+"""The port's configs: the hydro scenarios (``sedov``, ``gravity``,
+``amr_sedov``) and the language models it serves.
+
+``get_config(name)`` / ``--arch <id>`` resolves a model.  The port serves
+the dense and moe families; the reference's other architectures wait in
+ROADMAP.md and ``get_config`` raises ``NotImplementedError`` for them.
+"""
+from __future__ import annotations
+
 from repro_torch.configs.base import (  # noqa: F401
     AggregationConfig, AMRHydroConfig, GravityHydroConfig, HydroConfig,
-    validate_ladder,
+    ModelConfig, validate_ladder,
 )
+from repro_torch.configs.granite_8b import CONFIG as granite_8b
+from repro_torch.configs.qwen2_moe_a2_7b import CONFIG as qwen2_moe_a2_7b
+
+ARCHS = {c.name: c for c in (granite_8b, qwen2_moe_a2_7b)}
+
+# the reference's other architectures: their configs (and, for ssm, hybrid,
+# vlm and audio, their model families) are not ported yet
+UNPORTED_ARCHS = ("starcoder2-15b", "qwen1.5-32b", "h2o-danube-1.8b",
+                  "dbrx-132b", "xlstm-125m", "seamless-m4t-large-v2",
+                  "zamba2-2.7b", "llama-3.2-vision-90b")
+
+
+def _key(name: str) -> str:
+    return name.replace("-", "_").replace(".", "_")
+
+
+def get_config(name: str) -> ModelConfig:
+    for cfg in ARCHS.values():
+        if _key(cfg.name) == _key(name):
+            return cfg
+    if any(_key(a) == _key(name) for a in UNPORTED_ARCHS):
+        raise NotImplementedError(
+            f"arch {name!r} is not ported yet (see ROADMAP.md); the port "
+            f"serves {sorted(ARCHS)}")
+    raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}")
+
+
+def reduced(cfg: ModelConfig) -> ModelConfig:
+    """Shrink a config to a CPU-smoke-testable size, preserving family
+    structure (the reference's ``reduced``, copied exactly so both sides of
+    a parity test build the same config)."""
+    kw = dict(
+        n_layers=max(2, min(4, cfg.n_layers)),
+        d_model=64,
+        n_heads=4,
+        n_kv_heads=min(cfg.n_kv_heads, 4) if cfg.n_kv_heads < cfg.n_heads else 4,
+        head_dim=16,
+        d_ff=128 if cfg.d_ff else 0,
+        vocab_size=256,
+        remat=False,
+        dtype="float32",
+    )
+    if cfg.n_experts:
+        kw.update(n_experts=4, top_k=min(cfg.top_k, 2),
+                  n_shared_experts=min(cfg.n_shared_experts, 1),
+                  shared_expert_d_ff=128 if cfg.shared_expert_d_ff else 0,
+                  d_ff=64)
+    if cfg.family in ("ssm", "hybrid"):
+        kw.update(ssm_state=16, ssm_chunk=16)
+    if cfg.slstm_every:
+        kw.update(slstm_every=2)
+    if cfg.shared_attn_every:
+        kw.update(shared_attn_every=2, n_layers=4)
+    if cfg.n_encoder_layers:
+        kw.update(n_encoder_layers=2)
+    if cfg.cross_attn_every:
+        kw.update(cross_attn_every=2, n_layers=4, vision_tokens=8)
+    if cfg.sliding_window:
+        kw.update(sliding_window=8)
+    return cfg.replace(**kw)

@@ -1,16 +1,107 @@
-"""Config dataclasses of the port: the hydro scenarios and the aggregation
-knobs the port runs.
+"""Config dataclasses of the port: the language models it serves, the
+hydro scenarios and the aggregation knobs the port runs.
 
-``HydroConfig``, ``AMRHydroConfig`` and ``GravityHydroConfig`` are the
-reference's as they are.  ``AggregationConfig`` keeps only the fields the
-port reads; a value the port does not run yet (another strategy, host
-staging) raises ``NotImplementedError`` naming ROADMAP.md instead of being
-ignored.
+``ModelConfig``, ``HydroConfig``, ``AMRHydroConfig`` and
+``GravityHydroConfig`` are the reference's as they are.
+``AggregationConfig`` keeps only the fields the port reads; a value the
+port does not run yet (another strategy, host staging, the finite guard, a
+tune store) raises ``NotImplementedError`` naming ROADMAP.md instead of
+being ignored.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Tuple
+
+
+# ---------------------------------------------------------------------------
+# Model configs
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                       # dense | moe | ssm | encdec | hybrid | vlm | audio
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0                 # 0 -> d_model // n_heads
+    qkv_bias: bool = False
+    sliding_window: int = 0           # 0 -> full attention; >0 -> SWA
+    rope_theta: float = 10_000.0
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    # --- MoE ---
+    n_experts: int = 0
+    n_shared_experts: int = 0
+    top_k: int = 0
+    shared_expert_d_ff: int = 0       # qwen2-moe shared expert width
+    # --- SSM / xLSTM / Mamba2 ---
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_chunk: int = 256
+    slstm_every: int = 0
+    # --- hybrid (zamba2) ---
+    shared_attn_every: int = 0
+    # --- enc-dec ---
+    n_encoder_layers: int = 0
+    encoder_seq_ratio: int = 1
+    # --- vlm ---
+    cross_attn_every: int = 0
+    vision_tokens: int = 0
+    mlp_gated: bool = True            # SwiGLU (3 mats) vs plain MLP (2 mats)
+    # --- numerics ---
+    dtype: str = "bfloat16"
+    remat: bool = True
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def q_per_kv(self) -> int:
+        return self.n_heads // max(self.n_kv_heads, 1)
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+    def param_count(self, active_only: bool = False) -> int:
+        """Approximate parameter count; active_only counts routed experts
+        at top_k/n_experts utilisation (MoE active params)."""
+        d, h = self.d_model, self.resolved_head_dim
+        nq, nkv = self.n_heads, self.n_kv_heads
+        attn = d * (nq * h) + 2 * d * (nkv * h) + (nq * h) * d
+        n_ff_mats = 3 if self.mlp_gated else 2
+        if self.family in ("ssm", "hybrid"):
+            inner = self.ssm_expand * d
+            mixer = (d * (2 * inner + 2 * self.ssm_state + self.n_heads)
+                     + inner * d)
+        else:
+            mixer = attn
+        if self.n_experts:
+            ff_one = n_ff_mats * d * self.d_ff
+            routed = self.n_experts * ff_one
+            if active_only:
+                routed = self.top_k * ff_one
+            shared = (self.n_shared_experts * n_ff_mats * d
+                      * (self.shared_expert_d_ff or self.d_ff))
+            ff = routed + shared + d * self.n_experts       # router
+        elif self.d_ff:
+            ff = n_ff_mats * d * self.d_ff
+        else:
+            ff = 0
+        if self.shared_attn_every:
+            total = self.n_layers * (mixer + 2 * d) + (attn + ff + 2 * d)
+        else:
+            total = self.n_layers * (mixer + ff + 2 * d)
+        if self.n_encoder_layers:
+            total += self.n_encoder_layers * (attn + ff + 2 * d)
+        total += self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        return int(total)
 
 # strategies the port registers; the reference's others wait in ROADMAP.md
 PORTED_STRATEGIES = ("fused", "s3", "s2+s3")
@@ -30,6 +121,8 @@ class AggregationConfig:
     buckets: Tuple[int, ...] = ()     # () -> powers of two up to max_aggregated
     launch_watermark: int = 1         # queue depth that forces a launch
     staging: str = "device"           # ranges read their parent in place
+    guard: str = "off"                # "finite" waits for containment
+    tune_store: object = None         # waits for the tune store
 
     def __post_init__(self):
         if self.strategy in ROADMAP_STRATEGIES:
@@ -40,6 +133,13 @@ class AggregationConfig:
             raise NotImplementedError(
                 f"staging={self.staging!r} is not ported yet (see "
                 f"ROADMAP.md); the port stages on the device only")
+        if self.guard != "off":
+            raise NotImplementedError(
+                f"guard={self.guard!r} is not ported yet (containment, see "
+                f"ROADMAP.md); the port runs guard='off'")
+        if self.tune_store is not None:
+            raise NotImplementedError(
+                "tune_store is not ported yet (see ROADMAP.md)")
         if self.n_executors < 1:
             raise ValueError(f"n_executors must be >= 1, got "
                              f"{self.n_executors}")

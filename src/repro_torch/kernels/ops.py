@@ -12,16 +12,28 @@ The ``*_batched_body`` factories build the aggregation-region bodies the
 scenarios register: the uniform hydro RHS (scalar h), the hydro RHS with a
 per-task width (``level_batched_body``), the gravity solve, and the
 paper's two-kernel Reconstruct + Flux body.
+
+The serving path reaches its two kernels, ``decode_attention`` and
+``grouped_gemm``, through this module: ``models.model.decode_step`` takes
+it as its ``kernels`` argument, and ``PLAIN_LM`` is the namespace of their
+plain versions to swap in on the card.
 """
 from __future__ import annotations
 
+import types
 from functools import lru_cache
 from typing import Callable, Optional
 
 import torch
 
 from repro_torch.configs.base import GravityHydroConfig, HydroConfig
+from repro_torch.kernels.decode_attention import (
+    decode_attention_cuda, decode_attention_plain,
+)
 from repro_torch.kernels.gravity import gravity_cuda, gravity_plain
+from repro_torch.kernels.grouped_gemm import (
+    grouped_gemm_cuda, grouped_gemm_plain,
+)
 from repro_torch.kernels.hydro_rhs import (
     LAYOUTS, hydro_rhs_cuda, hydro_rhs_lane_cuda, hydro_rhs_lane_plain,
     hydro_rhs_plain,
@@ -89,6 +101,28 @@ def gravity(u_slots: torch.Tensor, h_slots: torch.Tensor, *, ghost: int,
     return _dispatch(u_slots, "gravity", gravity_cuda, gravity_plain,
                      h_slots, ghost=ghost, subgrid=subgrid, g_const=g_const,
                      n_iter=n_iter)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor,
+                     cache_len: torch.Tensor) -> torch.Tensor:
+    """(B, Hq, D) x (B, S, Hkv, D) caches, (B,) int32 -> (B, Hq, D)."""
+    return _dispatch(q, "decode_attention", decode_attention_cuda,
+                     decode_attention_plain, k_cache, v_cache, cache_len)
+
+
+def grouped_gemm(x: torch.Tensor, w: torch.Tensor,
+                 group_len: torch.Tensor) -> torch.Tensor:
+    """(E, C, K) @ (E, K, N), (E,) int32 -> (E, C, N), rows >= group_len
+    zero."""
+    return _dispatch(x, "grouped_gemm", grouped_gemm_cuda,
+                     grouped_gemm_plain, w, group_len)
+
+
+# the serving kernels' plain versions, as a drop-in for ``decode_step``'s
+# ``kernels=`` on any device (the card's replay against its kernels)
+PLAIN_LM = types.SimpleNamespace(decode_attention=decode_attention_plain,
+                                 grouped_gemm=grouped_gemm_plain)
 
 
 def hydro_batched_body(cfg: HydroConfig, h: float,

@@ -1,8 +1,10 @@
-"""Where an RK3 step's time goes on the card, per strategy.
+"""Where an RK3 step's time goes on the card, per strategy; and where a
+serving engine step's time goes, per bucket.
 
   PYTHONPATH=src python -m repro_torch.profile_step \
-      [--scenario sedov|gravity|amr] [--body fused|split] \
-      [--layout slot_grid|slot_lane] [--out results/profile_step.json]
+      [--scenario sedov|gravity|amr|serve] [--body fused|split] \
+      [--layout slot_grid|slot_lane] \
+      [--out results/profile_step.json]
 
 At the paper's grid (512 sub-grids of 8^3), for each strategy row (fused,
 s3 at caps 32 and 512, s2+s3 with 4 streams) it warms up, times 3 RK3
@@ -22,7 +24,15 @@ sub-grids of 8^3 each, one family).  ``--body split`` runs the uniform
 Sedov scenario on the split Reconstruct + Flux body instead of the fused
 hydro kernel.  ``--layout slot_lane`` runs the hydro family on the lane
 kernel (tasks across each warp) instead of the one-block-per-slot kernel.
-Needs a CUDA device.
+
+``--scenario serve`` profiles the serving engine: qwen2-moe-a2.7b at its
+published widths cut to 4 layers, bf16, behind
+``ServingEngine(max_batch=8, max_len=1024)``.  For each bucket (1, 2, 4, 8)
+it admits that many requests (64-token prompts), warms up, times engine
+steps (one aggregated launch each) on the host clock, profiles the same
+number of steps, and reports each kernel's device time and launches per
+step, the cache gather and scatter copies (CUDA events), the device's busy
+time and its idle share.  Needs a CUDA device.
 """
 import argparse
 import functools
@@ -132,10 +142,117 @@ def profile_row(scenario, u0, dt, agg, steps, dev):
                         for e in device])
 
 
+SERVE_LAYERS = 4
+SERVE_BUCKETS = (1, 2, 4, 8)
+SERVE_PROMPT = 64        # tokens per request's prompt
+SERVE_MAX_LEN = 1024
+
+
+def _cuda_ms(fn, reps: int = 10) -> float:
+    """Mean device time of ``fn`` by CUDA events, after one warm call."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def profile_serve(layers: int, steps: int, dev) -> dict:
+    """One row per bucket of the serving engine on a reduced-depth
+    qwen2-moe-a2.7b (published widths, ``layers`` layers, bf16)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as model_mod
+    from repro_torch.serving import Request, ServingEngine
+
+    cfg = get_config("qwen2-moe-a2.7b").replace(n_layers=layers)
+    m = model_mod.init_params(cfg, seed=0, device=dev)
+    rows = {}
+    for bucket in SERVE_BUCKETS:
+        eng = ServingEngine(cfg, m, max_batch=max(SERVE_BUCKETS),
+                            max_len=SERVE_MAX_LEN, device=dev)
+        for i in range(bucket):
+            prompt = [(97 * i + 13 * j) % cfg.vocab_size
+                      for j in range(SERVE_PROMPT)]
+            eng.submit(Request(i, prompt, max_new_tokens=SERVE_MAX_LEN
+                               - SERVE_PROMPT))
+        for _ in range(3):                 # admission + prefill, warmup
+            eng.step()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                eng.step()
+            torch.cuda.synchronize(dev)
+            prof_wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+        events = prof.key_averages()
+        kernels = [e for e in events if _on_device(e)]
+        busy_ms = sum(_device_us(e) for e in kernels) / 1e3 / steps
+        ours = {}
+        for name in ("decode_attention_kernel", "grouped_gemm_kernel"):
+            hits = [e for e in kernels if name in e.key]
+            ours[name] = dict(
+                device_ms_per_step=sum(_device_us(e) for e in hits)
+                / 1e3 / steps,
+                launches_per_step=sum(e.count for e in hits) / steps)
+        idx = torch.arange(bucket, device=dev)
+        sub = eng._gather(idx)
+        rows[bucket] = dict(
+            ms_per_step=wall_ms, profiled_ms_per_step=prof_wall_ms,
+            device_busy_ms_per_step=busy_ms,
+            device_idle_share=max(0.0, 1.0 - busy_ms / prof_wall_ms),
+            kernels=ours,
+            gather_ms=_cuda_ms(lambda: eng._gather(idx)),
+            scatter_ms=_cuda_ms(lambda: eng._scatter(idx, sub)),
+            top_device_ops=[dict(name=e.key, calls=e.count,
+                                 device_ms_per_step=_device_us(e) / 1e3
+                                 / steps)
+                            for e in sorted(kernels, key=_device_us,
+                                            reverse=True)[:TOP]])
+        del sub, eng
+    return dict(config=cfg.name, layers=layers, dtype=cfg.dtype,
+                prompt=SERVE_PROMPT, max_len=SERVE_MAX_LEN,
+                peak_bytes=torch.cuda.max_memory_allocated(dev), rows=rows)
+
+
+def main_serve(dev, out):
+    out.update(profile_serve(SERVE_LAYERS, STEPS * 2, dev))
+    print(f"profile_step: serving {out['config']} cut to {out['layers']} "
+          f"layers, {out['dtype']}, {SERVE_PROMPT}-token prompts, on "
+          f"{out['device']}; peak {out['peak_bytes'] / 2**30:.2f} GiB",
+          flush=True)
+    for bucket, row in out["rows"].items():
+        ks = row["kernels"]
+        print(f"bucket {bucket}: {row['ms_per_step']:.3f} ms/step (profiled "
+              f"{row['profiled_ms_per_step']:.3f}), device busy "
+              f"{row['device_busy_ms_per_step']:.3f} ms/step, idle share "
+              f"{row['device_idle_share']:.3f}; decode_attention "
+              + "{:.4f} ms ({:g} launches), grouped_gemm {:.4f} ms ({:g} "
+              "launches) per step; gather {:.4f} ms, scatter {:.4f} ms"
+              .format(ks["decode_attention_kernel"]["device_ms_per_step"],
+                      ks["decode_attention_kernel"]["launches_per_step"],
+                      ks["grouped_gemm_kernel"]["device_ms_per_step"],
+                      ks["grouped_gemm_kernel"]["launches_per_step"],
+                      row["gather_ms"], row["scatter_ms"]), flush=True)
+        for op in row["top_device_ops"]:
+            print(f"    device {op['device_ms_per_step']:9.3f} ms "
+                  f"{op['calls']:6d}x  {op['name'][:90]}", flush=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scenario", default="sedov",
-                    choices=("sedov", "gravity", "amr"))
+                    choices=("sedov", "gravity", "amr", "serve"))
     ap.add_argument("--body", default="fused", choices=("fused", "split"))
     ap.add_argument("--layout", default="slot_grid", choices=LAYOUTS)
     ap.add_argument("--out", default=None)
@@ -145,6 +262,12 @@ def main(argv=None):
     dev = torch.device("cuda", 0)
     out = {"device": torch.cuda.get_device_name(0), "scenario": args.scenario,
            "body": args.body, "layout": args.layout, "rows": {}}
+    if args.scenario == "serve":
+        main_serve(dev, out)
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(out, f, indent=1)
+        return
     tasks = (AMR_1024.n_subgrids_coarse + AMR_1024.n_subgrids_fine
              if args.scenario == "amr" else CONFIG.n_subgrids)
     print(f"profile_step: scenario {args.scenario}, body {args.body}, layout "

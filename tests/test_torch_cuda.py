@@ -296,3 +296,126 @@ def test_amr_path_both_layouts_bit_identical_to_reference(dev):
                             AggregationConfig(strategy="fused"), device=dev)
     with pytest.raises(NotImplementedError, match="shared memory"):
         runner.rk3_step((st.uc, st.uf), dt)
+
+
+# ---------------------------------------------------------------------------
+# the serving kernels: decode attention and the grouped GEMM
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels import decode_attention as da  # noqa: E402
+from repro_torch.kernels import grouped_gemm as gg  # noqa: E402
+
+# the reference's kernel tolerances (tests/test_kernels.py)
+DA_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+GG_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+def normal(seed, shape, dev, dtype, scale=1.0):
+    rng = np.random.default_rng(seed)
+    x = (scale * rng.standard_normal(shape)).astype(np.float32)
+    return torch.from_numpy(x).to(dev).to(dtype)
+
+
+def assert_close(got, want, tol):
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), atol=tol,
+                               rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("hq,hkv,d", [(16, 16, 128), (32, 8, 128),
+                                      (12, 4, 64), (32, 8, 80)])
+def test_decode_attention_kernel_matches_plain(dev, dtype, hq, hkv, d):
+    """Ragged lengths (1, a tile edge, S and 0 among them) at the shapes of
+    qwen2-moe (MHA), granite-8b (GQA 4), the reference's sweep and a head
+    dimension of 80; every request equals its solo launch bit for bit."""
+    s = 256
+    lens = [1, 64, 65, 200, s, 0]
+    b = len(lens)
+    q = normal(1, (b, hq, d), dev, dtype)
+    k = normal(2, (b, s, hkv, d), dev, dtype)
+    v = normal(3, (b, s, hkv, d), dev, dtype)
+    cl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    before = da.decode_attention_cuda.launches
+    got = da.decode_attention_cuda(q, k, v, cl)
+    torch.cuda.synchronize(dev)
+    assert da.decode_attention_cuda.launches == before + 1
+    assert got.dtype == dtype and got.shape == (b, hq, d)
+    want = da.decode_attention_plain(q, k, v, cl)
+    assert_close(got, want, DA_TOL[dtype])
+    assert not bool(got[-1].any())            # cache_len 0 -> exactly 0
+    for i in range(b):
+        solo = da.decode_attention_cuda(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                                        cl[i:i + 1])
+        assert torch.equal(solo[0], got[i]), i
+    # what lies past a request's length is never read
+    k2, v2 = k.clone(), v.clone()
+    for i, n in enumerate(lens):
+        k2[i, n:] = float("nan")
+        v2[i, n:] = float("nan")
+    assert torch.equal(da.decode_attention_cuda(q, k2, v2, cl), got)
+    assert torch.equal(ops.decode_attention(q, k, v, cl), got)
+
+
+def test_decode_attention_kernel_rejects_without_falling_back(dev):
+    q = normal(4, (2, 4, 64), dev, torch.float32)
+    k = normal(5, (2, 16, 2, 64), dev, torch.float32)
+    cl = torch.tensor([3, 16], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        da.decode_attention_cuda(q, k.transpose(1, 2).contiguous()
+                                 .transpose(1, 2), k, cl)
+    with pytest.raises(ValueError, match="int32"):
+        da.decode_attention_cuda(q, k, k, cl.cpu())
+    with pytest.raises(TypeError):
+        da.decode_attention_cuda(q.half(), k.half(), k.half(), cl)
+    with pytest.raises(NotImplementedError, match="multiple of 8"):
+        da.decode_attention_cuda(q[..., :60].contiguous(),
+                                 k[..., :60].contiguous(),
+                                 k[..., :60].contiguous(), cl)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_grouped_gemm_kernel_matches_plain(dev, dtype):
+    """Empty, single-row, tile-edge, full and ragged groups; rows past
+    group_len and empty experts are exact zeros; a row's result does not
+    depend on the other rows."""
+    e, c, k, n = 6, 128, 1088, 136       # K past one staged chunk, N ragged
+    x = normal(6, (e, c, k), dev, dtype, 0.1)
+    w = normal(7, (e, k, n), dev, dtype, 0.1)
+    gl = torch.tensor([0, 1, 8, 9, c, 37], dtype=torch.int32, device=dev)
+    before = gg.grouped_gemm_cuda.launches
+    got = gg.grouped_gemm_cuda(x, w, gl)
+    torch.cuda.synchronize(dev)
+    assert gg.grouped_gemm_cuda.launches == before + 1
+    assert got.dtype == dtype and got.shape == (e, c, n)
+    assert_close(got, gg.grouped_gemm_plain(x, w, gl), GG_TOL[dtype])
+    assert not bool(got[0].any())
+    for ex, rows in enumerate(gl.tolist()):
+        assert not bool(got[ex, rows:].any()), ex
+    # other rows changed (and more of them live): row 3 of expert 5 and
+    # row 0 of expert 1 come out the same, bit for bit
+    x2 = normal(8, (e, c, k), dev, dtype, 0.1)
+    x2[5, 3] = x[5, 3]
+    x2[1, 0] = x[1, 0]
+    gl2 = torch.full_like(gl, c)
+    got2 = gg.grouped_gemm_cuda(x2, w, gl2)
+    assert torch.equal(got2[5, 3], got[5, 3])
+    assert torch.equal(got2[1, 0], got[1, 0])
+    assert torch.equal(ops.grouped_gemm(x, w, gl), got)
+
+
+def test_grouped_gemm_kernel_rejects_without_falling_back(dev):
+    x = normal(9, (2, 8, 16), dev, torch.float32)
+    w = normal(10, (2, 16, 24), dev, torch.float32)
+    gl = torch.tensor([3, 8], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        gg.grouped_gemm_cuda(x.transpose(1, 2).contiguous().transpose(1, 2),
+                             w, gl)
+    with pytest.raises(ValueError, match="group_len"):
+        gg.grouped_gemm_cuda(x, w, gl.long())
+    with pytest.raises(NotImplementedError, match="multiple of 8"):
+        gg.grouped_gemm_cuda(x, w[..., :20].contiguous(), gl)
+    assert gg.grouped_gemm_cuda(x[:, :0].contiguous(), w, gl).shape == (
+        2, 0, 24)
