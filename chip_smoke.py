@@ -7,12 +7,16 @@
    CUDA kernels ``src/repro_torch/csrc/{hydro_rhs,gravity,hydro_split,
    hydro_rhs_lane,decode_attention,grouped_gemm}.cu`` with nvcc for
    sm_90a, all six at once.
-2. Holds the fused hydro kernel against its plain PyTorch version on the
-   card, with atol scaled per slot and field: on the main path's own input
-   (the Sedov IC's 512 padded sub-grids, (512, 5, 14, 14, 14) fp32) with a
-   scalar width and with per-slot widths, on smooth random states, and on
-   a cold flow that holds every pressure on its floor.  Times the kernel on
-   the main path's input against its plain version and its bound.
+2. Holds the fused hydro kernel (one thread-block cluster per slot)
+   against its plain PyTorch version on the card, with atol scaled per slot
+   and field: on the main path's own input (the Sedov IC's 512 padded
+   sub-grids, (512, 5, 14, 14, 14) fp32) with a scalar width and with
+   per-slot widths, on smooth random states, and on a cold flow that holds
+   every pressure on its floor; checks that every slot equals its result
+   from buckets of 1, 3 and 32.  Times the kernel on the main path's input
+   against its plain version and its bound, and at the bucket ladder's
+   sizes 1, 8, 32, 128 and 512 (CUDA-graph replays and back to back),
+   with the cluster size, CTAs per launch and resident CTAs per SM.
 3. Drives the main path — uniform Sedov ``CONFIG`` (512 sub-grids of 8^3)
    stepped by TVD-RK3 through ``StrategyRunner`` — under ``fused``, ``s3``
    (caps 32 and 512) and ``s2+s3`` (4 streams, cap 32), counting the
@@ -34,8 +38,9 @@
 7. Holds the lane kernel (the slot_lane layout, tasks across each warp)
    against its plain version at 512 x 8^3 (scalar and per-slot widths) and
    64 x 16^3, against the slot_grid kernel at 8^3, and checks that every
-   slot equals its result from buckets of 1, 3 and 32 slots; times it
-   beside the two transposes and its bound.
+   slot equals its result from buckets of 1, 3 and 32 slots; checks that
+   it equals the slot_grid kernel in every element; times it beside the
+   two transposes and its bound.
 8. Path C: the two-level AMR blast, ``AMRSedovScenario`` at 1,024 tasks
    per iteration (a 64^3 coarse level and a 64^3 fine patch, 512 sub-grids
    of 8^3 each, one family) on each layout under the four strategy rows,
@@ -54,8 +59,11 @@
    ragged lengths 1 to 1,024; 60 experts of (2048, 1408) and (1408, 2048)
    routed by a full-width router), in fp32 and at granite-8b's GQA shape;
    checks that each request and each expert row is independent of the rest
-   of its launch bit for bit and that rows past group_len are exactly 0;
-   times each against its plain version, one PyTorch call and its bound.
+   of its launch bit for bit, that NaN past cache_len is never read and
+   that rows past group_len are exactly 0; times each against its plain
+   version, one PyTorch call and its bound, decode attention by CUDA-graph
+   replays with L2 cold (as the serving path finds a layer's cache) and
+   warm, beside SDPA at B 1, 2, 4 and 8 in the same call.
 11. The serving path: qwen2-moe-a2.7b at full width and depth in bf16
    (14.3 B weights from a seeded generator on the card) behind
    ``ServingEngine(max_batch=8, max_len=1024)`` on 12 requests (prompts of
@@ -136,6 +144,54 @@ def time_cuda_ms(fn, reps, warm=2):
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def time_graph_ms(fn, reps, warm=2):
+    """Device time of one call of ``fn``: ``reps`` calls captured in one CUDA
+    graph, the best of 3 replays (CUDA events around each) over ``reps``.
+    Unlike ``time_cuda_ms`` it leaves out the host's dispatch, which paces
+    back-to-back calls of a kernel shorter than its Python wrapper.  ``fn``
+    may be a list of calls, captured in turn (``l2_cold_calls``)."""
+    fns = fn if isinstance(fn, list) else [fn]
+    for _ in range(warm):
+        for f in fns:
+            f()
+    sync()
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side), torch.cuda.graph(graph, stream=side):
+        for i in range(reps):
+            fns[i % len(fns)]()
+    sync()
+    graph.replay()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    best = None
+    for _ in range(3):
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        t = a.elapsed_time(b) / reps
+        best = t if best is None else min(best, t)
+    del graph
+    return best
+
+
+def l2_cold_calls(make_call, tensors, touched_bytes, cap=64):
+    """Calls ``make_call(*copy)`` on enough copies of ``tensors`` (the first
+    being ``tensors`` itself, at most ``cap``) that replaying them in turn
+    passes at least twice the card's L2 between two calls on one copy, each
+    call touching ``touched_bytes``: so each call finds its inputs evicted
+    from L2, as the serving path finds a layer's cache when it comes back to
+    that layer.  Returns the calls and whether L2 was exceeded."""
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size
+    n = min(cap, 1 + -(-2 * l2 // max(touched_bytes, 1)))
+    copies = [tensors] + [tuple(t.clone() for t in tensors)
+                          for _ in range(n - 1)]
+    return ([make_call(*c) for c in copies],
+            (n - 1) * touched_bytes >= 2 * l2)
 
 
 FIELDS = ("rho", "Sx", "Sy", "Sz", "E")
@@ -280,8 +336,8 @@ def phase_kernel(cfg, dev, results):
     check(torch.equal(got_h[1::2], got[1::2]),
           "h_slots slots of width h differ from the scalar-h launch")
     # a slot's result does not depend on the bucket it was launched in
-    check(torch.equal(kern.hydro_rhs_cuda(u[32:64], h=h, **kw), got[32:64]),
-          "a 32-slot launch differs from the same slots in a 512 launch")
+    check_grid_buckets("kernel, Sedov IC", u, got, h, **kw)
+    check_grid_buckets("kernel, widths 2h, h", u, got_h, hs, **kw)
 
     ur = random_slots(64, cfg.padded, dev, seed=1)
     want_r = kern.hydro_rhs_plain(ur, h=0.01, **kw)
@@ -307,6 +363,25 @@ def phase_kernel(cfg, dev, results):
     n_bytes = (u.numel() + got.numel()) * 4
     n_ops = hydro_rhs_ops(n, cfg.subgrid, cfg.ghost)
     b_ms, b_by = bound_ms(n_bytes, n_ops)
+    # the bucket ladder's sizes: device time (graph replays) and
+    # back-to-back calls (host dispatch included)
+    per_sm, resident = kern.occupancy(dev, cfg.subgrid)
+    ladder = {}
+    for m in (1, 8, 32, 128, 512):
+        x = u[:m]
+        ladder[m] = dict(
+            ctas=m * kern.CLUSTER,
+            graph_ms=time_graph_ms(lambda: kern.hydro_rhs_cuda(x, h=h, **kw),
+                                   reps=50),
+            events_ms=time_cuda_ms(lambda: kern.hydro_rhs_cuda(x, h=h, **kw),
+                                   reps=50))
+        print(f"hydro_rhs ladder, {m} slots: {ladder[m]['ctas']} CTAs in "
+              f"clusters of {kern.CLUSTER} x {kern.CTA_THREADS} threads; "
+              f"{ladder[m]['graph_ms']:.4f} ms (graph replay), "
+              f"{ladder[m]['events_ms']:.4f} ms back to back", flush=True)
+    print(f"hydro_rhs occupancy: {per_sm} CTAs per SM, {resident} clusters "
+          f"resident on the card ({kern.smem_bytes(cfg.subgrid)} B of shared "
+          f"memory per CTA)", flush=True)
     print(f"kernel time on the Sedov IC, {n} slots: {ms:.4f} ms; plain "
           f"version {plain_ms:.3f} ms; bound {b_ms:.4f} ms ({b_by}: "
           f"{n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.3f} GFLOP), so the "
@@ -323,7 +398,28 @@ def phase_kernel(cfg, dev, results):
         slots=n, input="Sedov IC sub-grids", ms_32_slots=ms_32,
         ms_h_slots=ms_h, ms_cold_flow=ms_cold, bytes=n_bytes, flop=n_ops,
         bound_over_ms=b_ms / ms, max_rel_err=max(e[1] for e in errs),
-        achieved_tflops=n_ops / (ms * 1e-3) / 1e12)
+        achieved_tflops=n_ops / (ms * 1e-3) / 1e12, cluster=kern.CLUSTER,
+        cta_threads=kern.CTA_THREADS, ctas_per_sm=per_sm,
+        resident_clusters=resident, ladder=ladder)
+
+
+def check_grid_buckets(label, u, want, widths, **kw):
+    """Every slot of a whole-wave slot_grid launch equals that slot from
+    launches of 1, 3 and 32 slots (ragged tails included), bit for bit."""
+    from repro_torch.kernels import hydro_rhs as kern
+
+    n = u.shape[0]
+    for size in (1, 3, 32):
+        for a in range(0, n, size):
+            b = min(a + size, n)
+            wk = (dict(h_slots=widths[a:b]) if isinstance(widths, torch.Tensor)
+                  else dict(h=widths))
+            check(torch.equal(kern.hydro_rhs_cuda(u[a:b], **wk, **kw),
+                              want[a:b]),
+                  f"{label}: slots [{a}, {b}) launched as a bucket of "
+                  f"{b - a} differ from the same slots in a {n}-slot launch")
+    print(f"{label}: every slot equals its result from buckets of 1, 3 and "
+          f"32 slots ({n} slots)", flush=True)
 
 
 def blocks(u, s):
@@ -770,6 +866,9 @@ def phase_lane_kernel(cfg, cfg16, dev, results):
             print(f"lane vs slot_grid kernel: elements that differ "
                   f"{differ} (Sedov IC, 2h/h, cold flow) of {grid.numel()} "
                   f"each", flush=True)
+            check(differ == [0, 0, 0], "the lane kernel and the slot_grid "
+                  "kernel differ: the same device math must agree bit for "
+                  "bit")
             u32 = lane_major(u[:32])
             out_t = got.clone()
             row.update(
@@ -1377,6 +1476,15 @@ def phase_lm_kernels(dev, card, results):
             check(torch.equal(solo[0], got[i]),
                   f"decode_attention {label}: request {i} differs between "
                   f"its solo launch and the bucket of {b}")
+        # nothing at or past a request's cache_len is read
+        k2, v2 = k.clone(), v.clone()
+        for i, n in enumerate(lens.tolist()):
+            k2[i, n:] = float("nan")
+            v2[i, n:] = float("nan")
+        check(torch.equal(da.decode_attention_cuda(q, k2, v2, cl), got),
+              f"decode_attention {label}: NaN stored past cache_len changed "
+              f"the result")
+        del k2, v2
         if main is None:
             main = (q, k, v, got)
     q, k, v, got = main
@@ -1387,40 +1495,92 @@ def phase_lm_kernels(dev, card, results):
           "decode_attention: cache_len 0 must give exactly 0 and leave the "
           "other requests as they were")
     print(f"decode_attention: every request equals its solo launch bit for "
-          f"bit (4 shapes); cache_len 0 gives 0", flush=True)
+          f"bit and NaN past cache_len is never read (4 shapes); cache_len 0 "
+          f"gives 0", flush=True)
 
-    ms = time_cuda_ms(lambda: da.decode_attention_cuda(q, k, v, cl), 200)
+    # device time by graph replays: the kernel pair is shorter than its
+    # Python wrapper, so back-to-back calls would time the host
+    ms_events = time_cuda_ms(lambda: da.decode_attention_cuda(q, k, v, cl),
+                             200)
     plain_ms = time_cuda_ms(lambda: da.decode_attention_plain(q, k, v, cl),
                             20)
-    # one PyTorch call for the same function: SDPA with the boolean length
-    # mask (built, like the GQA expansion, outside the timed call)
-    g = q.shape[1] // k.shape[2]
-    qs = q[:, :, None, :]
-    ks = k.transpose(1, 2).repeat_interleave(g, dim=1)
-    vs = v.transpose(1, 2).repeat_interleave(g, dim=1)
-    mask = (torch.arange(s, device=dev)[None, :] < cl[:, None])[:, None,
-                                                                 None, :]
-    sdpa = lambda: F.scaled_dot_product_attention(qs, ks, vs,  # noqa: E731
-                                                  attn_mask=mask)
+
+    def kernel_call(qq, kk, vv, cc):
+        return lambda: da.decode_attention_cuda(qq, kk, vv, cc)
+
+    def sdpa_call(qq, kk, vv, cc):
+        """One PyTorch call for the same function: SDPA with the boolean
+        length mask (built, like the GQA expansion, outside the call)."""
+        g = qq.shape[1] // kk.shape[2]
+        qs = qq[:, :, None, :]
+        ks = kk.transpose(1, 2).repeat_interleave(g, dim=1)
+        vs = vv.transpose(1, 2).repeat_interleave(g, dim=1)
+        mask = (torch.arange(s, device=dev)[None, :]
+                < cc[:, None])[:, None, None, :]
+        return lambda: F.scaled_dot_product_attention(qs, ks, vs,
+                                                      attn_mask=mask)
+
     allclose_err("library call (scaled_dot_product_attention) vs plain",
-                 sdpa()[:, :, 0], da.decode_attention_plain(q, k, v, cl),
-                 DA_TOL[bf16])
-    library_ms = time_cuda_ms(sdpa, 200)
+                 sdpa_call(q, k, v, cl)()[:, :, 0],
+                 da.decode_attention_plain(q, k, v, cl), DA_TOL[bf16])
+
+    def cold_and_warm(make_call, bb, touched):
+        """(ms with L2 cold, ms with L2 warm, L2 exceeded) of the call on
+        the first bb requests, by graph replays: cold rotates over copies
+        of the inputs (``l2_cold_calls``), warm repeats one call."""
+        cb = cl[:bb]
+        calls, exceeded = l2_cold_calls(
+            lambda qq, kk, vv: make_call(qq, kk, vv, cb),
+            (q[:bb], k[:bb], v[:bb]), touched)
+        cold = time_graph_ms(calls, 200)
+        warm = time_graph_ms(calls[0], 200)
+        del calls
+        return cold, warm, exceeded
+
+    # by batch, in one call; the serving path's layers find their caches
+    # cold (23 other layers' caches and the weights pass through L2 between
+    # two visits), so the cold times are the kernels line's
+    g = q.shape[1] // k.shape[2]
+    by_batch = {}
+    for bb in (1, 2, 4, 8):
+        n_bytes, n_ops = attention_bytes_ops(q[:bb], k[:bb], lens[:bb])
+        k_cold, k_warm, k_exc = cold_and_warm(kernel_call, bb, n_bytes)
+        l_cold, l_warm, l_exc = cold_and_warm(
+            sdpa_call, bb, 2 * g * k[:bb].numel() * k.element_size())
+        by_batch[bb] = dict(
+            ms=k_cold, ms_warm=k_warm, library_ms=l_cold,
+            library_ms_warm=l_warm, l2_exceeded=[k_exc, l_exc],
+            bound_ms=bound_ms(n_bytes, n_ops, flop_rate(bf16))[0])
+        print(f"decode_attention at B={bb} (cache_len {lens[:bb].tolist()}): "
+              f"kernel {k_cold:.4f} ms L2 cold, {k_warm:.4f} warm; "
+              f"scaled_dot_product_attention {l_cold:.4f} ms cold, "
+              f"{l_warm:.4f} warm; bound {by_batch[bb]['bound_ms']:.5f} ms "
+              f"(graph replays, one call; L2 exceeded between reuses: kernel "
+              f"{k_exc}, SDPA {l_exc}; {card})", flush=True)
+    ms, library_ms = by_batch[b]["ms"], by_batch[b]["library_ms"]
     n_bytes, n_ops = attention_bytes_ops(q, k, lens)
     entry = kernel_entry("decode_attention",
                          "src/repro_torch/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:28", errs,
                          ms, plain_ms, n_bytes, n_ops, flop_rate(bf16),
                          library_ms)
-    print(f"decode_attention time, qwen2-moe bf16 B={b} S={s}: {ms:.4f} ms; "
-          f"plain {plain_ms:.4f} ms; scaled_dot_product_attention "
-          f"{library_ms:.4f} ms; bound {entry['bound_ms']:.5f} ms "
-          f"({entry['bound_by']}: {n_bytes / 1e6:.2f} MB, {n_ops / 1e9:.4f} "
-          f"GFLOP), so the kernel takes {ms / entry['bound_ms']:.1f}x its "
-          f"bound ({card})", flush=True)
+    chunk, n_chunks = da.launch_plan(s, d)
+    print(f"decode_attention time, qwen2-moe bf16 B={b} S={s}: {ms:.4f} ms "
+          f"(graph replay, L2 cold; {by_batch[b]['ms_warm']:.4f} warm; "
+          f"{ms_events:.4f} ms back to back); plain {plain_ms:.4f} ms; "
+          f"scaled_dot_product_attention {library_ms:.4f} ms (L2 cold; "
+          f"{by_batch[b]['library_ms_warm']:.4f} warm); bound "
+          f"{entry['bound_ms']:.5f} ms ({entry['bound_by']}: "
+          f"{n_bytes / 1e6:.2f} MB, {n_ops / 1e9:.4f} GFLOP), so the kernel "
+          f"takes {ms / entry['bound_ms']:.1f}x its bound and "
+          f"{ms / library_ms:.2f}x SDPA, L2 cold; {chunk}-position chunks, "
+          f"{n_chunks} per (kv head, request), {k.shape[2] * b * n_chunks} "
+          f"blocks ({card})", flush=True)
     results["decode_attention_kernel"] = entry
     results["decode_attention_detail"] = dict(
-        batch=b, cache=s, cache_len=lens.tolist(), bytes=n_bytes, flop=n_ops)
+        batch=b, cache=s, cache_len=lens.tolist(), bytes=n_bytes, flop=n_ops,
+        ms_back_to_back=ms_events, chunk=chunk, n_chunks=n_chunks,
+        by_batch=by_batch)
 
     # --- grouped GEMM, routed by a full-width router ---
     gen = torch.Generator(device=dev)

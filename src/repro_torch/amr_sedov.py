@@ -6,7 +6,7 @@ coarse and fine sub-grids, each task with its level's cell width — through
 one aggregation executor.  With ``--mixed`` the levels use different
 sub-grid sizes, so TWO kernel families aggregate side by side.
 ``--layout slot_lane`` runs the lane kernel (tasks across each warp) in
-place of the one-block-per-slot kernel; on the card ``--mixed`` needs it,
+place of the slot_grid kernel; on the card ``--mixed`` needs it,
 the slot_grid kernel taking no 16^3 sub-grid.
 
 Every strategy's result is checked bit-identical to the per-level fused

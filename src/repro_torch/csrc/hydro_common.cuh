@@ -60,17 +60,22 @@ inline cudaError_t upload_quad_table(const float* weights, const int* table,
   return cudaMemcpyToSymbol(c_tab, &tab, sizeof(tab));
 }
 
-// Allow `kernel` the device's opt-in shared memory per block.
+// Allow `kernel` the device's opt-in shared memory per block as dynamic
+// shared memory, less what the kernel declares statically.
 template <class Kernel>
 inline cudaError_t allow_optin_smem(Kernel kernel) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
   int device = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&device);
+  err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                device);
   if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              optin - (int)attr.sharedSizeBytes);
 }
 
 // NaN-propagating max/min, as jnp.maximum / torch.maximum (fmaxf drops NaN)

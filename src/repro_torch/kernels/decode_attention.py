@@ -19,11 +19,17 @@ current stream for CUDA tensors and raises for anything the kernel does not
 take, with no fallback; ``decode_attention_plain`` is the same function in
 PyTorch (``repro.kernels.ref.decode_attention_ref``'s counterpart, with the
 ``cache_len == 0`` rows defined as 0).
+
+The kernel splits each request's cache into chunks of ``launch_plan(S,
+D)`` positions, one block per (kv head, request, chunk), and a second
+kernel merges the chunks in chunk order; the plan depends on the cache
+capacity S and the head dimension D alone, never on B or on the lengths.
 """
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Tuple
 
 import torch
 
@@ -33,6 +39,21 @@ NEG_INF = -1e30
 MAX_GROUP = 16            # query heads per kv head the kernel holds
 MAX_HEAD_DIM = 256
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+TILE = 32                 # cache positions per staged tile (csrc kTile)
+MAX_CHUNKS = 64           # chunks per (kv head, request) (csrc kMaxChunks)
+CHUNK_ELEMS = 8_192       # a chunk's K row elements: 64 positions at D 128
+
+
+def launch_plan(s: int, d: int) -> Tuple[int, int]:
+    """(positions per chunk, number of chunks) for a cache of capacity
+    ``s`` and head dimension ``d``: CHUNK_ELEMS / d positions rounded down
+    to whole tiles, at least one tile, and enough that at most MAX_CHUNKS
+    chunks cover ``s``.  A pure function of (S, D), so a request's chunks,
+    and so its bits, are the same in any bucket."""
+    chunk = max(TILE, CHUNK_ELEMS // d // TILE * TILE)
+    least = -(-s // MAX_CHUNKS)                 # ceil(s / MAX_CHUNKS)
+    chunk = max(chunk, -(-least // TILE) * TILE)
+    return chunk, -(-s // chunk)
 
 
 def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
@@ -99,6 +120,10 @@ def check_kernel_args(q: torch.Tensor, k_cache: torch.Tensor,
         if not t.is_contiguous():
             raise ValueError(f"decode_attention kernel needs a contiguous "
                              f"{name}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"decode_attention kernel needs {name} to "
+                             f"start 16-byte aligned (its rows are copied "
+                             f"16 bytes at a time)")
     if (not isinstance(cache_len, torch.Tensor)
             or cache_len.dtype != torch.int32 or cache_len.shape != (b,)
             or not cache_len.is_contiguous()
@@ -110,8 +135,11 @@ def check_kernel_args(q: torch.Tensor, k_cache: torch.Tensor,
 
 def _declare(lib: ctypes.CDLL) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.decode_attention_init.argtypes = []
+    lib.decode_attention_init.restype = ci
     lib.decode_attention_launch.argtypes = [
-        vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ctypes.c_float, ci, vp]
+        vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ctypes.c_float,
+        ci, vp]
     lib.decode_attention_launch.restype = ci
     lib.decode_attention_error_string.argtypes = [ci]
     lib.decode_attention_error_string.restype = ctypes.c_char_p
@@ -122,12 +150,17 @@ def build() -> ctypes.CDLL:
     return _build.load("decode_attention", _declare)
 
 
+_READY_DEVICES: set = set()     # devices whose shared-memory limit is raised
+
+
 def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                           v_cache: torch.Tensor,
                           cache_len: torch.Tensor) -> torch.Tensor:
-    """Launch the decode-attention kernel on the current stream: (B, Hq,
-    D), (B, S, Hkv, D) x 2, (B,) -> (B, Hq, D).  Counts each launch in
-    ``decode_attention_cuda.launches``."""
+    """Launch the chunk and combine kernels on the current stream: (B, Hq,
+    D), (B, S, Hkv, D) x 2, (B,) -> (B, Hq, D), the chunk size from
+    ``launch_plan(S, D)`` and the scratch of per-chunk partials allocated
+    here.  Counts each launch in ``decode_attention_cuda.launches`` (an
+    empty bucket or cache launches nothing)."""
     if q.device.type != "cuda":
         raise ValueError(
             f"decode_attention_cuda needs a CUDA tensor, got one on "
@@ -139,12 +172,25 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     out = torch.empty_like(q)
     if b == 0:
         return out
+    if s == 0:                  # nothing can be cached: every row is 0
+        return out.zero_()
+    chunk, n_chunks = launch_plan(s, d)
+    part_acc = torch.empty((b, hkv, n_chunks, g, d), dtype=torch.float32,
+                           device=q.device)
+    part_ml = torch.empty((b, hkv, n_chunks, g, 2), dtype=torch.float32,
+                          device=q.device)
     with torch.cuda.device(q.device):
+        if q.device.index not in _READY_DEVICES:
+            _build.raise_on(lib.decode_attention_init(),
+                            lib.decode_attention_error_string,
+                            "decode_attention kernel set-up")
+            _READY_DEVICES.add(q.device.index)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.decode_attention_launch(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            cache_len.data_ptr(), out.data_ptr(), b, s, hkv, g, d,
-            1.0 / math.sqrt(d), DTYPES[q.dtype], stream)
+            cache_len.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
+            part_ml.data_ptr(), b, s, hkv, g, d, chunk, 1.0 / math.sqrt(d),
+            DTYPES[q.dtype], stream)
     _build.raise_on(err, lib.decode_attention_error_string,
                     "decode_attention kernel launch")
     decode_attention_cuda.launches += 1

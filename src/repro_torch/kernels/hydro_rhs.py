@@ -4,12 +4,12 @@ two layouts.
 
 ``slot_grid``: ``hydro_rhs_cuda`` launches ``csrc/hydro_rhs.cu`` on the
 current stream for a CUDA tensor ``(n, F, P, P, P)`` and returns ``(n, F,
-S, S, S)``.  ``slot_lane``: ``hydro_rhs_lane_cuda`` launches
-``csrc/hydro_rhs_lane.cu`` for the lane-major ``(F, P, P, P, n)`` and
-returns ``(F, S, S, S, n)``.  Both raise for anything their kernel does not
-take and never fall back.  The cell width is a float ``h`` (uniform grid)
-or one width per slot, ``h_slots`` (n,): one kernel serves each layout's
-two Pallas kernels.  ``hydro_rhs_plain`` is the same function in PyTorch,
+S, S, S)``, one thread-block cluster of ``CLUSTER`` CTAs per slot.
+``slot_lane``: ``hydro_rhs_lane_cuda`` launches ``csrc/hydro_rhs_lane.cu``
+for the lane-major ``(F, P, P, P, n)`` and returns ``(F, S, S, S, n)``.
+Both raise for anything their kernel does not take and never fall back.
+The cell width is a float ``h`` (uniform grid) or one width per slot,
+``h_slots`` (n,): one kernel serves each layout's two Pallas kernels.  ``hydro_rhs_plain`` is the same function in PyTorch,
 the counterpart of ``repro.kernels.ref.hydro_rhs_ref``;
 ``hydro_rhs_lane_plain`` is the reference's Pallas body on the lane-major
 array (``repro.kernels.hydro_rhs._rhs_field_block`` over axes (-4, -3,
@@ -31,6 +31,10 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._build import SMEM_PER_BLOCK
 
 KERNEL_GHOST = 3                  # the kernels' index bounds assume g = 3
+# the slot_grid kernel's launch shape, fixed in csrc/hydro_rhs.cu: CTAs per
+# slot (an axis each) and threads per CTA (one face each at S=8)
+CLUSTER = 3
+CTA_THREADS = 576
 LAYOUTS = ("slot_grid", "slot_lane")
 LANE_AXES = (-4, -3, -2)          # spatial axes of a lane-major block
 
@@ -87,7 +91,7 @@ def hydro_rhs_lane_plain(u_t: torch.Tensor, *, h: Optional[float] = None,
 
 
 def smem_bytes(subgrid: int, ghost: int = KERNEL_GHOST) -> int:
-    """Dynamic shared memory of one block: the padded slot, then one axis'
+    """Dynamic shared memory of one CTA: the padded slot, then one axis'
     face fluxes (the layout ``csrc/hydro_rhs.cu`` reads)."""
     p = subgrid + 2 * ghost
     return 4 * N_FIELDS * (p ** 3 + (subgrid + 1) * subgrid ** 2)
@@ -141,6 +145,16 @@ def check_kernel_args(u_slots: torch.Tensor, h: Optional[float],
     n = u_slots.shape[0] if u_slots.dim() else 0
     _check_state(u_slots, (n, N_FIELDS, p, p, p),
                  f"(n, {N_FIELDS}, {p}, {p}, {p})", h_slots, n)
+    # one bulk copy per slot: 16-byte aligned, a multiple of 16 bytes
+    if 4 * N_FIELDS * p ** 3 % 16:
+        raise NotImplementedError(
+            f"the slot_grid kernel copies a slot in 16-byte units: a padded "
+            f"slot of {p}^3 is {4 * N_FIELDS * p ** 3} B (an odd subgrid); "
+            f"use layout='slot_lane'")
+    if u_slots.data_ptr() % 16:
+        raise ValueError(f"the slot_grid kernel needs the slots 16-byte "
+                         f"aligned, got an address {u_slots.data_ptr() % 16} "
+                         f"B past a 16-byte boundary")
 
 
 def check_lane_args(u_t: torch.Tensor, h: Optional[float],
@@ -182,6 +196,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.hydro_rhs_launch.argtypes = [
         vp, vp, vp, ci, ci, cf, cf, cf, ctypes.c_size_t, vp]
     lib.hydro_rhs_launch.restype = ci
+    lib.hydro_rhs_occupancy.argtypes = [
+        ctypes.c_size_t, ctypes.POINTER(ci), ctypes.POINTER(ci)]
+    lib.hydro_rhs_occupancy.restype = ci
     lib.hydro_rhs_error_string.argtypes = [ci]
     lib.hydro_rhs_error_string.restype = ctypes.c_char_p
 
@@ -194,11 +211,21 @@ def build() -> ctypes.CDLL:
     return _build.load("hydro_rhs", _declare)
 
 
+def _ready(lib: ctypes.CDLL, device: torch.device) -> None:
+    """Upload the constant table and raise the shared-memory limit on
+    ``device`` (once)."""
+    if device.index not in _READY_DEVICES:
+        _build.raise_on(lib.hydro_rhs_init(*_quad_table()),
+                        lib.hydro_rhs_error_string, "hydro_rhs kernel set-up")
+        _READY_DEVICES.add(device.index)
+
+
 def hydro_rhs_cuda(u_slots: torch.Tensor, *, h: Optional[float] = None,
                    h_slots: Optional[torch.Tensor] = None, gamma: float,
                    ghost: int, subgrid: int) -> torch.Tensor:
-    """Launch the fused kernel on the current stream: (n, F, P, P, P) ->
-    (n, F, S, S, S).  Counts each launch in ``hydro_rhs_cuda.launches``."""
+    """Launch the cluster kernel on the current stream: (n, F, P, P, P) ->
+    (n, F, S, S, S).  Counts each launch in ``hydro_rhs_cuda.launches``
+    (an empty bucket launches nothing)."""
     if u_slots.device.type != "cuda":
         raise ValueError(
             f"hydro_rhs_cuda needs a CUDA tensor, got one on "
@@ -211,11 +238,7 @@ def hydro_rhs_cuda(u_slots: torch.Tensor, *, h: Optional[float] = None,
     if n == 0:
         return out
     with torch.cuda.device(u_slots.device):
-        if u_slots.device.index not in _READY_DEVICES:
-            _build.raise_on(lib.hydro_rhs_init(*_quad_table()),
-                            lib.hydro_rhs_error_string,
-                            "hydro_rhs kernel set-up")
-            _READY_DEVICES.add(u_slots.device.index)
+        _ready(lib, u_slots.device)
         stream = torch.cuda.current_stream(u_slots.device).cuda_stream
         err = lib.hydro_rhs_launch(
             u_slots.data_ptr(),
@@ -225,6 +248,22 @@ def hydro_rhs_cuda(u_slots: torch.Tensor, *, h: Optional[float] = None,
     _build.raise_on(err, lib.hydro_rhs_error_string, "hydro_rhs kernel launch")
     hydro_rhs_cuda.launches += 1
     return out
+
+
+def occupancy(device: torch.device, subgrid: int,
+              ghost: int = KERNEL_GHOST) -> Tuple[int, int]:
+    """(resident CTAs per SM, clusters resident on the card) for the
+    cluster kernel at ``subgrid``, as the CUDA occupancy calculator gives
+    them."""
+    lib = build()
+    per_sm, clusters = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device):
+        _ready(lib, device)
+        _build.raise_on(lib.hydro_rhs_occupancy(
+            smem_bytes(subgrid, ghost), ctypes.byref(per_sm),
+            ctypes.byref(clusters)),
+            lib.hydro_rhs_error_string, "hydro_rhs occupancy query")
+    return per_sm.value, clusters.value
 
 
 hydro_rhs_cuda.launches = 0

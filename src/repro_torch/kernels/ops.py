@@ -3,10 +3,10 @@ device: the CUDA kernel for CUDA tensors, the plain PyTorch version for CPU
 tensors.  A CUDA tensor never falls back to the plain version.
 
 The hydro RHS keeps the reference's two layouts (``layout=``):
-``slot_grid`` hands the ``(n, F, P, P, P)`` slots to the one-block-per-slot
-kernel, ``slot_lane`` transposes them to ``(F, P, P, P, n)``, runs the
-lane kernel (tasks across each warp) and transposes back, as the reference
-does around its ``pallas_call``.
+``slot_grid`` hands the ``(n, F, P, P, P)`` slots to the kernel launching
+one thread-block cluster per slot, ``slot_lane`` transposes them to ``(F,
+P, P, P, n)``, runs the lane kernel (tasks across each warp) and
+transposes back, as the reference does around its ``pallas_call``.
 
 The ``*_batched_body`` factories build the aggregation-region bodies the
 scenarios register: the uniform hydro RHS (scalar h), the hydro RHS with a

@@ -23,7 +23,8 @@ iteration (``AMR_1024``: a 64^3 coarse level and a 64^3 fine patch, 512
 sub-grids of 8^3 each, one family).  ``--body split`` runs the uniform
 Sedov scenario on the split Reconstruct + Flux body instead of the fused
 hydro kernel.  ``--layout slot_lane`` runs the hydro family on the lane
-kernel (tasks across each warp) instead of the one-block-per-slot kernel.
+kernel (tasks across each warp) instead of the slot_grid kernel (one
+thread-block cluster per slot).
 
 ``--scenario serve`` profiles the serving engine: qwen2-moe-a2.7b at its
 published widths cut to 4 layers, bf16, behind
@@ -146,6 +147,11 @@ SERVE_LAYERS = 4
 SERVE_BUCKETS = (1, 2, 4, 8)
 SERVE_PROMPT = 64        # tokens per request's prompt
 SERVE_MAX_LEN = 1024
+# each serving kernel's device kernels by name; the first is launched once
+# per wrapper call (decode attention: the chunk pass, then the combine)
+SERVE_KERNELS = {"decode_attention": ("decode_chunk_kernel",
+                                      "decode_combine_kernel"),
+                 "grouped_gemm": ("grouped_gemm_kernel",)}
 
 
 def _cuda_ms(fn, reps: int = 10) -> float:
@@ -199,12 +205,13 @@ def profile_serve(layers: int, steps: int, dev) -> dict:
         kernels = [e for e in events if _on_device(e)]
         busy_ms = sum(_device_us(e) for e in kernels) / 1e3 / steps
         ours = {}
-        for name in ("decode_attention_kernel", "grouped_gemm_kernel"):
-            hits = [e for e in kernels if name in e.key]
-            ours[name] = dict(
+        for op, names in SERVE_KERNELS.items():
+            hits = [e for e in kernels if any(n in e.key for n in names)]
+            ours[op] = dict(
                 device_ms_per_step=sum(_device_us(e) for e in hits)
                 / 1e3 / steps,
-                launches_per_step=sum(e.count for e in hits) / steps)
+                launches_per_step=sum(e.count for e in hits
+                                      if names[0] in e.key) / steps)
         idx = torch.arange(bucket, device=dev)
         sub = eng._gather(idx)
         rows[bucket] = dict(
@@ -239,10 +246,10 @@ def main_serve(dev, out):
               f"{row['device_idle_share']:.3f}; decode_attention "
               + "{:.4f} ms ({:g} launches), grouped_gemm {:.4f} ms ({:g} "
               "launches) per step; gather {:.4f} ms, scatter {:.4f} ms"
-              .format(ks["decode_attention_kernel"]["device_ms_per_step"],
-                      ks["decode_attention_kernel"]["launches_per_step"],
-                      ks["grouped_gemm_kernel"]["device_ms_per_step"],
-                      ks["grouped_gemm_kernel"]["launches_per_step"],
+              .format(ks["decode_attention"]["device_ms_per_step"],
+                      ks["decode_attention"]["launches_per_step"],
+                      ks["grouped_gemm"]["device_ms_per_step"],
+                      ks["grouped_gemm"]["launches_per_step"],
                       row["gather_ms"], row["scatter_ms"]), flush=True)
         for op in row["top_device_ops"]:
             print(f"    device {op['device_ms_per_step']:9.3f} ms "

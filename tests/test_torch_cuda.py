@@ -129,6 +129,38 @@ def test_streams_bit_identical_to_fused(dev):
     assert all(torch.equal(o, outs[0]) for o in outs[1:])
 
 
+@pytest.mark.parametrize("n", [1, 3, 31, 32, 33, 512])
+def test_cluster_kernel_buckets_plain_and_lane(dev, n):
+    """A bucket of n slots (one cluster per slot) is within the kernel
+    tolerance of the plain version, equals the same slots of a 512-slot
+    launch and the lane kernel bit for bit."""
+    from repro_torch.configs.sedov import CONFIG
+    sedov = extract_subgrids(sedov_init(CONFIG, device=dev).u, 8, 3)
+    u = torch.cat([random_slots(76, 64, dev), sedov])[:512].contiguous()
+    whole = kern.hydro_rhs_cuda(u, **KW)
+    for a in sorted({0, (512 - n) // 2, 512 - n}):
+        x = u[a:a + n]
+        got = kern.hydro_rhs_cuda(x, **KW)
+        assert torch.equal(got, whole[a:a + n]), a
+        lane = kern.hydro_rhs_lane_cuda(lane_major(x), h=KW["h"], subgrid=8,
+                                        **LKW)
+        assert torch.equal(slot_major(lane), got), a
+    assert_within_kernel_tol(got, kern.hydro_rhs_plain(x, **KW))
+
+
+def test_cluster_kernel_rejects_misaligned_slots(dev):
+    u = random_slots(77, 2, dev)
+    buf = torch.empty(u.numel() + 1, device=dev)
+    misaligned = buf[1:].view(u.shape)
+    misaligned.copy_(u)
+    before = kern.hydro_rhs_cuda.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        kern.hydro_rhs_cuda(misaligned, **KW)
+    assert kern.hydro_rhs_cuda.launches == before
+    assert torch.equal(kern.hydro_rhs_cuda(misaligned.clone(), **KW),
+                       kern.hydro_rhs_cuda(u, **KW))
+
+
 GKW = dict(ghost=3, subgrid=8, g_const=1.0, n_iter=8)
 
 
@@ -358,6 +390,37 @@ def test_decode_attention_kernel_matches_plain(dev, dtype, hq, hkv, d):
     assert torch.equal(ops.decode_attention(q, k, v, cl), got)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("g", [1, 4])
+def test_decode_attention_split_at_chunk_edges(dev, dtype, g):
+    """Lengths 0, 1, chunk - 1, chunk, chunk + 1 and S of the launch plan,
+    with NaN stored past each length: finite, within the tolerance of the
+    plain version on the NaN-free caches, each request equal to its solo
+    launch, cache_len 0 exactly 0."""
+    s, d, hkv = 256, 128, 2
+    chunk, _ = da.launch_plan(s, d)
+    lens = [0, 1, chunk - 1, chunk, chunk + 1, s]
+    b = len(lens)
+    q = normal(11, (b, g * hkv, d), dev, dtype)
+    k = normal(12, (b, s, hkv, d), dev, dtype)
+    v = normal(13, (b, s, hkv, d), dev, dtype)
+    cl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    want = da.decode_attention_plain(q, k, v, cl)
+    for i, n in enumerate(lens):
+        k[i, n:] = float("nan")
+        v[i, n:] = float("nan")
+    got = da.decode_attention_cuda(q, k, v, cl)
+    torch.cuda.synchronize(dev)
+    assert bool(torch.isfinite(got.float()).all())
+    assert_close(got, want, DA_TOL[dtype])
+    assert not bool(got[0].any())
+    for i in range(b):
+        solo = da.decode_attention_cuda(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                                        cl[i:i + 1])
+        assert torch.equal(solo[0], got[i]), i
+
+
 def test_decode_attention_kernel_rejects_without_falling_back(dev):
     q = normal(4, (2, 4, 64), dev, torch.float32)
     k = normal(5, (2, 16, 2, 64), dev, torch.float32)
@@ -373,6 +436,29 @@ def test_decode_attention_kernel_rejects_without_falling_back(dev):
         da.decode_attention_cuda(q[..., :60].contiguous(),
                                  k[..., :60].contiguous(),
                                  k[..., :60].contiguous(), cl)
+
+
+def test_empty_launches_count_nothing(dev):
+    """An empty bucket (no slots, no requests) or an empty cache launches no
+    kernel, so the counters stay as they were; an empty cache gives 0."""
+    u = random_slots(78, 1, dev)
+    q = normal(6, (2, 4, 64), dev, torch.float32)
+    k = normal(7, (2, 16, 2, 64), dev, torch.float32)
+    cl = torch.tensor([3, 16], dtype=torch.int32, device=dev)
+    before = (kern.hydro_rhs_cuda.launches, da.decode_attention_cuda.launches)
+    assert kern.hydro_rhs_cuda(u[:0], **KW).shape == (0, 5, 8, 8, 8)
+    assert da.decode_attention_cuda(q[:0], k[:0], k[:0], cl[:0]).shape == (
+        0, 4, 64)
+    none = da.decode_attention_cuda(q, k[:, :0].contiguous(),
+                                    k[:, :0].contiguous(), cl * 0)
+    assert not bool(none.any())
+    assert (kern.hydro_rhs_cuda.launches,
+            da.decode_attention_cuda.launches) == before
+    kern.hydro_rhs_cuda(u, **KW)
+    da.decode_attention_cuda(q, k, k, cl)
+    assert (kern.hydro_rhs_cuda.launches,
+            da.decode_attention_cuda.launches) == (before[0] + 1,
+                                                   before[1] + 1)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],

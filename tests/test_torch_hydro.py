@@ -185,8 +185,25 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="h_slots"):
         kern.check_kernel_args(u, None, torch.ones(2), 3, 8)
     kern.check_kernel_args(u, None, torch.ones(1), 3, 8)
-    # the main path's shape fits: ~66 KB per block, 3 blocks per SM
+    # the main path's shape fits: ~66 KB per CTA of a 3-CTA cluster (the
+    # padded slot and one axis' faces)
     assert kern.smem_bytes(8) == 66_400
+
+
+def test_kernel_wrapper_refuses_slots_a_bulk_copy_cannot_take():
+    """One bulk copy per slot: the slots start 16-byte aligned and a padded
+    slot is a multiple of 16 bytes (even sub-grids)."""
+    u = T(random_slots(42, 2))
+    kw = dict(h=0.01, h_slots=None, ghost=3, subgrid=8)
+    n = u.numel()
+    buf = torch.zeros(n + 4)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kern.check_kernel_args(buf[1:1 + n].view(u.shape), **kw)
+    kern.check_kernel_args(buf[4:4 + n].view(u.shape), **kw)
+    odd = torch.zeros((1, 5, 11, 11, 11))
+    with pytest.raises(NotImplementedError, match="16-byte units"):
+        kern.check_kernel_args(odd, h=0.01, h_slots=None, ghost=3,
+                               subgrid=5)
 
 
 def _coords(lin, p):
