@@ -16,7 +16,11 @@
    from buckets of 1, 3 and 32.  Times the kernel on the main path's input
    against its plain version and its bound, and at the bucket ladder's
    sizes 1, 8, 32, 128 and 512 (CUDA-graph replays and back to back),
-   with the cluster size, CTAs per launch and resident CTAs per SM.
+   with the cluster size, CTAs per launch and resident CTAs per SM.  Holds
+   it at odd sub-grids (5^3 and 7^3, whose slots start off 16-byte
+   boundaries in turn) and on a tensor one float past a 16-byte boundary
+   against its plain version, its buckets and the lane kernel (bit for
+   bit).
 3. Drives the main path — uniform Sedov ``CONFIG`` (512 sub-grids of 8^3)
    stepped by TVD-RK3 through ``StrategyRunner`` — under ``fused``, ``s3``
    (caps 32 and 512) and ``s2+s3`` (4 streams, cap 32), counting the
@@ -24,7 +28,8 @@
    for bit and agree with the plain PyTorch path on the card.
 4. Holds the gravity kernel and the split pair (Reconstruct, Flux) against
    their plain versions at 512 slots of the Sedov IC and on random slots,
-   and times each against its plain version and its bound.
+   and times each against its plain version and its bound; Flux's 32-slot
+   launch by CUDA-graph replays.
 5. Path A: the self-gravitating Sedov blast at the paper's grid
    (``GravityHydroConfig(hydro=CONFIG)``, 512 sub-grids), hydro (``h_slots``
    mode) and gravity as two families through one executor, under the same
@@ -40,7 +45,8 @@
    64 x 16^3, against the slot_grid kernel at 8^3, and checks that every
    slot equals its result from buckets of 1, 3 and 32 slots; checks that
    it equals the slot_grid kernel in every element; times it beside the
-   two transposes and its bound.
+   two transposes and its bound, its 32-task launches by CUDA-graph
+   replays, with its tile plan and resident CTAs.
 8. Path C: the two-level AMR blast, ``AMRSedovScenario`` at 1,024 tasks
    per iteration (a 64^3 coarse level and a 64^3 fine patch, 512 sub-grids
    of 8^3 each, one family) on each layout under the four strategy rows,
@@ -83,7 +89,8 @@
    line, and as its last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the run exits non-zero and prints no result;
-so does a host without a CUDA device, or a directory without the repo.
+so does a host without a CUDA device (exit 2), or a directory without the
+repo's ``src/repro_torch`` beside the script (exit 1).
 """
 import argparse
 import itertools
@@ -351,6 +358,8 @@ def phase_kernel(cfg, dev, results):
                         f"({n} slots)", kern.hydro_rhs_cuda(uc, h=h, **kw),
                         want_c, slot_field_max(want_c), **tol))
 
+    errs += odd_and_misaligned_slots(cfg, dev)
+
     ms = time_cuda_ms(lambda: kern.hydro_rhs_cuda(u, h=h, **kw), reps=50)
     ms_32 = time_cuda_ms(lambda: kern.hydro_rhs_cuda(u[:32], h=h, **kw),
                          reps=50)
@@ -401,6 +410,59 @@ def phase_kernel(cfg, dev, results):
         achieved_tflops=n_ops / (ms * 1e-3) / 1e12, cluster=kern.CLUSTER,
         cta_threads=kern.CTA_THREADS, ctas_per_sm=per_sm,
         resident_clusters=resident, ladder=ladder)
+
+
+def odd_and_misaligned_slots(cfg, dev):
+    """The slot_grid kernel where a slot's bulk copy needs a head and a
+    tail: 512 sub-grids of 5^3 and 7^3 (a padded slot of 5 P^3 floats, P
+    odd, so the slots start at every float offset of a 16-byte unit in
+    turn; the Sedov IC and random states) and the main path's input in a
+    tensor one float past a 16-byte boundary.  Each within the tolerance of
+    the plain version, each slot equal to its result from buckets of 1, 3
+    and 32, and to the lane kernel's, bit for bit.  Returns the errors."""
+    from repro_torch.configs.base import HydroConfig
+    from repro_torch.hydro.state import extract_subgrids, sedov_init
+    from repro_torch.kernels import hydro_rhs as kern
+
+    tol = dict(atol_scale=ATOL_SCALE, rtol=RTOL)
+    errs = []
+    for s in (5, 7):
+        c = HydroConfig(subgrid=s, levels=cfg.levels)
+        kw = dict(gamma=c.gamma, ghost=c.ghost, subgrid=s)
+        h = c.domain / (c.grids_per_edge * s)
+        u = extract_subgrids(sedov_init(c, device=dev).u, s, c.ghost)
+        ur = random_slots(u.shape[0], c.padded, dev, seed=6)
+        for label, x in (("Sedov IC", u), ("random smooth states", ur)):
+            got = kern.hydro_rhs_cuda(x, h=h, **kw)
+            want = kern.hydro_rhs_plain(x, h=h, **kw)
+            errs.append(compare(f"kernel vs plain at odd S, {label} "
+                                f"{tuple(x.shape)}", got, want,
+                                slot_field_max(want), **tol))
+            check_grid_buckets(f"kernel at {s}^3, {label}", x, got, h, **kw)
+            lane = kern.hydro_rhs_lane_cuda(lane_major(x), h=h, **kw)
+            check(torch.equal(slot_major(lane), got),
+                  f"the lane kernel and the slot_grid kernel differ at "
+                  f"{s}^3 ({label})")
+        print(f"kernel at {s}^3: equals the lane kernel in every element",
+              flush=True)
+    kw = dict(gamma=cfg.gamma, ghost=cfg.ghost, subgrid=cfg.subgrid)
+    h = cfg.domain / (cfg.grids_per_edge * cfg.subgrid)
+    u = extract_subgrids(sedov_init(cfg, device=dev).u, cfg.subgrid,
+                         cfg.ghost)
+    buf = torch.empty(u.numel() + 1, device=dev)
+    off = buf[1:].view(u.shape)
+    off.copy_(u)
+    check(off.data_ptr() % 16 == 4, "the tensor is not 4 B past 16")
+    got = kern.hydro_rhs_cuda(off, h=h, **kw)
+    want = kern.hydro_rhs_plain(u, h=h, **kw)
+    errs.append(compare(f"kernel vs plain, slots 4 B past a 16-byte "
+                        f"boundary {tuple(u.shape)}", got, want,
+                        slot_field_max(want), **tol))
+    check(torch.equal(got, kern.hydro_rhs_cuda(u, h=h, **kw)),
+          "misaligned slots differ from the same slots aligned")
+    check_grid_buckets("kernel, slots 4 B past a 16-byte boundary", off,
+                       got, h, **kw)
+    return errs
 
 
 def check_grid_buckets(label, u, want, widths, **kw):
@@ -569,6 +631,21 @@ def flux_ops(n, subgrid, ghost=3):
     return n * per_slot
 
 
+def flux_sector_bytes(n, subgrid, ghost=3):
+    """Bytes of the 32-byte sectors holding the values Flux must read (the
+    memory's unit of transfer): a face reads rows of S floats at P-float
+    strides, so most sectors it touches hold values it does not need.  n
+    slots; each (pair, side, field) plane starts on a sector boundary."""
+    from repro_torch.kernels.hydro_split import flux_read_states
+
+    p = subgrid + 2 * ghost
+    sectors = {((((pair * 2 + side) * 5 + f) * p + c[0]) * p * p
+                + c[1] * p + c[2]) * 4 // 32
+               for (pair, side, c) in flux_read_states(subgrid, ghost)
+               for f in range(5)}
+    return n * len(sectors) * 32
+
+
 def recon_by_field(recon):
     """(n, 13, 2, F, P, P, P) -> (n, F, 26 P, P, P), so ``compare`` takes
     its scale per slot and field over every pair, side and cell."""
@@ -587,7 +664,8 @@ def kernel_entry(name, source, replaces, errs, ms, plain_ms, n_bytes,
 
 def print_timing(name, n, ms, ms_32, plain_ms, entry, n_bytes, n_ops):
     print(f"{name} time on the Sedov IC, {n} slots: {ms:.4f} ms (32 slots "
-          f"{ms_32:.4f} ms); plain version {plain_ms:.3f} ms; bound "
+          f"{ms_32:.4f} ms by graph replay); plain version {plain_ms:.3f} "
+          f"ms; bound "
           f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}: "
           f"{n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.4f} GFLOP), so the kernel "
           f"takes {ms / entry['bound_ms']:.1f}x its bound", flush=True)
@@ -643,8 +721,8 @@ def phase_gravity_kernel(gcfg, dev, results):
           f"{got.numel()}, {got2.numel()}, {got_r.numel()}", flush=True)
 
     ms = time_cuda_ms(lambda: grav.gravity_cuda(u, hs, **kw), reps=50)
-    ms_32 = time_cuda_ms(lambda: grav.gravity_cuda(u[:32], hs[:32], **kw),
-                         reps=50)
+    ms_32 = time_graph_ms(lambda: grav.gravity_cuda(u[:32], hs[:32], **kw),
+                          reps=50)
     plain_ms = time_cuda_ms(lambda: grav.gravity_plain(u, hs, **kw), reps=5,
                             warm=1)
     p, s = hc.padded, hc.subgrid
@@ -715,12 +793,13 @@ def phase_split_kernels(cfg, dev, results):
 
     n, p, s = u.shape[0], cfg.padded, cfg.subgrid
     ms_r = time_cuda_ms(lambda: split.hydro_reconstruct_cuda(u), reps=50)
-    ms_r32 = time_cuda_ms(lambda: split.hydro_reconstruct_cuda(u[:32]),
-                          reps=50)
+    ms_r32 = time_graph_ms(lambda: split.hydro_reconstruct_cuda(u[:32]),
+                           reps=50)
     ms_f = time_cuda_ms(lambda: split.hydro_flux_cuda(rk, h=h, **kw),
                         reps=50)
-    ms_f32 = time_cuda_ms(
+    ms_f32 = time_graph_ms(
         lambda: split.hydro_flux_cuda(rk[:32], h=h, **kw), reps=50)
+    f_per_sm, f_resident = split.flux_occupancy(dev, cfg.subgrid)
     ms_pair = time_cuda_ms(lambda: split.hydro_flux_cuda(
         split.hydro_reconstruct_cuda(u), h=h, **kw), reps=50)
     ms_fused = time_cuda_ms(lambda: kern.hydro_rhs_cuda(u, h=h, **kw),
@@ -744,6 +823,15 @@ def phase_split_kernels(cfg, dev, results):
                  r_bytes, r_ops)
     print_timing("flux kernel", n, ms_f, ms_f32, plain_f, flx, f_bytes,
                  f_ops)
+    f_sectors = flux_sector_bytes(n, s, cfg.ghost)
+    print(f"flux: the 32-byte sectors holding its values are "
+          f"{f_sectors / 1e6:.1f} MB ({f_sectors / f_bytes:.2f}x the bound's "
+          f"bytes), {f_sectors / HBM_BYTES_PER_S * 1e3:.4f} ms at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s", flush=True)
+    print(f"flux: {n * kern.CLUSTER} CTAs in clusters of {kern.CLUSTER} x {kern.CTA_THREADS} threads at "
+          f"{n} slots, {split.flux_smem_bytes(s)} B of shared memory per "
+          f"CTA, {f_per_sm} CTAs per SM, {f_resident} clusters resident",
+          flush=True)
     print(f"split pair at {n} slots: {ms_pair:.4f} ms against the fused "
           f"hydro_rhs kernel's {ms_fused:.4f} ms in this call "
           f"({ms_pair / ms_fused:.2f}x); the reconstruction it stages is "
@@ -752,8 +840,10 @@ def phase_split_kernels(cfg, dev, results):
     results["flux_kernel"] = flx
     results["split_detail"] = dict(
         slots=n, reconstruct_ms_32_slots=ms_r32, flux_ms_32_slots=ms_f32,
+        flux_ctas_per_sm=f_per_sm, flux_resident_clusters=f_resident,
         pair_ms=ms_pair, fused_ms=ms_fused, reconstruct_bytes=r_bytes,
-        reconstruct_flop=r_ops, flux_bytes=f_bytes, flux_flop=f_ops)
+        reconstruct_flop=r_ops, flux_bytes=f_bytes, flux_flop=f_ops,
+        flux_sector_bytes=f_sectors)
 
 
 # ---------------------------------------------------------------------------
@@ -872,7 +962,7 @@ def phase_lane_kernel(cfg, cfg16, dev, results):
             u32 = lane_major(u[:32])
             out_t = got.clone()
             row.update(
-                ms_32_slots=time_cuda_ms(
+                ms_32_slots=time_graph_ms(
                     lambda: kern.hydro_rhs_lane_cuda(u32, h=h, **kw),
                     reps=50),
                 ms_h_slots=time_cuda_ms(
@@ -887,12 +977,29 @@ def phase_lane_kernel(cfg, cfg16, dev, results):
                     lambda: kern.hydro_rhs_cuda(u, h=h, **kw), reps=50),
                 elements_differing_from_slot_grid=differ)
             print(f"lane kernel, {label}: 32 slots {row['ms_32_slots']:.4f} "
-                  f"ms; h_slots mode {row['ms_h_slots']:.4f} ms; cold flow "
-                  f"{row['ms_cold_flow']:.4f} ms; transposes in "
+                  f"ms by graph replay; h_slots mode {row['ms_h_slots']:.4f} "
+                  f"ms; cold flow {row['ms_cold_flow']:.4f} ms; transposes in "
                   f"{row['permute_in_ms']:.4f} ms, out "
                   f"{row['permute_out_ms']:.4f} ms; slot_grid kernel in this "
                   f"call {row['slot_grid_ms']:.4f} ms", flush=True)
+        sms = kern.sm_count(torch.cuda.current_device())
+        plans = {m: kern.lane_plan(s, m, sms) for m in (32, n)}
+        row.update(plan={m: plan._asdict() for m, plan in plans.items()},
+                   occupancy={m: kern.lane_occupancy(dev, s, m)
+                              for m in plans})
+        if s != cfg.subgrid:
+            u32 = lane_major(u[:32])
+            row["ms_32_slots"] = time_graph_ms(
+                lambda: kern.hydro_rhs_lane_cuda(u32, h=h, **kw), reps=50)
+        for m, plan in plans.items():
+            print(f"lane kernel, {label}, {m} tasks: tiles {plan.tile}, "
+                  f"{plan.ctas} CTAs in clusters of {kern.CLUSTER} x "
+                  f"{kern.LANE_THREADS} threads, {plan.smem} B of shared "
+                  f"memory per CTA, {row['occupancy'][m][0]} CTAs per SM, "
+                  f"{plan.face_evals / (3 * (s + 1) * s * s):.3f}x the face "
+                  f"evaluations needed", flush=True)
         print(f"lane kernel time on the Sedov IC, {label}: {ms:.4f} ms; "
+              f"32 tasks {row['ms_32_slots']:.4f} ms by graph replay; "
               f"plain version {plain_ms:.3f} ms; bound {b_ms:.4f} ms "
               f"({b_by}: {n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.3f} GFLOP), "
               f"so the kernel takes {ms / b_ms:.1f}x its bound", flush=True)
@@ -1909,6 +2016,10 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    if not os.path.isdir(os.path.join(HERE, "src", "repro_torch")):
+        print(f"chip_smoke: no src/repro_torch beside {__file__}: run it "
+              f"from a checkout of the repo", file=sys.stderr)
+        return 1
     sys.path.insert(0, os.path.join(HERE, "src"))
     from repro_torch.configs.amr_sedov import CONFIG as AMR_CONFIG
     from repro_torch.configs.amr_sedov import CONFIG_MIXED

@@ -1,13 +1,18 @@
 // Device math shared by the hydro kernels (hydro_rhs.cu, hydro_split.cu,
 // hydro_rhs_lane.cu): the CW84 PPM surface value, the KNP central-upwind
 // flux, the quadrature table in constant memory, the Simpson-integrated
-// flux through one face, and the per-axis face and divergence passes of
-// one slot.  Each .cu file builds into its own library, so each gets its
-// own copy of the constant table and uploads it itself.
+// flux through one face, and the thread-block-cluster scheme of the
+// slot_grid kernels (an axis' faces per CTA, the divergence through
+// distributed shared memory).  Each .cu file builds into its own library,
+// so each gets its own copy of the constant table and uploads it itself.
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -15,7 +20,6 @@ constexpr int kFields = 5;
 constexpr int kQuad = 9;
 constexpr int kPairs = 13;
 constexpr int kGhost = 3;
-constexpr int kThreads = 192;   // face/divergence passes: 576 faces per axis at S=8
 
 // FACE_QUAD of repro_torch.hydro.flux: weight, and each state's pair
 // direction (x, y, z), side and pair index, for 3 axes x 9 quadrature
@@ -171,18 +175,14 @@ __device__ __forceinline__ void knp_flux(const float (&qL)[kFields],
   }
 }
 
-// Face-buffer layout of one axis: (NX, NY, NZ) with S+1 along AXIS and S
-// across, z fastest, so neighbouring threads read neighbouring cells.
-template <int AXIS>
-__device__ __forceinline__ int face_extent(int S, int dim) {
-  return S + (dim == AXIS ? 1 : 0);
-}
-
 // The two states of quadrature entry q of an AXIS face, reconstructed from
 // the padded slot staged in shared memory (the fused kernel).
 struct PpmStates {
   const float* __restrict__ us;   // (F, P, P, P)
   int P;
+
+  template <int AXIS>
+  __device__ __forceinline__ void prime(int, int) const {}
 
   template <int AXIS>
   __device__ __forceinline__ void load(int q, int c, int e,
@@ -198,31 +198,6 @@ struct PpmStates {
     for (int f = 0; f < kFields; ++f) {
       qL[f] = ppm_side(us + f * P3 + c, dl, pl);
       qR[f] = ppm_side(us + f * P3 + c + e, dr, pr);
-    }
-  }
-};
-
-// The same two states read from a staged reconstruction (the split Flux
-// kernel): one slot's (13, 2, F, P, P, P) in device memory.
-struct StagedStates {
-  const float* __restrict__ recon;
-  int P;
-
-  template <int AXIS>
-  __device__ __forceinline__ void load(int q, int c, int e,
-                                       float (&qL)[kFields],
-                                       float (&qR)[kFields]) const {
-    const int P3 = P * P * P;
-    const float* L =
-        recon + (size_t)((c_tab.pair_l[AXIS][q] * 2 + c_tab.plus_l[AXIS][q]) *
-                         kFields) * P3 + c;
-    const float* R =
-        recon + (size_t)((c_tab.pair_r[AXIS][q] * 2 + c_tab.plus_r[AXIS][q]) *
-                         kFields) * P3 + c + e;
-#pragma unroll
-    for (int f = 0; f < kFields; ++f) {
-      qL[f] = L[(size_t)f * P3];
-      qR[f] = R[(size_t)f * P3];
     }
   }
 };
@@ -272,21 +247,80 @@ __device__ __forceinline__ void face_flux(const States& states, int c, int e,
   }
 }
 
-// face_flux at every face the interior divergence reads; stored
-// field-major into `face`.  `states` supplies each quadrature entry's left
-// and right state.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---------------------------------------------------------------------------
+// One thread-block cluster per slot (hydro_rhs.cu, hydro_split.cu's Flux)
+// or per tile of lanes (hydro_rhs_lane.cu): CTA a evaluates axis a's faces
+// into its own shared memory, then every CTA forms the divergence of its
+// share of the cells through distributed shared memory.
+// ---------------------------------------------------------------------------
+
+constexpr int kCluster = 3;        // CTAs per cluster: one per axis
+constexpr int kCtaThreads = 576;   // per slot kernel CTA: a face each at S=8
+
+// Face fluxes of a box of (bx, by, bz) cells held by a cluster: CTA a holds
+// axis a's faces at the shared-memory offset of `face`, laid out
+// [field][face][lane] with `lanes` tasks per face.  Axis a's face grid has
+// one more face along a than the box has cells, z fastest, and face index
+// k along a is the face on the low side of the box's cell k.
+struct ClusterFaces {
+  cg::cluster_group cluster;
+  float* face;
+  int bx, by, bz, lanes;
+
+  template <int AXIS>
+  __device__ __forceinline__ int ny() const { return by + (AXIS == 1); }
+  template <int AXIS>
+  __device__ __forceinline__ int nz() const { return bz + (AXIS == 2); }
+  template <int AXIS>
+  __device__ __forceinline__ int nface() const {
+    return (bx + (AXIS == 0)) * ny<AXIS>() * nz<AXIS>();
+  }
+  template <int AXIS>
+  __device__ __forceinline__ float at(int f, int fi, int lane) const {
+    return *cluster.map_shared_rank(
+        face + (f * nface<AXIS>() + fi) * lanes + lane, AXIS);
+  }
+};
+
+// -(F_hi - F_lo) / h of one axis at the box's cell (x, y, z), into `acc`
+// (assigned on axis 0): out = ((-d0) - d1) - d2, the reference's order, in
+// every kernel that forms a divergence.
+template <int AXIS>
+__device__ __forceinline__ void axis_divergence(const ClusterFaces& faces,
+                                                int x, int y, int z, int lane,
+                                                float h,
+                                                float (&acc)[kFields]) {
+  const int NY = faces.ny<AXIS>(), NZ = faces.nz<AXIS>();
+  const int step = AXIS == 0 ? NY * NZ : (AXIS == 1 ? NZ : 1);
+  const int lo = (x * NY + y) * NZ + z;
+#pragma unroll
+  for (int f = 0; f < kFields; ++f) {
+    const float d = (faces.at<AXIS>(f, lo + step, lane) -
+                     faces.at<AXIS>(f, lo, lane)) / h;
+    acc[f] = AXIS == 0 ? -d : acc[f] - d;
+  }
+}
+
+// face_flux at every face of one slot's AXIS face grid, one face per
+// thread per step, stored field-major into `face` (ClusterFaces' layout
+// with one lane).  `states.prime<AXIS>(c, e)` runs before each face.
 template <int AXIS, class States>
-__device__ void face_pass(const States& states, float* __restrict__ face,
-                          int P, int S, float gamma, float gm1) {
-  const int P2 = P * P;
-  const int NY = face_extent<AXIS>(S, 1), NZ = face_extent<AXIS>(S, 2);
-  const int nface = face_extent<AXIS>(S, 0) * NY * NZ;
+__device__ void axis_faces(const States& states, float* __restrict__ face,
+                           int S, float gamma, float gm1) {
+  const int P = states.P, P2 = P * P;
+  const int NY = S + (AXIS == 1), NZ = S + (AXIS == 2);
+  const int nface = (S + (AXIS == 0)) * NY * NZ;
   const int e = AXIS == 0 ? P2 : (AXIS == 1 ? P : 1);
-  for (int fi = threadIdx.x; fi < nface; fi += kThreads) {
+  for (int fi = threadIdx.x; fi < nface; fi += kCtaThreads) {
     const int z = fi % NZ, y = (fi / NZ) % NY, x = fi / (NZ * NY);
     // padded coordinates: the AXIS face index a sits at cell G-1+a
     const int c = (kGhost + x - (AXIS == 0)) * P2 +
                   (kGhost + y - (AXIS == 1)) * P + (kGhost + z - (AXIS == 2));
+    states.template prime<AXIS>(c, e);
     float acc[kFields];
     face_flux<AXIS>(states, c, e, gamma, gm1, acc);
 #pragma unroll
@@ -294,44 +328,71 @@ __device__ void face_pass(const States& states, float* __restrict__ face,
   }
 }
 
-// out = -d0 - d1 - d2 with d_a = (F_hi - F_lo) / h, accumulated in place by
-// the thread that owns each cell (same thread on every axis).
-template <int AXIS>
-__device__ void div_pass(const float* __restrict__ face,
-                         float* __restrict__ out, int S, float h) {
-  const int NY = face_extent<AXIS>(S, 1), NZ = face_extent<AXIS>(S, 2);
-  const int nface = face_extent<AXIS>(S, 0) * NY * NZ;
+// The CTA of rank `axis` evaluates its axis' faces of one slot.
+template <class States>
+__device__ __forceinline__ void cluster_faces(int axis, const States& states,
+                                              float* __restrict__ face, int S,
+                                              float gamma, float gm1) {
+  if (axis == 0)
+    axis_faces<0>(states, face, S, gamma, gm1);
+  else if (axis == 1)
+    axis_faces<1>(states, face, S, gamma, gm1);
+  else
+    axis_faces<2>(states, face, S, gamma, gm1);
+}
+
+// After the cluster.sync() that follows the face passes: CTA `axis` writes
+// its third of the slot's cells of dst (F, S, S, S), reading the three
+// axes' faces through distributed shared memory.
+__device__ __forceinline__ void cluster_divergence(const ClusterFaces& faces,
+                                                   int axis, int S, float h,
+                                                   float* __restrict__ dst) {
   const int S3 = S * S * S;
-  const int step = AXIS == 0 ? NY * NZ : (AXIS == 1 ? NZ : 1);
-  for (int ci = threadIdx.x; ci < S3; ci += kThreads) {
+  const int cells = (S3 + kCluster - 1) / kCluster;
+  const int c1 = min(S3, (axis + 1) * cells);
+  for (int ci = axis * cells + threadIdx.x; ci < c1; ci += kCtaThreads) {
     const int z = ci % S, y = (ci / S) % S, x = ci / (S * S);
-    const int lo = (x * NY + y) * NZ + z;
+    float acc[kFields];
+    axis_divergence<0>(faces, x, y, z, 0, h, acc);
+    axis_divergence<1>(faces, x, y, z, 0, h, acc);
+    axis_divergence<2>(faces, x, y, z, 0, h, acc);
 #pragma unroll
-    for (int f = 0; f < kFields; ++f) {
-      const float d = (face[f * nface + lo + step] - face[f * nface + lo]) / h;
-      float* o = out + f * S3 + ci;
-      *o = AXIS == 0 ? -d : *o - d;
-    }
+    for (int f = 0; f < kFields; ++f) dst[f * S3 + ci] = acc[f];
   }
 }
 
-// The three axes' face and divergence passes of one slot, in the
-// reference's order (axis 0, 1, 2); `face` holds one axis' face fluxes.
-template <class States>
-__device__ void rhs_passes(const States& states, float* __restrict__ face,
-                           float* __restrict__ dst, int P, int S, float h,
-                           float gamma, float gm1) {
-  face_pass<0>(states, face, P, S, gamma, gm1);
-  __syncthreads();
-  div_pass<0>(face, dst, S, h);
-  __syncthreads();
-  face_pass<1>(states, face, P, S, gamma, gm1);
-  __syncthreads();
-  div_pass<1>(face, dst, S, h);
-  __syncthreads();
-  face_pass<2>(states, face, P, S, gamma, gm1);
-  __syncthreads();
-  div_pass<2>(face, dst, S, h);
+// A launch of `ctas` CTAs in clusters of kCluster along x, `threads` each,
+// `smem` bytes of dynamic shared memory, `grid_y` rows; `attr` holds the
+// cluster-dimension attribute and must outlive the launch.
+inline cudaLaunchConfig_t cluster_config(unsigned ctas, unsigned grid_y,
+                                         unsigned threads, size_t smem,
+                                         cudaLaunchAttribute& attr) {
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = kCluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ctas, grid_y);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Resident CTAs per SM and clusters on the device for `kernel` launched
+// with `threads` threads and `smem` bytes of dynamic shared memory per CTA.
+template <class Kernel>
+inline cudaError_t cluster_occupancy(Kernel kernel, unsigned threads,
+                                     size_t smem, int* ctas_per_sm,
+                                     int* clusters) {
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      ctas_per_sm, kernel, (int)threads, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(kCluster, 1, threads, smem,
+                                                attr);
+  return cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
 }
 
 }  // namespace

@@ -17,20 +17,26 @@
 // 67 TFLOP/s) against 33 MB (~10 us at 3.35 TB/s).
 //
 // What the design does about it:
-//  * A cluster of 3 CTAs per slot, kCtaThreads = 576 threads each (one
-//    face per thread at S=8).  CTA rank a evaluates all of axis a's face
-//    fluxes into its own shared memory.  A slot that one block evaluated
-//    axis after axis now spreads over 3 SMs: a 32-slot bucket launches 96
-//    CTAs in place of 32, so the buckets the aggregation ladder drains at
-//    cap 32 no longer leave 100 of the 132 SMs idle.  The launch shape
-//    was chosen by measurement on the H100 (PERF.md, PR 15): a 32-slot
-//    launch took 0.032 ms against 0.034 for 6 CTAs of 288 (each axis'
-//    faces split in two), 0.044 for 3 x 288 and 0.053 for 3 x 192 (0.149
-//    for the one block per slot it replaces).
+//  * A cluster of kCluster = 3 CTAs per slot, kCtaThreads = 576 threads
+//    each (one face per thread at S=8; both in hydro_common.cuh).  CTA rank
+//    a evaluates all of axis a's face fluxes into its own shared memory.
+//    A 32-slot bucket launches 96 CTAs, so the buckets the aggregation
+//    ladder drains at cap 32 do not leave 100 of the 132 SMs idle.  The
+//    launch shape was chosen by measurement on the H100 (PERF.md, Findings).
+//    56 registers (__launch_bounds__(576, 2)), 2 CTAs per SM.
 //  * The padded slot (5 P^3 floats, 54,880 B at S=8, contiguous) comes in
 //    by one bulk copy per cluster, multicast to every CTA of the cluster
 //    and counted on one mbarrier per CTA: HBM is read once per slot, and no
-//    thread spends instructions on the copy.
+//    thread spends instructions on the copy.  The bulk copy moves whole
+//    16-byte units between 16-byte-aligned addresses, so it takes the
+//    slot's aligned middle; the head and tail (under 16 B each: at odd S
+//    a slot is 5 P^3 floats, not a multiple of 4, so successive slots
+//    start at each float offset of a 16-byte unit in turn, as may every
+//    slot of an unaligned tensor) come by plain loads in every CTA before
+//    the cluster.sync() that precedes the copy.  The slot sits in shared
+//    memory at an offset of 0-3 floats chosen so that its middle is
+//    16-byte aligned there too.  An aligned slot of even S has no head or
+//    tail.
 //  * Only the faces the divergence consumes are evaluated, (S+1)*S*S per
 //    axis, with face_flux from hydro_common.cuh unchanged (the Pallas kernel
 //    evaluates every quadrature point at all P^3 cells, 4.8x the work at
@@ -38,11 +44,10 @@
 //    the function's operations).
 //  * After cluster.sync() the CTAs split the slot's cells; each reads the
 //    three axes' face fluxes through distributed shared memory and writes
-//    out = ((-d0) - d1) - d2, d_a = (F_hi - F_lo) / h: the order of
-//    hydro_common.cuh's div_pass, so the result equals the lane kernel's
-//    and the split Flux kernel's bit for bit.  A last
-//    cluster.sync() keeps every CTA's shared memory alive until the others
-//    have read it.
+//    out = ((-d0) - d1) - d2, d_a = (F_hi - F_lo) / h (hydro_common.cuh's
+//    cluster_divergence), so the result equals the lane kernel's and the
+//    split Flux kernel's bit for bit.  A last cluster.sync() keeps every
+//    CTA's shared memory alive until the others have read it.
 //  * No reduction crosses slots, so a slot's result does not depend on the
 //    bucket it was launched in: aggregated launches stay bit-identical to
 //    one whole-wave launch.
@@ -51,21 +56,9 @@
 //    lives in constant memory, uploaded once per device by hydro_rhs_init,
 //    which also raises the kernel's shared-memory limit.
 
-#include <cooperative_groups.h>
-#include <stdint.h>
-
 #include "hydro_common.cuh"
 
-namespace cg = cooperative_groups;
-
 namespace {
-
-constexpr int kCluster = 3;        // CTAs per slot: one per axis
-constexpr int kCtaThreads = 576;   // one face per thread at S=8
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
@@ -111,56 +104,6 @@ __device__ __forceinline__ void bulk_copy_multicast(void* dst,
       : "memory");
 }
 
-// face_flux at every face of the AXIS face array (the layout of
-// hydro_common.cuh's face_pass), stored field-major with stride `nface`.
-template <int AXIS>
-__device__ void axis_faces(const PpmStates& states, float* __restrict__ face,
-                           int S, float gamma, float gm1) {
-  const int P = states.P, P2 = P * P;
-  const int NY = face_extent<AXIS>(S, 1), NZ = face_extent<AXIS>(S, 2);
-  const int nface = face_extent<AXIS>(S, 0) * NY * NZ;
-  const int e = AXIS == 0 ? P2 : (AXIS == 1 ? P : 1);
-  for (int fi = threadIdx.x; fi < nface; fi += blockDim.x) {
-    const int z = fi % NZ, y = (fi / NZ) % NY, x = fi / (NZ * NY);
-    // padded coordinates: the AXIS face index a sits at cell G-1+a
-    const int c = (kGhost + x - (AXIS == 0)) * P2 +
-                  (kGhost + y - (AXIS == 1)) * P + (kGhost + z - (AXIS == 2));
-    float acc[kFields];
-    face_flux<AXIS>(states, c, e, gamma, gm1, acc);
-#pragma unroll
-    for (int f = 0; f < kFields; ++f) face[f * nface + fi] = acc[f];
-  }
-}
-
-// The cluster's face fluxes of one slot: axis a's faces held field-major
-// (stride `nface`) by CTA a at the shared-memory offset of `face`.
-struct ClusterFaces {
-  cg::cluster_group cluster;
-  float* face;
-  int nface;
-
-  __device__ __forceinline__ float at(int axis, int f, int fi) const {
-    return *cluster.map_shared_rank(face + f * nface + fi, axis);
-  }
-};
-
-// -(F_hi - F_lo) / h of one axis at cell (x, y, z), into `acc` (assigned
-// on axis 0): div_pass's arithmetic and order.
-template <int AXIS>
-__device__ __forceinline__ void axis_divergence(const ClusterFaces& faces,
-                                                int x, int y, int z, int S,
-                                                float h,
-                                                float (&acc)[kFields]) {
-  const int NY = face_extent<AXIS>(S, 1), NZ = face_extent<AXIS>(S, 2);
-  const int step = AXIS == 0 ? NY * NZ : (AXIS == 1 ? NZ : 1);
-  const int lo = (x * NY + y) * NZ + z;
-#pragma unroll
-  for (int f = 0; f < kFields; ++f) {
-    const float d = (faces.at(AXIS, f, lo + step) - faces.at(AXIS, f, lo)) / h;
-    acc[f] = AXIS == 0 ? -d : acc[f] - d;
-  }
-}
-
 // Two CTAs per SM (at most 56 registers a thread): left to itself ptxas
 // takes 76, which leaves one CTA per SM and slows a 512-slot launch by 40%.
 __global__ void __launch_bounds__(kCtaThreads, 2)
@@ -173,65 +116,38 @@ hydro_rhs_cluster_kernel(const float* __restrict__ u,
   cg::cluster_group cluster = cg::this_cluster();
   const int axis = (int)cluster.block_rank();
   const int P = S + 2 * kGhost, P3 = P * P * P, S3 = S * S * S;
-  const int nface = (S + 1) * S * S;
+  const int nslot = kFields * P3;
   const size_t slot = blockIdx.x / kCluster;
-  const unsigned slot_bytes = (unsigned)(kFields * P3 * sizeof(float));
-  float* us = smem;
-  float* face = smem + kFields * P3;
+  const float* src = u + slot * nslot;
+  // floats before the first 16-byte boundary of the slot, and the bytes
+  // of whole 16-byte units from there
+  const int head = (int)(((16 - ((uintptr_t)src & 15)) & 15) / 4);
+  const unsigned bulk = (unsigned)((nslot - head) / 4 * 16);
+  float* us = smem + ((4 - head) & 3);   // us + head is 16-byte aligned
+  float* face = smem + 4 + nslot;
 
-  // every CTA arms its barrier before any copy can land in it
+  // every CTA arms its barrier before any copy can land in it, and brings
+  // in the slot's head and tail itself
   if (threadIdx.x == 0) {
     mbar_init(&bar, 1);
-    mbar_expect_tx(&bar, slot_bytes);
+    mbar_expect_tx(&bar, bulk);
   }
+  for (int i = threadIdx.x; i < head; i += kCtaThreads) us[i] = src[i];
+  for (int i = head + (int)bulk / 4 + threadIdx.x; i < nslot;
+       i += kCtaThreads)
+    us[i] = src[i];
   cluster.sync();
   if (axis == 0 && threadIdx.x == 0)
-    bulk_copy_multicast(us, u + slot * kFields * P3, slot_bytes, &bar,
+    bulk_copy_multicast(us + head, src + head, bulk, &bar,
                         (uint16_t)((1u << kCluster) - 1));
   mbar_wait(&bar, 0);
 
-  const PpmStates states{us, P};
-  if (axis == 0)
-    axis_faces<0>(states, face, S, gamma, gm1);
-  else if (axis == 1)
-    axis_faces<1>(states, face, S, gamma, gm1);
-  else
-    axis_faces<2>(states, face, S, gamma, gm1);
+  cluster_faces(axis, PpmStates{us, P}, face, S, gamma, gm1);
   cluster.sync();
-
-  const ClusterFaces faces{cluster, face, nface};
   const float hh = h_slots != nullptr ? h_slots[slot] : h;
-  float* dst = out + slot * kFields * S3;
-  const int cells = (S3 + kCluster - 1) / kCluster;
-  const int c1 = min(S3, (axis + 1) * cells);
-  for (int ci = axis * cells + threadIdx.x; ci < c1; ci += blockDim.x) {
-    const int z = ci % S, y = (ci / S) % S, x = ci / (S * S);
-    float acc[kFields];
-    axis_divergence<0>(faces, x, y, z, S, hh, acc);
-    axis_divergence<1>(faces, x, y, z, S, hh, acc);
-    axis_divergence<2>(faces, x, y, z, S, hh, acc);
-#pragma unroll
-    for (int f = 0; f < kFields; ++f) dst[f * S3 + ci] = acc[f];
-  }
+  cluster_divergence(ClusterFaces{cluster, face, S, S, S, 1}, axis, S, hh,
+                     out + slot * kFields * S3);
   cluster.sync();  // no CTA leaves while another reads its faces
-}
-
-// A launch of n clusters of kCluster CTAs of kCtaThreads threads, `smem`
-// bytes of dynamic shared memory each, on the default stream; `attr`
-// holds its cluster-dimension attribute and must outlive it.
-cudaLaunchConfig_t cluster_config(unsigned n, size_t smem,
-                                  cudaLaunchAttribute& attr) {
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = kCluster;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(n * kCluster);
-  cfg.blockDim = dim3(kCtaThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  return cfg;
 }
 
 }  // namespace
@@ -249,18 +165,18 @@ int hydro_rhs_init(const float* weights, const int* table) {
 }
 
 // Launch on `stream`: n clusters of 3 CTAs of 576 threads.  `smem` is the
-// dynamic shared memory of one CTA: the padded slot, then one axis' face
-// fluxes, 4 * 5 * (P^3 + (S+1)*S*S) bytes (kernels/hydro_rhs.py::
-// smem_bytes).  The caller has checked that u is 16-byte aligned and a
-// slot's bytes a multiple of 16.  `gm1` is gamma - 1, rounded once from
-// double as the plain version rounds it.  Returns the cudaError_t of the
-// launch (0 on success).
+// dynamic shared memory of one CTA: 16 B of alignment slack, the padded
+// slot, then one axis' face fluxes, 4 * (4 + 5 * (P^3 + (S+1)*S*S)) bytes
+// (kernels/hydro_rhs.py::smem_bytes).  u need only be 4-byte aligned.
+// `gm1` is gamma - 1, rounded once from double as the plain version rounds
+// it.  Returns the cudaError_t of the launch (0 on success).
 int hydro_rhs_launch(const float* u, const float* h_slots, float* out, int n,
                      int S, float h, float gamma, float gm1, size_t smem,
                      void* stream) {
   if (n <= 0) return 0;
   cudaLaunchAttribute attr;
-  cudaLaunchConfig_t cfg = cluster_config((unsigned)n, smem, attr);
+  cudaLaunchConfig_t cfg = cluster_config((unsigned)n * kCluster, 1,
+                                          kCtaThreads, smem, attr);
   cfg.stream = (cudaStream_t)stream;
   cudaError_t err = cudaLaunchKernelEx(&cfg, hydro_rhs_cluster_kernel, u,
                                        h_slots, h, gamma, gm1, out, S);
@@ -271,13 +187,8 @@ int hydro_rhs_launch(const float* u, const float* h_slots, float* out, int n,
 // Resident CTAs per SM and clusters on the device for a launch with
 // `smem` bytes of dynamic shared memory per CTA.  Returns a cudaError_t.
 int hydro_rhs_occupancy(size_t smem, int* ctas_per_sm, int* clusters) {
-  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      ctas_per_sm, hydro_rhs_cluster_kernel, kCtaThreads, smem);
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = cluster_config(1, smem, attr);
-  return (int)cudaOccupancyMaxActiveClusters(clusters,
-                                             hydro_rhs_cluster_kernel, &cfg);
+  return (int)cluster_occupancy(hydro_rhs_cluster_kernel, kCtaThreads, smem,
+                                ctas_per_sm, clusters);
 }
 
 const char* hydro_rhs_error_string(int code) {

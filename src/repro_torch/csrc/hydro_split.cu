@@ -31,10 +31,32 @@
 //    sides of a pair come from one set of five samples.  Indices wrap mod
 //    P as torch.roll does, so the frame values equal the plain version's
 //    and no output element is left unwritten.
-//  * Flux: one block per slot runs the fused kernel's face and divergence
-//    passes (hydro_common.cuh) with each state read from the staged
-//    reconstruction instead of recomputed: only the consumed faces, with
-//    one axis' face fluxes in shared memory (11,520 B at S=8).
+//  * Flux: one thread-block cluster per slot, as hydro_rhs.cu: kCluster =
+//    3 CTAs of kCtaThreads = 576 threads (hydro_common.cuh), CTA a
+//    evaluating axis a's (S+1)*S*S faces, one face per thread at S=8, into
+//    its own shared memory; after cluster.sync() each CTA writes a third of
+//    the slot's cells, reading all three axes' faces through distributed
+//    shared memory, so out is written once and never read back.  A
+//    32-slot bucket launches 96 CTAs, not 32.
+//  * Flux's loads are what it waits on: each quadrature entry reads 10
+//    staged values per face (5 fields x left and right state), and an
+//    entry's loads cannot start before the previous entry's KNP flux is
+//    done if they go straight to registers.  So each thread stages its own
+//    face's values by 4-byte cp.async (the staged rows start off 16-byte
+//    boundaries: P = 14 floats is not a multiple of 4, so neither TMA's
+//    16-byte strides nor 16-byte cp.async fit) into a ring of kStages = 2
+//    entries in shared memory, [stage][value][thread], one cp.async group
+//    per entry: entry q+1 is in flight while entry q's KNP runs.  A thread
+//    reads back only what it staged, so cp.async.wait_group alone orders
+//    the ring; no block barrier is needed until the faces are done.
+//    face_flux (hydro_common.cuh) is unchanged: QueuedStates::load issues
+//    entry q+1 and waits for entry q, and ::prime issues entry 0 before
+//    each face.  The ring depth was chosen by measurement on the H100
+//    (PERF.md, Findings).
+//  * Shared memory per CTA: the ring, 2 x 10 x 576 floats (46,080 B), then
+//    one axis' face fluxes (11,520 B at S=8): 57,600 B.
+//    __launch_bounds__(576, 2) holds ptxas to 56 registers (24 B of
+//    spills), 2 CTAs per SM.
 //  * No reduction crosses slots, so a slot's result does not depend on the
 //    bucket it was launched in.
 //  * Built without --use_fast_math: sqrt and division are IEEE-rounded.
@@ -84,15 +106,96 @@ reconstruct_kernel(const float* __restrict__ u, float* __restrict__ out,
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 3)
-flux_kernel(const float* __restrict__ recon, float h, float gamma, float gm1,
-            float* __restrict__ out, int S) {
-  extern __shared__ float face[];
+constexpr int kStages = 2;             // quadrature entries in the ring
+constexpr int kStaged = 2 * kFields;   // values per entry and face
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The two states of quadrature entry q of an AXIS face, read from one
+// slot's staged reconstruction (13, 2, F, P, P, P) in device memory
+// through this thread's ring in shared memory: value k of the entry in
+// stage s at queue[(s * kStaged + k) * kCtaThreads + threadIdx.x].
+struct QueuedStates {
+  const float* __restrict__ recon;
+  float* queue;
+  int P;
+
+  // cp.async entry q's 10 values (none past the last entry) and commit
+  // them as one group: every call commits, so groups count entries
+  template <int AXIS>
+  __device__ __forceinline__ void issue(int q, int c, int e) const {
+    if (q < kQuad) {
+      const int P3 = P * P * P;
+      const float* L =
+          recon + (size_t)((c_tab.pair_l[AXIS][q] * 2 + c_tab.plus_l[AXIS][q])
+                           * kFields) * P3 + c;
+      const float* R =
+          recon + (size_t)((c_tab.pair_r[AXIS][q] * 2 + c_tab.plus_r[AXIS][q])
+                           * kFields) * P3 + c + e;
+      float* dst = queue + (q % kStages) * kStaged * kCtaThreads + threadIdx.x;
+#pragma unroll
+      for (int f = 0; f < kFields; ++f) {
+        cp_async4(dst + f * kCtaThreads, L + (size_t)f * P3);
+        cp_async4(dst + (kFields + f) * kCtaThreads, R + (size_t)f * P3);
+      }
+    }
+    cp_async_commit();
+  }
+
+  template <int AXIS>
+  __device__ __forceinline__ void prime(int c, int e) const {
+#pragma unroll
+    for (int q = 0; q < kStages - 1; ++q) issue<AXIS>(q, c, e);
+  }
+
+  // issue entry q + kStages - 1 into the stage entry q - 1 left, then wait
+  // until at most kStages - 1 groups are in flight: entry q's is done
+  template <int AXIS>
+  __device__ __forceinline__ void load(int q, int c, int e,
+                                       float (&qL)[kFields],
+                                       float (&qR)[kFields]) const {
+    issue<AXIS>(q + kStages - 1, c, e);
+    cp_async_wait<kStages - 1>();
+    const float* src =
+        queue + (q % kStages) * kStaged * kCtaThreads + threadIdx.x;
+#pragma unroll
+    for (int f = 0; f < kFields; ++f) {
+      qL[f] = src[f * kCtaThreads];
+      qR[f] = src[(kFields + f) * kCtaThreads];
+    }
+  }
+};
+
+__global__ void __launch_bounds__(kCtaThreads, 2)
+flux_cluster_kernel(const float* __restrict__ recon, float h, float gamma,
+                    float gm1, float* __restrict__ out, int S) {
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int axis = (int)cluster.block_rank();
   const int P = S + 2 * kGhost, P3 = P * P * P;
-  const size_t slot = blockIdx.x;
-  const float* rs = recon + slot * (size_t)kPairs * 2 * kFields * P3;
-  float* dst = out + slot * kFields * S * S * S;
-  rhs_passes(StagedStates{rs, P}, face, dst, P, S, h, gamma, gm1);
+  const size_t slot = blockIdx.x / kCluster;
+  float* face = smem + kStages * kStaged * kCtaThreads;
+  const QueuedStates states{
+      recon + slot * (size_t)kPairs * 2 * kFields * P3, smem, P};
+  cluster_faces(axis, states, face, S, gamma, gm1);
+  cluster.sync();
+  cluster_divergence(ClusterFaces{cluster, face, S, S, S, 1}, axis, S, h,
+                     out + slot * kFields * S * S * S);
+  cluster.sync();  // no CTA leaves while another reads its faces
 }
 
 }  // namespace
@@ -111,7 +214,7 @@ int hydro_split_init(const float* weights, const int* table, const int* pairs,
   if (err != cudaSuccess) return (int)err;
   err = allow_optin_smem(reconstruct_kernel);
   if (err != cudaSuccess) return (int)err;
-  return (int)allow_optin_smem(flux_kernel);
+  return (int)allow_optin_smem(flux_cluster_kernel);
 }
 
 // Launch Reconstruct on `stream`; `smem` is 4 * 5 * P^3 bytes.  Returns the
@@ -124,15 +227,29 @@ int hydro_reconstruct_launch(const float* u, float* recon, int n, int P,
   return (int)cudaGetLastError();
 }
 
-// Launch Flux on `stream`; `smem` is one axis' face fluxes,
-// 4 * 5 * (S+1)*S*S bytes.  `gm1` is gamma - 1, rounded once from double.
-// Returns the cudaError_t of the launch (0 on success).
+// Launch Flux on `stream`: n clusters of 3 CTAs of 576 threads.  `smem` is
+// the dynamic shared memory of one CTA, the staging ring then one axis'
+// face fluxes, 4 * (2 * 10 * 576 + 5 * (S+1)*S*S) bytes
+// (kernels/hydro_split.py::flux_smem_bytes).  `gm1` is gamma - 1, rounded
+// once from double.  Returns the cudaError_t of the launch (0 on success).
 int hydro_flux_launch(const float* recon, float* out, int n, int S, float h,
                       float gamma, float gm1, size_t smem, void* stream) {
   if (n <= 0) return 0;
-  flux_kernel<<<n, kThreads, smem, (cudaStream_t)stream>>>(recon, h, gamma,
-                                                           gm1, out, S);
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = cluster_config((unsigned)n * kCluster, 1,
+                                          kCtaThreads, smem, attr);
+  cfg.stream = (cudaStream_t)stream;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, flux_cluster_kernel, recon, h,
+                                       gamma, gm1, out, S);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// Resident CTAs per SM and clusters on the device for a Flux launch with
+// `smem` bytes of dynamic shared memory per CTA.  Returns a cudaError_t.
+int hydro_flux_occupancy(size_t smem, int* ctas_per_sm, int* clusters) {
+  return (int)cluster_occupancy(flux_cluster_kernel, kCtaThreads, smem,
+                                ctas_per_sm, clusters);
 }
 
 const char* hydro_split_error_string(int code) {

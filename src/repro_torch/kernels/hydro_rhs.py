@@ -6,7 +6,9 @@ two layouts.
 current stream for a CUDA tensor ``(n, F, P, P, P)`` and returns ``(n, F,
 S, S, S)``, one thread-block cluster of ``CLUSTER`` CTAs per slot.
 ``slot_lane``: ``hydro_rhs_lane_cuda`` launches ``csrc/hydro_rhs_lane.cu``
-for the lane-major ``(F, P, P, P, n)`` and returns ``(F, S, S, S, n)``.
+for the lane-major ``(F, P, P, P, n)`` and returns ``(F, S, S, S, n)``, one
+cluster of ``CLUSTER`` CTAs per tile of cells and ``LANES`` tasks, the tile
+from ``lane_plan``.
 Both raise for anything their kernel does not take and never fall back.
 The cell width is a float ``h`` (uniform grid) or one width per slot,
 ``h_slots`` (n,): one kernel serves each layout's two Pallas kernels.  ``hydro_rhs_plain`` is the same function in PyTorch,
@@ -18,8 +20,9 @@ array (``repro.kernels.hydro_rhs._rhs_field_block`` over axes (-4, -3,
 from __future__ import annotations
 
 import ctypes
+import math
 from functools import lru_cache
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -31,10 +34,17 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._build import SMEM_PER_BLOCK
 
 KERNEL_GHOST = 3                  # the kernels' index bounds assume g = 3
-# the slot_grid kernel's launch shape, fixed in csrc/hydro_rhs.cu: CTAs per
-# slot (an axis each) and threads per CTA (one face each at S=8)
+# the slot_grid kernel's launch shape, fixed in csrc/hydro_common.cuh: CTAs
+# per slot (an axis each) and threads per CTA (one face each at S=8)
 CLUSTER = 3
 CTA_THREADS = 576
+# the lane kernel's, fixed in csrc/hydro_rhs_lane.cu: tasks per cluster
+# (16: a warp reads two 64-byte segments) and threads per CTA; its cluster
+# is CLUSTER CTAs too
+LANES = 16
+LANE_THREADS = 384
+# the lane kernel's tile shapes, (x, y, z) cells
+LANE_TILES = ((2, 2, 2), (2, 2, 4), (2, 4, 4), (4, 4, 4))
 LAYOUTS = ("slot_grid", "slot_lane")
 LANE_AXES = (-4, -3, -2)          # spatial axes of a lane-major block
 
@@ -91,10 +101,68 @@ def hydro_rhs_lane_plain(u_t: torch.Tensor, *, h: Optional[float] = None,
 
 
 def smem_bytes(subgrid: int, ghost: int = KERNEL_GHOST) -> int:
-    """Dynamic shared memory of one CTA: the padded slot, then one axis'
-    face fluxes (the layout ``csrc/hydro_rhs.cu`` reads)."""
+    """Dynamic shared memory of one CTA: 16 B of slack to align the slot's
+    middle, the padded slot, then one axis' face fluxes (the layout
+    ``csrc/hydro_rhs.cu`` reads)."""
     p = subgrid + 2 * ghost
-    return 4 * N_FIELDS * (p ** 3 + (subgrid + 1) * subgrid ** 2)
+    return 4 * (4 + N_FIELDS * (p ** 3 + (subgrid + 1) * subgrid ** 2))
+
+
+def tile_face_grids(box: Tuple[int, int, int]) -> Tuple[int, int, int]:
+    """Faces of each axis' face grid over a box of cells: one more face
+    along that axis than the box has cells."""
+    return tuple(math.prod(b + (d == a) for d, b in enumerate(box))
+                 for a in range(3))
+
+
+def lane_tiles(subgrid: int, tile: Tuple[int, int, int]
+               ) -> Tuple[Tuple[int, int, int], ...]:
+    """Each tile's low cell and its (possibly ragged) extent, in the
+    kernel's order (x slowest): ((x0, y0, z0), (bx, by, bz)) pairs."""
+    starts = [range(0, subgrid, t) for t in tile]
+    return tuple(((x, y, z), tuple(min(t, subgrid - o) for t, o in
+                                   zip(tile, (x, y, z))))
+                 for x in starts[0] for y in starts[1] for z in starts[2])
+
+
+class LanePlan(NamedTuple):
+    """A lane-kernel launch: the tile, tiles per task, CTAs, dynamic shared
+    memory per CTA (bytes) and face evaluations per task."""
+    tile: Tuple[int, int, int]
+    tiles: int
+    ctas: int
+    smem: int
+    face_evals: int
+
+
+@lru_cache(maxsize=None)
+def lane_plan(subgrid: int, n: int, sms: int) -> LanePlan:
+    """The lane kernel's launch for n tasks of ``subgrid``^3 on a device
+    of ``sms`` SMs: of ``LANE_TILES``, the tile with the fewest face
+    evaluations per task whose grid still has ``sms`` CTAs or more; if none
+    has, the one with the most CTAs.  The rule is a proxy for time, not a
+    model of it: on an H100 it misses the fastest tile measured at 32 x
+    16^3 (PERF.md, Findings).  Which tile evaluates a face does not change
+    its bits, so a task's result does not depend on the plan."""
+    groups = -(-max(n, 1) // LANES)
+    plans = []
+    for tile in LANE_TILES:
+        boxes = [box for _, box in lane_tiles(subgrid, tile)]
+        most = max(max(tile_face_grids(box)) for box in boxes)
+        plans.append(LanePlan(
+            tile, len(boxes), CLUSTER * len(boxes) * groups,
+            4 * N_FIELDS * most * LANES,
+            sum(sum(tile_face_grids(box)) for box in boxes)))
+    full = [p for p in plans if p.ctas >= sms]
+    if full:
+        return min(full, key=lambda p: p.face_evals)
+    return max(plans, key=lambda p: p.ctas)
+
+
+@lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """SMs of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check_width_and_ghost(h: Optional[float],
@@ -132,7 +200,8 @@ def check_kernel_args(u_slots: torch.Tensor, h: Optional[float],
                       h_slots: Optional[torch.Tensor], ghost: int,
                       subgrid: int) -> None:
     """Raise for anything the slot_grid kernel does not take (device
-    aside)."""
+    aside): any sub-grid whose slot and one axis' faces fit in shared
+    memory, odd ones included, and slots at any (float-aligned) address."""
     _check_width_and_ghost(h, h_slots, ghost)
     need = smem_bytes(subgrid, ghost)
     if need > SMEM_PER_BLOCK:
@@ -145,16 +214,6 @@ def check_kernel_args(u_slots: torch.Tensor, h: Optional[float],
     n = u_slots.shape[0] if u_slots.dim() else 0
     _check_state(u_slots, (n, N_FIELDS, p, p, p),
                  f"(n, {N_FIELDS}, {p}, {p}, {p})", h_slots, n)
-    # one bulk copy per slot: 16-byte aligned, a multiple of 16 bytes
-    if 4 * N_FIELDS * p ** 3 % 16:
-        raise NotImplementedError(
-            f"the slot_grid kernel copies a slot in 16-byte units: a padded "
-            f"slot of {p}^3 is {4 * N_FIELDS * p ** 3} B (an odd subgrid); "
-            f"use layout='slot_lane'")
-    if u_slots.data_ptr() % 16:
-        raise ValueError(f"the slot_grid kernel needs the slots 16-byte "
-                         f"aligned, got an address {u_slots.data_ptr() % 16} "
-                         f"B past a 16-byte boundary")
 
 
 def check_lane_args(u_t: torch.Tensor, h: Optional[float],
@@ -274,8 +333,12 @@ def _declare_lane(lib: ctypes.CDLL) -> None:
     lib.hydro_rhs_lane_init.argtypes = [ctypes.POINTER(cf),
                                         ctypes.POINTER(ci)]
     lib.hydro_rhs_lane_init.restype = ci
-    lib.hydro_rhs_lane_launch.argtypes = [vp, vp, vp, ci, ci, cf, cf, cf, vp]
+    lib.hydro_rhs_lane_launch.argtypes = [
+        vp, vp, vp, ci, ci, cf, cf, cf, ci, ci, ci, ci, ctypes.c_size_t, vp]
     lib.hydro_rhs_lane_launch.restype = ci
+    lib.hydro_rhs_lane_occupancy.argtypes = [
+        ctypes.c_size_t, ctypes.POINTER(ci), ctypes.POINTER(ci)]
+    lib.hydro_rhs_lane_occupancy.restype = ci
     lib.hydro_rhs_lane_error_string.argtypes = [ci]
     lib.hydro_rhs_lane_error_string.restype = ctypes.c_char_p
 
@@ -288,12 +351,23 @@ def build_lane() -> ctypes.CDLL:
     return _build.load("hydro_rhs_lane", _declare_lane)
 
 
+def _lane_ready(lib: ctypes.CDLL, device: torch.device) -> None:
+    """Upload the constant table and raise the shared-memory limit on
+    ``device`` (once)."""
+    if device.index not in _LANE_READY_DEVICES:
+        _build.raise_on(lib.hydro_rhs_lane_init(*_quad_table()),
+                        lib.hydro_rhs_lane_error_string,
+                        "hydro_rhs_lane kernel set-up")
+        _LANE_READY_DEVICES.add(device.index)
+
+
 def hydro_rhs_lane_cuda(u_t: torch.Tensor, *, h: Optional[float] = None,
                         h_slots: Optional[torch.Tensor] = None, gamma: float,
                         ghost: int, subgrid: int) -> torch.Tensor:
     """Launch the lane kernel on the current stream: (F, P, P, P, n) ->
-    (F, S, S, S, n), one task per thread across each warp.  Counts each
-    launch in ``hydro_rhs_lane_cuda.launches``."""
+    (F, S, S, S, n), ``LANES`` tasks per cluster, ``lane_plan``'s tiles for
+    the device's SMs.
+    Counts each launch in ``hydro_rhs_lane_cuda.launches``."""
     if u_t.device.type != "cuda":
         raise ValueError(
             f"hydro_rhs_lane_cuda needs a CUDA tensor, got one on "
@@ -306,20 +380,33 @@ def hydro_rhs_lane_cuda(u_t: torch.Tensor, *, h: Optional[float] = None,
     if n == 0:
         return out
     with torch.cuda.device(u_t.device):
-        if u_t.device.index not in _LANE_READY_DEVICES:
-            _build.raise_on(lib.hydro_rhs_lane_init(*_quad_table()),
-                            lib.hydro_rhs_lane_error_string,
-                            "hydro_rhs_lane kernel set-up")
-            _LANE_READY_DEVICES.add(u_t.device.index)
+        plan = lane_plan(s, n, sm_count(torch.cuda.current_device()))
+        _lane_ready(lib, u_t.device)
         stream = torch.cuda.current_stream(u_t.device).cuda_stream
         err = lib.hydro_rhs_lane_launch(
             u_t.data_ptr(), None if h_slots is None else h_slots.data_ptr(),
             out.data_ptr(), n, s, 0.0 if h is None else float(h), gamma,
-            gamma - 1.0, stream)
+            gamma - 1.0, *plan.tile, plan.tiles, plan.smem, stream)
     _build.raise_on(err, lib.hydro_rhs_lane_error_string,
                     "hydro_rhs_lane kernel launch")
     hydro_rhs_lane_cuda.launches += 1
     return out
+
+
+def lane_occupancy(device: torch.device, subgrid: int, n: int
+                   ) -> Tuple[int, int]:
+    """(resident CTAs per SM, clusters resident on the card) for the lane
+    kernel's launch of n tasks at ``subgrid``."""
+    lib = build_lane()
+    per_sm, clusters = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device):
+        _lane_ready(lib, device)
+        plan = lane_plan(subgrid, n, sm_count(torch.cuda.current_device()))
+        _build.raise_on(lib.hydro_rhs_lane_occupancy(
+            plan.smem, ctypes.byref(per_sm),
+            ctypes.byref(clusters)),
+            lib.hydro_rhs_lane_error_string, "hydro_rhs_lane occupancy query")
+    return per_sm.value, clusters.value
 
 
 hydro_rhs_lane_cuda.launches = 0

@@ -24,7 +24,9 @@ from repro_torch.hydro.flux import FACE_QUAD, flux_divergence
 from repro_torch.hydro.ppm import DIR_PAIRS, N_PAIRS, ppm_reconstruct_all
 from repro_torch.kernels import _build
 from repro_torch.kernels._build import SMEM_PER_BLOCK
-from repro_torch.kernels.hydro_rhs import KERNEL_GHOST, _quad_table
+from repro_torch.kernels.hydro_rhs import (
+    CTA_THREADS, KERNEL_GHOST, _quad_table,
+)
 
 
 def hydro_reconstruct_plain(u_slots: torch.Tensor) -> torch.Tensor:
@@ -67,9 +69,15 @@ def recon_smem_bytes(p: int) -> int:
     return 4 * N_FIELDS * p ** 3
 
 
+FLUX_STAGES = 2      # quadrature entries in Flux's ring, fixed in the .cu
+
+
 def flux_smem_bytes(subgrid: int) -> int:
-    """Flux's dynamic shared memory: one axis' face fluxes."""
-    return 4 * N_FIELDS * (subgrid + 1) * subgrid ** 2
+    """Flux's dynamic shared memory per CTA: each thread's ring of
+    ``FLUX_STAGES`` quadrature entries (10 staged values each), then one
+    axis' face fluxes."""
+    return 4 * (FLUX_STAGES * 2 * N_FIELDS * CTA_THREADS
+                + N_FIELDS * (subgrid + 1) * subgrid ** 2)
 
 
 def _check_tensor(x: torch.Tensor, shape: Tuple[int, ...], what: str,
@@ -134,6 +142,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.hydro_flux_launch.argtypes = [vp, vp, ci, ci, cf, cf, cf,
                                       ctypes.c_size_t, vp]
     lib.hydro_flux_launch.restype = ci
+    lib.hydro_flux_occupancy.argtypes = [ctypes.c_size_t, pi, pi]
+    lib.hydro_flux_occupancy.restype = ci
     lib.hydro_split_error_string.argtypes = [ci]
     lib.hydro_split_error_string.restype = ctypes.c_char_p
 
@@ -187,8 +197,8 @@ def hydro_reconstruct_cuda(u_slots: torch.Tensor) -> torch.Tensor:
 def hydro_flux_cuda(recon: torch.Tensor, *, h: float, gamma: float,
                     ghost: int, subgrid: int) -> torch.Tensor:
     """Launch Flux on the current stream: (n, 13, 2, F, P, P, P) -> (n, F,
-    S, S, S) with a scalar width ``h``.  Counts each launch in
-    ``hydro_flux_cuda.launches``."""
+    S, S, S) with a scalar width ``h``, one cluster of 3 CTAs per slot.
+    Counts each launch in ``hydro_flux_cuda.launches``."""
     _need_cuda(recon, "hydro_flux_cuda", "hydro_flux_plain")
     check_flux_args(recon, ghost, subgrid)
     lib = build()
@@ -207,6 +217,20 @@ def hydro_flux_cuda(recon: torch.Tensor, *, h: float, gamma: float,
                     "hydro_split flux launch")
     hydro_flux_cuda.launches += 1
     return out
+
+
+def flux_occupancy(device: torch.device, subgrid: int) -> Tuple[int, int]:
+    """(resident CTAs per SM, clusters resident on the card) for the Flux
+    kernel at ``subgrid``."""
+    lib = build()
+    per_sm, clusters = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device):
+        _ready(lib, device)
+        _build.raise_on(lib.hydro_flux_occupancy(
+            flux_smem_bytes(subgrid), ctypes.byref(per_sm),
+            ctypes.byref(clusters)),
+            lib.hydro_split_error_string, "hydro_flux occupancy query")
+    return per_sm.value, clusters.value
 
 
 hydro_reconstruct_cuda.launches = 0

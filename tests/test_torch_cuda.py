@@ -129,36 +129,52 @@ def test_streams_bit_identical_to_fused(dev):
     assert all(torch.equal(o, outs[0]) for o in outs[1:])
 
 
-@pytest.mark.parametrize("n", [1, 3, 31, 32, 33, 512])
-def test_cluster_kernel_buckets_plain_and_lane(dev, n):
+BUCKETS = [1, 3, 31, 32, 33, 512]
+
+
+def bucket_starts(n, total=512):
+    """First, middle and last bucket of n slots in a whole wave."""
+    return sorted({0, (total - n) // 2, total - n})
+
+
+def sedov_and_random(dev, s, seed, total=512):
+    """``total`` padded sub-grids of s^3: random smooth states, then the
+    Sedov IC's (the blast, floors, near-vacuum pressure)."""
+    c = HydroConfig(subgrid=s, levels=1)
+    sedov = extract_subgrids(sedov_init(c, device=dev).u, s, 3)
+    return torch.cat([random_slots(seed, total, dev, s=s),
+                      sedov])[-total:].contiguous()
+
+
+@pytest.mark.parametrize("case", BUCKETS + ["odd5", "odd7", "misaligned"])
+def test_cluster_kernel_buckets_plain_and_lane(dev, case):
     """A bucket of n slots (one cluster per slot) is within the kernel
-    tolerance of the plain version, equals the same slots of a 512-slot
-    launch and the lane kernel bit for bit."""
-    from repro_torch.configs.sedov import CONFIG
-    sedov = extract_subgrids(sedov_init(CONFIG, device=dev).u, 8, 3)
-    u = torch.cat([random_slots(76, 64, dev), sedov])[:512].contiguous()
-    whole = kern.hydro_rhs_cuda(u, **KW)
-    for a in sorted({0, (512 - n) // 2, 512 - n}):
-        x = u[a:a + n]
-        got = kern.hydro_rhs_cuda(x, **KW)
-        assert torch.equal(got, whole[a:a + n]), a
-        lane = kern.hydro_rhs_lane_cuda(lane_major(x), h=KW["h"], subgrid=8,
-                                        **LKW)
-        assert torch.equal(slot_major(lane), got), a
-    assert_within_kernel_tol(got, kern.hydro_rhs_plain(x, **KW))
-
-
-def test_cluster_kernel_rejects_misaligned_slots(dev):
-    u = random_slots(77, 2, dev)
-    buf = torch.empty(u.numel() + 1, device=dev)
-    misaligned = buf[1:].view(u.shape)
-    misaligned.copy_(u)
-    before = kern.hydro_rhs_cuda.launches
-    with pytest.raises(ValueError, match="16-byte"):
-        kern.hydro_rhs_cuda(misaligned, **KW)
-    assert kern.hydro_rhs_cuda.launches == before
-    assert torch.equal(kern.hydro_rhs_cuda(misaligned.clone(), **KW),
-                       kern.hydro_rhs_cuda(u, **KW))
+    tolerance of the plain version, equals the same slots of a whole-wave
+    launch and the lane kernel bit for bit: at S=8, at odd S (every other
+    slot off a 16-byte boundary) and for a tensor one float past a 16-byte
+    boundary."""
+    s = {"odd5": 5, "odd7": 7}.get(case, 8)
+    kw = dict(KW, subgrid=s)
+    u = sedov_and_random(dev, s, 76, total=512 if s == 8 else 64)
+    if case == "misaligned":
+        buf = torch.empty(u.numel() + 1, device=dev)
+        u = buf[1:].view(u.shape)
+        u.copy_(sedov_and_random(dev, s, 76))
+        assert u.data_ptr() % 16 == 4
+    total = u.shape[0]
+    whole = kern.hydro_rhs_cuda(u, **kw)
+    sizes = [case] if isinstance(case, int) else [1, 3, 31, 32, 33]
+    for n in sizes:
+        for a in bucket_starts(n, total):
+            x = u[a:a + n]
+            got = kern.hydro_rhs_cuda(x, **kw)
+            assert torch.equal(got, whole[a:a + n]), (n, a)
+            lane = kern.hydro_rhs_lane_cuda(lane_major(x), h=KW["h"],
+                                            subgrid=s, **LKW)
+            assert torch.equal(slot_major(lane), got), (n, a)
+    assert_within_kernel_tol(whole, kern.hydro_rhs_plain(u, **kw))
+    if case == "misaligned":
+        assert torch.equal(whole, kern.hydro_rhs_cuda(u.clone(), **kw))
 
 
 GKW = dict(ghost=3, subgrid=8, g_const=1.0, n_iter=8)
@@ -208,6 +224,20 @@ def test_split_kernels_match_plain(dev):
     assert torch.equal(split.hydro_flux_cuda(recon[2:4], **KW), pair[2:4])
     body = ops.hydro_split_batched_body(CFG, KW["h"])
     assert torch.equal(body(u), pair)
+
+
+@pytest.mark.parametrize("n", BUCKETS)
+def test_flux_kernel_buckets(dev, n):
+    """A Flux bucket of n slots (one cluster per slot) equals the same slots
+    of a 512-slot launch bit for bit and is within the kernel tolerance of
+    the plain version."""
+    recon = split.hydro_reconstruct_plain(sedov_and_random(dev, 8, 79))
+    whole = split.hydro_flux_cuda(recon, **KW)
+    for a in bucket_starts(n):
+        got = split.hydro_flux_cuda(recon[a:a + n], **KW)
+        assert torch.equal(got, whole[a:a + n]), a
+    assert_within_kernel_tol(got, split.hydro_flux_plain(recon[a:a + n],
+                                                         **KW))
 
 
 def test_gravity_path_streams_bit_identical_to_fused(dev):
@@ -299,6 +329,31 @@ def test_lane_kernel_at_16(dev):
     assert_buckets_independent(u, got, 0.01, 16)
     with pytest.raises(NotImplementedError, match="shared memory"):
         kern.hydro_rhs_cuda(u, h=0.01, subgrid=16, **LKW)
+
+
+@pytest.mark.parametrize("s", [8, 16])
+@pytest.mark.parametrize("n", BUCKETS)
+def test_lane_kernel_buckets(dev, n, s):
+    """A lane bucket of n tasks (its own tile plan) equals the same tasks
+    of a whole-wave launch bit for bit (512 at 8^3, 64 at 16^3, so n is
+    clipped there), is within the kernel tolerance of the plain version,
+    and at S=8 equals the slot_grid cluster kernel exactly."""
+    total = 512 if s == 8 else 64
+    n = min(n, total)
+    u = sedov_and_random(dev, s, 83, total)
+    whole = kern.hydro_rhs_lane_cuda(lane_major(u), h=KW["h"], subgrid=s,
+                                     **LKW)
+    for a in bucket_starts(n, total):
+        x = u[a:a + n]
+        got = kern.hydro_rhs_lane_cuda(lane_major(x), h=KW["h"], subgrid=s,
+                                       **LKW)
+        assert torch.equal(got, whole[..., a:a + n]), a
+        if s == 8:
+            assert torch.equal(slot_major(got),
+                               kern.hydro_rhs_cuda(x, **KW)), a
+    want = kern.hydro_rhs_lane_plain(lane_major(x), h=KW["h"], subgrid=s,
+                                     **LKW)
+    assert_within_kernel_tol(slot_major(got), slot_major(want))
 
 
 def test_amr_path_both_layouts_bit_identical_to_reference(dev):

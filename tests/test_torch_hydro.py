@@ -185,25 +185,74 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="h_slots"):
         kern.check_kernel_args(u, None, torch.ones(2), 3, 8)
     kern.check_kernel_args(u, None, torch.ones(1), 3, 8)
-    # the main path's shape fits: ~66 KB per CTA of a 3-CTA cluster (the
-    # padded slot and one axis' faces)
-    assert kern.smem_bytes(8) == 66_400
+    # the main path's shape fits: ~66 KB per CTA of a 3-CTA cluster (16 B
+    # of alignment slack, the padded slot and one axis' faces)
+    assert kern.smem_bytes(8) == 66_416
 
 
-def test_kernel_wrapper_refuses_slots_a_bulk_copy_cannot_take():
-    """One bulk copy per slot: the slots start 16-byte aligned and a padded
-    slot is a multiple of 16 bytes (even sub-grids)."""
+def test_kernel_wrapper_takes_odd_and_misaligned_slots_not_16():
+    """The slot_grid kernel takes odd sub-grids and slots at any float
+    address (a bulk copy for the 16-byte-aligned middle, plain loads for
+    head and tail), and still refuses what shared memory cannot hold."""
     u = T(random_slots(42, 2))
     kw = dict(h=0.01, h_slots=None, ghost=3, subgrid=8)
     n = u.numel()
     buf = torch.zeros(n + 4)
-    with pytest.raises(ValueError, match="16-byte aligned"):
-        kern.check_kernel_args(buf[1:1 + n].view(u.shape), **kw)
-    kern.check_kernel_args(buf[4:4 + n].view(u.shape), **kw)
-    odd = torch.zeros((1, 5, 11, 11, 11))
-    with pytest.raises(NotImplementedError, match="16-byte units"):
+    for off in range(4):
+        kern.check_kernel_args(buf[off:off + n].view(u.shape), **kw)
+    for s in (5, 7):
+        p = s + 6
+        odd = torch.zeros((3, 5, p, p, p))
         kern.check_kernel_args(odd, h=0.01, h_slots=None, ghost=3,
-                               subgrid=5)
+                               subgrid=s)
+        assert kern.smem_bytes(s) <= kern.SMEM_PER_BLOCK
+    p16 = CONFIG_16.padded
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        kern.check_kernel_args(torch.zeros((1, 5, p16, p16, p16)), h=0.01,
+                               h_slots=None, ghost=3, subgrid=16)
+
+
+def _slot_copy(addr, nslot):
+    """numpy mirror of csrc/hydro_rhs.cu's split of one slot at byte
+    address ``addr`` (nslot floats): (floats before the first 16-byte
+    boundary, bulk bytes, shared-memory offset of the slot in floats)."""
+    head = ((16 - addr % 16) % 16) // 4
+    bulk = (nslot - head) // 4 * 16
+    return head, bulk, (4 - head) % 4
+
+
+@pytest.mark.parametrize("s", [4, 5, 7, 8])
+def test_kernel_slot_copy_covers_each_slot_once(s):
+    """For every slot of a bucket at every float alignment of the tensor:
+    head, bulk middle and tail cover the slot's floats once each; the bulk
+    copy's global and shared addresses are 16-byte aligned and its size a
+    multiple of 16; the slot stays below the face buffer in shared memory,
+    all of it within ``smem_bytes``."""
+    p = s + 6
+    nslot = 5 * p ** 3
+    for base in (0, 4, 8, 12):
+        heads = set()
+        for slot in range(5):
+            addr = base + 4 * nslot * slot
+            head, bulk, shift = _slot_copy(addr, nslot)
+            heads.add(head)
+            assert 0 <= head < 4 and bulk % 16 == 0 and bulk > 0
+            assert (addr + 4 * head) % 16 == 0
+            assert 4 * (shift + head) % 16 == 0
+            tail = nslot - head - bulk // 4
+            assert 0 <= tail < 4
+            cover = np.zeros(nslot, int)
+            cover[:head] += 1
+            cover[head:head + bulk // 4] += 1
+            cover[head + bulk // 4:] += 1
+            assert (cover == 1).all()
+            assert shift + nslot <= 4 + nslot       # below the face buffer
+        # even S: every slot is aligned alike (5 P^3 floats, a multiple
+        # of 4); odd S: the slots start at every float offset in turn
+        assert len(heads) == (1 if s % 2 == 0 else 4)
+        if base == 0 and s % 2 == 0:
+            assert heads == {0}
+    assert kern.smem_bytes(s) == 4 * (4 + nslot + 5 * (s + 1) * s * s)
 
 
 def _coords(lin, p):

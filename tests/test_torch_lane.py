@@ -29,6 +29,7 @@ from repro_torch.kernels import ops  # noqa: E402
 
 KW = dict(gamma=1.4, ghost=3, subgrid=8)
 H = 0.01
+H100_SMS = 132              # the SMs a lane plan covers on an H100
 WIDTHS = np.array([0.02, 0.01, 0.02, 0.01], np.float32)
 
 
@@ -157,11 +158,50 @@ def test_lane_slot_result_independent_of_bucket(slots, case):
             assert torch.equal(part, whole[..., a:b]), (size, a)
 
 
+def _lane_schedule(s, n, g=3):
+    """Index replay of csrc/hydro_rhs_lane.cu's launch for n tasks of
+    ``s``^3 (``kern.lane_plan``): for each tile (a cluster of 3 CTAs per
+    lane group) and axis, the padded cell index c of each face CTA a
+    evaluates and its local face index, checking that every shared-memory
+    index [field][face][lane] lies within the CTA's bytes and that the
+    three CTAs' shares of the tile's (cell, lane) pairs cover each pair
+    once.  Returns (plan, tiles), tiles a list of (low cell, extent,
+    per-axis face arrays (c, local index))."""
+    plan = kern.lane_plan(s, n, H100_SMS)
+    p = s + 2 * g
+    lanes, smem_floats = kern.LANES, plan.smem // 4
+    tiles = []
+    for (x0, y0, z0), box in kern.lane_tiles(s, plan.tile):
+        axes = []
+        for a in range(3):
+            ny, nz = box[1] + (a == 1), box[2] + (a == 2)
+            nface = (box[0] + (a == 0)) * ny * nz
+            fi = np.arange(nface)
+            z, y, x = fi % nz, (fi // nz) % ny, fi // (nz * ny)
+            c = ((g + x0 + x - (a == 0)) * p * p + (g + y0 + y - (a == 1)) * p
+                 + (g + z0 + z - (a == 2)))
+            # last field, last face, last lane of the CTA's buffer
+            assert ((5 - 1) * nface + nface - 1) * lanes + lanes - 1 \
+                < smem_floats
+            axes.append((c, fi))
+        items = box[0] * box[1] * box[2] * lanes
+        share = -(-items // 3)
+        owners = np.zeros(items, int)
+        for rank in range(3):
+            owners[rank * share:min(items, (rank + 1) * share)] += 1
+        assert (owners == 1).all()
+        tiles.append(((x0, y0, z0), box, axes))
+    assert len(tiles) == plan.tiles
+    return plan, tiles
+
+
 def _emulate_lane_kernel(u_t, widths, gamma, s=8, g=3):
-    """numpy float32 mirror of csrc/hydro_rhs_lane.cu: one (lane, cell)
-    per thread, lane-major flat offsets ((f P^3 + c) n + lane), the two
-    faces of each axis evaluated by the cell's own thread, the divergence
-    summed in registers in axis order.  Vectorised over lanes and cells."""
+    """numpy float32 mirror of csrc/hydro_rhs_lane.cu: ``_lane_schedule``'s
+    tiles, each axis' faces of a tile evaluated once into the tile's face
+    buffer [field][face][lane] (lane-major flat offsets ((f P^3 + c) n +
+    lane) for every stencil value), then each cell's divergence from the
+    tile's three buffers in axis order.  Vectorised over faces and
+    lanes."""
     f32 = np.float32
     nf, p, n = u_t.shape[0], u_t.shape[1], u_t.shape[-1]
     flat = u_t.reshape(-1)
@@ -170,9 +210,6 @@ def _emulate_lane_kernel(u_t, widths, gamma, s=8, g=3):
     t = np.asarray(table).reshape(3, 9, 8)
     p2, p3 = p * p, p ** 3
     steps = np.array([p2, p, 1])
-    ci = np.arange(s ** 3)
-    z, y, x = ci % s, (ci // s) % s, ci // (s * s)
-    cell = (g + x) * p2 + (g + y) * p + (g + z)
     fields = np.arange(nf)[:, None, None]
     lanes = np.arange(n)[None, None, :]
     hh = np.broadcast_to(np.asarray(widths, f32), (n,))
@@ -223,19 +260,35 @@ def _emulate_lane_kernel(u_t, widths, gamma, s=8, g=3):
                           + (ap * am) * inv * (qR - qL),
                           f32(0.5) * (fL + fR))
             acc = w[a, q] * fl if acc is None else acc + w[a, q] * fl
-        return acc
+        return acc                                    # (F, faces, lanes)
 
-    out = None
+    _, tiles = _lane_schedule(s, n, g)
+    buffers = []
     for a in range(3):
-        d = (face(cell, a) - face(cell - steps[a], a)) / hh
-        out = -d if out is None else out - d
+        # every tile's axis-a faces in one vectorised evaluation
+        vals = face(np.concatenate([axes[a][0] for _, _, axes in tiles]), a)
+        bounds = np.cumsum([0] + [len(axes[a][0]) for _, _, axes in tiles])
+        buffers.append([vals[:, bounds[i]:bounds[i + 1]]
+                        for i in range(len(tiles))])
+    out = np.empty((nf, s ** 3, n), f32)
+    for i, ((x0, y0, z0), box, _) in enumerate(tiles):
+        ci = np.arange(box[0] * box[1] * box[2])
+        z, y, x = ci % box[2], ci // box[2] % box[1], ci // (box[2] * box[1])
+        acc = None
+        for a in range(3):
+            ny, nz = box[1] + (a == 1), box[2] + (a == 2)
+            lo = (x * ny + y) * nz + z
+            buf = buffers[a][i]
+            d = (buf[:, lo + (ny * nz, nz, 1)[a]] - buf[:, lo]) / hh
+            acc = -d if acc is None else acc - d
+        out[:, ((x0 + x) * s + y0 + y) * s + z0 + z] = acc
     return out.reshape(nf, s, s, s, n)
 
 
 @pytest.mark.parametrize("case", ["static", "h_slots"])
 def test_lane_kernel_index_arithmetic_emulated_matches_plain(slots, case):
-    """The lane kernel's offsets, per-thread faces and divergence, replayed
-    in numpy, give the plain lane body's result."""
+    """The lane kernel's offsets, tiles, face buffers and divergence,
+    replayed in numpy, give the plain lane body's result."""
     mine, _ = widths(case, slots.shape[0])
     u_t = lane_major(slots)
     want = kern.hydro_rhs_lane_plain(u_t, **mine, **KW)
@@ -244,6 +297,74 @@ def test_lane_kernel_index_arithmetic_emulated_matches_plain(slots, case):
         KW["gamma"])
     assert_kernel_tol(np.moveaxis(got, -1, 0),
                       slot_major(want).numpy())
+
+
+def test_lane_kernel_emulated_at_16_matches_plain():
+    """S=16 through the same replay (4^3 tiles), against the plain lane
+    body."""
+    kw = dict(KW, subgrid=16)
+    u_t = lane_major(random_slots(94, 2, s=16))
+    want = kern.hydro_rhs_lane_plain(u_t, h=H, **kw)
+    got = _emulate_lane_kernel(u_t.numpy(), np.float32(H), KW["gamma"],
+                               s=16)
+    assert_kernel_tol(np.moveaxis(got, -1, 0), slot_major(want).numpy())
+
+
+@pytest.mark.parametrize("s,n", [(8, 32), (8, 64), (8, 512), (16, 32),
+                                 (16, 64), (5, 32), (7, 512)])
+def test_lane_plan_faces_tiles_and_shared_memory(s, n):
+    """Each face the divergence consumes is evaluated by the tile that
+    holds it, and a face on a boundary between two tiles along its axis
+    by both: ``face_evals`` counts exactly that, against the 3 (S+1) S^2
+    needed.  Every tile lies in the sub-grid, the tiles cover each cell
+    once, and the CTA's face buffer fits the plan's shared memory."""
+    plan, tiles = _lane_schedule(s, n)
+    g, p = 3, s + 6
+    covered = np.zeros((s, s, s), int)
+    evals = [dict() for _ in range(3)]
+    for (x0, y0, z0), box, axes in tiles:
+        covered[x0:x0 + box[0], y0:y0 + box[1], z0:z0 + box[2]] += 1
+        for a, (c, _) in enumerate(axes):
+            for cc in c.tolist():
+                evals[a][cc] = evals[a].get(cc, 0) + 1
+    assert (covered == 1).all()
+    boundary = [set(range(t, s, t)) for t in plan.tile]
+    for a in range(3):
+        # the consumed faces of axis a: cell k along a, k = -1 .. S-1
+        for x in range(-(a == 0), s):
+            for y in range(-(a == 1), s):
+                for z in range(-(a == 2), s):
+                    if (a != 0 and x < 0) or (a != 1 and y < 0) or \
+                            (a != 2 and z < 0):
+                        continue
+                    k = (x, y, z)[a] + 1          # face index along a
+                    c = (g + x) * p * p + (g + y) * p + g + z
+                    assert evals[a].pop(c) == 1 + (k in boundary[a]), (a, k)
+        assert not evals[a]                  # nothing else evaluated
+    needed = 3 * (s + 1) * s * s
+    assert plan.face_evals == needed + sum(
+        s * s * len(b) for b in boundary)
+    assert plan.smem <= kern.SMEM_PER_BLOCK
+
+
+def test_lane_plan_fills_the_card_and_shares_faces():
+    """A 32-task bucket covers the 132 SMs at S=8 and S=16; at 512 x 8^3
+    and 64 x 16^3 the plan evaluates at most 1.25x the faces needed; shared
+    memory stays within a block's limit; a warp reads whole 64-byte
+    segments (16 lanes of 4 bytes)."""
+    assert 4 * kern.LANES >= 64 and kern.LANE_THREADS % 32 == 0
+    for s in (8, 16):
+        plan = kern.lane_plan(s, 32, H100_SMS)
+        assert plan.ctas >= H100_SMS
+        assert plan.smem <= kern.SMEM_PER_BLOCK
+    for s, n in ((8, 512), (16, 64)):
+        plan = kern.lane_plan(s, n, H100_SMS)
+        assert plan.face_evals <= 1.25 * 3 * (s + 1) * s * s
+        assert plan.ctas >= H100_SMS
+    # a 1-task and a 32-task bucket tile differently; the bits of a task do
+    # not depend on its tile (tests/test_torch_cuda.py holds them equal)
+    assert kern.lane_plan(8, 1, H100_SMS).tile != \
+        kern.lane_plan(8, 32, H100_SMS).tile
 
 
 def test_lane_wrapper_rejects_what_the_kernel_does_not_take():

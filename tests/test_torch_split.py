@@ -204,19 +204,77 @@ def test_reconstruct_replay_matches_plain(slots):
     assert_tol(got, want, field_dim=3)
 
 
-def _flux_replay(recon, h, gamma, s=8, g=3):
-    """numpy float32 mirror of csrc/hydro_split.cu::flux_kernel: the fused
-    kernel's face layout, with each quadrature state read from the staged
-    reconstruction at (pair, side) of the face cell (left) and the face
-    cell + e_axis (right).  Returns the result and the range of every cell
-    index read."""
-    n, nf, p = recon.shape[0], recon.shape[3], recon.shape[4]
-    flat = recon.reshape(n, 13, 2, nf, p ** 3)
-    weights, table = kern._quad_table()
-    pairs, _ = split._split_tables()
-    w = np.asarray(weights, np.float32).reshape(3, 9)
+def _flux_schedule(s, g=3):
+    """Index replay of csrc/hydro_split.cu::flux_cluster_kernel for one slot
+    of ``s``^3: CTA a of the cluster owns axis a's faces, thread t its faces
+    fi = t, t + 576, ...; before each face the thread primes its ring with
+    the first quadrature entries, and loading entry q issues entry
+    q + FLUX_STAGES - 1 into stage (q + FLUX_STAGES - 1) % FLUX_STAGES.
+    Returns, per axis, each face's staged (left, right) flat offsets into
+    the slot's (13, 2, F, P, P, P) block per entry (nface, 9, 2, F), and
+    checks on the way that every stage a thread reads holds the entry it
+    wants, staged by that thread and not overwritten since, and that every
+    ring and face-buffer index lies in the CTA's shared memory."""
+    p = s + 2 * g
+    p3 = p ** 3
+    threads, stages, nf = kern.CTA_THREADS, split.FLUX_STAGES, 5
+    _, table = kern._quad_table()
     t = np.asarray(table).reshape(3, 9, 8)
-    pq = np.asarray(pairs).reshape(3, 9, 2)
+    pq = np.asarray(split._split_tables()[0]).reshape(3, 9, 2)
+    ring_floats = stages * 2 * nf * threads
+    offsets = []
+    for a in range(3):
+        ny, nz = s + (a == 1), s + (a == 2)
+        nface = (s + (a == 0)) * ny * nz
+        e = (p * p, p, 1)[a]
+        # the face buffer follows the ring; both within the CTA's bytes
+        assert 4 * (ring_floats + nf * nface) == split.flux_smem_bytes(s)
+        offs = np.empty((nface, 9, 2, nf), np.int64)
+        for tid in range(threads):
+            ring = {}                       # stage -> (face, entry)
+            for fi in range(tid, nface, threads):
+                z, y, x = fi % nz, (fi // nz) % ny, fi // (nz * ny)
+                c = ((g + x - (a == 0)) * p * p + (g + y - (a == 1)) * p
+                     + (g + z - (a == 2)))
+
+                def issue(q):
+                    if q >= 9:
+                        return
+                    stg = q % stages
+                    # the stage's last entry was consumed (or never used)
+                    assert ring.get(stg, (None, 9))[1] == 9, (a, tid, fi, q)
+                    ring[stg] = (fi, q)
+                    for f in range(nf):
+                        for k, side in ((f, 0), (nf + f, 1)):
+                            assert (stg * 2 * nf + k) * threads + tid \
+                                < ring_floats
+                        offs[fi, q, 0, f] = (
+                            (pq[a, q, 0] * 2 + t[a, q, 3]) * nf + f) * p3 + c
+                        offs[fi, q, 1, f] = (
+                            (pq[a, q, 1] * 2 + t[a, q, 7]) * nf + f) * p3 \
+                            + c + e
+
+                for q in range(stages - 1):
+                    issue(q)
+                for q in range(9):
+                    issue(q + stages - 1)
+                    assert ring[q % stages] == (fi, q), (a, tid, fi, q)
+                    ring[q % stages] = (fi, 9)       # consumed
+        offsets.append(offs)
+    return offsets
+
+
+def _flux_replay(recon, h, gamma, s=8, g=3):
+    """numpy float32 mirror of csrc/hydro_split.cu::flux_cluster_kernel:
+    each axis' faces from the states its threads stage (``_flux_schedule``'s
+    offsets), face_flux's order over the quadrature entries, and the
+    divergence of each CTA's third of the cells from the three axes' face
+    buffers.  Returns the result, the range of every cell index read, and
+    how often each cell was written."""
+    n, nf, p = recon.shape[0], recon.shape[3], recon.shape[4]
+    flat = recon.reshape(n, -1)
+    weights, _ = kern._quad_table()
+    w = np.asarray(weights, np.float32).reshape(3, 9)
     f32 = np.float32
     lo_idx, hi_idx = p ** 3, -1
 
@@ -235,19 +293,15 @@ def _flux_replay(recon, h, gamma, s=8, g=3):
         f[:, 1 + a] += pr
         return f
 
-    out = None
-    for a in range(3):
-        ny, nz = s + (a == 1), s + (a == 2)
-        fi = np.arange((s + (a == 0)) * ny * nz)
-        z, y, x = fi % nz, (fi // nz) % ny, fi // (nz * ny)
-        c = ((g + x - (a == 0)) * p * p + (g + y - (a == 1)) * p
-             + (g + z - (a == 2)))
-        e = (p * p, p, 1)[a]
-        lo_idx, hi_idx = min(lo_idx, c.min()), max(hi_idx, (c + e).max())
+    faces = []
+    for a, offs in enumerate(_flux_schedule(s, g)):
+        cell = offs % p ** 3
+        lo_idx, hi_idx = min(lo_idx, cell.min()), max(hi_idx, cell.max())
+        assert offs.min() >= 0 and offs.max() < 13 * 2 * nf * p ** 3
         acc = None
         for q in range(9):
-            qL = flat[:, pq[a, q, 0], t[a, q, 3]][:, :, c]
-            qR = flat[:, pq[a, q, 1], t[a, q, 7]][:, :, c + e]
+            qL = np.moveaxis(flat[:, offs[:, q, 0]], 2, 1)    # (n, F, face)
+            qR = np.moveaxis(flat[:, offs[:, q, 1]], 2, 1)
             (rL, vL, pL), (rR, vR, pR) = prim(qL), prim(qR)
             cL = np.sqrt(f32(gamma) * pL / rL)
             cR = np.sqrt(f32(gamma) * pR / rR)
@@ -262,23 +316,61 @@ def _flux_replay(recon, h, gamma, s=8, g=3):
                           + (ap * am) * inv * (qR - qL),
                           f32(0.5) * (fL + fR))
             acc = w[a, q] * fl if acc is None else acc + w[a, q] * fl
-        ci = np.arange(s ** 3)
+        faces.append(acc)
+    s3 = s ** 3
+    out = np.empty((n, nf, s3), np.float32)
+    written = np.zeros(s3, int)
+    share = -(-s3 // 3)
+    for rank in range(3):
+        ci = np.arange(rank * share, min(s3, (rank + 1) * share))
+        written[ci] += 1
         z, y, x = ci % s, (ci // s) % s, ci // (s * s)
-        lo = (x * ny + y) * nz + z
-        d = (acc[:, :, lo + (ny * nz, nz, 1)[a]] - acc[:, :, lo]) / f32(h)
-        out = -d if out is None else out - d
-    return out.reshape(n, nf, s, s, s), (lo_idx, hi_idx)
+        acc = None
+        for a in range(3):
+            ny, nz = s + (a == 1), s + (a == 2)
+            lo = (x * ny + y) * nz + z
+            d = (faces[a][:, :, lo + (ny * nz, nz, 1)[a]]
+                 - faces[a][:, :, lo]) / f32(h)
+            acc = -d if acc is None else acc - d
+        out[:, :, ci] = acc
+    return out.reshape(n, nf, s, s, s), (lo_idx, hi_idx), written
 
 
 def test_flux_replay_stays_in_block_and_matches_plain(ref_pair):
-    """The Flux kernel's face layout, pair table and divergence indexing,
-    replayed in numpy, read only cells of the padded block and give the
-    plain version's result."""
+    """The Flux kernel's face ownership, staging ring, pair table and
+    divergence split, replayed in numpy, read only cells of the padded
+    block, write each output cell once and give the plain version's
+    result."""
     recon, _ = ref_pair
-    got, (lo, hi) = _flux_replay(recon, KW["h"], KW["gamma"])
+    got, (lo, hi), written = _flux_replay(recon, KW["h"], KW["gamma"])
     assert 0 <= lo and hi <= 14 ** 3 - 1
+    assert (written == 1).all()
     want = split.hydro_flux_plain(T(recon), **KW).numpy()
     assert_tol(got, want)
+
+
+@pytest.mark.parametrize("s", [4, 5, 10])
+def test_flux_schedule_owns_each_face_once(s):
+    """At sub-grids where a thread owns no face (4, 5) or two (10): each
+    consumed face is evaluated once, by its axis' CTA; every staged value
+    is the state its face's entry needs, inside the slot's block; the
+    staged values of each axis are the distinct states ``flux_read_states``
+    counts."""
+    g, p = 3, s + 6
+    offs = _flux_schedule(s, g)
+    distinct = set()
+    for a, o in enumerate(offs):
+        assert o.shape[0] == (s + 1) * s * s
+        assert 0 <= o.min() and o.max() < 13 * 2 * 5 * p ** 3
+        plane, cell = o // p ** 3, o % p ** 3
+        x, y, z = cell // (p * p), (cell // p) % p, cell % p
+        assert ((x >= 0) & (x < p) & (y >= 0) & (y < p)).all()
+        pair, side = plane // 10, (plane // 5) % 2
+        distinct |= set(zip(pair[..., 0].ravel(), side[..., 0].ravel(),
+                            x[..., 0].ravel(), y[..., 0].ravel(),
+                            z[..., 0].ravel()))
+    want = {(pl, sd, *c) for (pl, sd, c) in split.flux_read_states(s, g)}
+    assert distinct == want
 
 
 def test_split_tables_match_face_quad():
@@ -335,7 +427,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take(slots):
         split.check_flux_args(recon.transpose(5, 6), ghost=3, subgrid=8)
     split.check_flux_args(recon, ghost=3, subgrid=8)
     assert split.recon_smem_bytes(14) == 54_880
-    assert split.flux_smem_bytes(8) == 11_520
+    # the staging ring (2 entries x 10 values x 576 threads) and one axis'
+    # face fluxes
+    assert split.flux_smem_bytes(8) == 57_600
 
 
 # ---------------------------------------------------------------------------
