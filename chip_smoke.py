@@ -28,8 +28,14 @@
    for bit and agree with the plain PyTorch path on the card.
 4. Holds the gravity kernel and the split pair (Reconstruct, Flux) against
    their plain versions at 512 slots of the Sedov IC and on random slots,
-   and times each against its plain version and its bound; Flux's 32-slot
-   launch by CUDA-graph replays.
+   and times each against its plain version and its bound, 512 slots back
+   to back (gravity, shorter than its wrapper's host time, by CUDA-graph
+   replays, the back-to-back time beside it) and 32 by replays.  The
+   gravity kernel must equal its plain version bit for bit at 8^3 (widths
+   h and 2h, h), 5^3 and 16^3, and Reconstruct be within tolerance at 5^3
+   (odd P) and on an input and an output 4 B past a 16-byte boundary;
+   every slot of both equals its result from other buckets (gravity 1, 3,
+   32; Reconstruct 1, 33, 512).
 5. Path A: the self-gravitating Sedov blast at the paper's grid
    (``GravityHydroConfig(hydro=CONFIG)``, 512 sub-grids), hydro (``h_slots``
    mode) and gravity as two families through one executor, under the same
@@ -465,23 +471,31 @@ def odd_and_misaligned_slots(cfg, dev):
     return errs
 
 
+def check_slot_buckets(label, n, whole, launch, sizes=(1, 3, 32)):
+    """Every slot of an n-slot launch ``whole`` equals that slot from
+    launches of each size (ragged tails included), bit for bit; ``launch(a,
+    m)`` launches the m slots from a."""
+    for size in sizes:
+        for a in range(0, n, size):
+            b = min(a + size, n)
+            check(torch.equal(launch(a, b - a), whole[a:b]),
+                  f"{label}: slots [{a}, {b}) launched as a bucket of "
+                  f"{b - a} differ from the same slots in a {n}-slot launch")
+    print(f"{label}: every slot equals its result from buckets of "
+          f"{', '.join(map(str, sizes))} slots ({n} slots)", flush=True)
+
+
 def check_grid_buckets(label, u, want, widths, **kw):
     """Every slot of a whole-wave slot_grid launch equals that slot from
     launches of 1, 3 and 32 slots (ragged tails included), bit for bit."""
     from repro_torch.kernels import hydro_rhs as kern
 
-    n = u.shape[0]
-    for size in (1, 3, 32):
-        for a in range(0, n, size):
-            b = min(a + size, n)
-            wk = (dict(h_slots=widths[a:b]) if isinstance(widths, torch.Tensor)
-                  else dict(h=widths))
-            check(torch.equal(kern.hydro_rhs_cuda(u[a:b], **wk, **kw),
-                              want[a:b]),
-                  f"{label}: slots [{a}, {b}) launched as a bucket of "
-                  f"{b - a} differ from the same slots in a {n}-slot launch")
-    print(f"{label}: every slot equals its result from buckets of 1, 3 and "
-          f"32 slots ({n} slots)", flush=True)
+    def launch(a, m):
+        wk = (dict(h_slots=widths[a:a + m])
+              if isinstance(widths, torch.Tensor) else dict(h=widths))
+        return kern.hydro_rhs_cuda(u[a:a + m], **wk, **kw)
+
+    check_slot_buckets(label, u.shape[0], want, launch)
 
 
 def blocks(u, s):
@@ -662,13 +676,50 @@ def kernel_entry(name, source, replaces, errs, ms, plain_ms, n_bytes,
                 library_ms=library_ms)
 
 
-def print_timing(name, n, ms, ms_32, plain_ms, entry, n_bytes, n_ops):
-    print(f"{name} time on the Sedov IC, {n} slots: {ms:.4f} ms (32 slots "
-          f"{ms_32:.4f} ms by graph replay); plain version {plain_ms:.3f} "
-          f"ms; bound "
-          f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}: "
+def print_timing(name, n, ms, ms_32, plain_ms, entry, n_bytes, n_ops,
+                 how=""):
+    print(f"{name} time on the Sedov IC, {n} slots{how}: {ms:.4f} ms (32 "
+          f"slots {ms_32:.4f} ms by graph replay); plain version "
+          f"{plain_ms:.3f} ms; bound {entry['bound_ms']:.4f} ms "
+          f"({entry['bound_by']}: "
           f"{n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.4f} GFLOP), so the kernel "
           f"takes {ms / entry['bound_ms']:.1f}x its bound", flush=True)
+
+
+def gravity_other_sizes(gcfg, dev, errs):
+    """The gravity kernel at 5^3 (512 sub-grids, P = 11: one cell per
+    thread) and 16^3 (64 sub-grids, ``CONFIG_16``: eight cells per thread),
+    on the Sedov IC with widths 2h, h: bit-equal to the plain
+    version and every slot equal to its result from buckets of 1, 3 and
+    32.  Returns the differing elements per size."""
+    from repro_torch.configs.base import HydroConfig
+    from repro_torch.hydro.state import extract_subgrids, sedov_init
+    from repro_torch.kernels import gravity as grav
+
+    differ = {}
+    for s in (5, 16):
+        c = HydroConfig(subgrid=s, levels=2 if s == 16 else
+                        gcfg.hydro.levels)
+        kw = dict(ghost=c.ghost, subgrid=s, g_const=gcfg.g_const,
+                  n_iter=gcfg.relax_iters)
+        u = extract_subgrids(sedov_init(c, device=dev).u, s, c.ghost)
+        n = u.shape[0]
+        hs = alternating_widths(n, c.domain / (c.grids_per_edge * s), dev)
+        got = grav.gravity_cuda(u, hs, **kw)
+        want = grav.gravity_plain(u, hs, **kw)
+        errs.append(compare(f"gravity kernel vs plain at {s}^3, widths 2h, "
+                            f"h {tuple(u.shape)}", got, want,
+                            slot_field_max(want), ATOL_SCALE, RTOL,
+                            names=GRAVITY_FIELDS))
+        differ[s] = int((got != want).sum())
+        check(differ[s] == 0, f"gravity at {s}^3: {differ[s]} elements "
+                              f"differ from the plain version")
+        check_slot_buckets(f"gravity at {s}^3", n, got,
+                           lambda a, m: grav.gravity_cuda(
+                               u[a:a + m], hs[a:a + m], **kw))
+    print(f"gravity at 5^3 and 16^3: elements that differ from the plain "
+          f"version {differ}", flush=True)
+    return differ
 
 
 def phase_gravity_kernel(gcfg, dev, results):
@@ -699,10 +750,13 @@ def phase_gravity_kernel(gcfg, dev, results):
     differ2 = int((got2 != want2).sum())
     check(torch.equal(got2[1::2], got[1::2]),
           "gravity: slots of width h differ between the two launches")
-    check(torch.equal(grav.gravity_cuda(u[32:64], hs[32:64], **kw),
-                      got[32:64]),
-          "gravity: a 32-slot launch differs from the same slots in a 512 "
-          "launch")
+    check_slot_buckets("gravity, Sedov IC", n, got,
+                       lambda a, m: grav.gravity_cuda(u[a:a + m], hs[a:a + m],
+                                                      **kw))
+    check_slot_buckets("gravity, widths 2h, h", n, got2,
+                       lambda a, m: grav.gravity_cuda(u[a:a + m],
+                                                      hs2[a:a + m], **kw))
+    differ_sizes = gravity_other_sizes(gcfg, dev, errs)
     rng = np.random.default_rng(3)
     ur = torch.from_numpy(rng.standard_normal(
         (64,) + tuple(u.shape[1:])).astype(np.float32))
@@ -719,8 +773,14 @@ def phase_gravity_kernel(gcfg, dev, results):
     print(f"gravity: elements that differ from the plain version: {differ} "
           f"(uniform h), {differ2} (2h, h), {differ_r} (random), of "
           f"{got.numel()}, {got2.numel()}, {got_r.numel()}", flush=True)
+    check(differ == differ2 == differ_r == 0,
+          "gravity: the kernel is not bit-equal to its plain version")
 
-    ms = time_cuda_ms(lambda: grav.gravity_cuda(u, hs, **kw), reps=50)
+    # the kernel is shorter than its wrapper's host time, so back-to-back
+    # calls time the host: its time is the graph replay's, the back-to-back
+    # reading is printed beside it
+    ms_b2b = time_cuda_ms(lambda: grav.gravity_cuda(u, hs, **kw), reps=50)
+    ms = time_graph_ms(lambda: grav.gravity_cuda(u, hs, **kw), reps=20)
     ms_32 = time_graph_ms(lambda: grav.gravity_cuda(u[:32], hs[:32], **kw),
                           reps=50)
     plain_ms = time_cuda_ms(lambda: grav.gravity_plain(u, hs, **kw), reps=5,
@@ -732,7 +792,12 @@ def phase_gravity_kernel(gcfg, dev, results):
                          "src/repro/kernels/gravity.py:130", errs, ms,
                          plain_ms, n_bytes, n_ops)
     print_timing("gravity kernel", n, ms, ms_32, plain_ms, entry, n_bytes,
-                 n_ops)
+                 n_ops, how=" by graph replay")
+    print(f"gravity kernel: {n} slots {ms_b2b:.4f} ms back to back, "
+          f"{ms:.4f} ms by graph replay; {n} blocks of {grav.THREADS} "
+          f"threads, {grav.cells_per_thread(s, hc.ghost)} cells per thread, "
+          f"{grav.smem_bytes(s, hc.ghost)} B of shared memory per block",
+          flush=True)
     # Path A's hydro family: the fused hydro kernel in h_slots mode on the
     # same input, against its plain version
     hkw = dict(gamma=hc.gamma, ghost=hc.ghost, subgrid=hc.subgrid)
@@ -744,9 +809,74 @@ def phase_gravity_kernel(gcfg, dev, results):
           f"{ms_h:.4f} ms; plain version {plain_h:.3f} ms", flush=True)
     results["gravity_kernel"] = entry
     results["gravity_kernel_detail"] = dict(
-        slots=n, ms_32_slots=ms_32, bytes=n_bytes, flop=n_ops,
-        elements_differing=[differ, differ2, differ_r],
+        slots=n, ms_32_slots=ms_32, ms_back_to_back=ms_b2b, bytes=n_bytes,
+        flop=n_ops, elements_differing=[differ, differ2, differ_r],
+        elements_differing_by_size=differ_sizes, block_threads=grav.THREADS,
+        cells_per_thread=grav.cells_per_thread(s, hc.ghost),
+        smem_bytes=grav.smem_bytes(s, hc.ghost),
         hydro_rhs_h_slots_ms=ms_h, hydro_rhs_h_slots_plain_ms=plain_h)
+
+
+def reconstruct_odd_and_misaligned(cfg, dev, u, rk):
+    """Reconstruct at 5^3 (512 sub-grids, P = 11: each (pair, side, field)
+    plane starts at its own offset within 16 bytes; the Sedov IC and random
+    states), and on the main path's input ``u`` read from, and written to,
+    tensors one float past a 16-byte boundary: within the tolerance of the
+    plain version at every cell, frame included, every slot equal to its
+    result from buckets of 1, 33 and 512, the misaligned launch equal to
+    the aligned one ``rk``.  Returns the errors."""
+    from repro_torch.configs.base import HydroConfig
+    from repro_torch.hydro.state import extract_subgrids, sedov_init
+    from repro_torch.kernels import hydro_split as split
+
+    tol = dict(atol_scale=ATOL_SCALE, rtol=RTOL)
+    errs = []
+    c = HydroConfig(subgrid=5, levels=cfg.levels)
+    u5 = extract_subgrids(sedov_init(c, device=dev).u, 5, c.ghost)
+    for label, x in (("Sedov IC", u5),
+                     ("random smooth states",
+                      random_slots(u5.shape[0], c.padded, dev, seed=7))):
+        got = split.hydro_reconstruct_cuda(x)
+        want = split.hydro_reconstruct_plain(x)
+        errs.append(compare(f"reconstruct kernel vs plain at 5^3, {label} "
+                            f"{tuple(x.shape)}", recon_by_field(got),
+                            recon_by_field(want),
+                            slot_field_max(recon_by_field(want)), **tol))
+        del want
+        check_slot_buckets(f"reconstruct at 5^3, {label}", x.shape[0], got,
+                           lambda a, m: split.hydro_reconstruct_cuda(
+                               x[a:a + m]), sizes=(1, 33, 512))
+        del got
+    buf = torch.empty(u.numel() + 1, device=dev)
+    off = buf[1:].view(u.shape)
+    off.copy_(u)
+    obuf = torch.full((rk.numel() + 1,), float("nan"), device=dev)
+    out = obuf[1:].view(rk.shape)
+    check(off.data_ptr() % 16 == 4 and out.data_ptr() % 16 == 4,
+          "the tensors are not 4 B past 16")
+    # the wrapper allocates its own output: the misaligned one goes to the
+    # kernel through its library's launch
+    lib, p = split.build(), u.shape[-1]
+    split._ready(lib, u.device)
+    err = lib.hydro_reconstruct_launch(
+        off.data_ptr(), out.data_ptr(), u.shape[0], p,
+        split.recon_smem_bytes(p), torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"reconstruct launch into an output 4 B past 16: "
+                    f"{lib.hydro_split_error_string(err)}")
+    want = split.hydro_reconstruct_plain(u)
+    errs.append(compare(f"reconstruct kernel vs plain, input and output 4 B "
+                        f"past a 16-byte boundary {tuple(u.shape)}",
+                        recon_by_field(out), recon_by_field(want),
+                        slot_field_max(recon_by_field(want)), **tol))
+    del want
+    check(torch.equal(out, rk),
+          "reconstruct: misaligned input and output differ from the same "
+          "slots aligned")
+    check_slot_buckets("reconstruct, input 4 B past a 16-byte boundary",
+                       u.shape[0], rk,
+                       lambda a, m: split.hydro_reconstruct_cuda(off[a:a + m]),
+                       sizes=(1, 33))
+    return errs
 
 
 def phase_split_kernels(cfg, dev, results):
@@ -782,9 +912,10 @@ def phase_split_kernels(cfg, dev, results):
         compare(f"the pair vs the fused hydro_rhs kernel, {label}", pair,
                 fused, slot_field_max(fused), atol_scale=3e-6, rtol=RTOL)
     rk = split.hydro_reconstruct_cuda(u)
-    check(torch.equal(split.hydro_reconstruct_cuda(u[32:64]), rk[32:64]),
-          "reconstruct: a 32-slot launch differs from the same slots in a "
-          "512 launch")
+    check_slot_buckets("reconstruct, Sedov IC", u.shape[0], rk,
+                       lambda a, m: split.hydro_reconstruct_cuda(u[a:a + m]),
+                       sizes=(1, 33, 512))
+    errs_r += reconstruct_odd_and_misaligned(cfg, dev, u, rk)
     fk = split.hydro_flux_cuda(rk, h=h, **kw)
     check(torch.equal(split.hydro_flux_cuda(rk[32:64].contiguous(), h=h,
                                             **kw), fk[32:64]),
@@ -828,6 +959,10 @@ def phase_split_kernels(cfg, dev, results):
           f"{f_sectors / 1e6:.1f} MB ({f_sectors / f_bytes:.2f}x the bound's "
           f"bytes), {f_sectors / HBM_BYTES_PER_S * 1e3:.4f} ms at "
           f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s", flush=True)
+    print(f"reconstruct: {n * 5 * split.RECON_SLABS} CTAs of "
+          f"{split.RECON_THREADS} threads at {n} slots (one per slot, field "
+          f"and x-slab), {split.recon_smem_bytes(p)} B of shared memory per "
+          f"CTA; {32 * 5 * split.RECON_SLABS} CTAs at 32 slots", flush=True)
     print(f"flux: {n * kern.CLUSTER} CTAs in clusters of {kern.CLUSTER} x {kern.CTA_THREADS} threads at "
           f"{n} slots, {split.flux_smem_bytes(s)} B of shared memory per "
           f"CTA, {f_per_sm} CTAs per SM, {f_resident} clusters resident",
@@ -866,18 +1001,13 @@ def check_lane_buckets(label, u, want_t, widths, **kw):
     1, 3 and 32 slots (ragged tails included), bit for bit."""
     from repro_torch.kernels import hydro_rhs as kern
 
-    n = u.shape[0]
-    for size in (1, 3, 32):
-        for a in range(0, n, size):
-            b = min(a + size, n)
-            wk = (dict(h_slots=widths[a:b]) if isinstance(widths, torch.Tensor)
-                  else dict(h=widths))
-            part = kern.hydro_rhs_lane_cuda(lane_major(u[a:b]), **wk, **kw)
-            check(torch.equal(part, want_t[..., a:b]),
-                  f"{label}: slots [{a}, {b}) launched as a bucket of "
-                  f"{b - a} differ from the same slots in a {n}-slot launch")
-    print(f"{label}: every slot equals its result from buckets of 1, 3 and "
-          f"32 slots ({n} slots)", flush=True)
+    def launch(a, m):
+        wk = (dict(h_slots=widths[a:a + m])
+              if isinstance(widths, torch.Tensor) else dict(h=widths))
+        return slot_major(kern.hydro_rhs_lane_cuda(lane_major(u[a:a + m]),
+                                                   **wk, **kw))
+
+    check_slot_buckets(label, u.shape[0], slot_major(want_t), launch)
 
 
 def phase_lane_kernel(cfg, cfg16, dev, results):
@@ -2007,10 +2137,139 @@ def phase_serving_path(dev, card, results):
     results["grouped_gemm_kernel"]["launches"] = n_gg
 
 
+# ---------------------------------------------------------------------------
+# --sweep: the launch constants compiled into Reconstruct and the gravity
+# kernel, each alternative built from the checked-in source with the constant
+# replaced, held to the checked-in kernel or the plain version, and timed
+# ---------------------------------------------------------------------------
+
+# (x-slabs, threads) of Reconstruct; the first is the checked-in shape
+RECON_SHAPES = ((7, 256), (1, 512), (4, 512), (7, 128), (7, 384), (14, 128),
+                (14, 256))
+# (threads, blocks per SM asked of ptxas at <= 2 cells per thread) of the
+# gravity kernel; the first is the checked-in shape
+GRAVITY_SHAPES = ((1024, 2), (1024, 1), (768, 1), (512, 1))
+
+
+def build_variant(tag, source, subs, kernel):
+    """nvcc ``csrc/<source>`` with each (old, new) text of ``subs`` replaced,
+    into ``_build/sweep/<tag>/``, as ``_build`` builds the checked-in one;
+    returns the loaded library and ptxas's register lines for the functions
+    whose name holds ``kernel``."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    text = (_build.CSRC / source).read_text()
+    for old, new in subs:
+        check(old in text, f"sweep: {old!r} is not in csrc/{source}")
+        text = text.replace(old, new)
+    out = _build.BUILD_DIR / "sweep" / tag
+    out.mkdir(parents=True, exist_ok=True)
+    (out / source).write_text(text)
+    lib = out / f"lib{tag}.so"
+    proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-I",
+                           str(_build.CSRC), "-o", str(lib),
+                           str(out / source)], capture_output=True, text=True)
+    check(proc.returncode == 0, f"sweep: nvcc failed on {tag}:\n"
+                                f"{proc.stderr}")
+    regs, fn = [], ""
+    for line in (proc.stderr + proc.stdout).splitlines():
+        if "Function properties for" in line:
+            fn = line
+        elif "registers" in line and kernel in fn:
+            regs.append(line.split(":", 1)[1].strip())
+    return ctypes.CDLL(str(lib)), regs
+
+
+def sweep_launch_shapes(dev):
+    """Every shape of ``RECON_SHAPES`` and ``GRAVITY_SHAPES`` on the Sedov
+    IC, 512 and 32 slots by graph replay; each variant's output must equal
+    the checked-in Reconstruct's (the same arithmetic) or the plain
+    gravity's bit for bit.  Prints one line per variant."""
+    from repro_torch.configs.base import GravityHydroConfig
+    from repro_torch.configs.sedov import CONFIG
+    from repro_torch.hydro.state import extract_subgrids, sedov_init
+    from repro_torch.kernels import gravity as grav
+    from repro_torch.kernels import hydro_split as split
+    from repro_torch.kernels.hydro_rhs import _quad_table
+
+    u = extract_subgrids(sedov_init(CONFIG, device=dev).u, CONFIG.subgrid,
+                         CONFIG.ghost)
+    n, p = u.shape[0], u.shape[-1]
+    jobs = [(f"recon_{slabs}x{threads}", "hydro_split.cu", (
+        ("kReconThreads = 256;", f"kReconThreads = {threads};"),
+        ("kReconSlabs = 7;", f"kReconSlabs = {slabs};")),
+        "reconstruct_kernel") for slabs, threads in RECON_SHAPES]
+    jobs += [(f"gravity_{threads}_{blocks}", "gravity.cu", (
+        ("kThreads = 1024;", f"kThreads = {threads};"),
+        ("kCells <= 2 ? 2 : 1", f"kCells <= 2 ? {blocks} : 1")),
+        "gravity_kernel") for threads, blocks in GRAVITY_SHAPES]
+    with ThreadPoolExecutor(8) as pool:
+        built = dict(zip((job[0] for job in jobs),
+                         pool.map(lambda job: build_variant(*job), jobs)))
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+
+    want = split.hydro_reconstruct_cuda(u)
+    for slabs, threads in RECON_SHAPES:
+        lib, regs = built[f"recon_{slabs}x{threads}"]
+        split._declare(lib)
+        check(lib.hydro_split_init(*_quad_table(), *split._split_tables())
+              == 0, "sweep: hydro_split_init failed")
+        smem = 4 * (-(-p // slabs) + 4) * (p + 4) ** 2
+        out = torch.empty_like(want)
+
+        def run(m, lib=lib, smem=smem, out=out):
+            check(lib.hydro_reconstruct_launch(
+                u.data_ptr(), out.data_ptr(), m, p, smem, stream()) == 0,
+                "sweep: reconstruct launch failed")
+        run(n)
+        sync()
+        check(torch.equal(out, want), f"sweep: reconstruct {slabs} x "
+                                      f"{threads} differs")
+        print(f"sweep: reconstruct {slabs} slabs x {threads} threads: 512 "
+              f"slots {time_graph_ms(lambda: run(n), reps=20):.4f} ms, 32 "
+              f"slots {time_graph_ms(lambda: run(32), reps=50):.4f} ms "
+              f"(graph replay); {', '.join(regs)}", flush=True)
+
+    hc, gcfg = CONFIG, GravityHydroConfig(hydro=CONFIG)
+    kw = dict(ghost=hc.ghost, subgrid=hc.subgrid, g_const=gcfg.g_const,
+              n_iter=gcfg.relax_iters)
+    hs = torch.full((n,), hc.domain / (hc.grids_per_edge * hc.subgrid),
+                    device=dev)
+    want = grav.gravity_plain(u, hs, **kw)
+    m3 = (p - 2) ** 3
+    for threads, blocks in GRAVITY_SHAPES:
+        lib, regs = built[f"gravity_{threads}_{blocks}"]
+        grav._declare(lib)
+        check(lib.gravity_init() == 0, "sweep: gravity_init failed")
+        cells = min(k for k in grav.CELL_COUNTS if k * threads >= m3)
+        out = torch.empty_like(want)
+
+        def run(m, lib=lib, cells=cells, out=out):
+            check(lib.gravity_launch(
+                u.data_ptr(), hs.data_ptr(), out.data_ptr(), m, hc.subgrid,
+                hc.ghost, 4.0 * np.pi * gcfg.g_const, gcfg.relax_iters,
+                cells, grav.smem_bytes(hc.subgrid, hc.ghost), stream()) == 0,
+                "sweep: gravity launch failed")
+        run(n)
+        sync()
+        check(torch.equal(out, want), f"sweep: gravity {threads} threads, "
+                                      f"{blocks} blocks per SM differs")
+        print(f"sweep: gravity {threads} threads, {cells} cells per thread, "
+              f"{blocks} block(s) per SM asked at <= 2 cells: 512 slots "
+              f"{time_graph_ms(lambda: run(n), reps=20):.4f} ms, 32 slots "
+              f"{time_graph_ms(lambda: run(32), reps=50):.4f} ms (graph "
+              f"replay); {', '.join(regs)}", flush=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
                     help="also write every measurement to this JSON file")
+    ap.add_argument("--sweep", action="store_true",
+                    help="only time the alternative launch shapes of "
+                         "Reconstruct and the gravity kernel")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -2043,6 +2302,9 @@ def main(argv=None):
     print(f"card: {card} (torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.get_device_name(0)})",
           flush=True)
+    if args.sweep:
+        sweep_launch_shapes(dev)
+        return 0
     # one nvcc per source, all started together
     t0 = time.perf_counter()
     libs = {"hydro_rhs": kern.build, "gravity": grav.build,
@@ -2059,7 +2321,8 @@ def main(argv=None):
                  is not None else "cached build")
         print(f"build: csrc/{name}.cu, nvcc sm_90a, {built}", flush=True)
         for line in info["ptxas"].splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "Function properties for" in line):
                 print(f"  ptxas: {line.strip()}", flush=True)
 
     results = {"card": card, "device": torch.cuda.get_device_name(0),

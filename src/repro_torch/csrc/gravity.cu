@@ -9,26 +9,41 @@
 // read.  Replaces the TPU kernel
 // src/repro/kernels/gravity.py::_kernel_gravity_slot_grid_h.
 //
-// What bounds it on an H100: bytes, by far.  A 512-slot launch reads
-// 512 x (10,976 B of density + 4 B of h) and writes 512 x 8,192 B, about
-// 9.8 MB (~2.9 us at 3.35 TB/s), against about 0.1 MFLOP per slot (~0.8 us
-// at 67 TFLOP/s).  At that size the launch itself, not either bound, is
-// expected to set the time.
+// What bounds it on an H100: latency, not bytes or operations.  A 512-slot
+// launch moves about 9.8 MB (~2.9 us at 3.35 TB/s) and does about 45 MFLOP
+// (~0.7 us at 67 TFLOP/s), but each slot is a chain of n_iter dependent
+// sweeps, each a stencil, a subtraction and an IEEE division per cell, with
+// a block barrier between sweeps.
 //
-// What the design does about it:
-//  * One block per slot.  The right-hand side and a ping-pong pair of phi
-//    arrays live in shared memory (3 x P^3 floats, 32,928 B at S=8); the
-//    density is read from device memory once and the result written once.
-//  * Every neighbour of an interior cell lies in [0, P-1], so the
-//    reference's roll is direct indexing and its wrap-around is never
-//    read.  The frame stays 0 in both arrays.
+// The design:
+//  * One block of kThreads = 1024 threads per slot.  Thread t owns the
+//    cells t, t + 1024, ... of the (P - 2)^3 off the frame (x slowest),
+//    at most kCells of them; their index and right-hand side stay in
+//    registers for every sweep.  The kernel is instantiated for kCells = 1,
+//    2, 8 and 16, and the launch takes the least that covers the slot
+//    (kernels/gravity.py::cells_per_thread): 1 at S=5, 2 at S=8, 8 at S=16,
+//    16 up to P = 27.  All density loads are issued before the first
+//    barrier.
+//  * Registers: __launch_bounds__(1024, 2) holds kCells <= 2 to 32, so two
+//    blocks share an SM; kCells = 8 and 16 take one block per SM.
+//  * Shared memory: a ping-pong pair of phi arrays over the padded slot,
+//    2 x P^3 floats (21,952 B at S=8, kernels/gravity.py::smem_bytes),
+//    zeroed once.  Only cells off the frame are ever written, so the frame
+//    stays 0 and every neighbour of such a cell is a direct index: the
+//    reference's roll never wraps onto a value that is read.
+//  * The first sweep starts from phi = 0, where the reference's neighbour
+//    sum is +0, so it reads no neighbours: (0 - rhs) / 6.  Each sweep reads
+//    one array and writes the other, then one __syncthreads.
+//
+// Invariants:
 //  * The reference's arithmetic order: rhs = (c * rho) * (h * h) with
 //    c = 4 pi g_const rounded to fp32 once; nb summed x-1, x+1, y-1, y+1,
 //    z-1, z+1 left to right; (nb - rhs) / 6 as an IEEE division; the
 //    gradient (phi[i-1] - phi[i+1]) * (0.5 / h).  No multiply-add can be
-//    contracted, and the build has no --use_fast_math.
+//    contracted, and the build has no --use_fast_math, so the result is the
+//    plain version's bit for bit.
 //  * No reduction crosses slots, so a slot's result does not depend on the
-//    bucket it was launched in.
+//    bucket it was launched in, nor on kCells.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -36,46 +51,72 @@
 namespace {
 
 constexpr int kFields = 5;
-constexpr int kThreads = 256;
+constexpr int kThreads = 1024;
 
-__global__ void __launch_bounds__(kThreads)
+// two blocks per SM where a thread's cells fit in 32 registers (P <= 14)
+template <int kCells>
+__global__ void __launch_bounds__(kThreads, kCells <= 2 ? 2 : 1)
 gravity_kernel(const float* __restrict__ u, const float* __restrict__ h_slots,
                float c, int n_iter, float* __restrict__ out, int S, int G) {
   extern __shared__ float smem[];
-  const int P = S + 2 * G, P2 = P * P, P3 = P2 * P;
-  float* rhs = smem;
-  float* phi = smem + P3;
-  float* nxt = smem + 2 * P3;
+  const int P = S + 2 * G, P2 = P * P, P3 = P2 * P, M = P - 2, M2 = M * M;
   const size_t slot = blockIdx.x;
   const float h = h_slots[slot];
   const float hh = h * h;
-  const float* rho = u + slot * kFields * P3;     // field 0 of the slot
-  for (int i = threadIdx.x; i < P3; i += kThreads) {
-    rhs[i] = (c * rho[i]) * hh;
-    phi[i] = 0.f;
-    nxt[i] = 0.f;
+  const float* rho = u + slot * kFields * (size_t)P3;  // field 0
+  for (int i = threadIdx.x; i < 2 * P3; i += kThreads) smem[i] = 0.f;
+
+  // this thread's cells: index into a phi array and right-hand side
+  int at[kCells];
+  float rhs[kCells];
+#pragma unroll
+  for (int k = 0; k < kCells; ++k) {
+    const int j = threadIdx.x + k * kThreads;
+    at[k] = -1;
+    rhs[k] = 0.f;
+    if (j < M * M2) {
+      const int x = 1 + j / M2, y = 1 + (j / M) % M, z = 1 + j % M;
+      at[k] = x * P2 + y * P + z;
+      rhs[k] = (c * rho[at[k]]) * hh;
+    }
   }
   __syncthreads();
-  const int M = P - 2;                            // cells off the frame
-  const int M3 = M * M * M;
-  for (int it = 0; it < n_iter; ++it) {
-    for (int j = threadIdx.x; j < M3; j += kThreads) {
-      const int z = 1 + j % M, y = 1 + (j / M) % M, x = 1 + j / (M * M);
-      const int i = x * P2 + y * P + z;
+
+  float* phi = smem;
+  float* nxt = smem + P3;
+  int it = 0;
+  if (n_iter > 0) {
+    // phi = 0: the neighbour sum is +0
+#pragma unroll
+    for (int k = 0; k < kCells; ++k) {
+      if (at[k] < 0) break;
+      nxt[at[k]] = (0.0f - rhs[k]) / 6.0f;
+    }
+    __syncthreads();
+    phi = smem + P3;
+    nxt = smem;
+    it = 1;
+  }
+  for (; it < n_iter; ++it) {
+#pragma unroll
+    for (int k = 0; k < kCells; ++k) {
+      const int i = at[k];
+      if (i < 0) break;
       const float nb = phi[i - P2] + phi[i + P2] + phi[i - P] + phi[i + P] +
                        phi[i - 1] + phi[i + 1];
-      nxt[i] = (nb - rhs[i]) / 6.0f;
+      nxt[i] = (nb - rhs[k]) / 6.0f;
     }
     __syncthreads();
     float* t = phi;
     phi = nxt;
     nxt = t;
   }
+
   const float inv2h = 0.5f / h;
-  const int S3 = S * S * S;
-  float* dst = out + slot * 4 * S3;
+  const int S2 = S * S, S3 = S2 * S;
+  float* dst = out + slot * 4 * (size_t)S3;
   for (int ci = threadIdx.x; ci < S3; ci += kThreads) {
-    const int z = ci % S, y = (ci / S) % S, x = ci / (S * S);
+    const int z = ci % S, y = (ci / S) % S, x = ci / S2;
     const int i = (G + x) * P2 + (G + y) * P + (G + z);
     dst[ci] = phi[i];
     dst[S3 + ci] = (phi[i - P2] - phi[i + P2]) * inv2h;
@@ -84,13 +125,28 @@ gravity_kernel(const float* __restrict__ u, const float* __restrict__ h_slots,
   }
 }
 
+template <int kCells>
+cudaError_t allow_smem(int bytes) {
+  return cudaFuncSetAttribute(gravity_kernel<kCells>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
+}
+
+template <int kCells>
+cudaError_t launch(const float* u, const float* h_slots, float* out, int n,
+                   int S, int G, float c, int n_iter, size_t smem,
+                   cudaStream_t stream) {
+  gravity_kernel<kCells><<<n, kThreads, smem, stream>>>(u, h_slots, c,
+                                                        n_iter, out, S, G);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Once per device, before the first launch there: allow the kernel the
-// device's opt-in shared memory (sub-grids above S=10 need more than the
-// 48 KB default).  Returns a cudaError_t.
+// Once per device, before the first launch there: allow every instance of
+// the kernel the device's opt-in shared memory.  Returns a cudaError_t.
 int gravity_init(void) {
   int device = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&device);
@@ -98,20 +154,35 @@ int gravity_init(void) {
   err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                device);
   if (err != cudaSuccess) return (int)err;
-  return (int)cudaFuncSetAttribute(
-      gravity_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+  const cudaError_t errs[] = {allow_smem<1>(optin), allow_smem<2>(optin),
+                              allow_smem<8>(optin), allow_smem<16>(optin)};
+  for (cudaError_t e : errs)
+    if (e != cudaSuccess) return (int)e;
+  return 0;
 }
 
-// Launch on `stream`.  `c` is 4 pi g_const rounded once to fp32; `smem` is
-// 3 * 4 * P^3 bytes (kernels/gravity.py::smem_bytes).  Returns the
-// cudaError_t of the launch (0 on success).
+// Launch on `stream`: n blocks of 1024 threads, each thread owning `cells`
+// cells (1, 2, 8 or 16: kernels/gravity.py::cells_per_thread rounded up to
+// one of them).  `c` is 4 pi g_const rounded once to fp32; `smem` is
+// 2 * 4 * P^3 bytes (kernels/gravity.py::smem_bytes).  Returns the
+// cudaError_t of the launch (0 on success; cudaErrorInvalidValue for
+// another `cells`).
 int gravity_launch(const float* u, const float* h_slots, float* out, int n,
-                   int S, int G, float c, int n_iter, size_t smem,
+                   int S, int G, float c, int n_iter, int cells, size_t smem,
                    void* stream) {
   if (n <= 0) return 0;
-  gravity_kernel<<<n, kThreads, smem, (cudaStream_t)stream>>>(
-      u, h_slots, c, n_iter, out, S, G);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (cells) {
+    case 1: return (int)launch<1>(u, h_slots, out, n, S, G, c, n_iter, smem,
+                                  st);
+    case 2: return (int)launch<2>(u, h_slots, out, n, S, G, c, n_iter, smem,
+                                  st);
+    case 8: return (int)launch<8>(u, h_slots, out, n, S, G, c, n_iter, smem,
+                                  st);
+    case 16: return (int)launch<16>(u, h_slots, out, n, S, G, c, n_iter,
+                                    smem, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 const char* gravity_error_string(int code) {

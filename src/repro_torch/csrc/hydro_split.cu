@@ -25,12 +25,26 @@
 //    (~0.011 ms), so bytes bound it too.
 //
 // What the design does about it:
-//  * Reconstruct: one block per slot, the slot staged once in shared
-//    memory (54,880 B, opt-in), and each thread stores one cell of one
-//    (pair, field) plane per step, so stores are coalesced along z.  Both
-//    sides of a pair come from one set of five samples.  Indices wrap mod
-//    P as torch.roll does, so the frame values equal the plain version's
-//    and no output element is left unwritten.
+//  * Reconstruct: one CTA of kReconThreads = 256 threads per (slot, field,
+//    x-slab), the P planes split into kReconSlabs = 7 slabs (2 planes at
+//    S=8; a slab is empty, and its CTA returns, where P < 7): a 32-slot
+//    bucket launches 1,120 CTAs, 512 slots 17,920.  A CTA stages only its
+//    field's slab, widened by 2 planes, rows and columns on every side with
+//    each index wrapped mod P (torch.roll's shifts), so every sample is a
+//    direct index.  Shared memory: (ceil(P / 7) + 4) x (P + 4)^2 floats,
+//    7,776 B at S=8 (kernels/hydro_split.py::recon_smem_bytes; P <= 62).
+//    Registers: 40, no spills (ptxas, sm_90a).  Thread t takes the slab's
+//    cells e = t, t + 256, ... and writes both sides of all 13 pairs there:
+//    neighbouring lanes read neighbouring staged floats (no bank conflicts)
+//    and store neighbouring floats of one plane (128 contiguous bytes per
+//    warp store).  Plain 4-byte stores need no more than a float's
+//    alignment, so the input and the output may each start at any float
+//    address.  Flat indices are split by fdiv, a floor division in fp32,
+//    exact for every dividend below 2^21 (the largest is ~57,000 at P = 62).
+//    Both sides of a pair come from one set of five samples (ppm_side5, as
+//    in the fused kernel), and no value depends on the launch shape, so
+//    every element equals the plain version's within rounding and a slot's
+//    values do not depend on its bucket.
 //  * Flux: one thread-block cluster per slot, as hydro_rhs.cu: kCluster =
 //    3 CTAs of kCtaThreads = 576 threads (hydro_common.cuh), CTA a
 //    evaluating axis a's (S+1)*S*S faces, one face per thread at S=8, into
@@ -65,43 +79,64 @@
 
 namespace {
 
+// Reconstruct's launch shape: a CTA per (slot, field, x-slab)
 constexpr int kReconThreads = 256;
+constexpr int kReconSlabs = 7;       // x-slabs per slot and field
 
 __device__ __forceinline__ int wrap(int i, int P) {
   return i < 0 ? i + P : (i >= P ? i - P : i);
 }
 
+// floor(a / b) for 0 <= a < 2^21 from inv_b = 1.0f / b (IEEE): the fp32
+// quotient of (a + 0.5) is within 2^-22 of its value relative to it, and
+// that value lies at least 0.5 / b from an integer
+__device__ __forceinline__ int fdiv(int a, float inv_b) {
+  return __float2int_rz(__fmaf_rn((float)a, inv_b, 0.5f * inv_b));
+}
+
+// First plane of x-slab g of P planes
+__device__ __forceinline__ int recon_slab(int g, int P) {
+  return (g * P) / kReconSlabs;
+}
+
 __global__ void __launch_bounds__(kReconThreads)
 reconstruct_kernel(const float* __restrict__ u, float* __restrict__ out,
                    int P) {
-  extern __shared__ float us[];
-  const int P2 = P * P, P3 = P2 * P;
-  const size_t slot = blockIdx.x;
-  const float* src = u + slot * kFields * P3;
-  for (int i = threadIdx.x; i < kFields * P3; i += kReconThreads)
-    us[i] = src[i];
+  extern __shared__ float stage[];
+  const int g = blockIdx.x % kReconSlabs;
+  const int f = (blockIdx.x / kReconSlabs) % kFields;
+  const size_t slot = blockIdx.x / (kReconSlabs * kFields);
+  const int x0 = recon_slab(g, P), x1 = recon_slab(g + 1, P);
+  if (x1 == x0) return;
+  const int P2 = P * P, P3 = P2 * P, Q = P + 4, Q2 = Q * Q;
+  const float invP = 1.0f / (float)P, invQ = 1.0f / (float)Q;
+  // field f over planes [x0 - 2, x1 + 2) and rows and columns [-2, P + 2),
+  // each index wrapped mod P: every sample below is a direct index
+  const float* src = u + (slot * kFields + f) * (size_t)P3;
+  for (int i = threadIdx.x; i < (x1 - x0 + 4) * Q2; i += kReconThreads) {
+    const int r = fdiv(i, invQ), Z = i - r * Q;
+    const int X = fdiv(r, invQ), Y = r - X * Q;
+    stage[i] = src[wrap(x0 - 2 + X, P) * P2 + wrap(Y - 2, P) * P +
+                   wrap(Z - 2, P)];
+  }
   __syncthreads();
-  float* dst = out + slot * (size_t)kPairs * 2 * kFields * P3;
-  for (int pair = 0; pair < kPairs; ++pair) {
-    const int dx = c_tab.dirs[pair][0], dy = c_tab.dirs[pair][1],
-              dz = c_tab.dirs[pair][2];
-    float* lo = dst + (size_t)(pair * 2) * kFields * P3;
-    float* hi = lo + (size_t)kFields * P3;
-    for (int c = threadIdx.x; c < P3; c += kReconThreads) {
-      const int z = c % P, y = (c / P) % P, x = c / P2;
-      int at[5];
-#pragma unroll
-      for (int k = -2; k <= 2; ++k)
-        at[k + 2] = wrap(x + k * dx, P) * P2 + wrap(y + k * dy, P) * P +
-                    wrap(z + k * dz, P);
-#pragma unroll
-      for (int f = 0; f < kFields; ++f) {
-        const float* q = us + f * P3;
-        const float um2 = q[at[0]], um1 = q[at[1]], u0 = q[at[2]],
-                    up1 = q[at[3]], up2 = q[at[4]];
-        lo[f * P3 + c] = ppm_side5(um2, um1, u0, up1, up2, 0);
-        hi[f * P3 + c] = ppm_side5(um2, um1, u0, up1, up2, 1);
-      }
+  // cell e of the slab (its planes' cells in order, as every output plane
+  // holds them) is staged at cp; its five samples along a pair's direction
+  // at cp + k * dp, k = -2 .. 2
+  float* dst = out + (slot * kPairs * 2 * kFields + f) * (size_t)P3 +
+               (size_t)x0 * P2;
+  for (int e = threadIdx.x; e < (x1 - x0) * P2; e += kReconThreads) {
+    const int r = fdiv(e, invP), z = e - r * P;
+    const int x = fdiv(r, invP), y = r - x * P;
+    const float* q = stage + (x + 2) * Q2 + (y + 2) * Q + z + 2;
+    for (int pair = 0; pair < kPairs; ++pair) {
+      const int dp = c_tab.dirs[pair][0] * Q2 + c_tab.dirs[pair][1] * Q +
+                     c_tab.dirs[pair][2];
+      const float um2 = q[-2 * dp], um1 = q[-dp], u0 = q[0], up1 = q[dp],
+                  up2 = q[2 * dp];
+      float* lo = dst + (size_t)(pair * 2 * kFields) * P3;
+      lo[e] = ppm_side5(um2, um1, u0, up1, up2, 0);
+      lo[(size_t)kFields * P3 + e] = ppm_side5(um2, um1, u0, up1, up2, 1);
     }
   }
 }
@@ -217,13 +252,15 @@ int hydro_split_init(const float* weights, const int* table, const int* pairs,
   return (int)allow_optin_smem(flux_cluster_kernel);
 }
 
-// Launch Reconstruct on `stream`; `smem` is 4 * 5 * P^3 bytes.  Returns the
-// cudaError_t of the launch (0 on success).
+// Launch Reconstruct on `stream`: n x 5 x kReconSlabs CTAs of
+// kReconThreads threads.  `smem` is one CTA's staged field, 4 * (ceil(P /
+// kReconSlabs) + 4) * (P + 4)^2 bytes (kernels/hydro_split.py::
+// recon_smem_bytes).  Returns the cudaError_t of the launch (0 on success).
 int hydro_reconstruct_launch(const float* u, float* recon, int n, int P,
                              size_t smem, void* stream) {
   if (n <= 0) return 0;
-  reconstruct_kernel<<<n, kReconThreads, smem, (cudaStream_t)stream>>>(
-      u, recon, P);
+  reconstruct_kernel<<<(unsigned)n * kFields * kReconSlabs, kReconThreads,
+                       smem, (cudaStream_t)stream>>>(u, recon, P);
   return (int)cudaGetLastError();
 }
 

@@ -120,10 +120,26 @@ def gravity_source_update(u: torch.Tensor, dudt: torch.Tensor,
 # the CUDA kernel
 # ---------------------------------------------------------------------------
 
+# the kernel's launch shape, compiled into csrc/gravity.cu: a block of
+# THREADS threads per slot, each owning CELL_COUNTS[i] cells off the frame
+# (the kernel is instantiated for each: 5^3, 8^3 and 16^3 sub-grids take 1,
+# 2 and 8; 16 keeps every P up to 27)
+THREADS = 1024
+CELL_COUNTS = (1, 2, 8, 16)
+
+
 def smem_bytes(subgrid: int, ghost: int) -> int:
-    """Dynamic shared memory of one block: the right-hand side and two phi
-    arrays over the padded slot (the layout ``csrc/gravity.cu`` uses)."""
-    return 3 * 4 * (subgrid + 2 * ghost) ** 3
+    """Dynamic shared memory of one block: a ping-pong pair of phi arrays
+    over the padded slot (the layout ``csrc/gravity.cu`` uses)."""
+    return 2 * 4 * (subgrid + 2 * ghost) ** 3
+
+
+def cells_per_thread(subgrid: int, ghost: int) -> int:
+    """Cells off the frame each thread owns: the least of ``CELL_COUNTS``
+    that covers the (P - 2)^3 of them, or 0 if none does."""
+    m = subgrid + 2 * ghost - 2
+    need = -(-m ** 3 // THREADS)
+    return next((k for k in CELL_COUNTS if k >= need), 0)
 
 
 def check_kernel_args(u_slots: torch.Tensor, h_slots: torch.Tensor,
@@ -140,6 +156,12 @@ def check_kernel_args(u_slots: torch.Tensor, h_slots: torch.Tensor,
         raise NotImplementedError(
             f"subgrid={subgrid} needs {need} B of shared memory per block, "
             f"above the {SMEM_PER_BLOCK} B an sm_90 block may use")
+    if cells_per_thread(subgrid, ghost) == 0:
+        m = subgrid + 2 * ghost - 2
+        raise NotImplementedError(
+            f"subgrid={subgrid}, ghost={ghost} gives each of {THREADS} "
+            f"threads {-(-m ** 3 // THREADS)} cells to hold in registers, "
+            f"above the kernel's {CELL_COUNTS[-1]}")
     p = subgrid + 2 * ghost
     if u_slots.dtype != torch.float32:
         raise TypeError(f"gravity kernel takes float32, got {u_slots.dtype}")
@@ -163,7 +185,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.gravity_init.argtypes = []
     lib.gravity_init.restype = ci
     lib.gravity_launch.argtypes = [
-        vp, vp, vp, ci, ci, ci, cf, ci, ctypes.c_size_t, vp]
+        vp, vp, vp, ci, ci, ci, cf, ci, ci, ctypes.c_size_t, vp]
     lib.gravity_launch.restype = ci
     lib.gravity_error_string.argtypes = [ci]
     lib.gravity_error_string.restype = ctypes.c_char_p
@@ -180,8 +202,8 @@ def build() -> ctypes.CDLL:
 def gravity_cuda(u_slots: torch.Tensor, h_slots: torch.Tensor, *,
                  ghost: int, subgrid: int, g_const: float = 1.0,
                  n_iter: int = 8) -> torch.Tensor:
-    """Launch the gravity kernel on the current stream: (n, F, P, P, P),
-    (n,) -> (n, 4, S, S, S).  Counts each launch in
+    """Launch the gravity kernel on the current stream, one block per slot:
+    (n, F, P, P, P), (n,) -> (n, 4, S, S, S).  Counts each launch in
     ``gravity_cuda.launches``."""
     if u_slots.device.type != "cuda":
         raise ValueError(
@@ -204,8 +226,8 @@ def gravity_cuda(u_slots: torch.Tensor, h_slots: torch.Tensor, *,
         # weak-typed Python float is)
         err = lib.gravity_launch(
             u_slots.data_ptr(), h_slots.data_ptr(), out.data_ptr(), n, s,
-            ghost, 4.0 * math.pi * g_const, n_iter, smem_bytes(s, ghost),
-            stream)
+            ghost, 4.0 * math.pi * g_const, n_iter,
+            cells_per_thread(s, ghost), smem_bytes(s, ghost), stream)
     _build.raise_on(err, lib.gravity_error_string, "gravity kernel launch")
     gravity_cuda.launches += 1
     return out

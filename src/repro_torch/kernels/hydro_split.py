@@ -64,9 +64,23 @@ def flux_read_bytes(n: int, subgrid: int, ghost: int = KERNEL_GHOST) -> int:
     return n * len(flux_read_states(subgrid, ghost)) * N_FIELDS * 4
 
 
+# Reconstruct's launch shape, compiled into csrc/hydro_split.cu
+# (kReconThreads, kReconSlabs): a CTA per (slot, field, x-slab)
+RECON_THREADS = 256
+RECON_SLABS = 7
+
+
+def recon_slab(g: int, p: int) -> int:
+    """First x-plane of Reconstruct's slab ``g`` of ``p`` planes;
+    ``recon_slab(RECON_SLABS, p)`` is p (``csrc/hydro_split.cu``)."""
+    return g * p // RECON_SLABS
+
+
 def recon_smem_bytes(p: int) -> int:
-    """Reconstruct's dynamic shared memory: the padded slot, P = p."""
-    return 4 * N_FIELDS * p ** 3
+    """Reconstruct's dynamic shared memory per CTA: one field of the largest
+    slab's planes, widened by 2 cells on every side (wrapped mod P), so a
+    stencil never wraps: (ceil(P / RECON_SLABS) + 4) x (P + 4)^2 floats."""
+    return 4 * (-(-p // RECON_SLABS) + 4) * (p + 4) ** 2
 
 
 FLUX_STAGES = 2      # quadrature entries in Flux's ring, fixed in the .cu
@@ -99,7 +113,8 @@ def _check_tensor(x: torch.Tensor, shape: Tuple[int, ...], what: str,
 def check_reconstruct_args(u_slots: torch.Tensor) -> None:
     """Raise for anything the Reconstruct kernel does not take (device
     aside): (n, F, P, P, P) float32, contiguous, 3 <= P (the five-point
-    stencil wraps once at most) and the slot within shared memory."""
+    stencil wraps once at most) and one field of a slab within shared
+    memory (``recon_smem_bytes``: P <= 62)."""
     p = u_slots.shape[-1] if u_slots.dim() == 5 else 0
     if u_slots.dim() == 5 and p < 3:
         raise ValueError(f"reconstruct kernel needs P >= 3, got {p}")

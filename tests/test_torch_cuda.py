@@ -178,11 +178,20 @@ def test_cluster_kernel_buckets_plain_and_lane(dev, case):
 
 
 GKW = dict(ghost=3, subgrid=8, g_const=1.0, n_iter=8)
+WIDE_BUCKETS = [1, 3, 32, 33, 512]
+
+
+def gravity_slots(dev, s, seed, total=512):
+    """``sedov_and_random`` with every density made positive."""
+    u = sedov_and_random(dev, s, seed, total)
+    u[:, 0] = u[:, 0].abs() + 0.5
+    return u
 
 
 def test_gravity_kernel_matches_plain(dev):
-    sedov = extract_subgrids(sedov_init(CFG, device=dev).u, 8, 3)
-    u = torch.cat([random_slots(80, 3, dev), sedov]).contiguous()
+    """Bit-equal to the plain version in a 512-slot launch with widths 2h, h,
+    and every slot equal to its result from buckets of 1, 3, 32 and 33."""
+    u = gravity_slots(dev, 8, 80)
     hs = torch.where(torch.arange(u.shape[0], device=dev) % 2 == 0,
                      torch.tensor(0.125, device=dev),
                      torch.tensor(0.0625, device=dev)).float().contiguous()
@@ -190,15 +199,53 @@ def test_gravity_kernel_matches_plain(dev):
     got = grav.gravity_cuda(u, hs, **GKW)
     torch.cuda.synchronize(dev)
     assert grav.gravity_cuda.launches == before + 1
-    assert_within_kernel_tol(got, grav.gravity_plain(u, hs, **GKW))
-    for i in (0, 5):
-        assert torch.equal(grav.gravity_cuda(u[i:i + 1], hs[i:i + 1], **GKW),
-                           got[i:i + 1])
+    assert torch.equal(got, grav.gravity_plain(u, hs, **GKW))
+    for n in WIDE_BUCKETS:
+        for a in bucket_starts(n):
+            assert torch.equal(grav.gravity_cuda(u[a:a + n], hs[a:a + n],
+                                                 **GKW), got[a:a + n]), (n, a)
     assert torch.equal(ops.gravity(u, hs, **GKW), got)
     zero = grav.gravity_cuda(torch.zeros_like(u[:2]), hs[:2], **GKW)
     assert not bool(zero.any())
     with pytest.raises(ValueError, match="h_slots"):
         grav.gravity_cuda(u, hs.cpu(), **GKW)
+
+
+@pytest.mark.parametrize("s,g", [(5, 3), (16, 3), (10, 3), (21, 3), (1, 1)])
+def test_gravity_kernel_other_sizes_bit_equal(dev, s, g):
+    """At odd and 16^3 sub-grids (1 and 8 cells per thread), at 10^3 (3
+    cells on the 8-cell instance), at P = 27 (16 cells) and at P = 3 (one
+    cell): bit-equal to the plain version for 0, 1 and 8 sweeps."""
+    u = gravity_slots(dev, s, 81, total=64) if g == 3 else torch.from_numpy(
+        np.random.default_rng(81).random((64, 5, 3, 3, 3), np.float32)
+        + np.float32(0.5)).to(dev)
+    hs = torch.full((64,), 0.05, device=dev)
+    kw = dict(GKW, ghost=g, subgrid=s)
+    for n_iter in (0, 1, 8):
+        kw["n_iter"] = n_iter
+        got = grav.gravity_cuda(u, hs, **kw)
+        assert torch.equal(got, grav.gravity_plain(u, hs, **kw)), n_iter
+    assert torch.equal(grav.gravity_cuda(u[5:6], hs[5:6], **kw), got[5:6])
+
+
+def test_gravity_kernel_rejects_without_falling_back(dev):
+    u = gravity_slots(dev, 8, 82, total=4)
+    hs = torch.full((4,), 0.1, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        grav.gravity_cuda(u.transpose(3, 4), hs, **GKW)
+    with pytest.raises(TypeError, match="float32"):
+        grav.gravity_cuda(u.double(), hs, **GKW)
+    with pytest.raises(NotImplementedError, match="registers"):
+        grav.gravity_cuda(torch.zeros((1, 5, 28, 28, 28), device=dev),
+                          hs[:1], ghost=3, subgrid=22)
+    assert grav.gravity_cuda(u[:0], hs[:0], **GKW).shape == (0, 4, 8, 8, 8)
+
+
+def by_field(r):
+    """(n, 13, 2, F, P, P, P) -> (n, F, 26 P, P, P): the tolerance's scale
+    per slot and field over every pair, side and cell."""
+    n, p = r.shape[0], r.shape[-1]
+    return r.permute(0, 3, 1, 2, 4, 5, 6).reshape(n, 5, 26 * p, p, p)
 
 
 def test_split_kernels_match_plain(dev):
@@ -208,9 +255,6 @@ def test_split_kernels_match_plain(dev):
               split.hydro_flux_cuda.launches)
     recon = split.hydro_reconstruct_cuda(u)
     want_recon = split.hydro_reconstruct_plain(u)
-    n = u.shape[0]
-    by_field = (lambda r: r.permute(0, 3, 1, 2, 4, 5, 6)
-                .reshape(n, 5, 26 * 14, 14, 14))
     assert_within_kernel_tol(by_field(recon), by_field(want_recon))
     out = split.hydro_flux_cuda(want_recon, **KW)
     assert_within_kernel_tol(out, split.hydro_flux_plain(want_recon, **KW))
@@ -220,10 +264,75 @@ def test_split_kernels_match_plain(dev):
     assert (split.hydro_reconstruct_cuda.launches,
             split.hydro_flux_cuda.launches) == (before[0] + 1,
                                                 before[1] + 2)
-    assert torch.equal(split.hydro_reconstruct_cuda(u[2:4]), recon[2:4])
     assert torch.equal(split.hydro_flux_cuda(recon[2:4], **KW), pair[2:4])
     body = ops.hydro_split_batched_body(CFG, KW["h"])
     assert torch.equal(body(u), pair)
+    # every slot of a 512-slot launch equals its result from any bucket
+    u = sedov_and_random(dev, 8, 83)
+    whole = split.hydro_reconstruct_cuda(u)
+    for n in WIDE_BUCKETS:
+        for a in bucket_starts(n):
+            assert torch.equal(split.hydro_reconstruct_cuda(u[a:a + n]),
+                               whole[a:a + n]), (n, a)
+
+
+def reconstruct_into(u, out):
+    """Reconstruct launched straight through its library into ``out`` (the
+    wrapper allocates its own output, so this is how an output off a
+    16-byte boundary reaches the kernel)."""
+    lib = split.build()
+    p = u.shape[-1]
+    with torch.cuda.device(u.device):
+        split._ready(lib, u.device)
+        err = lib.hydro_reconstruct_launch(
+            u.data_ptr(), out.data_ptr(), u.shape[0], p,
+            split.recon_smem_bytes(p),
+            torch.cuda.current_stream(u.device).cuda_stream)
+    assert err == 0, lib.hydro_split_error_string(err)
+
+
+@pytest.mark.parametrize("s", [5, 8])
+@pytest.mark.parametrize("off_in,off_out", [(0, 0), (1, 0), (0, 1), (3, 2)])
+def test_reconstruct_odd_and_misaligned(dev, s, off_in, off_out):
+    """Reconstruct at 5^3 (P = 11: every plane starts at its own offset
+    within 16 bytes) and 8^3, on an input and into an output ``off_in`` and
+    ``off_out`` floats past a 16-byte boundary (plain 4-byte stores take
+    any float address): within the kernel tolerance of the plain version
+    at every cell, equal to the aligned launch and to the slots' results
+    from buckets of 1 and 33, every element written."""
+    u = sedov_and_random(dev, s, 84, total=64)
+    p = s + 6
+    shape = (64, 13, 2, 5, p, p, p)
+    buf = torch.empty(u.numel() + off_in, device=dev)
+    ui = buf[off_in:].view(u.shape)
+    ui.copy_(u)
+    ob = torch.full((int(np.prod(shape)) + off_out,), float("nan"),
+                    device=dev)
+    got = ob[off_out:].view(shape)
+    assert (ui.data_ptr() % 16, got.data_ptr() % 16) == (4 * off_in,
+                                                         4 * off_out)
+    reconstruct_into(ui, got)
+    assert_within_kernel_tol(by_field(got),
+                             by_field(split.hydro_reconstruct_plain(u)))
+    aligned = split.hydro_reconstruct_cuda(u)
+    assert torch.equal(got, aligned)
+    for n in (1, 33):
+        for a in bucket_starts(n, 64):
+            assert torch.equal(split.hydro_reconstruct_cuda(ui[a:a + n]),
+                               aligned[a:a + n]), (n, a)
+
+
+def test_reconstruct_rejects_without_falling_back(dev):
+    u = random_slots(85, 2, dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        split.hydro_reconstruct_cuda(u.transpose(3, 4))
+    with pytest.raises(TypeError, match="float32"):
+        split.hydro_reconstruct_cuda(u.double())
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        split.hydro_reconstruct_cuda(torch.zeros((1, 5, 63, 63, 63),
+                                                 device=dev))
+    assert split.hydro_reconstruct_cuda(u[:0]).shape == (0, 13, 2, 5, 14,
+                                                         14, 14)
 
 
 @pytest.mark.parametrize("n", BUCKETS)

@@ -32,6 +32,7 @@ from repro_torch.hydro.state import (  # noqa: E402
 from repro_torch.hydro.stepper import courant_dt, total_conserved  # noqa: E402
 from repro_torch.kernels import gravity as grav  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels._build import SMEM_PER_BLOCK  # noqa: E402
 
 CFG = CONFIG_SMALL
 HC = CFG.hydro
@@ -158,34 +159,96 @@ def test_zero_density_zero_field():
     assert not bool(out.any())
 
 
-def test_kernel_replay_matches_plain(mixed_case):
-    """numpy float32 replay of csrc/gravity.cu's direct indexing (rhs
-    staged once, ping-pong sweeps off the frame, gradient) gives the plain
-    version's result bit for bit: no index of an interior cell's stencil
-    leaves [0, P-1], so the roll's wrap-around is never read."""
-    u, h, _ = mixed_case
-    n, p, s, g = u.shape[0], u.shape[-1], HC.subgrid, HC.ghost
+def _block_replay(u, h, *, ghost, subgrid, g_const, n_iter):
+    """numpy float32 replay of csrc/gravity.cu's schedule for each slot's
+    block: thread t owns the cells t, t + THREADS, ... (at most
+    ``cells_per_thread`` of them) off the frame, x slowest; a ping-pong pair
+    of (P, P, P) arrays zeroed once; the first sweep reads no neighbours
+    (phi = 0: the reference's sum of six zeros is +0); each later sweep
+    reads one array and writes the other, with one barrier between.
+    Checks on the way that every cell is owned once and that no thread owns
+    more cells than the kernel instance the launch picks."""
+    n, p = u.shape[0], u.shape[-1]
+    s, g, m = subgrid, ghost, p - 2
     f32 = np.float32
-    c = f32(4.0 * np.pi * CFG.g_const)
-    hh = (h * h)[:, None, None, None]
-    rhs = (c * u[:, 0]) * hh
-    phi = np.zeros_like(rhs)
-    i = slice(1, p - 1)
-    for _ in range(CFG.relax_iters):
-        nxt = np.zeros_like(phi)
-        nb = (phi[:, :-2, i, i] + phi[:, 2:, i, i] + phi[:, i, :-2, i]
-              + phi[:, i, 2:, i] + phi[:, i, i, :-2] + phi[:, i, i, 2:])
-        nxt[:, i, i, i] = (nb - rhs[:, i, i, i]) / f32(6)
-        phi = nxt
+    c = f32(4.0 * np.pi * g_const)
+    j = np.arange(m ** 3)
+    tid, k = j % grav.THREADS, j // grav.THREADS
+    assert k.max() < grav.cells_per_thread(s, g) <= grav.CELL_COUNTS[-1]
+    x, y, z = 1 + j // (m * m), 1 + (j // m) % m, 1 + j % m
+    owned = np.zeros((p, p, p), int)
+    np.add.at(owned, (x, y, z), 1)
+    assert (owned[1:-1, 1:-1, 1:-1] == 1).all() and owned.sum() == m ** 3
+    assert 2 * 4 * p ** 3 == grav.smem_bytes(s, g)
+    rhs = (c * u[:, 0]) * (h * h)[:, None, None, None]
+    bufs = np.zeros((2, n, p, p, p), f32)
+    cur = 0
+    for it in range(n_iter):
+        if it == 0:
+            nb = f32(0)
+        else:
+            phi = bufs[cur]
+            nb = (phi[:, x - 1, y, z] + phi[:, x + 1, y, z]
+                  + phi[:, x, y - 1, z] + phi[:, x, y + 1, z]
+                  + phi[:, x, y, z - 1] + phi[:, x, y, z + 1])
+        bufs[cur ^ 1][:, x, y, z] = (nb - rhs[:, x, y, z]) / f32(6)
+        cur ^= 1
+    phi = bufs[cur]
     inv2h = (f32(0.5) / h)[:, None, None, None]
-    k = slice(g, g + s)
-    lo, hi = slice(g - 1, g - 1 + s), slice(g + 1, g + 1 + s)
-    got = np.stack([phi[:, k, k, k],
-                    (phi[:, lo, k, k] - phi[:, hi, k, k]) * inv2h,
-                    (phi[:, k, lo, k] - phi[:, k, hi, k]) * inv2h,
-                    (phi[:, k, k, lo] - phi[:, k, k, hi]) * inv2h], axis=1)
-    np.testing.assert_array_equal(got, grav.gravity_plain(T(u), T(h),
-                                                          **KW).numpy())
+    ks, lo, hi = (slice(g, g + s), slice(g - 1, g - 1 + s),
+                  slice(g + 1, g + 1 + s))
+    return np.stack([phi[:, ks, ks, ks],
+                     (phi[:, lo, ks, ks] - phi[:, hi, ks, ks]) * inv2h,
+                     (phi[:, ks, lo, ks] - phi[:, ks, hi, ks]) * inv2h,
+                     (phi[:, ks, ks, lo] - phi[:, ks, ks, hi]) * inv2h],
+                    axis=1)
+
+
+def test_kernel_replay_matches_plain(mixed_case):
+    """The numpy float32 replay of csrc/gravity.cu's schedule (cells per
+    thread, the first sweep without neighbours, ping-pong arrays with one
+    barrier per sweep, the gradient)
+    gives the plain version's result bit for bit: no index of an interior
+    cell's stencil leaves [0, P-1], so the roll's wrap-around is never
+    read."""
+    u, h, _ = mixed_case
+    np.testing.assert_array_equal(_block_replay(u, h, **KW),
+                                  grav.gravity_plain(T(u), T(h),
+                                                     **KW).numpy())
+
+
+@pytest.mark.parametrize("s,g", [(5, 3), (16, 3), (1, 1), (2, 1)])
+def test_kernel_replay_matches_plain_other_sizes(s, g):
+    """The same replay at odd and 16^3 sub-grids and at the smallest (P = 3,
+    4), with widths 2h, h, after 0, 1, 2 and 8 sweeps."""
+    u = random_density_slots(6, 2, p=s + 2 * g)
+    h = np.array([0.125, 0.0625], np.float32)
+    kw = dict(KW, ghost=g, subgrid=s)
+    for n_iter in (0, 1, 2, 8):
+        kw["n_iter"] = n_iter
+        np.testing.assert_array_equal(
+            _block_replay(u, h, **kw),
+            grav.gravity_plain(T(u), T(h), **kw).numpy())
+
+
+@pytest.mark.parametrize("s,g", [(8, 3), (5, 3), (16, 3), (10, 3), (21, 3),
+                                 (1, 1)])
+def test_block_owns_each_cell_once(s, g):
+    """Each cell off the frame belongs to exactly one thread of the slot's
+    block (cells tid, tid + THREADS, ...), the launch picks the least
+    instance that covers every thread's cells, and the block's shared
+    memory fits."""
+    p = s + 2 * g
+    m = p - 2
+    j = np.arange(m ** 3)
+    owned = np.zeros((p, p, p), int)
+    np.add.at(owned, (1 + j // (m * m), 1 + (j // m) % m, 1 + j % m), 1)
+    assert (owned[1:-1, 1:-1, 1:-1] == 1).all() and owned.sum() == m ** 3
+    per_thread = np.bincount(j % grav.THREADS)
+    cells = grav.cells_per_thread(s, g)
+    assert cells == min(k for k in grav.CELL_COUNTS
+                        if k >= per_thread.max())
+    assert grav.smem_bytes(s, g) <= SMEM_PER_BLOCK
 
 
 def test_ops_dispatches_cpu_tensors_to_plain():
@@ -204,8 +267,15 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(NotImplementedError, match="ghost >= 1"):
         chk(u, h, ghost=0, subgrid=12, n_iter=8)
     with pytest.raises(NotImplementedError, match="shared memory"):
-        chk(torch.zeros((1, 5, 40, 40, 40)), h[:1], ghost=3, subgrid=34,
+        chk(torch.zeros((1, 5, 32, 32, 32)), h[:1], ghost=3, subgrid=26,
             n_iter=8)
+    # P = 28: 26^3 cells, 18 per thread
+    with pytest.raises(NotImplementedError, match="registers"):
+        chk(torch.zeros((1, 5, 28, 28, 28)), h[:1], ghost=3, subgrid=22,
+            n_iter=8)
+    # P = 27, the largest the kernel takes: 16 cells per thread
+    chk(torch.zeros((1, 5, 27, 27, 27)), h[:1], ghost=3, subgrid=21,
+        n_iter=8)
     with pytest.raises(TypeError, match="float32"):
         chk(u.double(), h, ghost=3, subgrid=8, n_iter=8)
     with pytest.raises(ValueError, match="expected"):
@@ -222,7 +292,10 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take():
     # a bucket staged by index_select or narrow passes the checks
     chk(u.index_select(0, torch.tensor([1, 0])), h.narrow(0, 0, 2),
         ghost=3, subgrid=8, n_iter=8)
-    assert grav.smem_bytes(8, 3) == 32_928
+    # two phi arrays over the padded slot; 2 and 8 cells per thread
+    assert grav.smem_bytes(8, 3) == 21_952
+    assert (grav.cells_per_thread(8, 3), grav.cells_per_thread(16, 3)) == (
+        2, 8)
 
 
 # ---------------------------------------------------------------------------

@@ -32,6 +32,7 @@ from repro_torch.hydro.stepper import courant_dt  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import hydro_rhs as kern  # noqa: E402
 from repro_torch.kernels import hydro_split as split  # noqa: E402
+from repro_torch.kernels._build import SMEM_PER_BLOCK  # noqa: E402
 
 KW = dict(h=0.01, gamma=1.4, ghost=3, subgrid=8)
 CFG = HydroConfig(levels=1)
@@ -172,36 +173,132 @@ def test_split_body_on_the_uniform_path(agg):
 # the kernels' index arithmetic, replayed in numpy
 # ---------------------------------------------------------------------------
 
+def _fdiv(a, b):
+    """csrc/hydro_split.cu::fdiv in numpy: trunc(fma(a, 1/b, 0.5/b)) in
+    float32 (the product a * (1/b) and the sum are exact in float64, then
+    rounded once to float32, as the fused multiply-add rounds)."""
+    inv = np.float32(1.0) / np.float32(b)
+    a = np.asarray(a, np.int64)
+    q = (a.astype(np.float64) * np.float64(inv)
+         + np.float64(np.float32(0.5) * inv)).astype(np.float32)
+    return np.trunc(q).astype(np.int64)
+
+
+def _recon_stage(u, x0, x1):
+    """The slab [x0, x1) of every slot and field as Reconstruct stages it:
+    planes x0 - 2 .. x1 + 1, rows and columns -2 .. P + 1, each index
+    wrapped mod P; flat (n, F, (x1 - x0 + 4) * Q^2), Q = P + 4, built by
+    the kernel's own decomposition of the flat index."""
+    p = u.shape[-1]
+    q = p + 4
+    i = np.arange((x1 - x0 + 4) * q * q)
+    r = _fdiv(i, q)
+    zz = i - r * q
+    xx = _fdiv(r, q)
+    yy = r - xx * q
+    assert (_fdiv(i, q) == i // q).all() and (xx == r // q).all()
+    return u[:, :, (x0 - 2 + xx) % p, (yy - 2) % p, (zz - 2) % p]
+
+
 def _reconstruct_replay(u):
-    """numpy mirror of csrc/hydro_split.cu::reconstruct_kernel: every cell,
-    five samples along each pair's direction with indices wrapped mod P."""
+    """numpy mirror of csrc/hydro_split.cu::reconstruct_kernel's arithmetic:
+    per x-slab the staged, widened field, each cell's five samples at
+    cp + k * dp along each pair's direction (never outside the stage), both
+    sides from the same samples."""
     n, nf, p = u.shape[0], u.shape[1], u.shape[2]
+    q = p + 4
     f32 = np.float32
     _, dirs = split._split_tables()
     dirs = np.asarray(dirs).reshape(13, 3)
-    x, y, z = np.meshgrid(*(np.arange(p),) * 3, indexing="ij")
     out = np.empty((n, 13, 2, nf, p, p, p), np.float32)
-    for pair, d in enumerate(dirs):
-        s = [u[:, :, (x + k * d[0]) % p, (y + k * d[1]) % p,
-               (z + k * d[2]) % p] for k in range(-2, 3)]
-        um2, um1, u0, up1, up2 = s
-        ul = f32(7 / 12) * (um1 + u0) - f32(1 / 12) * (um2 + up1)
-        ur = f32(7 / 12) * (u0 + up1) - f32(1 / 12) * (um1 + up2)
-        ext = (ur - u0) * (u0 - ul) <= 0
-        du, u6 = ur - ul, f32(6) * (u0 - f32(0.5) * (ul + ur))
-        lo = np.where(du * u6 > du * du, f32(3) * u0 - f32(2) * ur, ul)
-        hi = np.where(-(du * du) > du * u6, f32(3) * u0 - f32(2) * ul, ur)
-        out[:, pair, 0] = np.where(ext, u0, lo)
-        out[:, pair, 1] = np.where(ext, u0, hi)
+    for g in range(split.RECON_SLABS):
+        x0, x1 = split.recon_slab(g, p), split.recon_slab(g + 1, p)
+        stage = _recon_stage(u, x0, x1)
+        assert 4 * stage.shape[-1] <= split.recon_smem_bytes(p)
+        e = np.arange((x1 - x0) * p * p)
+        r = _fdiv(e, p)
+        z = e - r * p
+        x = _fdiv(r, p)
+        y = r - x * p
+        cp = (x + 2) * q * q + (y + 2) * q + z + 2
+        for pair, d in enumerate(dirs):
+            dp = d[0] * q * q + d[1] * q + d[2]
+            idx = [cp + k * dp for k in range(-2, 3)]
+            assert min(i.min() for i in idx) >= 0
+            assert max(i.max() for i in idx) < stage.shape[-1]
+            um2, um1, u0, up1, up2 = (stage[..., i] for i in idx)
+            ul = f32(7 / 12) * (um1 + u0) - f32(1 / 12) * (um2 + up1)
+            ur = f32(7 / 12) * (u0 + up1) - f32(1 / 12) * (um1 + up2)
+            ext = (ur - u0) * (u0 - ul) <= 0
+            du, u6 = ur - ul, f32(6) * (u0 - f32(0.5) * (ul + ur))
+            lo = np.where(du * u6 > du * du, f32(3) * u0 - f32(2) * ur, ul)
+            hi = np.where(-(du * du) > du * u6, f32(3) * u0 - f32(2) * ul, ur)
+            for side, v in ((0, lo), (1, hi)):
+                out[:, pair, side, :, x0:x1] = np.where(ext, u0, v).reshape(
+                    n, nf, x1 - x0, p, p)
     return out
 
 
 def test_reconstruct_replay_matches_plain(slots):
-    """The kernel's wrapped indexing reproduces the plain version (roll) at
-    every cell, frame included."""
+    """The kernel's staged, widened slab reproduces the plain version (roll)
+    at every cell, frame included."""
     got = _reconstruct_replay(slots[:2])
     want = split.hydro_reconstruct_plain(T(slots[:2])).numpy()
     assert_tol(got, want, field_dim=3)
+
+
+def _reconstruct_schedule(p, offset, slot=0):
+    """Store replay of csrc/hydro_split.cu::reconstruct_kernel for one slot of
+    an output starting ``offset`` floats into its buffer: every CTA (field f,
+    x-slab g), thread t and its cells e = t, t + RECON_THREADS, ... of the
+    slab, and each pair's two plain stores.  Checks that every store lies
+    inside its (pair, side, field) plane's segment of the slab and returns
+    how often each element (13, 2, F, P^3) was written."""
+    p2, p3 = p * p, p ** 3
+    count = np.zeros(13 * 2 * 5 * p3, int)
+    slot_start = offset + slot * 13 * 2 * 5 * p3
+    for f in range(5):
+        for g in range(split.RECON_SLABS):
+            x0, x1 = split.recon_slab(g, p), split.recon_slab(g + 1, p)
+            length = (x1 - x0) * p2
+            dst = slot_start + f * p3 + x0 * p2
+            # every thread's cells, thread by thread
+            e = np.concatenate([np.arange(t, length, split.RECON_THREADS)
+                                for t in range(split.RECON_THREADS)])
+            for pair in range(13):
+                for side in (0, 1):
+                    at = dst + (pair * 2 + side) * 5 * p3 + e
+                    plane = (pair * 2 + side) * 5 + f
+                    seg = slot_start + plane * p3 + x0 * p2
+                    assert ((at >= seg) & (at < seg + length)).all()
+                    np.add.at(count, at - slot_start, 1)
+    return count.reshape(13, 2, 5, p3)
+
+
+@pytest.mark.parametrize("p", [11, 14, 22, 3])
+@pytest.mark.parametrize("offset", [0, 1, 3])
+def test_reconstruct_schedule_writes_each_element_once(p, offset):
+    """At odd P (planes off 16-byte boundaries), at the main path's P = 14,
+    at 16^3's P = 22 and at P = 3 (fewer planes than slabs), for an output
+    at and off a 16-byte boundary and for the next slot too: every (pair,
+    side, field, cell) element is written exactly once, each store inside
+    its plane's slab segment."""
+    for slot in (0, 1):
+        assert (_reconstruct_schedule(p, offset, slot) == 1).all()
+
+
+def test_fdiv_is_floor_division_where_the_kernel_uses_it():
+    """Reconstruct's fp32 floor division is exact for the divisors P and
+    P + 4 over every dividend the kernel gives them (slab cells, staged
+    indices and their rows), up to the largest P it takes (62)."""
+    for p in range(3, 63):
+        q = p + 4
+        planes = -(-p // split.RECON_SLABS)
+        for b, top in ((p, planes * p * p), (q, (planes + 4) * q * q)):
+            a = np.arange(top)
+            np.testing.assert_array_equal(_fdiv(a, b), a // b)
+    assert split.recon_smem_bytes(62) <= SMEM_PER_BLOCK
+    assert split.recon_smem_bytes(63) > SMEM_PER_BLOCK
 
 
 def _flux_schedule(s, g=3):
@@ -417,7 +514,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(slots):
     with pytest.raises(ValueError, match="P >= 3"):
         split.check_reconstruct_args(torch.zeros((1, 5, 2, 2, 2)))
     with pytest.raises(NotImplementedError, match="shared memory"):
-        split.check_reconstruct_args(torch.zeros((1, 5, 24, 24, 24)))
+        split.check_reconstruct_args(torch.zeros((1, 5, 63, 63, 63)))
+    split.check_reconstruct_args(torch.zeros((1, 5, 62, 62, 62)))
     split.check_reconstruct_args(u)
     with pytest.raises(NotImplementedError, match="ghost=3"):
         split.check_flux_args(recon, ghost=2, subgrid=10)
@@ -426,7 +524,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(slots):
     with pytest.raises(ValueError, match="contiguous"):
         split.check_flux_args(recon.transpose(5, 6), ghost=3, subgrid=8)
     split.check_flux_args(recon, ghost=3, subgrid=8)
-    assert split.recon_smem_bytes(14) == 54_880
+    # one field of a 2-plane slab widened to 6 x 18 x 18
+    assert split.recon_smem_bytes(14) == 7_776
     # the staging ring (2 entries x 10 values x 576 threads) and one axis'
     # face fluxes
     assert split.flux_smem_bytes(8) == 57_600
