@@ -32,8 +32,9 @@
    to back (gravity, shorter than its wrapper's host time, by CUDA-graph
    replays, the back-to-back time beside it) and 32 by replays.  The
    gravity kernel must equal its plain version bit for bit at 8^3 (widths
-   h and 2h, h), 5^3 and 16^3, and Reconstruct be within tolerance at 5^3
-   (odd P) and on an input and an output 4 B past a 16-byte boundary;
+   h and 2h, h), 5^3 and 16^3 (each also timed by graph replay), and
+   Reconstruct be within tolerance at 5^3 (odd P) and on an input and an
+   output 4 B past a 16-byte boundary;
    every slot of both equals its result from other buckets (gravity 1, 3,
    32; Reconstruct 1, 33, 512).
 5. Path A: the self-gravitating Sedov blast at the paper's grid
@@ -687,16 +688,17 @@ def print_timing(name, n, ms, ms_32, plain_ms, entry, n_bytes, n_ops,
 
 
 def gravity_other_sizes(gcfg, dev, errs):
-    """The gravity kernel at 5^3 (512 sub-grids, P = 11: one cell per
-    thread) and 16^3 (64 sub-grids, ``CONFIG_16``: eight cells per thread),
-    on the Sedov IC with widths 2h, h: bit-equal to the plain
-    version and every slot equal to its result from buckets of 1, 3 and
-    32.  Returns the differing elements per size."""
+    """The gravity kernel at 5^3 (512 sub-grids, P = 11: the 2-cell
+    instance) and 16^3 (64 sub-grids, ``CONFIG_16``: the 16-cell instance),
+    on the Sedov IC with widths 2h, h: bit-equal to the plain version and
+    every slot equal to its result from buckets of 1, 3 and 32; each timed
+    by graph replay.  Returns the differing elements and the ms per
+    size."""
     from repro_torch.configs.base import HydroConfig
     from repro_torch.hydro.state import extract_subgrids, sedov_init
     from repro_torch.kernels import gravity as grav
 
-    differ = {}
+    differ, times = {}, {}
     for s in (5, 16):
         c = HydroConfig(subgrid=s, levels=2 if s == 16 else
                         gcfg.hydro.levels)
@@ -717,9 +719,13 @@ def gravity_other_sizes(gcfg, dev, errs):
         check_slot_buckets(f"gravity at {s}^3", n, got,
                            lambda a, m: grav.gravity_cuda(
                                u[a:a + m], hs[a:a + m], **kw))
+        times[s] = time_graph_ms(lambda: grav.gravity_cuda(u, hs, **kw),
+                                 reps=20)
+        print(f"gravity at {s}^3: {n} slots {times[s]:.4f} ms by graph "
+              f"replay", flush=True)
     print(f"gravity at 5^3 and 16^3: elements that differ from the plain "
           f"version {differ}", flush=True)
-    return differ
+    return differ, times
 
 
 def phase_gravity_kernel(gcfg, dev, results):
@@ -756,7 +762,7 @@ def phase_gravity_kernel(gcfg, dev, results):
     check_slot_buckets("gravity, widths 2h, h", n, got2,
                        lambda a, m: grav.gravity_cuda(u[a:a + m],
                                                       hs2[a:a + m], **kw))
-    differ_sizes = gravity_other_sizes(gcfg, dev, errs)
+    differ_sizes, ms_sizes = gravity_other_sizes(gcfg, dev, errs)
     rng = np.random.default_rng(3)
     ur = torch.from_numpy(rng.standard_normal(
         (64,) + tuple(u.shape[1:])).astype(np.float32))
@@ -794,10 +800,7 @@ def phase_gravity_kernel(gcfg, dev, results):
     print_timing("gravity kernel", n, ms, ms_32, plain_ms, entry, n_bytes,
                  n_ops, how=" by graph replay")
     print(f"gravity kernel: {n} slots {ms_b2b:.4f} ms back to back, "
-          f"{ms:.4f} ms by graph replay; {n} blocks of {grav.THREADS} "
-          f"threads, {grav.cells_per_thread(s, hc.ghost)} cells per thread, "
-          f"{grav.smem_bytes(s, hc.ghost)} B of shared memory per block",
-          flush=True)
+          f"{ms:.4f} ms by graph replay", flush=True)
     # Path A's hydro family: the fused hydro kernel in h_slots mode on the
     # same input, against its plain version
     hkw = dict(gamma=hc.gamma, ghost=hc.ghost, subgrid=hc.subgrid)
@@ -811,9 +814,7 @@ def phase_gravity_kernel(gcfg, dev, results):
     results["gravity_kernel_detail"] = dict(
         slots=n, ms_32_slots=ms_32, ms_back_to_back=ms_b2b, bytes=n_bytes,
         flop=n_ops, elements_differing=[differ, differ2, differ_r],
-        elements_differing_by_size=differ_sizes, block_threads=grav.THREADS,
-        cells_per_thread=grav.cells_per_thread(s, hc.ghost),
-        smem_bytes=grav.smem_bytes(s, hc.ghost),
+        elements_differing_by_size=differ_sizes, ms_by_size=ms_sizes,
         hydro_rhs_h_slots_ms=ms_h, hydro_rhs_h_slots_plain_ms=plain_h)
 
 
@@ -860,7 +861,7 @@ def reconstruct_odd_and_misaligned(cfg, dev, u, rk):
     split._ready(lib, u.device)
     err = lib.hydro_reconstruct_launch(
         off.data_ptr(), out.data_ptr(), u.shape[0], p,
-        split.recon_smem_bytes(p), torch.cuda.current_stream().cuda_stream)
+        torch.cuda.current_stream().cuda_stream)
     check(err == 0, f"reconstruct launch into an output 4 B past 16: "
                     f"{lib.hydro_split_error_string(err)}")
     want = split.hydro_reconstruct_plain(u)
@@ -959,10 +960,6 @@ def phase_split_kernels(cfg, dev, results):
           f"{f_sectors / 1e6:.1f} MB ({f_sectors / f_bytes:.2f}x the bound's "
           f"bytes), {f_sectors / HBM_BYTES_PER_S * 1e3:.4f} ms at "
           f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s", flush=True)
-    print(f"reconstruct: {n * 5 * split.RECON_SLABS} CTAs of "
-          f"{split.RECON_THREADS} threads at {n} slots (one per slot, field "
-          f"and x-slab), {split.recon_smem_bytes(p)} B of shared memory per "
-          f"CTA; {32 * 5 * split.RECON_SLABS} CTAs at 32 slots", flush=True)
     print(f"flux: {n * kern.CLUSTER} CTAs in clusters of {kern.CLUSTER} x {kern.CTA_THREADS} threads at "
           f"{n} slots, {split.flux_smem_bytes(s)} B of shared memory per "
           f"CTA, {f_per_sm} CTAs per SM, {f_resident} clusters resident",
@@ -2137,139 +2134,10 @@ def phase_serving_path(dev, card, results):
     results["grouped_gemm_kernel"]["launches"] = n_gg
 
 
-# ---------------------------------------------------------------------------
-# --sweep: the launch constants compiled into Reconstruct and the gravity
-# kernel, each alternative built from the checked-in source with the constant
-# replaced, held to the checked-in kernel or the plain version, and timed
-# ---------------------------------------------------------------------------
-
-# (x-slabs, threads) of Reconstruct; the first is the checked-in shape
-RECON_SHAPES = ((7, 256), (1, 512), (4, 512), (7, 128), (7, 384), (14, 128),
-                (14, 256))
-# (threads, blocks per SM asked of ptxas at <= 2 cells per thread) of the
-# gravity kernel; the first is the checked-in shape
-GRAVITY_SHAPES = ((1024, 2), (1024, 1), (768, 1), (512, 1))
-
-
-def build_variant(tag, source, subs, kernel):
-    """nvcc ``csrc/<source>`` with each (old, new) text of ``subs`` replaced,
-    into ``_build/sweep/<tag>/``, as ``_build`` builds the checked-in one;
-    returns the loaded library and ptxas's register lines for the functions
-    whose name holds ``kernel``."""
-    import ctypes
-
-    from repro_torch.kernels import _build
-
-    text = (_build.CSRC / source).read_text()
-    for old, new in subs:
-        check(old in text, f"sweep: {old!r} is not in csrc/{source}")
-        text = text.replace(old, new)
-    out = _build.BUILD_DIR / "sweep" / tag
-    out.mkdir(parents=True, exist_ok=True)
-    (out / source).write_text(text)
-    lib = out / f"lib{tag}.so"
-    proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-I",
-                           str(_build.CSRC), "-o", str(lib),
-                           str(out / source)], capture_output=True, text=True)
-    check(proc.returncode == 0, f"sweep: nvcc failed on {tag}:\n"
-                                f"{proc.stderr}")
-    regs, fn = [], ""
-    for line in (proc.stderr + proc.stdout).splitlines():
-        if "Function properties for" in line:
-            fn = line
-        elif "registers" in line and kernel in fn:
-            regs.append(line.split(":", 1)[1].strip())
-    return ctypes.CDLL(str(lib)), regs
-
-
-def sweep_launch_shapes(dev):
-    """Every shape of ``RECON_SHAPES`` and ``GRAVITY_SHAPES`` on the Sedov
-    IC, 512 and 32 slots by graph replay; each variant's output must equal
-    the checked-in Reconstruct's (the same arithmetic) or the plain
-    gravity's bit for bit.  Prints one line per variant."""
-    from repro_torch.configs.base import GravityHydroConfig
-    from repro_torch.configs.sedov import CONFIG
-    from repro_torch.hydro.state import extract_subgrids, sedov_init
-    from repro_torch.kernels import gravity as grav
-    from repro_torch.kernels import hydro_split as split
-    from repro_torch.kernels.hydro_rhs import _quad_table
-
-    u = extract_subgrids(sedov_init(CONFIG, device=dev).u, CONFIG.subgrid,
-                         CONFIG.ghost)
-    n, p = u.shape[0], u.shape[-1]
-    jobs = [(f"recon_{slabs}x{threads}", "hydro_split.cu", (
-        ("kReconThreads = 256;", f"kReconThreads = {threads};"),
-        ("kReconSlabs = 7;", f"kReconSlabs = {slabs};")),
-        "reconstruct_kernel") for slabs, threads in RECON_SHAPES]
-    jobs += [(f"gravity_{threads}_{blocks}", "gravity.cu", (
-        ("kThreads = 1024;", f"kThreads = {threads};"),
-        ("kCells <= 2 ? 2 : 1", f"kCells <= 2 ? {blocks} : 1")),
-        "gravity_kernel") for threads, blocks in GRAVITY_SHAPES]
-    with ThreadPoolExecutor(8) as pool:
-        built = dict(zip((job[0] for job in jobs),
-                         pool.map(lambda job: build_variant(*job), jobs)))
-    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
-
-    want = split.hydro_reconstruct_cuda(u)
-    for slabs, threads in RECON_SHAPES:
-        lib, regs = built[f"recon_{slabs}x{threads}"]
-        split._declare(lib)
-        check(lib.hydro_split_init(*_quad_table(), *split._split_tables())
-              == 0, "sweep: hydro_split_init failed")
-        smem = 4 * (-(-p // slabs) + 4) * (p + 4) ** 2
-        out = torch.empty_like(want)
-
-        def run(m, lib=lib, smem=smem, out=out):
-            check(lib.hydro_reconstruct_launch(
-                u.data_ptr(), out.data_ptr(), m, p, smem, stream()) == 0,
-                "sweep: reconstruct launch failed")
-        run(n)
-        sync()
-        check(torch.equal(out, want), f"sweep: reconstruct {slabs} x "
-                                      f"{threads} differs")
-        print(f"sweep: reconstruct {slabs} slabs x {threads} threads: 512 "
-              f"slots {time_graph_ms(lambda: run(n), reps=20):.4f} ms, 32 "
-              f"slots {time_graph_ms(lambda: run(32), reps=50):.4f} ms "
-              f"(graph replay); {', '.join(regs)}", flush=True)
-
-    hc, gcfg = CONFIG, GravityHydroConfig(hydro=CONFIG)
-    kw = dict(ghost=hc.ghost, subgrid=hc.subgrid, g_const=gcfg.g_const,
-              n_iter=gcfg.relax_iters)
-    hs = torch.full((n,), hc.domain / (hc.grids_per_edge * hc.subgrid),
-                    device=dev)
-    want = grav.gravity_plain(u, hs, **kw)
-    m3 = (p - 2) ** 3
-    for threads, blocks in GRAVITY_SHAPES:
-        lib, regs = built[f"gravity_{threads}_{blocks}"]
-        grav._declare(lib)
-        check(lib.gravity_init() == 0, "sweep: gravity_init failed")
-        cells = min(k for k in grav.CELL_COUNTS if k * threads >= m3)
-        out = torch.empty_like(want)
-
-        def run(m, lib=lib, cells=cells, out=out):
-            check(lib.gravity_launch(
-                u.data_ptr(), hs.data_ptr(), out.data_ptr(), m, hc.subgrid,
-                hc.ghost, 4.0 * np.pi * gcfg.g_const, gcfg.relax_iters,
-                cells, grav.smem_bytes(hc.subgrid, hc.ghost), stream()) == 0,
-                "sweep: gravity launch failed")
-        run(n)
-        sync()
-        check(torch.equal(out, want), f"sweep: gravity {threads} threads, "
-                                      f"{blocks} blocks per SM differs")
-        print(f"sweep: gravity {threads} threads, {cells} cells per thread, "
-              f"{blocks} block(s) per SM asked at <= 2 cells: 512 slots "
-              f"{time_graph_ms(lambda: run(n), reps=20):.4f} ms, 32 slots "
-              f"{time_graph_ms(lambda: run(32), reps=50):.4f} ms (graph "
-              f"replay); {', '.join(regs)}", flush=True)
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
                     help="also write every measurement to this JSON file")
-    ap.add_argument("--sweep", action="store_true",
-                    help="only time the alternative launch shapes of "
-                         "Reconstruct and the gravity kernel")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -2302,9 +2170,6 @@ def main(argv=None):
     print(f"card: {card} (torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.get_device_name(0)})",
           flush=True)
-    if args.sweep:
-        sweep_launch_shapes(dev)
-        return 0
     # one nvcc per source, all started together
     t0 = time.perf_counter()
     libs = {"hydro_rhs": kern.build, "gravity": grav.build,

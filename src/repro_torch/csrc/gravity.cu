@@ -17,20 +17,19 @@
 //
 // The design:
 //  * One block of kThreads = 1024 threads per slot.  Thread t owns the
-//    cells t, t + 1024, ... of the (P - 2)^3 off the frame (x slowest),
-//    at most kCells of them; their index and right-hand side stay in
-//    registers for every sweep.  The kernel is instantiated for kCells = 1,
-//    2, 8 and 16, and the launch takes the least that covers the slot
-//    (kernels/gravity.py::cells_per_thread): 1 at S=5, 2 at S=8, 8 at S=16,
-//    16 up to P = 27.  All density loads are issued before the first
-//    barrier.
-//  * Registers: __launch_bounds__(1024, 2) holds kCells <= 2 to 32, so two
-//    blocks share an SM; kCells = 8 and 16 take one block per SM.
+//    cells t, t + 1024, ... of the (P - 2)^3 off the frame (x slowest);
+//    their index and right-hand side stay in registers for every sweep.
+//    The kernel is instantiated for kCellsSmall = 2 and kCellsLarge = 16
+//    cells per thread, and the launch takes the smaller that covers the
+//    slot: 2 up to P = 14 (S = 8), 16 up to P = 27.  All density loads are
+//    issued before the first barrier.
+//  * Registers: __launch_bounds__(1024, 2) holds kCellsSmall to 32, so two
+//    blocks share an SM; kCellsLarge takes one block per SM.
 //  * Shared memory: a ping-pong pair of phi arrays over the padded slot,
-//    2 x P^3 floats (21,952 B at S=8, kernels/gravity.py::smem_bytes),
-//    zeroed once.  Only cells off the frame are ever written, so the frame
-//    stays 0 and every neighbour of such a cell is a direct index: the
-//    reference's roll never wraps onto a value that is read.
+//    2 x P^3 floats (21,952 B at S=8), zeroed once.  Only cells off the
+//    frame are ever written, so the frame stays 0 and every neighbour of
+//    such a cell is a direct index: the reference's roll never wraps onto
+//    a value that is read.
 //  * The first sweep starts from phi = 0, where the reference's neighbour
 //    sum is +0, so it reads no neighbours: (0 - rhs) / 6.  Each sweep reads
 //    one array and writes the other, then one __syncthreads.
@@ -43,7 +42,7 @@
 //    contracted, and the build has no --use_fast_math, so the result is the
 //    plain version's bit for bit.
 //  * No reduction crosses slots, so a slot's result does not depend on the
-//    bucket it was launched in, nor on kCells.
+//    bucket it was launched in, nor on the instance.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -52,10 +51,11 @@ namespace {
 
 constexpr int kFields = 5;
 constexpr int kThreads = 1024;
+constexpr int kCellsSmall = 2;    // cells per thread, two blocks per SM
+constexpr int kCellsLarge = 16;   // cells per thread, one block per SM
 
-// two blocks per SM where a thread's cells fit in 32 registers (P <= 14)
 template <int kCells>
-__global__ void __launch_bounds__(kThreads, kCells <= 2 ? 2 : 1)
+__global__ void __launch_bounds__(kThreads, kCells == kCellsSmall ? 2 : 1)
 gravity_kernel(const float* __restrict__ u, const float* __restrict__ h_slots,
                float c, int n_iter, float* __restrict__ out, int S, int G) {
   extern __shared__ float smem[];
@@ -134,10 +134,10 @@ cudaError_t allow_smem(int bytes) {
 
 template <int kCells>
 cudaError_t launch(const float* u, const float* h_slots, float* out, int n,
-                   int S, int G, float c, int n_iter, size_t smem,
-                   cudaStream_t stream) {
-  gravity_kernel<kCells><<<n, kThreads, smem, stream>>>(u, h_slots, c,
-                                                        n_iter, out, S, G);
+                   int S, int G, float c, int n_iter, cudaStream_t stream) {
+  const int P = S + 2 * G;
+  gravity_kernel<kCells><<<n, kThreads, 2 * sizeof(float) * P * P * P,
+                           stream>>>(u, h_slots, c, n_iter, out, S, G);
   return cudaGetLastError();
 }
 
@@ -154,35 +154,27 @@ int gravity_init(void) {
   err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                device);
   if (err != cudaSuccess) return (int)err;
-  const cudaError_t errs[] = {allow_smem<1>(optin), allow_smem<2>(optin),
-                              allow_smem<8>(optin), allow_smem<16>(optin)};
-  for (cudaError_t e : errs)
-    if (e != cudaSuccess) return (int)e;
-  return 0;
+  err = allow_smem<kCellsSmall>(optin);
+  if (err != cudaSuccess) return (int)err;
+  return (int)allow_smem<kCellsLarge>(optin);
 }
 
-// Launch on `stream`: n blocks of 1024 threads, each thread owning `cells`
-// cells (1, 2, 8 or 16: kernels/gravity.py::cells_per_thread rounded up to
-// one of them).  `c` is 4 pi g_const rounded once to fp32; `smem` is
-// 2 * 4 * P^3 bytes (kernels/gravity.py::smem_bytes).  Returns the
-// cudaError_t of the launch (0 on success; cudaErrorInvalidValue for
-// another `cells`).
+// Launch on `stream`: n blocks of 1024 threads, each with 2 x P^3 floats of
+// shared memory and the smaller instance whose cells per thread cover the
+// slot.  `c` is 4 pi g_const rounded once to fp32.  Returns the cudaError_t
+// of the launch (0 on success; cudaErrorInvalidValue where (P - 2)^3 cells
+// exceed 1024 x kCellsLarge, P > 27).
 int gravity_launch(const float* u, const float* h_slots, float* out, int n,
-                   int S, int G, float c, int n_iter, int cells, size_t smem,
-                   void* stream) {
+                   int S, int G, float c, int n_iter, void* stream) {
   if (n <= 0) return 0;
   const cudaStream_t st = (cudaStream_t)stream;
-  switch (cells) {
-    case 1: return (int)launch<1>(u, h_slots, out, n, S, G, c, n_iter, smem,
-                                  st);
-    case 2: return (int)launch<2>(u, h_slots, out, n, S, G, c, n_iter, smem,
-                                  st);
-    case 8: return (int)launch<8>(u, h_slots, out, n, S, G, c, n_iter, smem,
-                                  st);
-    case 16: return (int)launch<16>(u, h_slots, out, n, S, G, c, n_iter,
-                                    smem, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const int M = S + 2 * G - 2;
+  const int need = (M * M * M + kThreads - 1) / kThreads;
+  if (need <= kCellsSmall)
+    return (int)launch<kCellsSmall>(u, h_slots, out, n, S, G, c, n_iter, st);
+  if (need <= kCellsLarge)
+    return (int)launch<kCellsLarge>(u, h_slots, out, n, S, G, c, n_iter, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* gravity_error_string(int code) {

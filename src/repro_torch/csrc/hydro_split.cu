@@ -32,7 +32,8 @@
 //    field's slab, widened by 2 planes, rows and columns on every side with
 //    each index wrapped mod P (torch.roll's shifts), so every sample is a
 //    direct index.  Shared memory: (ceil(P / 7) + 4) x (P + 4)^2 floats,
-//    7,776 B at S=8 (kernels/hydro_split.py::recon_smem_bytes; P <= 62).
+//    7,776 B at S=8, so P <= 62 (kernels/hydro_split.py::
+//    RECON_MAX_PADDED).
 //    Registers: 40, no spills (ptxas, sm_90a).  Thread t takes the slab's
 //    cells e = t, t + 256, ... and writes both sides of all 13 pairs there:
 //    neighbouring lanes read neighbouring staged floats (no bank conflicts)
@@ -253,12 +254,15 @@ int hydro_split_init(const float* weights, const int* table, const int* pairs,
 }
 
 // Launch Reconstruct on `stream`: n x 5 x kReconSlabs CTAs of
-// kReconThreads threads.  `smem` is one CTA's staged field, 4 * (ceil(P /
-// kReconSlabs) + 4) * (P + 4)^2 bytes (kernels/hydro_split.py::
-// recon_smem_bytes).  Returns the cudaError_t of the launch (0 on success).
+// kReconThreads threads, each with one field of its slab staged, (ceil(P /
+// kReconSlabs) + 4) x (P + 4)^2 floats of shared memory.  Returns the
+// cudaError_t of the launch (0 on success; cudaErrorInvalidValue where that
+// exceeds the device's opt-in shared memory, P > 62 on an H100).
 int hydro_reconstruct_launch(const float* u, float* recon, int n, int P,
-                             size_t smem, void* stream) {
+                             void* stream) {
   if (n <= 0) return 0;
+  const size_t smem = sizeof(float) * ((P + kReconSlabs - 1) / kReconSlabs +
+                                       4) * (P + 4) * (P + 4);
   reconstruct_kernel<<<(unsigned)n * kFields * kReconSlabs, kReconThreads,
                        smem, (cudaStream_t)stream>>>(u, recon, P);
   return (int)cudaGetLastError();

@@ -25,7 +25,6 @@ import torch
 from repro_torch.hydro.euler import N_FIELDS
 from repro_torch.hydro.flux import as_width
 from repro_torch.kernels import _build
-from repro_torch.kernels._build import SMEM_PER_BLOCK
 
 GRAVITY_FIELDS = 4                # phi, gx, gy, gz
 
@@ -120,26 +119,10 @@ def gravity_source_update(u: torch.Tensor, dudt: torch.Tensor,
 # the CUDA kernel
 # ---------------------------------------------------------------------------
 
-# the kernel's launch shape, compiled into csrc/gravity.cu: a block of
-# THREADS threads per slot, each owning CELL_COUNTS[i] cells off the frame
-# (the kernel is instantiated for each: 5^3, 8^3 and 16^3 sub-grids take 1,
-# 2 and 8; 16 keeps every P up to 27)
-THREADS = 1024
-CELL_COUNTS = (1, 2, 8, 16)
-
-
-def smem_bytes(subgrid: int, ghost: int) -> int:
-    """Dynamic shared memory of one block: a ping-pong pair of phi arrays
-    over the padded slot (the layout ``csrc/gravity.cu`` uses)."""
-    return 2 * 4 * (subgrid + 2 * ghost) ** 3
-
-
-def cells_per_thread(subgrid: int, ghost: int) -> int:
-    """Cells off the frame each thread owns: the least of ``CELL_COUNTS``
-    that covers the (P - 2)^3 of them, or 0 if none does."""
-    m = subgrid + 2 * ghost - 2
-    need = -(-m ** 3 // THREADS)
-    return next((k for k in CELL_COUNTS if k >= need), 0)
+# the largest padded width P the kernel takes: csrc/gravity.cu's 1,024
+# threads of at most 16 cells each hold the (P - 2)^3 cells off the frame
+# (two phi arrays of P^3 floats then fit shared memory too)
+KERNEL_MAX_PADDED = 27
 
 
 def check_kernel_args(u_slots: torch.Tensor, h_slots: torch.Tensor,
@@ -151,18 +134,12 @@ def check_kernel_args(u_slots: torch.Tensor, h_slots: torch.Tensor,
             f"gradient's stencil), got {ghost}")
     if n_iter < 0:
         raise ValueError(f"n_iter must be >= 0, got {n_iter}")
-    need = smem_bytes(subgrid, ghost)
-    if need > SMEM_PER_BLOCK:
-        raise NotImplementedError(
-            f"subgrid={subgrid} needs {need} B of shared memory per block, "
-            f"above the {SMEM_PER_BLOCK} B an sm_90 block may use")
-    if cells_per_thread(subgrid, ghost) == 0:
-        m = subgrid + 2 * ghost - 2
-        raise NotImplementedError(
-            f"subgrid={subgrid}, ghost={ghost} gives each of {THREADS} "
-            f"threads {-(-m ** 3 // THREADS)} cells to hold in registers, "
-            f"above the kernel's {CELL_COUNTS[-1]}")
     p = subgrid + 2 * ghost
+    if p > KERNEL_MAX_PADDED:
+        raise NotImplementedError(
+            f"the gravity kernel takes P <= {KERNEL_MAX_PADDED} (1,024 "
+            f"threads hold the (P - 2)^3 cells in registers, 16 each at "
+            f"most, and two P^3 phi arrays fit shared memory), got P={p}")
     if u_slots.dtype != torch.float32:
         raise TypeError(f"gravity kernel takes float32, got {u_slots.dtype}")
     if u_slots.dim() != 5 or tuple(u_slots.shape[1:]) != (N_FIELDS, p, p, p):
@@ -185,7 +162,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.gravity_init.argtypes = []
     lib.gravity_init.restype = ci
     lib.gravity_launch.argtypes = [
-        vp, vp, vp, ci, ci, ci, cf, ci, ci, ctypes.c_size_t, vp]
+        vp, vp, vp, ci, ci, ci, cf, ci, vp]
     lib.gravity_launch.restype = ci
     lib.gravity_error_string.argtypes = [ci]
     lib.gravity_error_string.restype = ctypes.c_char_p
@@ -226,8 +203,7 @@ def gravity_cuda(u_slots: torch.Tensor, h_slots: torch.Tensor, *,
         # weak-typed Python float is)
         err = lib.gravity_launch(
             u_slots.data_ptr(), h_slots.data_ptr(), out.data_ptr(), n, s,
-            ghost, 4.0 * math.pi * g_const, n_iter,
-            cells_per_thread(s, ghost), smem_bytes(s, ghost), stream)
+            ghost, 4.0 * math.pi * g_const, n_iter, stream)
     _build.raise_on(err, lib.gravity_error_string, "gravity kernel launch")
     gravity_cuda.launches += 1
     return out

@@ -64,23 +64,10 @@ def flux_read_bytes(n: int, subgrid: int, ghost: int = KERNEL_GHOST) -> int:
     return n * len(flux_read_states(subgrid, ghost)) * N_FIELDS * 4
 
 
-# Reconstruct's launch shape, compiled into csrc/hydro_split.cu
-# (kReconThreads, kReconSlabs): a CTA per (slot, field, x-slab)
-RECON_THREADS = 256
-RECON_SLABS = 7
-
-
-def recon_slab(g: int, p: int) -> int:
-    """First x-plane of Reconstruct's slab ``g`` of ``p`` planes;
-    ``recon_slab(RECON_SLABS, p)`` is p (``csrc/hydro_split.cu``)."""
-    return g * p // RECON_SLABS
-
-
-def recon_smem_bytes(p: int) -> int:
-    """Reconstruct's dynamic shared memory per CTA: one field of the largest
-    slab's planes, widened by 2 cells on every side (wrapped mod P), so a
-    stencil never wraps: (ceil(P / RECON_SLABS) + 4) x (P + 4)^2 floats."""
-    return 4 * (-(-p // RECON_SLABS) + 4) * (p + 4) ** 2
+# the largest padded width P Reconstruct takes: one field of a CTA's x-slab
+# (ceil(P / 7) planes, csrc/hydro_split.cu), widened by 2 cells on every
+# side, fits an sm_90 block's shared memory up to P = 62
+RECON_MAX_PADDED = 62
 
 
 FLUX_STAGES = 2      # quadrature entries in Flux's ring, fixed in the .cu
@@ -95,7 +82,7 @@ def flux_smem_bytes(subgrid: int) -> int:
 
 
 def _check_tensor(x: torch.Tensor, shape: Tuple[int, ...], what: str,
-                  smem: int) -> None:
+                  smem: int = 0) -> None:
     if smem > SMEM_PER_BLOCK:
         raise NotImplementedError(
             f"{what} kernel: {shape} needs {smem} B of shared memory per "
@@ -113,13 +100,15 @@ def _check_tensor(x: torch.Tensor, shape: Tuple[int, ...], what: str,
 def check_reconstruct_args(u_slots: torch.Tensor) -> None:
     """Raise for anything the Reconstruct kernel does not take (device
     aside): (n, F, P, P, P) float32, contiguous, 3 <= P (the five-point
-    stencil wraps once at most) and one field of a slab within shared
-    memory (``recon_smem_bytes``: P <= 62)."""
+    stencil wraps once at most) and P <= ``RECON_MAX_PADDED``."""
     p = u_slots.shape[-1] if u_slots.dim() == 5 else 0
     if u_slots.dim() == 5 and p < 3:
         raise ValueError(f"reconstruct kernel needs P >= 3, got {p}")
-    _check_tensor(u_slots, (N_FIELDS, p, p, p), "reconstruct",
-                  recon_smem_bytes(p))
+    if p > RECON_MAX_PADDED:
+        raise NotImplementedError(
+            f"reconstruct kernel takes P <= {RECON_MAX_PADDED} (one field of "
+            f"a slab, widened by 2 cells, in shared memory), got P={p}")
+    _check_tensor(u_slots, (N_FIELDS, p, p, p), "reconstruct")
 
 
 def check_flux_args(recon: torch.Tensor, ghost: int, subgrid: int) -> None:
@@ -151,8 +140,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     pi = ctypes.POINTER(ci)
     lib.hydro_split_init.argtypes = [ctypes.POINTER(cf), pi, pi, pi]
     lib.hydro_split_init.restype = ci
-    lib.hydro_reconstruct_launch.argtypes = [vp, vp, ci, ci, ctypes.c_size_t,
-                                             vp]
+    lib.hydro_reconstruct_launch.argtypes = [vp, vp, ci, ci, vp]
     lib.hydro_reconstruct_launch.restype = ci
     lib.hydro_flux_launch.argtypes = [vp, vp, ci, ci, cf, cf, cf,
                                       ctypes.c_size_t, vp]
@@ -201,8 +189,7 @@ def hydro_reconstruct_cuda(u_slots: torch.Tensor) -> torch.Tensor:
         _ready(lib, u_slots.device)
         stream = torch.cuda.current_stream(u_slots.device).cuda_stream
         err = lib.hydro_reconstruct_launch(
-            u_slots.data_ptr(), out.data_ptr(), n, p,
-            recon_smem_bytes(p), stream)
+            u_slots.data_ptr(), out.data_ptr(), n, p, stream)
     _build.raise_on(err, lib.hydro_split_error_string,
                     "hydro_split reconstruct launch")
     hydro_reconstruct_cuda.launches += 1

@@ -235,9 +235,17 @@ def test_gravity_kernel_rejects_without_falling_back(dev):
         grav.gravity_cuda(u.transpose(3, 4), hs, **GKW)
     with pytest.raises(TypeError, match="float32"):
         grav.gravity_cuda(u.double(), hs, **GKW)
+    big = torch.zeros((1, 5, 28, 28, 28), device=dev)
     with pytest.raises(NotImplementedError, match="registers"):
-        grav.gravity_cuda(torch.zeros((1, 5, 28, 28, 28), device=dev),
-                          hs[:1], ghost=3, subgrid=22)
+        grav.gravity_cuda(big, hs[:1], ghost=3, subgrid=22)
+    # the library refuses P = 28 too: no instance holds 18 cells per thread
+    out = torch.empty((1, 4, 22, 22, 22), device=dev)
+    lib = grav.build()
+    with torch.cuda.device(dev):
+        err = lib.gravity_launch(big.data_ptr(), hs.data_ptr(),
+                                 out.data_ptr(), 1, 22, 3, 1.0, 8,
+                                 torch.cuda.current_stream(dev).cuda_stream)
+    assert err != 0
     assert grav.gravity_cuda(u[:0], hs[:0], **GKW).shape == (0, 4, 8, 8, 8)
 
 
@@ -286,7 +294,6 @@ def reconstruct_into(u, out):
         split._ready(lib, u.device)
         err = lib.hydro_reconstruct_launch(
             u.data_ptr(), out.data_ptr(), u.shape[0], p,
-            split.recon_smem_bytes(p),
             torch.cuda.current_stream(u.device).cuda_stream)
     assert err == 0, lib.hydro_split_error_string(err)
 
@@ -328,9 +335,13 @@ def test_reconstruct_rejects_without_falling_back(dev):
         split.hydro_reconstruct_cuda(u.transpose(3, 4))
     with pytest.raises(TypeError, match="float32"):
         split.hydro_reconstruct_cuda(u.double())
+    big = torch.zeros((1, 5, 63, 63, 63), device=dev)
     with pytest.raises(NotImplementedError, match="shared memory"):
-        split.hydro_reconstruct_cuda(torch.zeros((1, 5, 63, 63, 63),
-                                                 device=dev))
+        split.hydro_reconstruct_cuda(big)
+    # the library refuses P = 63 too: its staged slab exceeds shared memory
+    out = torch.empty((1, 13, 2, 5, 63, 63, 63), device=dev)
+    with pytest.raises(AssertionError):
+        reconstruct_into(big, out)
     assert split.hydro_reconstruct_cuda(u[:0]).shape == (0, 13, 2, 5, 14,
                                                          14, 14)
 

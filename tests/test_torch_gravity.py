@@ -8,6 +8,8 @@ cases use the reference's kernel tolerance (tests/test_kernels.py):
 every strategy equals ``fused`` bit for bit.  The CUDA kernel itself is
 tested on the card by tests/test_torch_cuda.py.
 """
+import re
+
 import numpy as np
 import pytest
 
@@ -30,8 +32,8 @@ from repro_torch.hydro.state import (  # noqa: E402
     extract_subgrids, sedov_init, state_from_numpy, state_to_numpy,
 )
 from repro_torch.hydro.stepper import courant_dt, total_conserved  # noqa: E402
+from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import gravity as grav  # noqa: E402
-from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels._build import SMEM_PER_BLOCK  # noqa: E402
 
 CFG = CONFIG_SMALL
@@ -159,10 +161,31 @@ def test_zero_density_zero_field():
     assert not bool(out.any())
 
 
+def _kernel_constants(source):
+    """The ``constexpr int kName = N;`` constants compiled into
+    ``csrc/<source>``, so the replays follow the kernel's own values."""
+    text = (_build.CSRC / source).read_text()
+    return {k: int(v) for k, v in
+            re.findall(r"constexpr int (k\w+) = (\d+);", text)}
+
+
+CU = _kernel_constants("gravity.cu")
+THREADS = CU["kThreads"]
+INSTANCES = (CU["kCellsSmall"], CU["kCellsLarge"])
+
+
+def _cells_per_thread(p):
+    """The instance ``csrc/gravity.cu::gravity_launch`` takes at padded
+    width p: the smaller whose cells per thread cover the (p - 2)^3 cells
+    off the frame, or 0 where neither does."""
+    need = -(-(p - 2) ** 3 // THREADS)
+    return next((k for k in INSTANCES if k >= need), 0)
+
+
 def _block_replay(u, h, *, ghost, subgrid, g_const, n_iter):
     """numpy float32 replay of csrc/gravity.cu's schedule for each slot's
     block: thread t owns the cells t, t + THREADS, ... (at most
-    ``cells_per_thread`` of them) off the frame, x slowest; a ping-pong pair
+    ``_cells_per_thread`` of them) off the frame, x slowest; a ping-pong pair
     of (P, P, P) arrays zeroed once; the first sweep reads no neighbours
     (phi = 0: the reference's sum of six zeros is +0); each later sweep
     reads one array and writes the other, with one barrier between.
@@ -173,13 +196,13 @@ def _block_replay(u, h, *, ghost, subgrid, g_const, n_iter):
     f32 = np.float32
     c = f32(4.0 * np.pi * g_const)
     j = np.arange(m ** 3)
-    tid, k = j % grav.THREADS, j // grav.THREADS
-    assert k.max() < grav.cells_per_thread(s, g) <= grav.CELL_COUNTS[-1]
+    k = j // THREADS
+    assert k.max() < _cells_per_thread(p)
     x, y, z = 1 + j // (m * m), 1 + (j // m) % m, 1 + j % m
     owned = np.zeros((p, p, p), int)
     np.add.at(owned, (x, y, z), 1)
     assert (owned[1:-1, 1:-1, 1:-1] == 1).all() and owned.sum() == m ** 3
-    assert 2 * 4 * p ** 3 == grav.smem_bytes(s, g)
+    assert 2 * 4 * p ** 3 <= SMEM_PER_BLOCK
     rhs = (c * u[:, 0]) * (h * h)[:, None, None, None]
     bufs = np.zeros((2, n, p, p, p), f32)
     cur = 0
@@ -244,11 +267,11 @@ def test_block_owns_each_cell_once(s, g):
     owned = np.zeros((p, p, p), int)
     np.add.at(owned, (1 + j // (m * m), 1 + (j // m) % m, 1 + j % m), 1)
     assert (owned[1:-1, 1:-1, 1:-1] == 1).all() and owned.sum() == m ** 3
-    per_thread = np.bincount(j % grav.THREADS)
-    cells = grav.cells_per_thread(s, g)
-    assert cells == min(k for k in grav.CELL_COUNTS
-                        if k >= per_thread.max())
-    assert grav.smem_bytes(s, g) <= SMEM_PER_BLOCK
+    per_thread = np.bincount(j % THREADS)
+    assert _cells_per_thread(p) == min(k for k in INSTANCES
+                                       if k >= per_thread.max())
+    assert p <= grav.KERNEL_MAX_PADDED
+    assert 2 * 4 * p ** 3 <= SMEM_PER_BLOCK
 
 
 def test_ops_dispatches_cpu_tensors_to_plain():
@@ -292,10 +315,13 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take():
     # a bucket staged by index_select or narrow passes the checks
     chk(u.index_select(0, torch.tensor([1, 0])), h.narrow(0, 0, 2),
         ghost=3, subgrid=8, n_iter=8)
-    # two phi arrays over the padded slot; 2 and 8 cells per thread
-    assert grav.smem_bytes(8, 3) == 21_952
-    assert (grav.cells_per_thread(8, 3), grav.cells_per_thread(16, 3)) == (
-        2, 8)
+    # 2 and 16 cells per thread at 8^3 and 16^3; the wrapper's limit is
+    # where the kernel's larger instance runs out, and its two phi arrays
+    # fit shared memory there
+    top = grav.KERNEL_MAX_PADDED
+    assert (_cells_per_thread(14), _cells_per_thread(22)) == (2, 16)
+    assert _cells_per_thread(top) > 0 == _cells_per_thread(top + 1)
+    assert 2 * 4 * top ** 3 <= SMEM_PER_BLOCK
 
 
 # ---------------------------------------------------------------------------

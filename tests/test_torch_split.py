@@ -8,6 +8,7 @@ cases use the reference's kernel tolerance (tests/test_kernels.py):
 the fused body uses that test's ``atol=3e-6*max|want|``.  The CUDA kernels
 themselves are tested on the card by tests/test_torch_cuda.py.
 """
+import re
 import shutil
 
 import numpy as np
@@ -173,6 +174,30 @@ def test_split_body_on_the_uniform_path(agg):
 # the kernels' index arithmetic, replayed in numpy
 # ---------------------------------------------------------------------------
 
+def _kernel_constants(source):
+    """The ``constexpr int kName = N;`` constants compiled into
+    ``csrc/<source>``, so the replays follow the kernel's own values."""
+    text = (_build.CSRC / source).read_text()
+    return {k: int(v) for k, v in
+            re.findall(r"constexpr int (k\w+) = (\d+);", text)}
+
+
+CU = _kernel_constants("hydro_split.cu")
+RECON_THREADS, RECON_SLABS = CU["kReconThreads"], CU["kReconSlabs"]
+
+
+def _recon_slab(g, p):
+    """csrc/hydro_split.cu::recon_slab: the first x-plane of slab g of p
+    planes; _recon_slab(RECON_SLABS, p) is p."""
+    return g * p // RECON_SLABS
+
+
+def _recon_smem(p):
+    """Reconstruct's shared memory per CTA as hydro_reconstruct_launch sizes
+    it: one field of the largest slab, widened by 2 cells on every side."""
+    return 4 * (-(-p // RECON_SLABS) + 4) * (p + 4) ** 2
+
+
 def _fdiv(a, b):
     """csrc/hydro_split.cu::fdiv in numpy: trunc(fma(a, 1/b, 0.5/b)) in
     float32 (the product a * (1/b) and the sum are exact in float64, then
@@ -211,10 +236,10 @@ def _reconstruct_replay(u):
     _, dirs = split._split_tables()
     dirs = np.asarray(dirs).reshape(13, 3)
     out = np.empty((n, 13, 2, nf, p, p, p), np.float32)
-    for g in range(split.RECON_SLABS):
-        x0, x1 = split.recon_slab(g, p), split.recon_slab(g + 1, p)
+    for g in range(RECON_SLABS):
+        x0, x1 = _recon_slab(g, p), _recon_slab(g + 1, p)
         stage = _recon_stage(u, x0, x1)
-        assert 4 * stage.shape[-1] <= split.recon_smem_bytes(p)
+        assert 4 * stage.shape[-1] <= _recon_smem(p)
         e = np.arange((x1 - x0) * p * p)
         r = _fdiv(e, p)
         z = e - r * p
@@ -258,13 +283,13 @@ def _reconstruct_schedule(p, offset, slot=0):
     count = np.zeros(13 * 2 * 5 * p3, int)
     slot_start = offset + slot * 13 * 2 * 5 * p3
     for f in range(5):
-        for g in range(split.RECON_SLABS):
-            x0, x1 = split.recon_slab(g, p), split.recon_slab(g + 1, p)
+        for g in range(RECON_SLABS):
+            x0, x1 = _recon_slab(g, p), _recon_slab(g + 1, p)
             length = (x1 - x0) * p2
             dst = slot_start + f * p3 + x0 * p2
             # every thread's cells, thread by thread
-            e = np.concatenate([np.arange(t, length, split.RECON_THREADS)
-                                for t in range(split.RECON_THREADS)])
+            e = np.concatenate([np.arange(t, length, RECON_THREADS)
+                                for t in range(RECON_THREADS)])
             for pair in range(13):
                 for side in (0, 1):
                     at = dst + (pair * 2 + side) * 5 * p3 + e
@@ -290,15 +315,16 @@ def test_reconstruct_schedule_writes_each_element_once(p, offset):
 def test_fdiv_is_floor_division_where_the_kernel_uses_it():
     """Reconstruct's fp32 floor division is exact for the divisors P and
     P + 4 over every dividend the kernel gives them (slab cells, staged
-    indices and their rows), up to the largest P it takes (62)."""
-    for p in range(3, 63):
+    indices and their rows), up to the largest P it takes (62), where its
+    staged slab still fits shared memory."""
+    top = split.RECON_MAX_PADDED
+    for p in range(3, top + 1):
         q = p + 4
-        planes = -(-p // split.RECON_SLABS)
-        for b, top in ((p, planes * p * p), (q, (planes + 4) * q * q)):
-            a = np.arange(top)
+        planes = -(-p // RECON_SLABS)
+        for b, n in ((p, planes * p * p), (q, (planes + 4) * q * q)):
+            a = np.arange(n)
             np.testing.assert_array_equal(_fdiv(a, b), a // b)
-    assert split.recon_smem_bytes(62) <= SMEM_PER_BLOCK
-    assert split.recon_smem_bytes(63) > SMEM_PER_BLOCK
+    assert _recon_smem(top) <= SMEM_PER_BLOCK < _recon_smem(top + 1)
 
 
 def _flux_schedule(s, g=3):
@@ -525,7 +551,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(slots):
         split.check_flux_args(recon.transpose(5, 6), ghost=3, subgrid=8)
     split.check_flux_args(recon, ghost=3, subgrid=8)
     # one field of a 2-plane slab widened to 6 x 18 x 18
-    assert split.recon_smem_bytes(14) == 7_776
+    assert _recon_smem(14) == 7_776
     # the staging ring (2 entries x 10 values x 576 threads) and one axis'
     # face fluxes
     assert split.flux_smem_bytes(8) == 57_600
