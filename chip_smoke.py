@@ -66,7 +66,24 @@
    (64 sub-grids of 16^3) under ``fused``, ``s3`` cap 32 and ``s2+s3``:
    bit-identical rows, conservation, agreement with the slot_grid main
    path (``CONFIG``) or the plain path (``CONFIG_16``).
-10. Holds the serving kernels (``csrc/decode_attention.cu``,
+10. Staging: the Sedov IC's 512 padded sub-grids submitted one at a time
+   as concrete tensors, 3 waves in a row, through the slot ring on 4
+   streams at cap 32 (watermark 1 and 10^9), each executor stream's
+   launches delayed by ``torch.cuda._sleep``: every slot equal to the fused
+   body bit for bit, the ring's counters printed; ``hydro_rhs_prefix`` at
+   offsets 0, 1 and 31 of a ring equal to the kernel bit for bit; the main
+   path under host staging (s3 cap 32) bit-identical to ``fused``.
+   ``s2`` with 4 streams on the main path (3 steps) and Paths A, B, C
+   (slot_lane, 1,024 tasks) and D (1 step each): bit-identical to
+   ``fused``, 3 x tasks launches per step in every family.  The
+   epilogue-fused stages (``fuse_epilogue``) on the main path, Path A and
+   Path C under ``fused``, ``s3`` cap 32 and ``s2+s3`` 4 x 32: the
+   aggregated rows bit-identical to the fused stage reference, all within
+   rtol 1e-5, atol 1e-5 x max|u| of the generic combine, each ``+epi``
+   family launching the greedy decomposition; ``s2`` declines
+   ``fuse_epilogue``.  Each row prints host ms per step and launches per
+   step beside the card's name and power limit.
+11. Holds the serving kernels (``csrc/decode_attention.cu``,
    ``csrc/grouped_gemm.cu``) against their plain versions at the full-width
    qwen2-moe-a2.7b shapes in bf16 (8 requests, a 1,024-position cache with
    ragged lengths 1 to 1,024; 60 experts of (2048, 1408) and (1408, 2048)
@@ -77,7 +94,7 @@
    version, one PyTorch call and its bound, decode attention by CUDA-graph
    replays with L2 cold (as the serving path finds a layer's cache) and
    warm, beside SDPA at B 1, 2, 4 and 8 in the same call.
-11. The serving path: qwen2-moe-a2.7b at full width and depth in bf16
+12. The serving path: qwen2-moe-a2.7b at full width and depth in bf16
    (14.3 B weights from a seeded generator on the card) behind
    ``ServingEngine(max_batch=8, max_len=1024)`` on 12 requests (prompts of
    8-96 tokens and one of 640, 8-24 new tokens each): every request done,
@@ -92,7 +109,7 @@
    logits must stay within ``F32_LOGIT_TOL`` of the kernels'.
    Prints tokens/s, ms per launch by bucket, the cache gather and scatter
    copies' device time and peak memory.
-12. Prints one line naming the kernels, one JSON line of kernels, the card
+13. Prints one line naming the kernels, one JSON line of kernels, the card
    line, and as its last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the run exits non-zero and prints no result;
@@ -1553,6 +1570,300 @@ def phase_lane_path(cfg, dev, steps, results, key, dts=None, grid_path=None):
 
 
 # ---------------------------------------------------------------------------
+# staging: the slot ring on 4 streams, hydro_rhs_prefix, host staging
+# ---------------------------------------------------------------------------
+
+# per launch on an executor stream, ~8 ms at 2 GHz: longer than the host
+# takes to fill two buckets of 32, so a ring buffer comes round again while
+# its last launch still waits to read it
+SLEEP_CYCLES = 16_000_000
+WAVES = 3
+
+
+def delayed(body):
+    """``body`` behind a ``torch.cuda._sleep`` on the stream it runs on: a
+    launch on an executor stream reads its inputs late, so a ring slot
+    overwritten before the launch has read it would show."""
+    def slow(*args, out=None):
+        torch.cuda._sleep(SLEEP_CYCLES)
+        return body(*args, out=out)
+    return slow
+
+
+def phase_staging(cfg, dev, card, dts, fused_kernel_path, results):
+    """The Sedov IC's 512 padded sub-grids submitted one at a time as
+    concrete tensors, 3 waves in a row (each wave in another order), on 4
+    streams at cap 32 with watermark 1 and 10^9, the executor streams
+    delayed: every slot equal to the fused body bit for bit.  Then
+    ``hydro_rhs_prefix`` at offsets 0, 1 and 31 of a ring, and the main
+    path under host staging (s3 cap 32) against ``fused``."""
+    from repro_torch.configs.base import AggregationConfig
+    from repro_torch.core import (
+        AggregationExecutor, SlotRing, StrategyRunner, UniformSedovScenario,
+    )
+    from repro_torch.hydro.state import extract_subgrids, sedov_init
+    from repro_torch.kernels import hydro_rhs as kern
+    from repro_torch.kernels import ops
+
+    u0 = sedov_init(cfg, device=dev).u
+    h = cfg.domain / u0.shape[-1]
+    kw = dict(h=h, gamma=cfg.gamma, ghost=cfg.ghost, subgrid=cfg.subgrid)
+    subs = extract_subgrids(u0, cfg.subgrid, cfg.ghost)
+    want = kern.hydro_rhs_cuda(subs, **kw)
+    n = subs.shape[0]
+    body = delayed(ops.hydro_batched_body(cfg, h))
+    rows = {}
+    for wm in (1, 10 ** 9):
+        exe = AggregationExecutor(body, AggregationConfig(
+            strategy="s2+s3", n_executors=4, max_aggregated=32,
+            launch_watermark=wm), device=dev)
+        exe.warmup((((n,) + tuple(subs.shape[1:]), subs.dtype),))
+        waves = []
+        for w in range(WAVES):
+            order = torch.roll(torch.arange(n, device=dev), 37 * w)
+            tasks = list(subs[order].unbind(0))
+            sync()
+            t0 = time.perf_counter()
+            futs = [exe.submit(t) for t in tasks]
+            exe.flush()
+            got = torch.stack([f.result() for f in futs])
+            sync()
+            waves.append((time.perf_counter() - t0) * 1e3)
+            check(torch.equal(got, want[order]),
+                  f"ring staging, watermark {wm}, wave {w}: a slot differs "
+                  f"from the fused body")
+        ring = exe.ring
+        rows[f"watermark {wm}"] = dict(
+            wave_ms=waves, writes=ring.writes, commits=ring.commits,
+            compactions=ring.compactions, swaps=ring.swaps,
+            launches=exe.stats["launches"],
+            bucket_hist=dict(exe.stats["aggregated_hist"]))
+        print(f"staging ({card}): ring, 4 streams, cap 32, watermark {wm}, "
+              f"{WAVES} waves of {n} tasks, each launch delayed "
+              f"{SLEEP_CYCLES} cycles: every slot equals the fused body; "
+              f"ms per wave {[round(x, 3) for x in waves]}, ring writes "
+              f"{ring.writes}, commits {ring.commits}, compactions "
+              f"{ring.compactions}, swaps {ring.swaps}, launches "
+              f"{exe.stats['launches']}, buckets "
+              f"{dict(sorted(exe.stats['aggregated_hist'].items()))}",
+              flush=True)
+
+    ring = SlotRing(32, [subs[0]], device=dev)
+    for i in range(32):
+        ring.write([subs[(5 * i + 3) % n]])
+    buf = ring.buffers()[0]
+    for start, bucket in ((0, 32), (1, 8), (31, 1)):
+        got = kern.hydro_rhs_prefix(buf, start, bucket, **kw)
+        check(torch.equal(got, kern.hydro_rhs_cuda(
+            buf[start:start + bucket].clone(), **kw)),
+            f"hydro_rhs_prefix at offset {start} differs from the kernel")
+    print("staging: hydro_rhs_prefix at offsets 0, 1 and 31 of a 32-slot "
+          "ring equals the kernel on the same slots bit for bit", flush=True)
+
+    agg = AggregationConfig(strategy="s3", max_aggregated=32,
+                            staging="host")
+    runner = StrategyRunner(UniformSedovScenario(cfg), agg, device=dev)
+    u, row = drive(runner, u0, dts, (kern.hydro_rhs_cuda,))
+    check(row["kernel_launches"]["hydro_rhs_cuda"] > 0,
+          "host staging: the kernel was never launched")
+    check(row["kernel_launches"]["hydro_rhs_cuda"]
+          == row["launches_per_step"] * len(dts),
+          f"host staging: kernel launches {row['kernel_launches']}, runner "
+          f"{row['launches_per_step']}/step")
+    check(torch.equal(u, fused_kernel_path),
+          "host staging s3 cap 32 is not bit-identical to fused")
+    print(f"staging ({card}): main path, s3 cap 32, host staging: "
+          f"{row['ms_per_step']:.3f} ms/step (host, synchronised), "
+          f"{row['launches_per_step']:g} launches/step, buckets "
+          f"{row['bucket_hists']}, bit-identical to fused after {len(dts)} "
+          f"steps", flush=True)
+    rows["main path s3 cap 32 host staging"] = row
+    results["staging"] = dict(card=card, sleep_cycles=SLEEP_CYCLES,
+                              waves=WAVES, rows=rows)
+
+
+# ---------------------------------------------------------------------------
+# s2 (one launch per task over 4 streams) and the epilogue-fused stages
+# ---------------------------------------------------------------------------
+
+def s2_paths(cfg, gcfg, acfg, dev, dts):
+    """(label, scenario factory, initial state, dts, kernel counters,
+    tasks per family and iteration) for the main path and Paths A-D."""
+    import functools
+
+    from repro_torch.core import (
+        AMRSedovScenario, GravityScenario, UniformSedovScenario,
+    )
+    from repro_torch.hydro.state import amr_sedov_init, sedov_init
+    from repro_torch.hydro.stepper import amr_courant_dt, courant_dt
+    from repro_torch.kernels import gravity as grav
+    from repro_torch.kernels import hydro_rhs as kern
+    from repro_torch.kernels import hydro_split as split
+    from repro_torch.kernels import ops
+
+    u0 = sedov_init(cfg, device=dev).u
+    h = cfg.domain / u0.shape[-1]
+    one = [courant_dt(u0, cfg)]
+    st = amr_sedov_init(acfg, device=dev)
+    n = cfg.n_subgrids
+    amr_tasks = acfg.n_subgrids_coarse + acfg.n_subgrids_fine
+    return (
+        ("main path", lambda: UniformSedovScenario(cfg), u0, dts,
+         (kern.hydro_rhs_cuda,), {"hydro_rhs": n}),
+        ("Path A (gravity)", lambda: GravityScenario(gcfg), u0, one,
+         (kern.hydro_rhs_cuda, grav.gravity_cuda),
+         {"hydro_rhs": n, "gravity": n}),
+        ("Path B (split pair)", lambda: UniformSedovScenario(
+            cfg, batched_body=ops.hydro_split_batched_body(cfg, h)), u0, one,
+         (split.hydro_reconstruct_cuda, split.hydro_flux_cuda),
+         {"hydro_rhs": n}),
+        ("Path C (AMR, slot_lane)", lambda: AMRSedovScenario(
+            acfg, hydro_body=functools.partial(
+                ops.level_batched_body, acfg.gamma, acfg.ghost,
+                layout="slot_lane")), (st.uc, st.uf),
+         [amr_courant_dt(st.uc, st.uf, acfg)], (kern.hydro_rhs_lane_cuda,),
+         {"hydro_rhs_s8": amr_tasks}),
+        ("Path D (lane kernel)", lambda: UniformSedovScenario(
+            cfg, batched_body=ops.hydro_batched_body(cfg, h,
+                                                     layout="slot_lane")),
+         u0, one, (kern.hydro_rhs_lane_cuda,), {"hydro_rhs": n}),
+    )
+
+
+def levels(state):
+    return state if isinstance(state, tuple) else (state,)
+
+
+def states_equal(a, b):
+    return all(torch.equal(x, y) for x, y in zip(levels(a), levels(b)))
+
+
+def phase_s2(cfg, gcfg, acfg, dev, card, dts, results):
+    """``s2`` with 4 streams on the main path (len(dts) steps) and Paths
+    A-D (1 step each): bit-identical to ``fused``, 3 x tasks launches per
+    step in every family, each launch counted by its kernel."""
+    from repro_torch.configs.base import AggregationConfig
+    from repro_torch.core import StrategyRunner
+
+    table = {}
+    for label, make, u0, path_dts, counters, tasks in s2_paths(
+            cfg, gcfg, acfg, dev, dts):
+        steps = len(path_dts)
+        fused, _ = drive(StrategyRunner(make(), AggregationConfig(
+            strategy="fused"), device=dev), u0, path_dts, counters)
+        runner = StrategyRunner(make(), AggregationConfig(
+            strategy="s2", n_executors=4), device=dev)
+        u, row = drive(runner, u0, path_dts, counters)
+        want = {k: 3 * steps * v for k, v in tasks.items()}
+        check(row["launches_by_family"] == want,
+              f"s2 {label}: launches by family {row['launches_by_family']},"
+              f" want 3 x tasks per step {want}")
+        # every family of these paths has the same tasks per iteration, and
+        # each kernel serves one family (or both kernels of the split pair
+        # the one family)
+        per = 3 * steps * max(tasks.values())
+        for c in counters:
+            check(row["kernel_launches"][c.__name__] == per,
+                  f"s2 {label}: {c.__name__} launched "
+                  f"{row['kernel_launches'][c.__name__]} times, want {per}")
+        check(states_equal(u, fused),
+              f"s2 {label} is not bit-identical to fused")
+        print(f"s2 ({card}): {label}, 4 streams, {steps} step(s): "
+              f"{row['ms_per_step']:.3f} ms/step (host, synchronised), "
+              f"{row['launches_per_step']:g} launches/step, by family "
+              f"{ {k: v // steps for k, v in row['launches_by_family'].items()} }"
+              f" per step, kernel launches {row['kernel_launches']}, "
+              f"bit-identical to fused", flush=True)
+        table[label] = row
+    results["s2"] = dict(card=card, runs=table)
+    return table
+
+
+def phase_fused_stages(cfg, gcfg, acfg, dev, card, dts, results):
+    """``fuse_epilogue`` on the main path, Path A and Path C (slot_lane):
+    ``fused``, ``s3`` cap 32 and ``s2+s3`` 4 x 32 through the stage
+    families.  The aggregated rows equal the fused stage reference (the
+    ``fused`` row, ``reference_stage`` per stage) bit for bit; all are
+    within rtol 1e-5, atol 1e-5 x max|u| of the generic combine; each
+    ``+epi`` family launches the greedy decomposition.  ``s2`` with
+    ``fuse_epilogue`` must decline it and equal generic ``fused``."""
+    from repro_torch.configs.base import AggregationConfig
+    from repro_torch.core import StrategyRunner
+    from repro_torch.core.aggregation import greedy_decomposition
+
+    rows = (("fused", dict(strategy="fused")),
+            ("s3 cap 32", dict(strategy="s3", max_aggregated=32)),
+            ("s2+s3 4 streams cap 32", dict(strategy="s2+s3", n_executors=4,
+                                            max_aggregated=32)))
+    table = {}
+    paths = [p for p in s2_paths(cfg, gcfg, acfg, dev, dts)
+             if p[0].split(" (")[0] in ("main path", "Path A", "Path C")]
+    for label, make, u0, path_dts, counters, _ in paths:
+        steps = len(path_dts)
+        generic, _ = drive(StrategyRunner(make(), AggregationConfig(
+            strategy="fused"), device=dev), u0, path_dts, counters)
+        outs = {}
+        for row_label, kw in rows:
+            agg = AggregationConfig(fuse_epilogue=True, **kw)
+            sc = make()
+            runner = StrategyRunner(sc, agg, device=dev)
+            check(runner.fuse_epilogue,
+                  f"{label} {row_label}: fuse_epilogue was declined")
+            u, row = drive(runner, u0, path_dts, counters)
+            pops = sc.stage_populations(u0, u0, path_dts[0], 0.0, 1.0)
+            want = {}
+            for pop in pops:
+                per = (1 if agg.strategy == "fused" else len(
+                    greedy_decomposition(pop.n_tasks, agg.bucket_sizes())))
+                want[pop.kernel] = want.get(pop.kernel, 0) + 3 * steps * per
+            if agg.strategy != "fused":
+                check(row["launches_by_family"] == want,
+                      f"{label} {row_label} fused stages: launches by family "
+                      f"{row['launches_by_family']}, greedy {want}")
+            check(row["launches_per_step"] * steps == sum(want.values()),
+                  f"{label} {row_label} fused stages: runner launches "
+                  f"{row['launches_per_step']}/step, want "
+                  f"{sum(want.values()) / steps}")
+            for c in counters:
+                check(row["kernel_launches"][c.__name__] > 0,
+                      f"{label} {row_label}: {c.__name__} never launched")
+            for got, ref in zip(levels(u), levels(generic)):
+                scale = float(ref.abs().max())
+                err = float((got - ref).abs().max())
+                check(bool(((got - ref).abs()
+                            <= 1e-5 * scale + 1e-5 * ref.abs()).all()),
+                      f"{label} {row_label}: fused stages off the generic "
+                      f"combine by {err:.3e} (scale {scale:.3e})")
+                row.setdefault("generic_max_abs_diff", []).append(err)
+            outs[row_label] = u
+            print(f"fused stages ({card}): {label}, {row_label}, {steps} "
+                  f"step(s): {row['ms_per_step']:.3f} ms/step (host, "
+                  f"synchronised), {row['launches_per_step']:g} launches/"
+                  f"step, by family over the run {row['launches_by_family']}"
+                  f", vs generic "
+                  f"combine max |diff| {row['generic_max_abs_diff']}",
+                  flush=True)
+            table[f"{label} {row_label}"] = row
+        for row_label, u in outs.items():
+            check(states_equal(u, outs["fused"]),
+                  f"{label} {row_label} fused stages are not bit-identical "
+                  f"to the fused stage reference")
+    label, make, u0, path_dts, counters, _ = paths[0]
+    runner = StrategyRunner(make(), AggregationConfig(
+        strategy="s2", n_executors=4, fuse_epilogue=True), device=dev)
+    check(not runner.fuse_epilogue, "s2 took fuse_epilogue")
+    generic, _ = drive(StrategyRunner(make(), AggregationConfig(
+        strategy="fused"), device=dev), u0, path_dts[:1], counters)
+    u, _ = drive(runner, u0, path_dts[:1], counters)
+    check(states_equal(u, generic),
+          "s2 with fuse_epilogue is not the generic path")
+    print("fused stages: s2 with fuse_epilogue declines it and equals "
+          "generic fused bit for bit (main path, 1 step)", flush=True)
+    results["fused_stages"] = dict(card=card, runs=table)
+    return table
+
+
+# ---------------------------------------------------------------------------
 # the serving path: decode attention, the grouped GEMM, qwen2-moe-a2.7b
 # ---------------------------------------------------------------------------
 
@@ -2245,6 +2556,12 @@ def main(argv=None):
     phase_lane_path(CONFIG, dev, STEPS, results, "lane_path", dts=dts,
                     grid_path=fused_kernel_path)
     phase_lane_path(CONFIG_16, dev, STEPS, results, "lane_path_16")
+
+    # staging, s2 and the epilogue-fused stages
+    phase_staging(CONFIG, dev, card, dts, fused_kernel_path, results)
+    phase_s2(CONFIG, gravity_512, amr_1024, dev, card, dts, results)
+    phase_fused_stages(CONFIG, gravity_512, amr_1024, dev, card, dts,
+                       results)
 
     # the serving kernels, then the serving path (qwen2-moe-a2.7b)
     phase_lm_kernels(dev, card, results)

@@ -4,9 +4,8 @@ hydro scenarios and the aggregation knobs the port runs.
 ``ModelConfig``, ``HydroConfig``, ``AMRHydroConfig`` and
 ``GravityHydroConfig`` are the reference's as they are.
 ``AggregationConfig`` keeps only the fields the port reads; a value the
-port does not run yet (another strategy, host staging, the finite guard, a
-tune store) raises ``NotImplementedError`` naming ROADMAP.md instead of
-being ignored.
+port does not run yet (another strategy, the finite guard, a tune store)
+raises ``NotImplementedError`` naming ROADMAP.md instead of being ignored.
 """
 from __future__ import annotations
 
@@ -104,8 +103,9 @@ class ModelConfig:
         return int(total)
 
 # strategies the port registers; the reference's others wait in ROADMAP.md
-PORTED_STRATEGIES = ("fused", "s3", "s2+s3")
-ROADMAP_STRATEGIES = ("s1", "s2", "mixed", "s4", "sharded")
+PORTED_STRATEGIES = ("fused", "s2", "s3", "s2+s3")
+ROADMAP_STRATEGIES = ("s1", "mixed", "s4", "sharded")
+STAGING_MODES = ("device", "host")
 
 
 @dataclass(frozen=True)
@@ -114,13 +114,21 @@ class AggregationConfig:
 
     strategy 2: ``n_executors``    — concurrent launch queues (CUDA streams)
     strategy 3: ``max_aggregated`` — on-the-fly fusion cap (bucketed)
+
+    ``staging="device"`` reads ranges in place and stages per-task tensors
+    into the region's slot ring; ``"host"`` stacks each bucket at launch
+    (the seed's baseline).  ``fuse_epilogue`` runs each RK stage through
+    the epilogue-fused stage families, under a strategy with ``run_stage``
+    and device staging only (the runner falls back to the generic combine
+    otherwise).
     """
-    strategy: str = "s3"              # "s3" | "s2+s3" | "fused"
+    strategy: str = "s3"              # "s3" | "s2+s3" | "s2" | "fused"
     n_executors: int = 1
     max_aggregated: int = 32
     buckets: Tuple[int, ...] = ()     # () -> powers of two up to max_aggregated
     launch_watermark: int = 1         # queue depth that forces a launch
-    staging: str = "device"           # ranges read their parent in place
+    staging: str = "device"           # "device" | "host"
+    fuse_epilogue: bool = False       # epilogue-fused RK stages
     guard: str = "off"                # "finite" waits for containment
     tune_store: object = None         # waits for the tune store
 
@@ -129,10 +137,9 @@ class AggregationConfig:
             raise NotImplementedError(
                 f"strategy {self.strategy!r} is not ported yet (see "
                 f"ROADMAP.md); the port runs {PORTED_STRATEGIES}")
-        if self.staging != "device":
-            raise NotImplementedError(
-                f"staging={self.staging!r} is not ported yet (see "
-                f"ROADMAP.md); the port stages on the device only")
+        if self.staging not in STAGING_MODES:
+            raise ValueError(f"unknown staging mode {self.staging!r} — "
+                             f"valid modes: {', '.join(STAGING_MODES)}")
         if self.guard != "off":
             raise NotImplementedError(
                 f"guard={self.guard!r} is not ported yet (containment, see "

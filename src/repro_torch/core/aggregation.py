@@ -13,11 +13,25 @@ ladder.  A queue of length k drains greedily with the largest ladder bucket
 <= k; since bucket 1 exists, nothing is ever padded and results are
 bit-identical to one whole-wave launch.
 
-Staging is by reference: a task is a :class:`SlotView` ``(parent, index)``
-into a tensor already on the device.  A contiguous bucket is
-``parent.narrow(0, start, k)`` — a view, no copy; any other bucket is one
-``index_select``.  The reference's slot ring, host staging, containment,
-cost model, autotune and tune store wait in ROADMAP.md.
+Three staging modes, one per queue entry (a switch of mode launches what
+is queued first):
+
+* ``ref`` — a task is a :class:`SlotView` ``(parent, index)`` into a
+  tensor already on the device (``submit_range``, ``submit_indexed``).  A
+  contiguous bucket is ``parent.narrow(0, start, k)`` — a view, no copy;
+  any other bucket is one ``index_select``.
+* ``ring`` — concrete per-task tensors under device staging go into the
+  region's :class:`~repro_torch.core.buffers.SlotRing`; a bucket reads the
+  ring's filled prefix in place, and the ring swaps buffers when the queue
+  drains.
+* ``host`` — under ``staging="host"`` every task is kept as given and each
+  bucket is stacked at launch: ``torch.stack`` of tensors already on the
+  device, or CPU tensors through a pinned :class:`BufferPool` slab and one
+  H2D copy.
+
+``make_s2_scatter`` builds the ``s2`` strategy's per-task launch.  The
+reference's containment, cost model, autotune and tune store wait in
+ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -28,6 +42,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.configs.base import AggregationConfig
+from repro_torch.core.buffers import BufferPool, SlotRing
 from repro_torch.core.executor import ExecutorPool
 from repro_torch.device import DeviceLike, resolve_device
 
@@ -203,7 +218,9 @@ class TaskSignature:
 @dataclass
 class _Pending:
     future: Any                           # TaskFuture | RangeFuture
-    views: Tuple[SlotView, ...]
+    views: Optional[Tuple[SlotView, ...]] = None   # ref mode
+    args: Optional[Tuple[torch.Tensor, ...]] = None  # host mode
+    slot: int = -1                        # ring mode: the task's ring slot
     count: int = 1                        # tasks in this entry (>1: a range)
     fut_offset: int = 0                   # offset in its RangeFuture
 
@@ -211,12 +228,21 @@ class _Pending:
         """Split a range entry: first ``n`` tasks / the rest.  Both halves
         share the future (each fulfils its own offset)."""
         assert 0 < n < self.count
-        head = _Pending(self.future, self.views, n, self.fut_offset)
+        head = _Pending(self.future, self.views, count=n,
+                        fut_offset=self.fut_offset)
         tail = _Pending(
             self.future,
             tuple(SlotView(v.parent, v.index + n) for v in self.views),
-            self.count - n, self.fut_offset + n)
+            count=self.count - n, fut_offset=self.fut_offset + n)
         return head, tail
+
+
+def _entry_mode(entry: _Pending) -> str:
+    if entry.views is not None:
+        return "ref"
+    if entry.args is not None:
+        return "host"
+    return "ring"
 
 
 def greedy_decomposition(k: int, buckets: Sequence[int]) -> Tuple[int, ...]:
@@ -231,11 +257,12 @@ def greedy_decomposition(k: int, buckets: Sequence[int]) -> Tuple[int, ...]:
 
 
 class _Region:
-    """One aggregation region: per-TaskSignature queue, bucket ladder and
-    the two staging programs (contiguous prefix, indexed gather)."""
+    """One aggregation region: per-TaskSignature queue, bucket ladder, slot
+    ring (made at the first per-task submission) and the two staging
+    programs (contiguous prefix, indexed gather)."""
 
     __slots__ = ("signature", "batched_fn", "queue", "queued_tasks",
-                 "buckets", "stats")
+                 "buckets", "stats", "ring")
 
     def __init__(self, signature: TaskSignature, batched_fn: Callable,
                  buckets: Tuple[int, ...]):
@@ -246,6 +273,13 @@ class _Region:
         self.buckets = buckets
         self.stats = {"submitted": 0, "launches": 0, "aggregated_hist": {},
                       "ladder": list(buckets)}
+        self.ring: Optional[SlotRing] = None
+
+    def ensure_ring(self, capacity: int, example_args: Sequence[torch.Tensor],
+                    device: torch.device) -> SlotRing:
+        if self.ring is None:
+            self.ring = SlotRing(capacity, example_args, device=device)
+        return self.ring
 
     def apply_prefix(self, start: int, k: int, *parents: torch.Tensor):
         """Contiguous bucket: the body reads ``[start, start+k)`` of each
@@ -263,19 +297,24 @@ class AggregationExecutor:
     ``batched_fn(*stacked_args) -> stacked_out`` takes and returns tensors
     with a leading slot axis; it is registered as the default family under
     ``name``, further families via :meth:`register`.  ``config`` caps the
-    bucket size (``max_aggregated``) and sizes the executor pool
-    (``n_executors``: strategy 3 combined with strategy 2).
+    bucket size (``max_aggregated``, also each slot ring's capacity), sizes
+    the executor pool (``n_executors``: strategy 3 combined with strategy
+    2) and picks the staging of per-task submissions (``staging``).
     """
 
     def __init__(self, batched_fn: Optional[Callable] = None,
                  config: Optional[AggregationConfig] = None,
                  pool: Optional[ExecutorPool] = None, name: str = "region",
-                 device: DeviceLike = None):
+                 device: DeviceLike = None,
+                 buffer_pool: Optional[BufferPool] = None):
         self.name = name
         self.config = config or AggregationConfig()
         self.device = resolve_device(device)
         self.pool = pool or ExecutorPool(self.config.n_executors,
                                          device=self.device)
+        self._staging = self.config.staging
+        self.buffers = buffer_pool or BufferPool(
+            pinned=self.device.type == "cuda")
         self._buckets = tuple(sorted(self.config.bucket_sizes()))
         self._bodies: Dict[str, Callable] = {}
         self._regions: Dict[TaskSignature, _Region] = {}
@@ -318,12 +357,22 @@ class AggregationExecutor:
             self.stats["regions"][sig.describe()] = region.stats
         return region
 
+    @property
+    def ring(self) -> Optional[SlotRing]:
+        """The slot ring of the sole region (None with several regions, or
+        before a per-task submission or warmup made one)."""
+        if len(self._regions) != 1:
+            return None
+        return next(iter(self._regions.values())).ring
+
     # -- warmup ------------------------------------------------------------
     def warmup(self, parent_shapes: Sequence[Tuple[Tuple[int, ...],
                                                    torch.dtype]], *,
                kernel: Optional[str] = None) -> None:
         """Launch each ladder bucket once on every executor's stream, on
-        zero-filled parents of the given ``(shape, dtype)``s: builds the
+        zero-filled parents of the given ``(shape, dtype)``s (the shapes a
+        range or a host-stacked bucket reads), and under device staging
+        once more on the family's slot ring, which this makes: builds the
         kernel at first use and pays every first-launch cost (including
         each stream's first allocations) before the timed run.  Launch
         statistics are not touched.  (Per-bucket CUDA-graph capture waits
@@ -333,31 +382,68 @@ class AggregationExecutor:
                         for shape, dtype in parent_shapes)
         region = self._region_for(kernel, [SlotView(p, 0) for p in parents])
         n_parent = min(p.shape[0] for p in parents)
+        ring = None
+        if self._staging == "device":
+            ring = region.ensure_ring(self.config.max_aggregated,
+                                      [p[0] for p in parents], self.device)
         for ex in self.pool.executors:
-            for b in (b for b in region.buckets if b <= n_parent):
-                ex.run(region.apply_prefix, 0, b, *parents)
+            for b in region.buckets:
+                if b <= n_parent:
+                    ex.run(region.apply_prefix, 0, b, *parents)
+                if ring is not None:
+                    ex.run(region.apply_prefix, 0, b, *ring.buffers())
+                    ring.track_read(0, b, ex.last_event)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
     # -- submission API ----------------------------------------------------
-    def submit(self, *views: SlotView,
-               kernel: Optional[str] = None) -> TaskFuture:
-        """Queue one task given as SlotViews that share one index (concrete
-        per-task inputs need the slot ring: ROADMAP.md)."""
-        if not views or not all(isinstance(v, SlotView) for v in views):
-            raise NotImplementedError(
-                "the port stages tasks by reference only: submit SlotViews "
-                "(submit_indexed / submit_range); slot-ring staging of "
-                "concrete per-task inputs is in ROADMAP.md")
-        if any(v.index != views[0].index for v in views[1:]):
-            raise ValueError(
-                "SlotView args of one task must share one index — a launch "
-                "gathers the SAME slot from every parent")
+    def submit(self, *args, kernel: Optional[str] = None) -> TaskFuture:
+        """Queue one task, routed to its signature's region.  Args are all
+        :class:`SlotView` references (staged by reference under device
+        staging) or per-task tensors — on the executor's device, or on the
+        CPU for the card — written into the region's slot ring (device
+        staging) or kept for a stack at launch (host staging)."""
+        if not args:
+            raise ValueError("submit needs the task's arguments")
         kernel = self._resolve_kernel(kernel)
-        region = self._region_for(kernel, views)
         fut = TaskFuture()
-        self._enqueue(region, _Pending(fut, tuple(views)))
+        if (self._staging == "device"
+                and all(isinstance(a, SlotView) for a in args)):
+            if any(v.index != args[0].index for v in args[1:]):
+                raise ValueError(
+                    "SlotView args of one task must share one index — a "
+                    "launch gathers the SAME slot from every parent")
+            region = self._region_for(kernel, args)
+            self._enqueue(region, _Pending(fut, views=tuple(args)))
+            return fut
+        args = tuple(a.parent[a.index] if isinstance(a, SlotView) else a
+                     for a in args)
+        self._check_task_devices(args)
+        region = self._region_for(kernel, args)
+        if self._staging == "host":
+            self._enqueue(region, _Pending(fut, args=args))
+            return fut
+        t0 = time.perf_counter()
+        ring = region.ensure_ring(self.config.max_aggregated, args,
+                                  self.device)
+        if ring.fill >= ring.capacity:
+            # watermark remainders left a consumed prefix: slide the live
+            # tail to the front
+            first = region.queue[0].slot if region.queue else ring.fill
+            ring.compact(first)
+            for p in region.queue:
+                p.slot -= first
+        slot = ring.write(args)
+        self.stats["staging_s"] += time.perf_counter() - t0
+        self._enqueue(region, _Pending(fut, slot=slot))
         return fut
+
+    def _check_task_devices(self, args: Sequence[torch.Tensor]) -> None:
+        for a in args:
+            if a.device != self.device and a.device.type != "cpu":
+                raise ValueError(
+                    f"a task argument lives on {a.device}; the executor "
+                    f"stages tensors on {self.device} or on the CPU")
 
     def submit_indexed(self, parents: Tuple[torch.Tensor, ...], index: int,
                        kernel: Optional[str] = None) -> TaskFuture:
@@ -368,9 +454,15 @@ class AggregationExecutor:
     def submit_range(self, parents: Tuple[torch.Tensor, ...], start: int,
                      n: int, kernel: Optional[str] = None) -> RangeFuture:
         """Bulk submission: tasks ``start .. start+n-1`` of a parent set as
-        ONE queue entry backed by ONE :class:`RangeFuture`."""
+        ONE queue entry backed by ONE :class:`RangeFuture`.  Device staging
+        only: under host staging submit per task."""
         if n <= 0:
             raise ValueError(f"submit_range needs n >= 1, got {n}")
+        if self._staging != "device":
+            raise ValueError(
+                "submit_range requires device staging — ranges reference "
+                "device-resident parents by slot index (use per-task "
+                "submit() under staging='host')")
         n_parent = min(p.shape[0] for p in parents)
         if start < 0 or start + n > n_parent:
             raise ValueError(
@@ -380,23 +472,29 @@ class AggregationExecutor:
         views = tuple(SlotView(p, start) for p in parents)
         region = self._region_for(kernel, views)
         fut = RangeFuture(n)
-        self._enqueue(region, _Pending(fut, views, count=n))
+        self._enqueue(region, _Pending(fut, views=views, count=n))
         return fut
 
     def _enqueue(self, region: _Region, entry: _Pending) -> None:
-        self._check_parents(region, entry)
+        self._check_mode(region, entry)
         region.queue.append(entry)
         region.queued_tasks += entry.count
         self.stats["submitted"] += entry.count
         region.stats["submitted"] += entry.count
         self._maybe_launch()
 
-    def _check_parents(self, region: _Region, entry: _Pending) -> None:
-        """A launch gathers from ONE parent set: drain the region's queue
-        before admitting an entry over other parents."""
-        if region.queue and not all(
-                a.parent is b.parent
-                for a, b in zip(region.queue[0].views, entry.views)):
+    def _check_mode(self, region: _Region, entry: _Pending) -> None:
+        """A bucket stages uniformly: one mode, and for ref entries one
+        parent set (a launch gathers from ONE parent set).  Launch the
+        region's queue before admitting an incompatible entry."""
+        if not region.queue:
+            return
+        head = region.queue[0]
+        compatible = _entry_mode(head) == _entry_mode(entry)
+        if compatible and entry.views is not None:
+            compatible = all(a.parent is b.parent
+                             for a, b in zip(head.views, entry.views))
+        if not compatible:
             while region.queue:
                 self._launch(region, self._largest_bucket(
                     region, region.queued_tasks))
@@ -451,11 +549,23 @@ class AggregationExecutor:
 
     def _launch(self, region: _Region, k: int) -> None:
         tasks = self._take(region, k)
-        self._launch_tasks(region, tasks, k)
+        mode = _entry_mode(tasks[0])
+        self._launch_tasks(region, tasks, k, mode)
+        if mode == "ring" and not region.queue:
+            region.ring.swap()    # in-flight launches keep the old buffer
 
-    def _stage(self, tasks: List[_Pending], k: int, region: _Region):
-        """One bucket's program and arguments: a contiguous slot run reads
-        a view of its parents, anything else gathers by index."""
+    def _stage(self, region: _Region, tasks: List[_Pending], k: int,
+               mode: str):
+        """One bucket's program and arguments.  Ref: a contiguous slot run
+        reads a view of its parents, anything else gathers by index; ring:
+        the ring's prefix in place; host: the bucket stacked."""
+        if mode == "ring":
+            return (region.apply_prefix,
+                    (tasks[0].slot, k) + region.ring.buffers())
+        if mode == "host":
+            return region.batched_fn, tuple(
+                self._stack([t.args[j] for t in tasks])
+                for j in range(len(tasks[0].args)))
         indices: List[int] = []
         for t in tasks:
             i0 = t.views[0].index
@@ -466,13 +576,30 @@ class AggregationExecutor:
         idx = torch.tensor(indices, device=parents[0].device)
         return region.apply_gathered, (idx,) + parents
 
-    def _launch_tasks(self, region: _Region, tasks: List[_Pending],
-                      k: int) -> None:
+    def _stack(self, parts: List[torch.Tensor]) -> torch.Tensor:
+        """One host-staged argument of a bucket: tensors on the device are
+        stacked there; CPU tensors for the card fill a pinned slab, copied
+        over in one non-blocking H2D copy, and the slab goes back to the
+        pool with that copy's event."""
+        if parts[0].device == self.device:
+            return torch.stack(parts)
+        slab = self.buffers.stage(parts)
+        staged = slab.to(self.device, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.device))
+        self.buffers.release(slab, event)
+        return staged
+
+    def _launch_tasks(self, region: _Region, tasks: List[_Pending], k: int,
+                      mode: str) -> None:
         t0 = time.perf_counter()
-        fn, call_args = self._stage(tasks, k, region)
+        fn, call_args = self._stage(region, tasks, k, mode)
         self.stats["staging_s"] += time.perf_counter() - t0
-        out = self.pool.get().launch(fn, *call_args,
-                                     family=region.signature.kernel)
+        ex = self.pool.get()
+        out = ex.launch(fn, *call_args, family=region.signature.kernel)
+        if mode == "ring":
+            region.ring.track_read(tasks[0].slot, tasks[0].slot + k,
+                                   ex.last_event)
         slot = 0
         for t in tasks:
             if isinstance(t.future, RangeFuture):
@@ -498,3 +625,17 @@ class AggregationExecutor:
                         region, region.queued_tasks))
             live = [r for r in live if r.queue]
         self.pool.join()
+
+
+def make_s2_scatter(batched_fn: Callable, width: int = 1) -> Callable:
+    """One ``s2`` launch: run the batched body on ``width`` contiguous
+    tasks, ``parents[j].narrow(0, i, width)``, writing straight into
+    ``out_ring.narrow(0, i, width)`` through the body's ``out=`` (the
+    port's bodies, ``kernels.ops``, take one).  Every width gives the same
+    values per task: the body is independent per slot."""
+    def scatter(out_ring: torch.Tensor, i: int,
+                *parents: torch.Tensor) -> torch.Tensor:
+        dst = out_ring.narrow(0, i, width)
+        batched_fn(*(p.narrow(0, i, width) for p in parents), out=dst)
+        return dst
+    return scatter

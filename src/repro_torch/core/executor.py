@@ -70,6 +70,12 @@ class DeviceExecutor:
                 self.launches_by_family.get(family, 0) + 1
         return out
 
+    @property
+    def last_event(self):
+        """The completion event of the last launch (None on the CPU or
+        before any launch)."""
+        return self._event
+
     def busy(self) -> bool:
         return self._event is not None and not self._event.query()
 

@@ -9,8 +9,15 @@ reference every strategy must reproduce bit for bit.  A **Strategy**
 The port has the uniform Sedov scenario (the paper's Table II/III
 workload), the self-gravitating Sedov scenario (two kernel families per
 iteration) and the two-level AMR Sedov scenario (coarse and fine tasks in
-one family, or two where the levels' sub-grid sizes differ).  The
-epilogue-fused stage populations wait in ROADMAP.md.
+one family, or two where the levels' sub-grid sizes differ).
+
+Each scenario also declares epilogue-fused RK stages: a hydro family with
+an ``epilogue`` (the Shu-Osher stage update) derives a ``stage_family``
+twin whose body is the family's body followed by the epilogue, so one
+launch per bucket produces the next stage's state per slot.
+``stage_populations`` builds a stage's submission waves, ``assemble_stage``
+the next state from their outputs, and ``reference_stage`` is the stage
+path's oracle, as ``reference_rhs`` is the generic path's.
 """
 from __future__ import annotations
 
@@ -26,6 +33,7 @@ from repro_torch.hydro.state import (
     assemble_global, extract_subgrids, extract_subgrids_multilevel,
     sync_coarse,
 )
+from repro_torch.hydro.stepper import rk_stage_epilogue, stage_coeff_vectors
 from repro_torch.kernels.gravity import gravity_source_update
 from repro_torch.kernels.ops import (
     gravity_batched_body, hydro_batched_body, level_batched_body,
@@ -35,11 +43,53 @@ from repro_torch.kernels.ops import (
 @dataclass(frozen=True)
 class KernelFamily:
     """One aggregable kernel family: the ``TaskSignature`` kernel id and its
-    batched body ``(*stacked_args) -> stacked_out`` (leading slot axis on
-    every arg and output)."""
+    batched body ``(*stacked_args, out=None) -> stacked_out`` (leading slot
+    axis on every arg and output).
+
+    ``epilogue(body_out, *extras) -> out``, if given, is a batched
+    elementwise stage update (``rk_stage_epilogue``) that
+    :func:`stage_family` runs after the body in the same bucket."""
 
     kernel: str
     batched_body: Callable
+    epilogue: Optional[Callable] = None
+
+
+def stage_family(fam: KernelFamily, n_body_args: int) -> KernelFamily:
+    """The epilogue-fused twin of a family, ``<kernel>+epi``: the first
+    ``n_body_args`` arguments of a task feed the body, the rest (per-slot
+    extras, the coefficient vectors included) the epilogue.  The epilogue
+    is plain elementwise PyTorch over the body's output, as the reference
+    composes it in XLA outside its Pallas kernel."""
+    if fam.epilogue is None:
+        raise ValueError(f"family {fam.kernel!r} declares no epilogue")
+
+    def batched(*args, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        res = fam.epilogue(fam.batched_body(*args[:n_body_args]),
+                           *args[n_body_args:])
+        return res if out is None else out.copy_(res)
+
+    return KernelFamily(fam.kernel + "+epi", batched)
+
+
+def _cached_u0_interiors(scn, u0, v, v_int, extract):
+    """``u0`` is the same in a step's three stages (and IS ``v`` in stage
+    1): extract its interiors once per step, keyed on the ``u0`` object."""
+    if v is u0:
+        scn._u0_int_cache = (u0, v_int)
+        return v_int
+    cache = getattr(scn, "_u0_int_cache", None)
+    if cache is None or cache[0] is not u0:
+        cache = (u0, extract(u0))
+        scn._u0_int_cache = cache
+    return cache[1]
+
+
+def _coeff_cache(scn) -> dict:
+    cache = getattr(scn, "_stage_coeff_cache", None)
+    if cache is None:
+        cache = scn._stage_coeff_cache = {}
+    return cache
 
 
 @dataclass(frozen=True)
@@ -64,9 +114,12 @@ class Scenario:
     """Base class / protocol.  Subclasses implement ``families()``,
     ``populations(state)``, ``assemble(state, outs)`` and
     ``warmup_parent_specs()`` — ``(kernel, ((shape, dtype), ...))`` pairs
-    describing the submission waves — and may override ``finalize_step``.
-    ``reference_rhs``, one launch per family through the same assemble
-    path, is the oracle every strategy must match bit for bit."""
+    describing the submission waves — and may override ``finalize_step``
+    and the epilogue-fused stage protocol (``stage_families``,
+    ``stage_populations``, ``assemble_stage``,
+    ``stage_warmup_parent_specs``).  ``reference_rhs``, one launch per
+    family through the same assemble path, is the oracle every strategy
+    must match bit for bit; ``reference_stage`` is the stage path's."""
 
     name: str = "scenario"
 
@@ -82,12 +135,53 @@ class Scenario:
     def warmup_parent_specs(self) -> Tuple[Tuple[str, Tuple[Any, ...]], ...]:
         return ()
 
+    # -- optional: epilogue-fused RK stages ---------------------------------
+    def stage_families(self) -> Tuple[KernelFamily, ...]:
+        """The epilogue-fused twins of the families that declare one; empty
+        when the scenario has no fused stages."""
+        return ()
+
+    def stage_populations(self, u0, v, dt, c0,
+                          c1) -> Optional[Tuple[TaskPopulation, ...]]:
+        """Submission waves whose launches give the NEXT RK stage state per
+        slot, ``c0*u0 + c1*(v + dt*rhs(v))`` (Shu-Osher form; stage 1 is
+        ``c0=0, c1=1``).  ``None``: not supported, and the runner takes the
+        generic rhs + combine path."""
+        return None
+
+    def assemble_stage(self, state, outs: Sequence[Any], dt, c0, c1):
+        """Per-population stage outputs (population order) -> the next
+        stage's state.  Cross-family couplings (gravity's ``c1*dt`` source
+        tail) enter here, after every launch of the wave."""
+        raise NotImplementedError
+
+    def stage_warmup_parent_specs(self):
+        """Like ``warmup_parent_specs``, for the stage waves."""
+        return ()
+
+    def reference_stage(self, u0, v, dt, c0, c1):
+        """The stage path's oracle: one launch of each stage population's
+        family body over its whole population, through the same
+        ``assemble_stage``."""
+        pops = self.stage_populations(u0, v, dt, c0, c1)
+        if pops is None:
+            raise NotImplementedError(
+                f"scenario {self.name!r} declares no stage populations")
+        outs = [self.family(p.kernel).batched_body(*p.parents) for p in pops]
+        return self.assemble_stage(v, outs, dt, c0, c1)
+
+    # -- provided ----------------------------------------------------------
     def finalize_step(self, state):
         """Post-RK3-combine hook; identity unless levels need re-syncing."""
         return state
 
+    def describe_task(self, kernel: str, index: int) -> str:
+        """A readable name of one task of a family's wave (``index`` is its
+        position in the wave)."""
+        return f"task {index} of family {kernel!r}"
+
     def family(self, kernel: str) -> KernelFamily:
-        for fam in self.families():
+        for fam in self.families() + tuple(self.stage_families()):
             if fam.kernel == kernel:
                 return fam
         raise KeyError(f"scenario {self.name!r} has no kernel family "
@@ -118,7 +212,10 @@ class UniformSedovScenario(Scenario):
         self.h = cfg.domain / n
         self.batched_body = batched_body or hydro_batched_body(cfg, self.h)
         self.name = cfg.name
-        self._families = (KernelFamily("hydro_rhs", self.batched_body),)
+        self._dtype = getattr(torch, cfg.dtype)
+        self._families = (KernelFamily("hydro_rhs", self.batched_body,
+                                       epilogue=rk_stage_epilogue),)
+        self._stage_families = (stage_family(self._families[0], 1),)
 
     def families(self):
         return self._families
@@ -135,7 +232,36 @@ class UniformSedovScenario(Scenario):
         cfg = self.cfg
         p = cfg.padded
         shape = (cfg.n_subgrids, cfg.n_fields, p, p, p)
-        return (("hydro_rhs", ((shape, getattr(torch, cfg.dtype)),)),)
+        return (("hydro_rhs", ((shape, self._dtype),)),)
+
+    # -- epilogue-fused RK stages ------------------------------------------
+    def stage_families(self):
+        return self._stage_families
+
+    def _interiors(self, u):
+        return extract_subgrids(u, self.cfg.subgrid, 0, self.bc)
+
+    def stage_populations(self, u0, v, dt, c0, c1):
+        cfg = self.cfg
+        subs = extract_subgrids(v, cfg.subgrid, cfg.ghost, self.bc)
+        v_int = self._interiors(v)
+        u0_int = _cached_u0_interiors(self, u0, v, v_int, self._interiors)
+        coeffs = stage_coeff_vectors(_coeff_cache(self), dt, c0, c1,
+                                     subs.shape[0], self._dtype, v.device)
+        return (TaskPopulation(self._stage_families[0].kernel,
+                               (subs, v_int, u0_int) + coeffs),)
+
+    def assemble_stage(self, state, outs, dt, c0, c1):
+        return assemble_global(outs[0], self.cfg.subgrid)
+
+    def stage_warmup_parent_specs(self):
+        cfg = self.cfg
+        n, s, p, f = cfg.n_subgrids, cfg.subgrid, cfg.padded, cfg.n_fields
+        interior = ((n, f, s, s, s), self._dtype)
+        scalar = ((n,), self._dtype)
+        return ((self._stage_families[0].kernel, (
+            ((n, f, p, p, p), self._dtype), interior, interior,
+            scalar, scalar, scalar)),)
 
 
 class GravityScenario(Scenario):
@@ -152,8 +278,13 @@ class GravityScenario(Scenario):
     The default bodies are ``kernels.ops``'s: the CUDA kernels for tensors
     on the card, the plain versions on the CPU; ``hydro_body`` and
     ``gravity_body`` swap in others (e.g. the plain versions on the card,
-    as a reference).  The epilogue-fused stage path (``stage_families``
-    and the rest) waits in ROADMAP.md.
+    as a reference).
+
+    The epilogue-fused stage wave is two families: the hydro family's
+    stage twin and the unchanged gravity family, submitted together.  The
+    coupling, which no per-slot epilogue can see (gravity is another
+    launch), enters at ``assemble_stage`` as the algebraically equal
+    ``+ c1*dt * src(v, pg)`` tail.
     """
 
     def __init__(self, cfg: GravityHydroConfig, bc: str = "outflow",
@@ -168,9 +299,12 @@ class GravityScenario(Scenario):
         self._h_vec: Dict[torch.device, torch.Tensor] = {}
         self._families = (
             KernelFamily("hydro_rhs", hydro_body or level_batched_body(
-                hc.gamma, hc.ghost, hc.subgrid)),
+                hc.gamma, hc.ghost, hc.subgrid), epilogue=rk_stage_epilogue),
             KernelFamily("gravity", gravity_body or gravity_batched_body(cfg)),
         )
+        # the hydro body takes (subs, h); gravity joins the stage wave as
+        # itself
+        self._stage_families = (stage_family(self._families[0], 2),)
 
     def families(self):
         return self._families
@@ -204,6 +338,41 @@ class GravityScenario(Scenario):
         h = ((hc.n_subgrids,), self._dtype)
         return (("hydro_rhs", (subs, h)), ("gravity", (subs, h)))
 
+    # -- two-family epilogue-fused RK stages -------------------------------
+    def stage_families(self):
+        return self._stage_families
+
+    def _interiors(self, u):
+        return extract_subgrids(u, self.cfg.hydro.subgrid, 0, self.bc)
+
+    def stage_populations(self, u0, v, dt, c0, c1):
+        hc = self.cfg.hydro
+        subs = extract_subgrids(v, hc.subgrid, hc.ghost, self.bc)
+        v_int = self._interiors(v)
+        u0_int = _cached_u0_interiors(self, u0, v, v_int, self._interiors)
+        h = self.h_vec(v.device)
+        coeffs = stage_coeff_vectors(_coeff_cache(self), dt, c0, c1,
+                                     hc.n_subgrids, self._dtype, v.device)
+        return (TaskPopulation(self._stage_families[0].kernel,
+                               (subs, h, v_int, u0_int) + coeffs),
+                TaskPopulation("gravity", (subs, h)))
+
+    def assemble_stage(self, state, outs, dt, c0, c1):
+        hc = self.cfg.hydro
+        staged = assemble_global(outs[0], hc.subgrid)
+        pg = assemble_global(outs[1], hc.subgrid)
+        return gravity_source_update(state, staged, pg, scale=c1 * dt)
+
+    def stage_warmup_parent_specs(self):
+        hc = self.cfg.hydro
+        n, s, p, f = hc.n_subgrids, hc.subgrid, hc.padded, hc.n_fields
+        subs = ((n, f, p, p, p), self._dtype)
+        interior = ((n, f, s, s, s), self._dtype)
+        scalar = ((n,), self._dtype)
+        return ((self._stage_families[0].kernel,
+                 (subs, scalar, interior, interior, scalar, scalar, scalar)),
+                ("gravity", (subs, scalar)))
+
 
 class AMRSedovScenario(Scenario):
     """Two-level refined Sedov: the state is ``(uc, uf)``; every iteration
@@ -220,7 +389,11 @@ class AMRSedovScenario(Scenario):
     ``h_slots`` mode on the card, the plain version on the CPU).  Pass
     ``functools.partial(level_batched_body, gamma, ghost,
     layout="slot_lane")`` for the lane kernel, or a plain factory for the
-    card's reference.  The epilogue-fused stage path waits in ROADMAP.md.
+    card's reference.
+
+    Each level's family derives a stage twin, ``hydro_rhs_s<S>+epi``, with
+    the per-task width riding through the body; the stage update reads the
+    raw (un-synced) level interiors, as the generic combine does.
     """
 
     LEVELS = ("coarse", "fine")
@@ -244,8 +417,14 @@ class AMRSedovScenario(Scenario):
             def hydro_body(s):
                 return level_batched_body(cfg.gamma, cfg.ghost, s)
         self._families = tuple(
-            KernelFamily(f"hydro_rhs_s{s}", hydro_body(s))
+            KernelFamily(f"hydro_rhs_s{s}", hydro_body(s),
+                         epilogue=rk_stage_epilogue)
             for s in dict.fromkeys(self._subgrid.values()))
+        # the level body takes (subs, h); the rest feeds the epilogue
+        self._stage_families = tuple(stage_family(f, 2)
+                                     for f in self._families)
+        self._stage_kernel = {lvl: k + "+epi"
+                              for lvl, k in self._kernel.items()}
 
     def families(self):
         return self._families
@@ -286,4 +465,47 @@ class AMRSedovScenario(Scenario):
             specs.append((self._kernel[lvl], (
                 ((n, cfg.n_fields, p, p, p), self._dtype),
                 ((n,), self._dtype))))
+        return tuple(specs)
+
+    # -- epilogue-fused RK stages ------------------------------------------
+    def stage_families(self):
+        return self._stage_families
+
+    def _interiors(self, state):
+        """Per-level interiors of the raw level states."""
+        return {lvl: extract_subgrids(u, self._subgrid[lvl], 0, self.bc)
+                for lvl, u in zip(self.LEVELS, state)}
+
+    def stage_populations(self, u0, v, dt, c0, c1):
+        uc, uf = v
+        subs = dict(zip(self.LEVELS, extract_subgrids_multilevel(
+            uc, uf, self.cfg, self.bc)))
+        v_int = self._interiors(v)
+        u0_int = _cached_u0_interiors(self, u0, v, v_int, self._interiors)
+        cache = _coeff_cache(self)
+        pops = []
+        for lvl in self.LEVELS:
+            coeffs = stage_coeff_vectors(cache, dt, c0, c1,
+                                         self._n_level[lvl], self._dtype,
+                                         uc.device)
+            pops.append(TaskPopulation(
+                self._stage_kernel[lvl],
+                (subs[lvl], self.h_vec(lvl, uc.device), v_int[lvl],
+                 u0_int[lvl]) + coeffs))
+        return tuple(pops)
+
+    def assemble_stage(self, state, outs, dt, c0, c1):
+        return self.assemble(state, outs)
+
+    def stage_warmup_parent_specs(self):
+        cfg = self.cfg
+        specs = []
+        for lvl in self.LEVELS:
+            n, s = self._n_level[lvl], self._subgrid[lvl]
+            p = s + 2 * cfg.ghost
+            interior = ((n, cfg.n_fields, s, s, s), self._dtype)
+            scalar = ((n,), self._dtype)
+            specs.append((self._stage_kernel[lvl], (
+                ((n, cfg.n_fields, p, p, p), self._dtype), scalar, interior,
+                interior, scalar, scalar, scalar)))
         return tuple(specs)

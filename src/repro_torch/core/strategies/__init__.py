@@ -1,12 +1,14 @@
 """Work-aggregation strategy plugins ported so far.
 
+* ``s2``   — implicit aggregation (``s2.py``): one launch per task,
+             round-robin over the pool's CUDA streams, into an output ring.
 * ``s3``   — explicit aggregation (``s3.py``): tasks fused on the fly into
              bucketed launches of the batched kernel by the
              ``AggregationExecutor``.
 * ``s2+s3``— s3 over a pool of several CUDA streams (the paper's best rows).
 * ``fused``— whole-graph upper bound (``fused.py``).
 
-``s1`` (larger sub-grids), ``s2``, ``mixed`` and ``s4``/``sharded`` wait in
+``s1`` (larger sub-grids), ``mixed`` and ``s4``/``sharded`` wait in
 ROADMAP.md.  All strategies are bit-identical in results to the scenario's
 fused reference; only the launch structure differs.
 """
@@ -14,10 +16,10 @@ from repro_torch.core.strategies.base import (
     RunContext, Strategy, available_strategies, get_strategy_class,
     register_strategy,
 )
-from repro_torch.core.strategies import fused, s3  # noqa: F401 (register)
+from repro_torch.core.strategies import fused, s2, s3  # noqa: F401 (register)
 from repro_torch.core.strategies.runner import StrategyRunner
 
 __all__ = [
     "RunContext", "Strategy", "available_strategies", "get_strategy_class",
-    "register_strategy", "StrategyRunner",
+    "register_strategy", "StrategyRunner", "s2",
 ]

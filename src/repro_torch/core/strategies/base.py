@@ -8,7 +8,7 @@ fails fast with the valid names listed.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, ClassVar, Dict, Optional, Tuple, Type
 
 from repro_torch.configs.base import AggregationConfig
@@ -44,12 +44,14 @@ def get_strategy_class(name: str) -> Type["Strategy"]:
 @dataclass
 class RunContext:
     """What a strategy shares across iterations: the launch config, the
-    executor pool, the (optional) aggregation executor and the stats."""
+    executor pool, the (optional) aggregation executor, the stats and a
+    private per-run cache (``s2``'s launch plans)."""
 
     config: AggregationConfig
     pool: ExecutorPool
     executor: Optional[AggregationExecutor]
     stats: Dict[str, Any]
+    caches: Dict[Any, Any] = field(default_factory=dict)
 
 
 class Strategy:
@@ -64,3 +66,10 @@ class Strategy:
         """One solver iteration: launch every population, assemble
         d(state)/dt."""
         raise NotImplementedError
+
+    def run_stage(self, scenario, u0, v, dt, c0, c1, ctx: RunContext):
+        """One epilogue-fused RK stage: launch the scenario's stage
+        populations and return the next stage's state.  ``None``: this
+        strategy has no fused-stage path, and the runner takes
+        ``run_iteration`` and the generic combine."""
+        return None

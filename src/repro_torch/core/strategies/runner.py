@@ -7,6 +7,11 @@ RK3 stepping, warmup and per-step timing.  A state is a tensor, or a tuple
 of tensors (one per AMR level) combined level by level.  The device
 defaults to the card and a missing card raises; ``device="cpu"`` runs the
 plain PyTorch path.
+
+With ``AggregationConfig(fuse_epilogue=True)`` each RK stage runs through
+the scenario's epilogue-fused stage families (``Strategy.run_stage``),
+decided at construction: only when the scenario declares stage families,
+the strategy has a ``run_stage`` and staging is on the device.
 """
 from __future__ import annotations
 
@@ -19,7 +24,9 @@ from repro_torch.configs.base import AggregationConfig
 from repro_torch.core.aggregation import AggregationExecutor
 from repro_torch.core.executor import ExecutorPool
 from repro_torch.core.scenario import Scenario
-from repro_torch.core.strategies.base import RunContext, get_strategy_class
+from repro_torch.core.strategies.base import (
+    RunContext, Strategy, get_strategy_class,
+)
 from repro_torch.device import DeviceLike, resolve_device
 
 
@@ -34,7 +41,8 @@ class StrategyRunner:
     """Drives a :class:`~repro_torch.core.scenario.Scenario` under a
     registered strategy.  ``stats["kernel_launches"]`` and
     ``stats["iterations"]`` accumulate per call; ``stats["regions"]`` is
-    the aggregation executor's per-family bucket histograms."""
+    the per-family launch statistics: the aggregation executor's bucket
+    histograms, or those ``s2`` publishes itself."""
 
     def __init__(self, scenario: Scenario, agg: AggregationConfig,
                  device: DeviceLike = None):
@@ -52,11 +60,21 @@ class StrategyRunner:
             self._agg_exec = AggregationExecutor(
                 None, agg, pool=self.pool, name=scenario.name,
                 device=self.device)
-            for fam in scenario.families():
+            for fam in scenario.families() + tuple(
+                    scenario.stage_families()):
                 self._agg_exec.register(fam.kernel, fam.batched_body)
             self.stats["regions"] = self._agg_exec.stats["regions"]
         self.ctx = RunContext(config=agg, pool=self.pool,
                               executor=self._agg_exec, stats=self.stats)
+        has_stage = strategy_cls.run_stage is not Strategy.run_stage
+        self._fuse_epilogue = (agg.fuse_epilogue
+                               and bool(scenario.stage_families())
+                               and has_stage and agg.staging != "host")
+
+    @property
+    def fuse_epilogue(self) -> bool:
+        """Whether RK stages run through the epilogue-fused stage path."""
+        return self._fuse_epilogue
 
     @property
     def executor(self) -> Optional[AggregationExecutor]:
@@ -72,10 +90,14 @@ class StrategyRunner:
     def warmup(self) -> None:
         """Launch every family's bucket ladder once at the shapes of the
         scenario's submission waves (executor strategies), or each family's
-        body once over its whole wave (``fused``).  Builds the CUDA kernel
-        at first use."""
+        body once over its whole wave (``fused``, ``s2``).  On the fused
+        stage path only the stage waves are warmed: the plain families
+        never launch there.  Builds the CUDA kernel at first use."""
+        specs_of = (self.scenario.stage_warmup_parent_specs
+                    if self._fuse_epilogue
+                    else self.scenario.warmup_parent_specs)
         seen = set()
-        for kernel, specs in self.scenario.warmup_parent_specs():
+        for kernel, specs in specs_of():
             key = (kernel, specs)
             if key in seen:
                 continue
@@ -108,8 +130,13 @@ class StrategyRunner:
     def rk3_step(self, state, dt):
         """Shu-Osher TVD-RK3 over a tensor or a tuple of levels, each level
         combined in the same expression order (``hydro.stepper``'s
-        ``rk3_step`` and ``amr_rk3_step``).  ``dt`` is a float or a 0-dim
-        tensor (e.g. ``courant_dt``'s, which stays on the device)."""
+        ``rk3_step`` and ``amr_rk3_step``), or through the fused stages.
+        ``dt`` is a float or a 0-dim tensor (e.g. ``courant_dt``'s, which
+        stays on the device)."""
+        if self._fuse_epilogue:
+            out = self._rk3_step_fused_stages(state, dt)
+            if out is not None:
+                return out
         l0 = self.rhs(state)
         u1 = per_level(lambda u, l: u + dt * l, state, l0)
         l1 = self.rhs(u1)
@@ -120,6 +147,23 @@ class StrategyRunner:
             lambda u, a, l: (1.0 / 3.0) * u + (2.0 / 3.0) * (a + dt * l),
             state, u2, l2)
         return self.scenario.finalize_step(out)
+
+    def _rk3_step_fused_stages(self, state, dt):
+        """RK3 through the epilogue-fused stage path: each Shu-Osher stage
+        is one submission wave of the scenario's stage families, the body
+        and the stage update in one launch per bucket.  Returns None (the
+        generic path follows) when the strategy's ``run_stage`` declines."""
+        self._check_state(state)
+        stage = self._strategy.run_stage
+        sc = self.scenario
+        u1 = stage(sc, state, state, dt, 0.0, 1.0, self.ctx)
+        if u1 is None:
+            self._fuse_epilogue = False
+            return None
+        u2 = stage(sc, state, u1, dt, 0.75, 0.25, self.ctx)
+        out = stage(sc, state, u2, dt, 1.0 / 3.0, 2.0 / 3.0, self.ctx)
+        self.stats["iterations"] += 3
+        return sc.finalize_step(out)
 
     def time_step(self, state, dt, n_steps: int = 1) -> float:
         """Average wall seconds per time-step (the Table III metric), the

@@ -1,15 +1,25 @@
 """``s3`` / ``s2+s3``: explicit on-the-fly aggregation through the
 ``AggregationExecutor``.
 
-Each population is submitted as ONE bulk range entry
+Under device staging each population is submitted as ONE bulk range entry
 (``TaskPopulation.submit_to`` -> ``AggregationExecutor.submit_range``); the
 executor drains it greedily through its bucket ladder, each launch reading
 a contiguous slot run of the parent in place, and ``gather_futures`` hands
-the range back (no copy when one launch covered it).  ``s2+s3`` is the same
-strategy over a pool of several CUDA streams (the paper's best rows).
-Stats report per-call deltas of the executor's cumulative counters.
+the range back (no copy when one launch covered it).  Under
+``staging="host"`` (the seed's baseline) every task is submitted on its
+own, one per family in turn, and each bucket is stacked at launch.
+``s2+s3`` is the same strategy over a pool of several CUDA streams (the
+paper's best rows).
+
+``run_stage`` drives a whole RK stage through the scenario's epilogue-fused
+stage families (device staging only); a stage wave may carry several
+families (the AMR levels' twins, or gravity's hydro twin beside the plain
+gravity family), coupled by ``assemble_stage``.  Stats report per-call
+deltas of the executor's cumulative counters.
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.core.aggregation import gather_futures
 from repro_torch.core.strategies.base import (
@@ -22,15 +32,75 @@ class S3Strategy(Strategy):
     name = "s3"
     uses_executor = True
 
-    def run_iteration(self, scenario, state, ctx: RunContext):
+    @staticmethod
+    def _submit_populations(exe, pops, host: bool):
+        """One wave: a range per population (device staging), or one
+        submission per task, round-robin across kernel families (host
+        staging)."""
+        futs = [[] for _ in pops]
+        if not host:
+            for pi, pop in enumerate(pops):
+                if pop.n_tasks:
+                    futs[pi].append(pop.submit_to(exe))
+            return futs
+        # each family's populations as one ordered task list, then one
+        # submission per family per turn
+        lanes = {}
+        for pi, pop in enumerate(pops):
+            lanes.setdefault(pop.kernel, []).extend(
+                (pi, pop, i) for i in range(pop.n_tasks))
+        cursors = [iter(lane) for lane in lanes.values()]
+        while cursors:
+            live = []
+            for cur in cursors:
+                nxt = next(cur, None)
+                if nxt is None:
+                    continue
+                pi, pop, i = nxt
+                futs[pi].append(exe.submit(
+                    *(par[i] for par in pop.parents), kernel=pop.kernel))
+                live.append(cur)
+            cursors = live
+        return futs
+
+    @staticmethod
+    def _drain(scenario, exe, pops, futs):
+        """Flush the wave and gather each population's outputs; an empty
+        population yields a zero-length batch of the body's output shape."""
+        exe.flush()
+        outs = []
+        for pop, f in zip(pops, futs):
+            if f:
+                outs.append(gather_futures(f))
+                continue
+            body = scenario.family(pop.kernel).batched_body
+            spec = body(*(torch.empty(p.shape, dtype=p.dtype, device="meta")
+                          for p in pop.parents))
+            outs.append(torch.empty(spec.shape, dtype=spec.dtype,
+                                    device=pop.parents[0].device))
+        return outs
+
+    def _wave(self, scenario, pops, ctx: RunContext, host: bool):
         exe = ctx.executor
-        pops = scenario.populations(state)
         before_launches = exe.stats["launches"]
         before_staging = exe.stats["staging_s"]
-        futs = [pop.submit_to(exe) for pop in pops]
-        exe.flush()
-        outs = [gather_futures([f]) for f in futs]
+        futs = self._submit_populations(exe, pops, host)
+        outs = self._drain(scenario, exe, pops, futs)
         ctx.stats["staging_s"] += exe.stats["staging_s"] - before_staging
         ctx.stats["kernel_launches"] += (exe.stats["launches"]
                                          - before_launches)
+        return outs
+
+    def run_iteration(self, scenario, state, ctx: RunContext):
+        outs = self._wave(scenario, scenario.populations(state), ctx,
+                          host=ctx.config.staging == "host")
         return scenario.assemble(state, outs)
+
+    def run_stage(self, scenario, u0, v, dt, c0, c1, ctx: RunContext):
+        if ctx.config.staging == "host":
+            return None                  # the baseline stays per task
+        pops = scenario.stage_populations(u0, v, dt, c0, c1)
+        if pops is None:
+            return None
+        outs = self._wave(scenario, pops, ctx, host=False)
+        return scenario.assemble_stage(v, outs, dt, c0, c1)

@@ -36,6 +36,46 @@ def subgrid_rhs(u_padded: torch.Tensor, h, gamma: float, ghost: int,
     return flux_divergence(recon, h, gamma, ghost, subgrid)
 
 
+def _per_slot(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A per-slot ``(k,)`` vector shaped to broadcast over ``like``'s
+    ``(k, ...)``."""
+    return x.reshape((-1,) + (1,) * (like.dim() - 1))
+
+
+def rk_stage_epilogue(dudt: torch.Tensor, v_int: torch.Tensor,
+                      u0_int: torch.Tensor, c0: torch.Tensor,
+                      c1: torch.Tensor, dt: torch.Tensor) -> torch.Tensor:
+    """One Shu-Osher stage update per slot, ``out = c0*u0 + c1*(v +
+    dt*dudt)`` over a bucket of task interiors ``(k, F, S, S, S)``, with
+    the per-slot coefficients ``(k,)`` (stage 1 is ``c0=0, c1=1``; stages 2
+    and 3 are ``0.75, 0.25`` and ``1/3, 2/3``).  Elementwise, so a slot's
+    result does not depend on the bucket.  The reference composes it with
+    the batched body in one XLA program; here it is plain PyTorch after the
+    body's kernel."""
+    return (_per_slot(c0, dudt) * u0_int
+            + _per_slot(c1, dudt) * (v_int + _per_slot(dt, dudt) * dudt))
+
+
+def stage_coeff_vectors(cache: dict, dt, c0: float, c1: float, n: int,
+                        dtype: torch.dtype, device: torch.device):
+    """Per-task ``(c0, c1, dt)`` vectors ``(n,)`` for one epilogue-fused RK
+    stage, cached per ``(c0, c1, n, device)`` and rebuilt only when the
+    ``dt`` object changes.  A 0-dim device ``dt`` (``courant_dt``'s) is
+    broadcast on the device, never read on the host."""
+    key = (c0, c1, n, device)
+    hit = cache.get(key)
+    if hit is None or hit[0] is not dt:
+        if isinstance(dt, torch.Tensor):
+            dt_vec = dt.to(device=device, dtype=dtype).reshape(1).expand(
+                n).contiguous()
+        else:
+            dt_vec = torch.full((n,), dt, dtype=dtype, device=device)
+        hit = (dt, tuple(torch.full((n,), c, dtype=dtype, device=device)
+                         for c in (c0, c1)) + (dt_vec,))
+        cache[key] = hit
+    return hit[1]
+
+
 def _rhs_global(u, cfg: HydroConfig, h: float, bc: str):
     subs = extract_subgrids(u, cfg.subgrid, cfg.ghost, bc)
     dudt = subgrid_rhs(subs, h, cfg.gamma, cfg.ghost, cfg.subgrid)

@@ -17,7 +17,7 @@ import tempfile
 import threading
 import time
 from pathlib import Path
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -49,6 +49,26 @@ def nvcc_path() -> str:
             "/usr/local/cuda and PATH): the CUDA kernels build only on a "
             "machine with the CUDA toolkit")
     return found
+
+
+def output(out: Optional["torch.Tensor"], shape: Tuple[int, ...],
+           like: "torch.Tensor", name: str) -> "torch.Tensor":
+    """A wrapper's fp32 output: a new tensor of ``shape`` on ``like``'s
+    device, or the caller's ``out`` once checked to be exactly that — a
+    contiguous float32 tensor of ``shape`` on the same device (a slice of
+    a larger buffer is fine if it is contiguous)."""
+    import torch
+
+    if out is None:
+        return torch.empty(shape, dtype=torch.float32, device=like.device)
+    if (out.dtype != torch.float32 or tuple(out.shape) != tuple(shape)
+            or out.device != like.device or not out.is_contiguous()):
+        raise ValueError(
+            f"{name}: out= must be a contiguous float32 {tuple(shape)} "
+            f"tensor on {like.device}, got {out.dtype} "
+            f"{tuple(out.shape)} on {out.device}"
+            f"{'' if out.is_contiguous() else ', not contiguous'}")
+    return out
 
 
 def raise_on(err: int, error_string: Callable[[int], bytes],

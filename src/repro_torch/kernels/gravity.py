@@ -19,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import math
 from functools import lru_cache
+from typing import Optional
 
 import torch
 
@@ -178,19 +179,21 @@ def build() -> ctypes.CDLL:
 
 def gravity_cuda(u_slots: torch.Tensor, h_slots: torch.Tensor, *,
                  ghost: int, subgrid: int, g_const: float = 1.0,
-                 n_iter: int = 8) -> torch.Tensor:
+                 n_iter: int = 8,
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch the gravity kernel on the current stream, one block per slot:
-    (n, F, P, P, P), (n,) -> (n, 4, S, S, S).  Counts each launch in
-    ``gravity_cuda.launches``."""
+    (n, F, P, P, P), (n,) -> (n, 4, S, S, S), into ``out`` if given (a
+    contiguous float32 tensor of that shape; checked).  Counts each launch
+    in ``gravity_cuda.launches``."""
     if u_slots.device.type != "cuda":
         raise ValueError(
             f"gravity_cuda needs a CUDA tensor, got one on {u_slots.device};"
             f" gravity_plain is the CPU path")
     check_kernel_args(u_slots, h_slots, ghost, subgrid, n_iter)
-    lib = build()
     n, s = u_slots.shape[0], subgrid
-    out = torch.empty((n, GRAVITY_FIELDS, s, s, s), dtype=torch.float32,
-                      device=u_slots.device)
+    out = _build.output(out, (n, GRAVITY_FIELDS, s, s, s), u_slots,
+                        "gravity_cuda")
+    lib = build()
     if n == 0:
         return out
     with torch.cuda.device(u_slots.device):

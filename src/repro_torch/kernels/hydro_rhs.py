@@ -281,19 +281,22 @@ def _ready(lib: ctypes.CDLL, device: torch.device) -> None:
 
 def hydro_rhs_cuda(u_slots: torch.Tensor, *, h: Optional[float] = None,
                    h_slots: Optional[torch.Tensor] = None, gamma: float,
-                   ghost: int, subgrid: int) -> torch.Tensor:
+                   ghost: int, subgrid: int,
+                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch the cluster kernel on the current stream: (n, F, P, P, P) ->
-    (n, F, S, S, S).  Counts each launch in ``hydro_rhs_cuda.launches``
-    (an empty bucket launches nothing)."""
+    (n, F, S, S, S), into ``out`` if given (a contiguous float32 tensor of
+    that shape, e.g. a slice of an output ring; checked).  Counts each
+    launch in ``hydro_rhs_cuda.launches`` (an empty bucket launches
+    nothing)."""
     if u_slots.device.type != "cuda":
         raise ValueError(
             f"hydro_rhs_cuda needs a CUDA tensor, got one on "
             f"{u_slots.device}; hydro_rhs_plain is the CPU path")
     check_kernel_args(u_slots, h, h_slots, ghost, subgrid)
-    lib = build()
     n, s = u_slots.shape[0], subgrid
-    out = torch.empty((n, N_FIELDS, s, s, s), dtype=torch.float32,
-                      device=u_slots.device)
+    out = _build.output(out, (n, N_FIELDS, s, s, s), u_slots,
+                        "hydro_rhs_cuda")
+    lib = build()
     if n == 0:
         return out
     with torch.cuda.device(u_slots.device):
@@ -307,6 +310,30 @@ def hydro_rhs_cuda(u_slots: torch.Tensor, *, h: Optional[float] = None,
     _build.raise_on(err, lib.hydro_rhs_error_string, "hydro_rhs kernel launch")
     hydro_rhs_cuda.launches += 1
     return out
+
+
+def hydro_rhs_prefix(ring: torch.Tensor, start: int, bucket: int, *,
+                     h: Optional[float] = None,
+                     h_slots: Optional[torch.Tensor] = None, gamma: float,
+                     ghost: int, subgrid: int,
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The kernel on a slot ring's filled prefix ``[start, start +
+    bucket)`` of ``ring`` ``(capacity, F, P, P, P)``, staging-free: the
+    prefix is ``ring.narrow(0, start, bucket)``, a contiguous view the
+    kernel reads in place (it takes any float address).  ``h_slots``, if
+    given, is the bucket's ``(bucket,)`` widths.  The counterpart of the
+    reference's ``hydro_rhs_pallas_prefix``; a CPU ring takes the plain
+    version."""
+    if not 0 <= start <= start + bucket <= ring.shape[0]:
+        raise ValueError(f"prefix [{start}, {start + bucket}) out of bounds "
+                         f"for a ring of {ring.shape[0]} slots")
+    u = ring.narrow(0, start, bucket)
+    kw = dict(h=h, h_slots=h_slots, gamma=gamma, ghost=ghost,
+              subgrid=subgrid)
+    if ring.device.type == "cuda":
+        return hydro_rhs_cuda(u, out=out, **kw)
+    res = hydro_rhs_plain(u, **kw)
+    return res if out is None else out.copy_(res)
 
 
 def occupancy(device: torch.device, subgrid: int,

@@ -15,7 +15,7 @@ from __future__ import annotations
 import ctypes
 import itertools
 from functools import lru_cache
-from typing import FrozenSet, Tuple
+from typing import FrozenSet, Optional, Tuple
 
 import torch
 
@@ -197,16 +197,18 @@ def hydro_reconstruct_cuda(u_slots: torch.Tensor) -> torch.Tensor:
 
 
 def hydro_flux_cuda(recon: torch.Tensor, *, h: float, gamma: float,
-                    ghost: int, subgrid: int) -> torch.Tensor:
+                    ghost: int, subgrid: int,
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch Flux on the current stream: (n, 13, 2, F, P, P, P) -> (n, F,
-    S, S, S) with a scalar width ``h``, one cluster of 3 CTAs per slot.
-    Counts each launch in ``hydro_flux_cuda.launches``."""
+    S, S, S) with a scalar width ``h``, one cluster of 3 CTAs per slot,
+    into ``out`` if given (a contiguous float32 tensor of that shape;
+    checked).  Counts each launch in ``hydro_flux_cuda.launches``."""
     _need_cuda(recon, "hydro_flux_cuda", "hydro_flux_plain")
     check_flux_args(recon, ghost, subgrid)
-    lib = build()
     n, s = recon.shape[0], subgrid
-    out = torch.empty((n, N_FIELDS, s, s, s), dtype=torch.float32,
-                      device=recon.device)
+    out = _build.output(out, (n, N_FIELDS, s, s, s), recon,
+                        "hydro_flux_cuda")
+    lib = build()
     if n == 0:
         return out
     with torch.cuda.device(recon.device):

@@ -7,7 +7,9 @@ serving engine step's time goes, per bucket.
       [--out results/profile_step.json]
 
 At the paper's grid (512 sub-grids of 8^3), for each strategy row (fused,
-s3 at caps 32 and 512, s2+s3 with 4 streams) it warms up, times 3 RK3
+s3 at caps 32 and 512, s2+s3 with 4 streams, s2 with 4 streams, s3 cap 32
+under host staging, and s3 cap 32 and s2+s3 4 x 32 through the
+epilogue-fused stages) it warms up, times 3 RK3
 steps on the host clock (synchronised), then profiles the same steps with
 ``torch.profiler`` and prints the host operations with the most self CPU
 time, the kernels with the most device time, the device time summed over
@@ -65,7 +67,15 @@ ROWS = (("fused", dict(strategy="fused")),
         ("s3 cap 32", dict(strategy="s3", max_aggregated=32)),
         ("s3 cap 512", dict(strategy="s3", max_aggregated=512)),
         ("s2+s3 4 streams cap 32", dict(strategy="s2+s3", n_executors=4,
-                                        max_aggregated=32)))
+                                        max_aggregated=32)),
+        ("s2 4 streams", dict(strategy="s2", n_executors=4)),
+        ("s3 cap 32 host staging", dict(strategy="s3", max_aggregated=32,
+                                        staging="host")),
+        ("s3 cap 32 fused stages", dict(strategy="s3", max_aggregated=32,
+                                        fuse_epilogue=True)),
+        ("s2+s3 4 streams cap 32 fused stages", dict(
+            strategy="s2+s3", n_executors=4, max_aggregated=32,
+            fuse_epilogue=True)))
 
 
 def _on_device(evt) -> bool:

@@ -23,7 +23,7 @@ from repro_torch.hydro.stepper import courant_dt, shock_radius, total_conserved
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--strategy", default="s2+s3",
-                    choices=("fused", "s3", "s2+s3"))
+                    choices=("fused", "s2", "s3", "s2+s3"))
     ap.add_argument("--executors", type=int, default=4)
     ap.add_argument("--max-aggregated", type=int, default=16)
     ap.add_argument("--subgrid", type=int, default=8)

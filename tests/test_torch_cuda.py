@@ -680,3 +680,125 @@ def test_grouped_gemm_kernel_rejects_without_falling_back(dev):
         gg.grouped_gemm_cuda(x, w[..., :20].contiguous(), gl)
     assert gg.grouped_gemm_cuda(x[:, :0].contiguous(), w, gl).shape == (
         2, 0, 24)
+
+
+# ---------------------------------------------------------------------------
+# staging: the slot ring on several streams, out=, s2, pinned host slabs
+# ---------------------------------------------------------------------------
+
+# ~2.5 ms at 2 GHz: longer than the host takes to fill two buckets of 8, so
+# a buffer comes round again while its last launch still waits to read it
+SLEEP_CYCLES = 5_000_000
+
+
+def _delayed(body):
+    """``body`` behind a ``torch.cuda._sleep`` on the stream it runs on, so
+    a launch reads its ring slots late."""
+    def slow(*args, out=None):
+        torch.cuda._sleep(SLEEP_CYCLES)
+        return body(*args, out=out)
+    return slow
+
+
+@pytest.mark.parametrize("watermark", [1, 10 ** 9])
+def test_ring_reuse_on_four_streams_bit_equal_to_fused(dev, watermark):
+    """64 sub-grids submitted one at a time, 3 waves in a row (each in
+    another order), through the slot ring on 4 delayed executor streams at
+    cap 8: a commit into a buffer that a launch still reads must wait for
+    it, so every slot equals the fused kernel's result bit for bit."""
+    from repro_torch.core import AggregationExecutor
+
+    h = 1.0 / 32
+    c = HydroConfig(levels=2)
+    subs = extract_subgrids(sedov_init(c, device=dev).u, 8, 3)
+    subs = torch.cat([random_slots(80, 32, dev), subs[:32]]).contiguous()
+    want = kern.hydro_rhs_cuda(subs, **dict(KW, h=h))
+    exe = AggregationExecutor(
+        _delayed(ops.hydro_batched_body(c, h)), AggregationConfig(
+            strategy="s2+s3", n_executors=4, max_aggregated=8,
+            launch_watermark=watermark), device=dev)
+    for w in range(3):
+        order = torch.roll(torch.arange(64, device=dev), 11 * w)
+        futs = [exe.submit(t) for t in subs[order].unbind(0)]
+        exe.flush()
+        got = torch.stack([f.result() for f in futs])
+        assert torch.equal(got, want[order]), w
+    assert exe.ring.writes == 192 and exe.ring.swaps >= 3
+
+
+def test_out_equals_allocating_form_and_is_checked(dev):
+    u = random_slots(81, 6, dev)
+    hs = torch.full((6,), 0.01, device=dev)
+    recon = split.hydro_reconstruct_cuda(u)
+    cases = (
+        (lambda out=None: kern.hydro_rhs_cuda(u, out=out, **KW), 5),
+        (lambda out=None: grav.gravity_cuda(u, hs, ghost=3, subgrid=8,
+                                            out=out), 4),
+        (lambda out=None: split.hydro_flux_cuda(recon, out=out, **KW), 5),
+    )
+    for call, fields in cases:
+        want = call()
+        ring = torch.full((8, fields, 8, 8, 8), float("nan"), device=dev)
+        assert call(out=ring[1:7]).data_ptr() == ring[1].data_ptr()
+        assert torch.equal(ring[1:7], want)
+        assert torch.isnan(ring[0]).all() and torch.isnan(ring[7]).all()
+        bad = (torch.empty(6, fields, 8, 8, 16, device=dev)[..., ::2],
+               torch.empty(5, fields, 8, 8, 8, device=dev),
+               torch.empty(6, fields, 8, 8, 8, device=dev,
+                           dtype=torch.float64),
+               torch.empty(6, fields, 8, 8, 8))
+        counts = (kern.hydro_rhs_cuda.launches, grav.gravity_cuda.launches,
+                  split.hydro_flux_cuda.launches)
+        for b in bad:
+            with pytest.raises(ValueError, match="out= must be"):
+                call(out=b)
+        assert counts == (kern.hydro_rhs_cuda.launches,
+                          grav.gravity_cuda.launches,
+                          split.hydro_flux_cuda.launches)
+
+
+def test_s2_bit_equal_to_fused(dev):
+    """``s2`` on 4 streams, one launch per task into the output ring, on
+    the uniform and the gravity scenario: equal to ``fused`` bit for bit,
+    3 launches per task and step."""
+    for make, cfg, fams in (
+            (lambda: UniformSedovScenario(CFG), CFG, ("hydro_rhs",)),
+            (lambda: GravityScenario(GCFG), GCFG.hydro,
+             ("hydro_rhs", "gravity"))):
+        u0 = sedov_init(cfg, device=dev).u
+        dt = courant_dt(u0, cfg)
+        want = StrategyRunner(make(), AggregationConfig(strategy="fused"),
+                              device=dev).rk3_step(u0, dt)
+        runner = StrategyRunner(make(), AggregationConfig(
+            strategy="s2", n_executors=4), device=dev)
+        runner.warmup()
+        got = runner.rk3_step(u0, dt)
+        torch.cuda.synchronize(dev)
+        assert torch.equal(got, want)
+        assert runner.launches_by_family == {
+            f: 3 * cfg.n_subgrids for f in fams}
+
+
+def test_pinned_slab_release_waits_for_its_copy(dev):
+    """Host staging of CPU tensors on the card: the bucket is stacked into
+    a pinned slab and copied over without blocking; with the copy held
+    back on the device, the slab is not handed out again until the copy's
+    event completes."""
+    from repro_torch.core import AggregationExecutor
+
+    exe = AggregationExecutor(lambda x, out=None: 2.0 * x, AggregationConfig(
+        staging="host", max_aggregated=4, launch_watermark=10 ** 9),
+        device=dev)
+    assert exe.buffers.pinned
+    xs = [torch.full((1000,), float(i)) for i in range(4)]
+    torch.cuda._sleep(100_000_000)             # hold the copy back ~50 ms
+    futs = [exe.submit(x) for x in xs]         # cap 4: launches here
+    assert exe.buffers.in_flight == 1
+    other = exe.buffers.acquire((4, 1000), torch.float32)
+    assert exe.buffers.allocations == 2 and other.is_pinned()
+    torch.cuda.synchronize(dev)
+    exe.flush()
+    slab = exe.buffers.acquire((4, 1000), torch.float32)
+    assert slab is not other and exe.buffers.reuses == 1
+    for i, f in enumerate(futs):
+        assert torch.equal(f.result().cpu(), torch.full((1000,), 2.0 * i))

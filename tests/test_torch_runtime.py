@@ -167,9 +167,14 @@ def test_gather_futures_mixes_ranges_and_tasks():
 
 
 def test_submissions_by_value_wait_in_roadmap():
+    """Per-task tensors, once in ROADMAP.md, now go through the slot ring
+    (tests/test_torch_staging.py holds the ring to the reference's); an
+    out-of-bounds range still raises."""
     exe = AggregationExecutor(_double, device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        exe.submit(torch.ones(3))
+    f = exe.submit(torch.ones(3))
+    exe.flush()
+    assert torch.equal(f.result(), torch.full((3,), 2.0))
+    assert exe.ring.writes == 1
     with pytest.raises(ValueError, match="out of bounds"):
         exe.submit_range((torch.ones(4, 1),), 2, 3)
 
@@ -191,13 +196,16 @@ def test_executor_pool_on_cpu_is_inline_and_round_robin():
 # ---------------------------------------------------------------------------
 
 def test_unported_config_values_raise_naming_roadmap():
-    for strategy in ("s1", "s2", "mixed", "s4", "sharded"):
+    for strategy in ("s1", "mixed", "s4", "sharded"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             AggregationConfig(strategy=strategy)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        AggregationConfig(staging="host")
-    with pytest.raises(TypeError):
-        AggregationConfig(fuse_epilogue=True)
+    for value in ("finite",):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            AggregationConfig(guard=value)
+    # s2, host staging and fused stages are ported now
+    AggregationConfig(strategy="s2", staging="host", fuse_epilogue=True)
+    with pytest.raises(ValueError, match="valid modes"):
+        AggregationConfig(staging="pinned")
     with pytest.raises(ValueError, match="valid strategies"):
         StrategyRunner(UniformSedovScenario(CFG),
                        AggregationConfig(strategy="bogus"), device="cpu")
