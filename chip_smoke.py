@@ -83,7 +83,24 @@
    family launching the greedy decomposition; ``s2`` declines
    ``fuse_epilogue``.  Each row prints host ms per step and launches per
    step beside the card's name and power limit.
-11. Holds the serving kernels (``csrc/decode_attention.cu``,
+11. The whole trajectory as one CUDA graph: ``rk3_trajectory`` under
+   ``fused``, 3 steps, on the main path, Path A (512 x 8^3 and
+   ``configs/gravity.CONFIG``), Path B, Path C (``amr_sedov_1024``, both
+   layouts) and Path D (512 x 8^3, 64 x 16^3): bit-equal to three
+   ``rk3_step`` calls at two dts with one capture, the caller's state
+   kept, an eager step after the capture equal to a fresh runner's, and
+   one replay's kernel launches (``torch.profiler``) equal to 3 x steps x
+   the path's launches per stage; prints host ms/step against the step
+   loop, device busy per step and peak memory.  Crash-consistent resume: a
+   child process runs the main path under ``s3`` cap 32 with a checkpoint
+   after each of 4 steps and dies by SIGKILL after checkpoint 2; the
+   resumed run equals an uninterrupted one bit for bit; so does Path C's
+   ``(uc, uf)`` under ``s2+s3``, resumed in process.  The captured AMR
+   exchange: Path C under ``s3``, ``s2+s3``, ``s2``, host staging and the
+   fused stages, each executor stream's launches delayed, bit-equal to
+   the eager exchange; prints the ops of one exchange and host ms/step,
+   captured and eager.
+12. Holds the serving kernels (``csrc/decode_attention.cu``,
    ``csrc/grouped_gemm.cu``) against their plain versions at the full-width
    qwen2-moe-a2.7b shapes in bf16 (8 requests, a 1,024-position cache with
    ragged lengths 1 to 1,024; 60 experts of (2048, 1408) and (1408, 2048)
@@ -94,7 +111,7 @@
    version, one PyTorch call and its bound, decode attention by CUDA-graph
    replays with L2 cold (as the serving path finds a layer's cache) and
    warm, beside SDPA at B 1, 2, 4 and 8 in the same call.
-12. The serving path: qwen2-moe-a2.7b at full width and depth in bf16
+13. The serving path: qwen2-moe-a2.7b at full width and depth in bf16
    (14.3 B weights from a seeded generator on the card) behind
    ``ServingEngine(max_batch=8, max_len=1024)`` on 12 requests (prompts of
    8-96 tokens and one of 640, 8-24 new tokens each): every request done,
@@ -109,7 +126,7 @@
    logits must stay within ``F32_LOGIT_TOL`` of the kernels'.
    Prints tokens/s, ms per launch by bucket, the cache gather and scatter
    copies' device time and peak memory.
-13. Prints one line naming the kernels, one JSON line of kernels, the card
+14. Prints one line naming the kernels, one JSON line of kernels, the card
    line, and as its last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the run exits non-zero and prints no result;
@@ -1864,6 +1881,470 @@ def phase_fused_stages(cfg, gcfg, acfg, dev, card, dts, results):
 
 
 # ---------------------------------------------------------------------------
+# the whole-trajectory CUDA graph, crash-consistent resume, the captured AMR
+# exchange
+# ---------------------------------------------------------------------------
+
+TRAJ_STEPS = 3
+# per s2 launch on an executor stream, ~1 ms: s2 launches 1,024 times per
+# stage on Path C, so its streams fall ~130 ms behind the host per stage
+S2_SLEEP_CYCLES = 2_000_000
+# each kernel wrapper's device kernel, as torch.profiler names it
+DEVICE_KERNELS = {"hydro_rhs_cuda": "hydro_rhs_cluster_kernel",
+                  "hydro_rhs_lane_cuda": "hydro_rhs_lane_kernel",
+                  "hydro_reconstruct_cuda": "reconstruct_kernel",
+                  "hydro_flux_cuda": "flux_cluster_kernel",
+                  "gravity_cuda": "gravity_kernel"}
+
+
+def zero_launch_counts():
+    from repro_torch.kernels import ops
+
+    for f in ops.CUDA_WRAPPERS:
+        f.launches = 0
+
+
+def nonzero_launch_counts():
+    from repro_torch.kernels import ops
+
+    return {k: v for k, v in ops.launch_counts().items() if v}
+
+
+def device_events(prof):
+    """(name, device us) of every kernel, copy and fill the trace holds."""
+    out = []
+    for e in prof.events():
+        if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA:
+            out.append((e.name, float(e.device_time_total)))
+    return out
+
+
+def profiled(fn):
+    """``fn()`` under ``torch.profiler`` (CPU and CUDA), synchronised;
+    returns (fn's result, the profile)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        sync()
+    return out, prof
+
+
+def host_ms(fn, steps, reps=3):
+    """Best of ``reps`` host-clock times of ``fn()`` (synchronised before
+    and after), per step."""
+    best = None
+    for _ in range(reps):
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        t = (time.perf_counter() - t0) * 1e3 / steps
+        best = t if best is None else min(best, t)
+    return best
+
+
+def trajectory_paths(cfg, cfg16, gravity_512, gravity_64, acfg, dev):
+    """(label, scenario factory, initial state, dt, launches per RK stage
+    by wrapper) for the main path and Paths A-D at full width."""
+    import functools
+
+    from repro_torch.core import (
+        AMRSedovScenario, GravityScenario, UniformSedovScenario,
+    )
+    from repro_torch.hydro.state import amr_sedov_init, sedov_init
+    from repro_torch.hydro.stepper import amr_courant_dt, courant_dt
+    from repro_torch.kernels import ops
+
+    u0 = sedov_init(cfg, device=dev).u
+    dt = courant_dt(u0, cfg)
+    h = cfg.domain / u0.shape[-1]
+    u16 = sedov_init(cfg16, device=dev).u
+    h16 = cfg16.domain / u16.shape[-1]
+    g64 = sedov_init(gravity_64.hydro, device=dev).u
+    st = amr_sedov_init(acfg, device=dev)
+    amr, amr_dt = (st.uc, st.uf), amr_courant_dt(st.uc, st.uf, acfg)
+    paths = [
+        ("main path", lambda: UniformSedovScenario(cfg), u0, dt,
+         {"hydro_rhs_cuda": 1}),
+        ("Path A (gravity, 512 x 8^3)", lambda: GravityScenario(gravity_512),
+         u0, dt, {"hydro_rhs_cuda": 1, "gravity_cuda": 1}),
+        ("Path A (configs/gravity.CONFIG)",
+         lambda: GravityScenario(gravity_64), g64,
+         courant_dt(g64, gravity_64.hydro),
+         {"hydro_rhs_cuda": 1, "gravity_cuda": 1}),
+        ("Path B (split pair)", lambda: UniformSedovScenario(
+            cfg, batched_body=ops.hydro_split_batched_body(cfg, h)), u0, dt,
+         {"hydro_reconstruct_cuda": 1, "hydro_flux_cuda": 1}),
+    ]
+    for layout, wrapper in (("slot_grid", "hydro_rhs_cuda"),
+                            ("slot_lane", "hydro_rhs_lane_cuda")):
+        paths.append((f"Path C ({acfg.name}, {layout})",
+                      lambda layout=layout: AMRSedovScenario(
+                          acfg, hydro_body=functools.partial(
+                              ops.level_batched_body, acfg.gamma, acfg.ghost,
+                              layout=layout)), amr, amr_dt, {wrapper: 2}))
+    for c, u, hh in ((cfg, u0, h), (cfg16, u16, h16)):
+        paths.append((
+            f"Path D (lane, {c.n_subgrids} x {c.subgrid}^3)",
+            lambda c=c, hh=hh: UniformSedovScenario(
+                c, batched_body=ops.hydro_batched_body(c, hh,
+                                                       layout="slot_lane")),
+            u, dt if c is cfg else courant_dt(u16, cfg16),
+            {"hydro_rhs_lane_cuda": 1}))
+    return paths
+
+
+def clone_state(state):
+    return tuple(u.clone() for u in state) if isinstance(state, tuple) \
+        else state.clone()
+
+
+def phase_trajectory(paths, dev, card, results):
+    """``rk3_trajectory`` under ``fused`` on each path: ONE CUDA graph per
+    trajectory, bit-equal to the ``rk3_step`` loop at two dts with no
+    second capture; the caller's state and an earlier result unchanged by
+    a later call; an eager step after the capture equal to a fresh
+    runner's; one replay's device kernels (``torch.profiler``) equal to 3
+    x steps x the path's launches per stage; host ms/step against the
+    loop, device busy per step and peak memory."""
+    from repro_torch.configs.base import AggregationConfig
+    from repro_torch.core import StrategyRunner
+
+    fused = AggregationConfig(strategy="fused")
+    n = TRAJ_STEPS
+    table = {}
+    for label, make, u0, dt, per_stage in paths:
+        def loop(runner, d, u=u0):
+            for _ in range(n):
+                u = runner.rk3_step(u, d)
+            return u
+        ref = StrategyRunner(make(), fused, device=dev)
+        ref.warmup()
+        dt2 = dt * 0.5
+        want, want2 = loop(ref, dt), loop(ref, dt2)
+        before = clone_state(u0)
+        runner = StrategyRunner(make(), fused, device=dev)
+        runner.warmup()
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        got = runner.rk3_trajectory(u0, dt, n)
+        sync()
+        capture_s = time.perf_counter() - t0
+        counted = nonzero_launch_counts()
+        peak_mib = (torch.cuda.max_memory_allocated() - mem0) / 2 ** 20
+        # the wrappers count the warm step (one RK3 step) and the capture
+        check(counted == {k: 3 * (n + 1) * v for k, v in per_stage.items()},
+              f"trajectory {label}: the wrappers counted {counted} over the "
+              f"warm step and the capture")
+        check(states_equal(got, want), f"trajectory {label}: {n} steps in "
+              f"one graph differ from the rk3_step loop")
+        got2 = runner.rk3_trajectory(u0, dt2, n)
+        check(states_equal(got2, want2), f"trajectory {label}: the graph "
+              f"at a second dt differs from its loop")
+        check(len(runner.trajectory_graphs) == 1,
+              f"trajectory {label}: {len(runner.trajectory_graphs)} graphs "
+              f"for one shape")
+        check(runner.stats["kernel_launches"] == 2
+              and runner.stats["iterations"] == 6 * n,
+              f"trajectory {label}: stats {runner.stats}")
+        check(states_equal(u0, before) and states_equal(got, want),
+              f"trajectory {label}: a replay changed the caller's state or "
+              f"an earlier result")
+        graph = next(iter(runner.trajectory_graphs.values()))
+        want_launches = {k: 3 * n * v for k, v in per_stage.items()}
+        check(graph.launches == want_launches,
+              f"trajectory {label}: captured launches {graph.launches}, "
+              f"want {want_launches}")
+        fresh = StrategyRunner(make(), fused, device=dev)
+        check(states_equal(runner.rk3_step(u0, dt), fresh.rk3_step(u0, dt)),
+              f"trajectory {label}: an eager step after the capture differs "
+              f"from a fresh runner's (a cache made during the capture?)")
+        _, prof = profiled(lambda: runner.rk3_trajectory(u0, dt, n))
+        events = device_events(prof)
+        by_kernel = {w: sum(1 for name, _ in events
+                            if DEVICE_KERNELS[w] in name)
+                     for w in want_launches}
+        check(by_kernel == want_launches,
+              f"trajectory {label}: one replay launched {by_kernel} on the "
+              f"device, want {want_launches}")
+        _, prof_loop = profiled(lambda: loop(ref, dt))
+        loop_events = device_events(prof_loop)
+        row = dict(
+            capture_s=capture_s, peak_mib=peak_mib,
+            launches_per_replay=graph.launches,
+            device_ops_per_step=len(events) / n,
+            loop_device_ops_per_step=len(loop_events) / n,
+            device_busy_ms_per_step=sum(us for _, us in events) / 1e3 / n,
+            loop_device_busy_ms_per_step=sum(
+                us for _, us in loop_events) / 1e3 / n,
+            ms_per_step=host_ms(lambda: runner.rk3_trajectory(u0, dt, n), n),
+            loop_ms_per_step=host_ms(lambda: loop(ref, dt), n))
+        print(f"trajectory ({card}): {label}, {n} steps as one CUDA graph: "
+              f"bit-equal to the rk3_step loop at two dts, one capture "
+              f"({capture_s:.2f} s, peak {peak_mib:.1f} MiB over the "
+              f"state), the caller's state kept, an eager step after it "
+              f"equal to a fresh runner's; one replay: "
+              f"{row['launches_per_replay']} kernel launches (the wrappers "
+              f"counted {counted} at the warm step and the capture), "
+              f"{row['device_ops_per_step']:g} device ops/step (loop "
+              f"{row['loop_device_ops_per_step']:g}), device busy "
+              f"{row['device_busy_ms_per_step']:.3f} ms/step (loop "
+              f"{row['loop_device_busy_ms_per_step']:.3f}); host "
+              f"{row['ms_per_step']:.3f} ms/step against the loop's "
+              f"{row['loop_ms_per_step']:.3f} (synchronised, best of 3)",
+              flush=True)
+        table[label] = row
+        del runner, ref, fresh
+    results["trajectory"] = dict(card=card, steps=n, runs=table)
+    return table
+
+
+# a child process that runs the main path under s3 cap 32 with a checkpoint
+# after every step and kills itself (SIGKILL, no clean-up) after checkpoint
+# 2; argv: checkpoint directory
+RESUME_CHILD = """
+import os, signal, sys
+import torch
+from repro_torch.configs.base import AggregationConfig
+from repro_torch.configs.sedov import CONFIG
+from repro_torch.core import StrategyRunner, UniformSedovScenario
+from repro_torch.hydro.state import sedov_init
+from repro_torch.hydro.stepper import courant_dt
+
+u0 = sedov_init(CONFIG, device="cuda").u
+runner = StrategyRunner(UniformSedovScenario(CONFIG), AggregationConfig(
+    strategy="s3", max_aggregated=32), device="cuda")
+runner.warmup()
+save = runner._checkpoint
+
+
+def save_then_die(ckpt_dir, step, *args):
+    save(ckpt_dir, step, *args)
+    if step == 2:
+        os.kill(os.getpid(), signal.SIGKILL)
+
+
+runner._checkpoint = save_then_die
+runner.run(u0, courant_dt(u0, CONFIG), 4, checkpoint_every=1,
+           ckpt_dir=sys.argv[1])
+"""
+
+
+class Crash(Exception):
+    pass
+
+
+def phase_resume(cfg, acfg, dev, card, results):
+    """A child process runs the main path under ``s3`` cap 32 for 4 steps
+    with a checkpoint after each and dies by SIGKILL after checkpoint 2;
+    the parent resumes and must equal an uninterrupted run bit for bit.
+    Then the same in one process for the AMR ``(uc, uf)`` state under
+    ``s2+s3`` (the run stopped by an exception after checkpoint 2)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.configs.base import AggregationConfig
+    from repro_torch.core import (
+        AMRSedovScenario, StrategyRunner, UniformSedovScenario,
+    )
+    from repro_torch.hydro.state import amr_sedov_init, sedov_init
+    from repro_torch.hydro.stepper import amr_courant_dt, courant_dt
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_resume_", dir=HERE)
+    try:
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [os.path.join(HERE, "src")]
+            + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+        ckpt = os.path.join(work, "main")
+        t0 = time.perf_counter()
+        child = subprocess.run([sys.executable, "-c", RESUME_CHILD, ckpt],
+                               env=env, capture_output=True, text=True,
+                               timeout=300)
+        child_s = time.perf_counter() - t0
+        check(child.returncode == -9, f"resume: the child exited "
+              f"{child.returncode}, not by SIGKILL:\n{child.stderr[-2000:]}")
+        check(latest_step(ckpt) == 2,
+              f"resume: latest checkpoint {latest_step(ckpt)}, want 2")
+        agg = AggregationConfig(strategy="s3", max_aggregated=32)
+        u0 = sedov_init(cfg, device=dev).u
+        whole = StrategyRunner(UniformSedovScenario(cfg), agg, device=dev)
+        whole.warmup()
+        want = whole.run(u0, courant_dt(u0, cfg), 4)
+        runner = StrategyRunner(UniformSedovScenario(cfg), agg, device=dev)
+        zero_launch_counts()
+        got = runner.resume(ckpt, u0)
+        sync()
+        counted = nonzero_launch_counts()
+        check(torch.equal(got, want), "resume: the main path resumed after "
+              "SIGKILL differs from an uninterrupted run")
+        # warmup's bucket ladder, then 2 steps of 3 x 16 buckets of 32
+        check(counted.get("hydro_rhs_cuda", 0) >= 2 * 3 * 16
+              and set(counted) == {"hydro_rhs_cuda"},
+              f"resume: kernel launches {counted}")
+        check(runner.stats["resumed_from_step"] == 2
+              and runner.stats["recovery_steps"] == 2,
+              f"resume: stats {runner.stats}")
+        check(latest_step(ckpt) == 4, "resume: no checkpoint of step 4")
+        print(f"resume ({card}): main path, s3 cap 32, 4 steps, a "
+              f"checkpoint each: the child died by SIGKILL after checkpoint "
+              f"2 ({child_s:.1f} s); resumed from step 2 (2 recovery "
+              f"steps), bit-identical to an uninterrupted run", flush=True)
+
+        st = amr_sedov_init(acfg, device=dev)
+        amr0 = (st.uc, st.uf)
+        dt = amr_courant_dt(st.uc, st.uf, acfg)
+        agg = AggregationConfig(strategy="s2+s3", n_executors=4,
+                                max_aggregated=32)
+        want = StrategyRunner(AMRSedovScenario(acfg), agg,
+                              device=dev).run(amr0, dt, 3)
+        ckpt = os.path.join(work, "amr")
+        crashing = StrategyRunner(AMRSedovScenario(acfg), agg, device=dev)
+        save = crashing._checkpoint
+
+        def save_then_crash(ckpt_dir, step, *args):
+            save(ckpt_dir, step, *args)
+            if step == 2:
+                raise Crash
+        crashing._checkpoint = save_then_crash
+        try:
+            crashing.run(amr0, dt, 3, checkpoint_every=1, ckpt_dir=ckpt)
+            check(False, "resume: the AMR run did not stop")
+        except Crash:
+            pass
+        runner = StrategyRunner(AMRSedovScenario(acfg), agg, device=dev)
+        got = runner.resume(ckpt, amr0)
+        check(states_equal(got, want), "resume: the AMR (uc, uf) run "
+              "resumed from step 2 differs from an uninterrupted run")
+        check(runner.stats["resumed_from_step"] == 2
+              and runner.stats["recovery_steps"] == 1,
+              f"resume: AMR stats {runner.stats}")
+        print(f"resume ({card}): Path C ({acfg.name}), s2+s3 4 x 32, 3 "
+              f"steps, stopped after checkpoint 2: resumed (uc, uf) "
+              f"bit-identical to an uninterrupted run", flush=True)
+        results["resume"] = dict(card=card, child_s=child_s)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def exchange_ops(scenario, state):
+    """Host ops (top-level aten calls) and device ops in one exchange."""
+    _, prof = profiled(lambda: scenario.exchange(*state))
+    host = [e for e in prof.events()
+            if e.name.startswith("aten::") and e.cpu_parent is None]
+    return len(host), len(device_events(prof))
+
+
+def phase_amr_exchange(acfg, dev, card, results):
+    """Path C (slot_grid) at cap 32 under ``s3``, ``s2+s3``, ``s2``, host
+    staging and the fused stages, each executor stream's launches delayed
+    by ``torch.cuda._sleep``: the captured exchange (its outputs
+    overwritten at every stage) bit-equal to the eager one.  Then the ops
+    of one exchange, and host ms/step undelayed, captured against eager."""
+    from repro_torch.configs.base import AggregationConfig
+    from repro_torch.core import AMRSedovScenario, StrategyRunner
+    from repro_torch.hydro.state import amr_sedov_init
+    from repro_torch.hydro.stepper import amr_courant_dt
+    from repro_torch.kernels import ops
+
+    st = amr_sedov_init(acfg, device=dev)
+    state = (st.uc, st.uf)
+    dt = amr_courant_dt(st.uc, st.uf, acfg)
+
+    def make(capture, cycles=None):
+        def body(s):
+            b = ops.level_batched_body(acfg.gamma, acfg.ghost, s)
+            if cycles is None:
+                return b
+
+            def slow(*args, out=None):
+                torch.cuda._sleep(cycles)
+                return b(*args, out=out)
+            return slow
+        return AMRSedovScenario(acfg, hydro_body=body,
+                                capture_exchange=capture)
+
+    rows = (("s3 cap 32", dict(strategy="s3", max_aggregated=32), 2,
+             SLEEP_CYCLES),
+            ("s2+s3 4 streams cap 32", dict(strategy="s2+s3", n_executors=4,
+                                            max_aggregated=32), 2,
+             SLEEP_CYCLES),
+            ("s2 4 streams", dict(strategy="s2", n_executors=4), 1,
+             S2_SLEEP_CYCLES),
+            ("s3 cap 32 host staging", dict(strategy="s3", max_aggregated=32,
+                                            staging="host"), 2,
+             SLEEP_CYCLES),
+            ("s3 cap 32 fused stages", dict(strategy="s3", max_aggregated=32,
+                                            fuse_epilogue=True), 2,
+             SLEEP_CYCLES))
+    table = {}
+    for label, kw, steps, cycles in rows:
+        outs = {}
+        for capture in (True, False):
+            sc = make(capture, cycles)
+            runner = StrategyRunner(sc, AggregationConfig(**kw), device=dev)
+            runner.warmup()
+            u = state
+            zero_launch_counts()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                u = runner.rk3_step(u, dt)
+            sync()
+            outs[capture] = (u, (time.perf_counter() - t0) * 1e3 / steps)
+            check(set(nonzero_launch_counts()) == {"hydro_rhs_cuda"},
+                  f"amr_exchange {label}: kernel launches "
+                  f"{nonzero_launch_counts()}")
+            check(bool(sc.exchange_graphs) == capture,
+                  f"amr_exchange {label}: capture {capture}, graphs "
+                  f"{len(sc.exchange_graphs)}")
+        check(states_equal(outs[True][0], outs[False][0]),
+              f"amr_exchange {label}: the captured exchange differs from "
+              f"the eager one with the executor streams delayed")
+        print(f"amr_exchange ({card}): {acfg.name}, {label}, {steps} "
+              f"step(s), each launch delayed {cycles} cycles: the captured "
+              f"exchange equals the eager one bit for bit ({outs[True][1]:.1f}"
+              f" / {outs[False][1]:.1f} ms/step delayed)", flush=True)
+        table[label] = dict(steps=steps, sleep_cycles=cycles,
+                            delayed_ms_per_step=outs[True][1],
+                            eager_delayed_ms_per_step=outs[False][1])
+
+    sc, eager = make(True), make(False)
+    sc.exchange(*state)
+    ops_captured, ops_eager = exchange_ops(sc, state), exchange_ops(eager,
+                                                                    state)
+    host = {}
+    for label, kw in (("fused", dict(strategy="fused")),
+                      ("s3 cap 32", dict(strategy="s3", max_aggregated=32)),
+                      ("s2+s3 4 streams cap 32", dict(
+                          strategy="s2+s3", n_executors=4,
+                          max_aggregated=32))):
+        for capture in (True, False):
+            runner = StrategyRunner(make(capture), AggregationConfig(**kw),
+                                    device=dev)
+            runner.warmup()
+            runner.rk3_step(state, dt)
+            host[(label, capture)] = 1e3 * min(
+                runner.time_step(state, dt, STEPS) for _ in range(3))
+        print(f"amr_exchange ({card}): {acfg.name} slot_grid, {label}: "
+              f"{host[(label, True)]:.3f} ms/step with the exchange "
+              f"captured, {host[(label, False)]:.3f} eager (host, "
+              f"synchronised, best of 3)", flush=True)
+    print(f"amr_exchange ({card}): one exchange (one per RK stage): eager {ops_eager[0]} host ops and "
+          f"{ops_eager[1]} device ops; captured {ops_captured[0]} host ops "
+          f"and {ops_captured[1]} device ops", flush=True)
+    results["amr_exchange"] = dict(
+        card=card, delayed=table,
+        exchange_ops=dict(eager=ops_eager, captured=ops_captured),
+        host_ms_per_step={f"{k[0]} {'captured' if k[1] else 'eager'}": v
+                          for k, v in host.items()})
+
+
+# ---------------------------------------------------------------------------
 # the serving path: decode attention, the grouped GEMM, qwen2-moe-a2.7b
 # ---------------------------------------------------------------------------
 
@@ -2562,6 +3043,14 @@ def main(argv=None):
     phase_s2(CONFIG, gravity_512, amr_1024, dev, card, dts, results)
     phase_fused_stages(CONFIG, gravity_512, amr_1024, dev, card, dts,
                        results)
+
+    # the whole trajectory as one CUDA graph, crash-consistent resume and
+    # the captured AMR exchange
+    phase_trajectory(trajectory_paths(CONFIG, CONFIG_16, gravity_512,
+                                      GRAVITY_CONFIG, amr_1024, dev),
+                     dev, card, results)
+    phase_resume(CONFIG, amr_1024, dev, card, results)
+    phase_amr_exchange(amr_1024, dev, card, results)
 
     # the serving kernels, then the serving path (qwen2-moe-a2.7b)
     phase_lm_kernels(dev, card, results)

@@ -10,6 +10,8 @@ from repro_torch.core.scenario import (  # noqa: F401
     AMRSedovScenario, GravityScenario, KernelFamily, Scenario,
     TaskPopulation, UniformSedovScenario,
 )
+from repro_torch.core.graphs import CaptureError, CapturedCall  # noqa: F401
 from repro_torch.core.strategies import (  # noqa: F401
-    StrategyRunner, available_strategies, s2,
+    AMRStrategyRunner, HydroStrategyRunner, StrategyRunner,
+    available_strategies, s2,
 )

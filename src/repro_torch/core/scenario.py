@@ -29,6 +29,7 @@ import torch
 from repro_torch.configs.base import (
     AMRHydroConfig, GravityHydroConfig, HydroConfig,
 )
+from repro_torch.core.graphs import CapturedCall
 from repro_torch.hydro.state import (
     assemble_global, extract_subgrids, extract_subgrids_multilevel,
     sync_coarse,
@@ -394,15 +395,22 @@ class AMRSedovScenario(Scenario):
     Each level's family derives a stage twin, ``hydro_rhs_s<S>+epi``, with
     the per-task width riding through the body; the stage update reads the
     raw (un-synced) level interiors, as the generic combine does.
+
+    On the card the two-level exchange (:meth:`exchange`, dozens of small
+    eager ops) is one CUDA graph per state shape unless
+    ``capture_exchange=False``.
     """
 
     LEVELS = ("coarse", "fine")
 
     def __init__(self, cfg: AMRHydroConfig, bc: str = "outflow",
-                 hydro_body: Optional[Callable[[int], Callable]] = None):
+                 hydro_body: Optional[Callable[[int], Callable]] = None,
+                 capture_exchange: bool = True):
         self.cfg = cfg
         self.bc = bc
         self.name = cfg.name
+        self.capture_exchange = capture_exchange
+        self.exchange_graphs: Dict[Any, CapturedCall] = {}
         self._dtype = getattr(torch, cfg.dtype)
         self._subgrid = {"coarse": cfg.coarse_subgrid,
                          "fine": cfg.fine_subgrid}
@@ -439,10 +447,32 @@ class AMRSedovScenario(Scenario):
             self._h_vec[key] = h
         return h
 
+    def _exchange_eager(self, uc, uf):
+        return extract_subgrids_multilevel(uc, uf, self.cfg, self.bc)
+
+    def exchange(self, uc: torch.Tensor, uf: torch.Tensor):
+        """The two-level ghost exchange, ``(subs_coarse, subs_fine)``
+        (``extract_subgrids_multilevel``).  On the card, one CUDA graph per
+        state shape with static ``(uc, uf)`` inputs and static outputs,
+        bit-equal to the eager exchange (inside another capture, e.g. a
+        trajectory's, the exchange is captured with it).  The outputs are
+        the graph's, overwritten by the next call: a launch that reads them
+        on another stream must be ordered before that call on the caller's
+        stream, as every strategy's wave is (``ExecutorPool.join`` before
+        ``assemble``)."""
+        if (not self.capture_exchange or uc.device.type != "cuda"
+                or torch.cuda.is_current_stream_capturing()):
+            return self._exchange_eager(uc, uf)
+        key = (uc.device, tuple(uc.shape), tuple(uf.shape), uc.dtype)
+        graph = self.exchange_graphs.get(key)
+        if graph is None:
+            graph = CapturedCall(self._exchange_eager, (uc, uf), uc.device)
+            self.exchange_graphs[key] = graph
+        return graph(uc, uf)
+
     def populations(self, state):
         uc, uf = state
-        subs = dict(zip(self.LEVELS, extract_subgrids_multilevel(
-            uc, uf, self.cfg, self.bc)))
+        subs = dict(zip(self.LEVELS, self.exchange(uc, uf)))
         return tuple(
             TaskPopulation(self._kernel[lvl],
                            (subs[lvl], self.h_vec(lvl, uc.device)))
@@ -478,8 +508,7 @@ class AMRSedovScenario(Scenario):
 
     def stage_populations(self, u0, v, dt, c0, c1):
         uc, uf = v
-        subs = dict(zip(self.LEVELS, extract_subgrids_multilevel(
-            uc, uf, self.cfg, self.bc)))
+        subs = dict(zip(self.LEVELS, self.exchange(uc, uf)))
         v_int = self._interiors(v)
         u0_int = _cached_u0_interiors(self, u0, v, v_int, self._interiors)
         cache = _coeff_cache(self)

@@ -17,9 +17,12 @@ from repro_torch.core.strategies.base import (
     register_strategy,
 )
 from repro_torch.core.strategies import fused, s2, s3  # noqa: F401 (register)
-from repro_torch.core.strategies.runner import StrategyRunner
+from repro_torch.core.strategies.runner import (
+    AMRStrategyRunner, HydroStrategyRunner, StrategyRunner,
+)
 
 __all__ = [
     "RunContext", "Strategy", "available_strategies", "get_strategy_class",
-    "register_strategy", "StrategyRunner", "s2",
+    "register_strategy", "StrategyRunner", "s2", "AMRStrategyRunner",
+    "HydroStrategyRunner",
 ]

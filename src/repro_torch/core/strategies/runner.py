@@ -3,10 +3,12 @@
 The runner owns the executor pool (one CUDA stream per executor on the
 card), the aggregation executor with every scenario family registered
 (strategies that use one), the stats, and the scenario-agnostic loops:
-RK3 stepping, warmup and per-step timing.  A state is a tensor, or a tuple
-of tensors (one per AMR level) combined level by level.  The device
-defaults to the card and a missing card raises; ``device="cpu"`` runs the
-plain PyTorch path.
+RK3 stepping, warmup, per-step timing, whole trajectories (one
+CUDA graph per trajectory under ``fused`` on the card) and the
+crash-consistent ``run`` / ``resume`` (``repro_torch.checkpoint``).  A
+state is a tensor, or a tuple of tensors (one per AMR level) combined
+level by level.  The device defaults to the card and a missing card
+raises; ``device="cpu"`` runs the plain PyTorch path.
 
 With ``AggregationConfig(fuse_epilogue=True)`` each RK stage runs through
 the scenario's epilogue-fused stage families (``Strategy.run_stage``),
@@ -16,14 +18,23 @@ the strategy has a ``run_stage`` and staging is on the device.
 from __future__ import annotations
 
 import time
+import warnings
 from typing import Any, Callable, Dict, Optional
 
 import torch
 
-from repro_torch.configs.base import AggregationConfig
+from repro_torch.checkpoint.ckpt import (
+    latest_step, restore_checkpoint, save_checkpoint,
+)
+from repro_torch.configs.base import (
+    AggregationConfig, AMRHydroConfig, HydroConfig,
+)
 from repro_torch.core.aggregation import AggregationExecutor
 from repro_torch.core.executor import ExecutorPool
-from repro_torch.core.scenario import Scenario
+from repro_torch.core.graphs import CapturedCall
+from repro_torch.core.scenario import (
+    AMRSedovScenario, Scenario, UniformSedovScenario,
+)
 from repro_torch.core.strategies.base import (
     RunContext, Strategy, get_strategy_class,
 )
@@ -35,6 +46,21 @@ def per_level(fn: Callable, *states):
     if isinstance(states[0], tuple):
         return tuple(fn(*levels) for levels in zip(*states))
     return fn(*states)
+
+
+def shu_osher(rhs: Callable, state, dt):
+    """One Shu-Osher TVD-RK3 combine over ``rhs``, before
+    ``finalize_step``: each level combined in the expression order of
+    ``hydro.stepper``'s ``rk3_step`` and ``amr_rk3_step``."""
+    l0 = rhs(state)
+    u1 = per_level(lambda u, l: u + dt * l, state, l0)
+    l1 = rhs(u1)
+    u2 = per_level(lambda u, a, l: 0.75 * u + 0.25 * (a + dt * l),
+                   state, u1, l1)
+    l2 = rhs(u2)
+    return per_level(
+        lambda u, a, l: (1.0 / 3.0) * u + (2.0 / 3.0) * (a + dt * l),
+        state, u2, l2)
 
 
 class StrategyRunner:
@@ -70,6 +96,9 @@ class StrategyRunner:
         self._fuse_epilogue = (agg.fuse_epilogue
                                and bool(scenario.stage_families())
                                and has_stage and agg.staging != "host")
+        # (n_steps, level shapes and dtypes, dt dtype) -> the trajectory's
+        # CUDA graph (``fused`` on the card)
+        self.trajectory_graphs: Dict[Any, CapturedCall] = {}
 
     @property
     def fuse_epilogue(self) -> bool:
@@ -137,16 +166,7 @@ class StrategyRunner:
             out = self._rk3_step_fused_stages(state, dt)
             if out is not None:
                 return out
-        l0 = self.rhs(state)
-        u1 = per_level(lambda u, l: u + dt * l, state, l0)
-        l1 = self.rhs(u1)
-        u2 = per_level(lambda u, a, l: 0.75 * u + 0.25 * (a + dt * l),
-                       state, u1, l1)
-        l2 = self.rhs(u2)
-        out = per_level(
-            lambda u, a, l: (1.0 / 3.0) * u + (2.0 / 3.0) * (a + dt * l),
-            state, u2, l2)
-        return self.scenario.finalize_step(out)
+        return self.scenario.finalize_step(shu_osher(self.rhs, state, dt))
 
     def _rk3_step_fused_stages(self, state, dt):
         """RK3 through the epilogue-fused stage path: each Shu-Osher stage
@@ -165,13 +185,155 @@ class StrategyRunner:
         self.stats["iterations"] += 3
         return sc.finalize_step(out)
 
-    def time_step(self, state, dt, n_steps: int = 1) -> float:
+    # -- whole trajectories ------------------------------------------------
+    def _trajectory_impl(self, n_steps: int, state, dt):
+        sc = self.scenario
+        for _ in range(n_steps):
+            state = sc.finalize_step(shu_osher(sc.reference_rhs, state, dt))
+        return state
+
+    def rk3_trajectory(self, state, dt, n_steps: int):
+        """Run ``n_steps`` RK3 steps of one ``dt``.  Under ``fused`` every
+        stage is the scenario's ``reference_rhs`` and the generic combine
+        (whatever ``fuse_epilogue`` says), and the whole trajectory is ONE
+        launch: on the card one CUDA graph per ``(n_steps, state shapes and
+        dtypes, dt's dtype)``, captured at the first call
+        (:class:`~repro_torch.core.graphs.CapturedCall`) and replayed once
+        per call, the state and ``dt`` copied into its static inputs, so
+        one graph serves any ``dt``; on the CPU the same steps eagerly.
+        The result is a new state: the caller's stays as it was, and so
+        does the result across later calls.  A step that cannot be
+        captured raises :class:`~repro_torch.core.graphs.CaptureError`.
+
+        ``stats["kernel_launches"]`` counts the trajectory as one launch
+        and ``stats["iterations"]`` its 3 x ``n_steps`` iterations; the
+        kernel wrappers' counters advance at the capture only (the graph's
+        ``launches`` holds one replay's).  Other strategies loop over
+        ``rk3_step``."""
+        if self.strategy != "fused":
+            for _ in range(n_steps):
+                state = self.rk3_step(state, dt)
+            return state
+        self._check_state(state)
+        if self.device.type == "cuda":
+            out = self._trajectory_graph(state, dt, n_steps)
+        else:
+            out = self._trajectory_impl(n_steps, state, dt)
+        self.stats["kernel_launches"] += 1
+        self.stats["iterations"] += 3 * n_steps
+        return out
+
+    def _trajectory_graph(self, state, dt, n_steps: int):
+        tuple_state = isinstance(state, tuple)
+        levels = state if tuple_state else (state,)
+        key = (n_steps, tuple((tuple(u.shape), u.dtype) for u in levels),
+               dt.dtype if isinstance(dt, torch.Tensor) else float)
+        graph = self.trajectory_graphs.get(key)
+        if graph is None:
+            def steps(n):        # (*levels, dt) -> state after n steps
+                return lambda *a: self._trajectory_impl(
+                    n, tuple(a[:-1]) if tuple_state else a[0], a[-1])
+            graph = CapturedCall(steps(n_steps), levels + (dt,),
+                                 self.device, warm=steps(1))
+            self.trajectory_graphs[key] = graph
+        return per_level(torch.clone, graph(*levels, dt))
+
+    # -- crash-consistent runs ---------------------------------------------
+    def run(self, state, dt, n_steps: int, *, checkpoint_every: int = 0,
+            ckpt_dir: Optional[str] = None, start_step: int = 0):
+        """RK3 steps ``start_step .. n_steps - 1``, saving a checkpoint
+        (``repro_torch.checkpoint``) after every ``checkpoint_every``-th
+        completed step and after the last one, when ``ckpt_dir`` is given.
+        A process killed mid-run loses at most ``checkpoint_every - 1``
+        steps: :meth:`resume` continues from the latest checkpoint bit for
+        bit."""
+        cadence = max(0, int(checkpoint_every)) if ckpt_dir else 0
+        for step in range(int(start_step), int(n_steps)):
+            state = self.rk3_step(state, dt)
+            done = step + 1
+            if cadence and (done % cadence == 0 or done == n_steps):
+                self._checkpoint(ckpt_dir, done, state, dt, n_steps, cadence)
+        return state
+
+    def _checkpoint(self, ckpt_dir: str, step: int, state, dt,
+                    n_steps: int, checkpoint_every: int) -> None:
+        """Synchronise, then save ``state`` with the run's meta.  ``dt`` is
+        read on the host here only (a 0-dim device tensor stays on the card
+        between saves).  The reference also saves its tune store here; the
+        port's waits for the tune store itself (ROADMAP.md, Queue 1 item
+        10)."""
+        self._sync()
+        meta = {"dt": float(dt), "n_steps": int(n_steps),
+                "checkpoint_every": int(checkpoint_every),
+                "scenario": self.scenario.name, "strategy": self.strategy}
+        save_checkpoint(ckpt_dir, step, state, {}, meta=meta)
+
+    def resume(self, ckpt_dir: str, state_template, *,
+               dt: Optional[float] = None, n_steps: Optional[int] = None,
+               checkpoint_every: int = 0):
+        """Continue a killed :meth:`run` from its latest checkpoint: restore
+        the state against ``state_template`` (the initial state will do:
+        only structure and dtypes matter) onto the runner's device, warm
+        up, and run the remaining steps at the same cadence.  ``dt`` and
+        ``n_steps`` default to the saved ones; a saved ``dt`` comes back as
+        the Python float of the saved fp32 value, which gives the 0-dim
+        fp32 tensor's bits in ``u + dt * l``.  Sets
+        ``stats["resumed_from_step"]`` and ``stats["recovery_steps"]``."""
+        step = latest_step(ckpt_dir)
+        if step is None:
+            raise FileNotFoundError(
+                f"no checkpoint to resume under {ckpt_dir!r}")
+        template = per_level(lambda u: u.to(self.device), state_template)
+        state, _, meta = restore_checkpoint(ckpt_dir, step, template, {})
+        dt = meta["dt"] if dt is None else dt
+        n_steps = int(meta["n_steps"]) if n_steps is None else int(n_steps)
+        cadence = int(checkpoint_every or meta.get("checkpoint_every", 0))
+        self.warmup()
+        self.stats["resumed_from_step"] = step
+        self.stats["recovery_steps"] = max(0, n_steps - step)
+        return self.run(state, dt, n_steps, checkpoint_every=cadence,
+                        ckpt_dir=ckpt_dir, start_step=step)
+
+    def time_step(self, state, dt, n_steps: int = 1,
+                  use_scan: bool = False) -> float:
         """Average wall seconds per time-step (the Table III metric), the
-        device synchronised before and after."""
+        device synchronised before and after; ``use_scan`` under ``fused``
+        times :meth:`rk3_trajectory` (its capture included at the first
+        call)."""
         self._sync()
         t0 = time.perf_counter()
-        out = state
-        for _ in range(n_steps):
-            out = self.rk3_step(out, dt)
+        if use_scan and self.strategy == "fused":
+            out = self.rk3_trajectory(state, dt, n_steps)
+        else:
+            out = state
+            for _ in range(n_steps):
+                out = self.rk3_step(out, dt)
         self._sync()
         return (time.perf_counter() - t0) / n_steps
+
+
+# ---------------------------------------------------------------------------
+# deprecation shims over the facade (the AMR runner's state is (uc, uf))
+# ---------------------------------------------------------------------------
+
+def HydroStrategyRunner(cfg: HydroConfig, agg: AggregationConfig,
+                        bc: str = "outflow", batched_body=None,
+                        device: DeviceLike = None) -> StrategyRunner:
+    """Deprecated: ``StrategyRunner(UniformSedovScenario(cfg), agg)``."""
+    warnings.warn(
+        "HydroStrategyRunner is deprecated — use "
+        "StrategyRunner(UniformSedovScenario(cfg), agg)",
+        DeprecationWarning, stacklevel=2)
+    return StrategyRunner(UniformSedovScenario(
+        cfg, bc=bc, batched_body=batched_body), agg, device=device)
+
+
+def AMRStrategyRunner(cfg: AMRHydroConfig, agg: AggregationConfig,
+                      bc: str = "outflow",
+                      device: DeviceLike = None) -> StrategyRunner:
+    """Deprecated: ``StrategyRunner(AMRSedovScenario(cfg), agg)``."""
+    warnings.warn(
+        "AMRStrategyRunner is deprecated — use "
+        "StrategyRunner(AMRSedovScenario(cfg), agg)",
+        DeprecationWarning, stacklevel=2)
+    return StrategyRunner(AMRSedovScenario(cfg, bc=bc), agg, device=device)

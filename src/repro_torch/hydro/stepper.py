@@ -95,6 +95,16 @@ def rk3_step(u: torch.Tensor, dt, cfg: HydroConfig,
     return (1.0 / 3.0) * u + (2.0 / 3.0) * (u2 + dt * l2)
 
 
+def rk3_trajectory(u: torch.Tensor, dt, cfg: HydroConfig, n_steps: int,
+                   bc: str = "outflow") -> torch.Tensor:
+    """``n_steps`` RK3 steps of one ``dt`` on the plain whole-grid path (the
+    reference's ``lax.scan`` trajectory, here a loop of ``rk3_step``).
+    Returns a new tensor; ``u`` is left as it was."""
+    for _ in range(n_steps):
+        u = rk3_step(u, dt, cfg, bc)
+    return u
+
+
 def courant_dt(u: torch.Tensor, cfg: HydroConfig) -> torch.Tensor:
     """Courant time step as a 0-dim tensor on ``u``'s device (no host
     sync)."""

@@ -7,15 +7,17 @@ serving engine step's time goes, per bucket.
       [--out results/profile_step.json]
 
 At the paper's grid (512 sub-grids of 8^3), for each strategy row (fused,
-s3 at caps 32 and 512, s2+s3 with 4 streams, s2 with 4 streams, s3 cap 32
-under host staging, and s3 cap 32 and s2+s3 4 x 32 through the
-epilogue-fused stages) it warms up, times 3 RK3
+the fused trajectory, s3 at caps 32 and 512, s2+s3 with 4 streams, s2
+with 4 streams, s3 cap 32 under host staging, and s3 cap 32 and s2+s3 4 x
+32 through the epilogue-fused stages) it warms up, times 3 RK3
 steps on the host clock (synchronised), then profiles the same steps with
 ``torch.profiler`` and prints the host operations with the most self CPU
 time, the kernels with the most device time, the device time summed over
 kernels and copies, and the device's idle share of the step (1 - device
 busy / wall; kernels that overlap on several streams count once each, so
-the share is a lower bound there).
+the share is a lower bound there).  The fused trajectory row runs the 3
+steps as one ``rk3_trajectory`` call, one CUDA graph replay (captured
+before the timing).
 
 ``--scenario sedov`` (default) steps the uniform Sedov ``CONFIG``;
 ``--scenario gravity`` steps the self-gravitating blast on the same grid,
@@ -26,7 +28,8 @@ sub-grids of 8^3 each, one family).  ``--body split`` runs the uniform
 Sedov scenario on the split Reconstruct + Flux body instead of the fused
 hydro kernel.  ``--layout slot_lane`` runs the hydro family on the lane
 kernel (tasks across each warp) instead of the slot_grid kernel (one
-thread-block cluster per slot).
+thread-block cluster per slot).  On ``--scenario amr`` the two-level
+exchange of every row is the scenario's captured graph.
 
 ``--scenario serve`` profiles the serving engine: qwen2-moe-a2.7b at its
 published widths cut to 4 layers, bf16, behind
@@ -63,7 +66,9 @@ STEPS = 3            # RK3 steps timed, then profiled, per row
 AMR_1024 = AMRHydroConfig(name="amr_sedov_1024", coarse_grids_per_edge=8,
                           cover=32)
 TOP = 8              # host operations and kernels listed per row
+TRAJECTORY = "fused trajectory"
 ROWS = (("fused", dict(strategy="fused")),
+        (TRAJECTORY, dict(strategy="fused")),
         ("s3 cap 32", dict(strategy="s3", max_aggregated=32)),
         ("s3 cap 512", dict(strategy="s3", max_aggregated=512)),
         ("s2+s3 4 streams cap 32", dict(strategy="s2+s3", n_executors=4,
@@ -120,17 +125,25 @@ def make_case(scenario: str, body: str, layout: str, dev):
         CONFIG, h, layout=layout)), u0, dt
 
 
-def profile_row(scenario, u0, dt, agg, steps, dev):
+def profile_row(scenario, u0, dt, agg, steps, dev, trajectory=False):
+    """One row: ``steps`` RK3 steps timed, then profiled; with
+    ``trajectory`` as one ``rk3_trajectory`` call (its graph captured
+    first)."""
     runner = StrategyRunner(scenario, agg, device=dev)
     runner.warmup()
-    wall_ms = runner.time_step(u0, dt, steps) * 1e3
+    if trajectory:
+        runner.rk3_trajectory(u0, dt, steps)
+    wall_ms = runner.time_step(u0, dt, steps, use_scan=trajectory) * 1e3
     torch.cuda.synchronize(dev)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        u = u0
-        for _ in range(steps):
-            u = runner.rk3_step(u, dt)
+        if trajectory:
+            runner.rk3_trajectory(u0, dt, steps)
+        else:
+            u = u0
+            for _ in range(steps):
+                u = runner.rk3_step(u, dt)
         torch.cuda.synchronize(dev)
         prof_wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     events = prof.key_averages()
@@ -294,7 +307,7 @@ def main(argv=None):
         scenario, u0, dt = make_case(args.scenario, args.body, args.layout,
                                      dev)
         row = profile_row(scenario, u0, dt, AggregationConfig(**kw), STEPS,
-                          dev)
+                          dev, trajectory=label == TRAJECTORY)
         out["rows"][label] = row
         print(f"{label}: {row['ms_per_step']:.3f} ms/step (profiled "
               f"{row['profiled_ms_per_step']:.3f}), device busy "

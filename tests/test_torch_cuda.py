@@ -802,3 +802,203 @@ def test_pinned_slab_release_waits_for_its_copy(dev):
     assert slab is not other and exe.buffers.reuses == 1
     for i, f in enumerate(futs):
         assert torch.equal(f.result().cpu(), torch.full((1000,), 2.0 * i))
+
+
+# ---------------------------------------------------------------------------
+# the whole-trajectory CUDA graph, the captured AMR exchange, resume
+# ---------------------------------------------------------------------------
+
+from repro_torch.core import CaptureError  # noqa: E402
+
+
+def _uniform(dev):
+    u0 = sedov_init(CFG, device=dev).u
+    return lambda: UniformSedovScenario(CFG), u0, courant_dt(u0, CFG)
+
+
+def _amr(dev):
+    st = amr_sedov_init(ACFG, device=dev)
+    return (lambda: AMRSedovScenario(ACFG), (st.uc, st.uf),
+            amr_courant_dt(st.uc, st.uf, ACFG))
+
+
+def _split(dev):
+    u0 = sedov_init(CFG, device=dev).u
+    h = CFG.domain / u0.shape[-1]
+    return (lambda: UniformSedovScenario(
+        CFG, batched_body=ops.hydro_split_batched_body(CFG, h)), u0,
+        courant_dt(u0, CFG))
+
+
+TRAJECTORY_CASES = {"uniform": _uniform, "amr": _amr, "split": _split}
+
+
+def _levels(state):
+    return state if isinstance(state, tuple) else (state,)
+
+
+def _equal(a, b):
+    return all(torch.equal(x, y) for x, y in zip(_levels(a), _levels(b)))
+
+
+def _loop(runner, state, dt, n):
+    for _ in range(n):
+        state = runner.rk3_step(state, dt)
+    return state
+
+
+@pytest.mark.parametrize("case", sorted(TRAJECTORY_CASES))
+def test_trajectory_graph_bit_equal_to_step_loop(dev, case):
+    """Under ``fused`` the trajectory is one CUDA graph: equal to the
+    ``rk3_step`` loop bit for bit, counted as one launch, the caller's
+    state left as it was."""
+    make, u0, dt = TRAJECTORY_CASES[case](dev)
+    fused = AggregationConfig(strategy="fused")
+    want = _loop(StrategyRunner(make(), fused, device=dev), u0, dt, 3)
+    before = tuple(u.clone() for u in _levels(u0))
+    runner = StrategyRunner(make(), fused, device=dev)
+    got = runner.rk3_trajectory(u0, dt, 3)
+    torch.cuda.synchronize(dev)
+    assert _equal(got, want)
+    assert _equal(u0, before)
+    assert runner.stats["kernel_launches"] == 1
+    assert runner.stats["iterations"] == 9
+    assert len(runner.trajectory_graphs) == 1
+
+
+def test_trajectory_graph_reused_across_dts(dev):
+    """One graph serves any dt, a 0-dim tensor or a float; an earlier
+    result survives a later replay."""
+    make, u0, dt = _uniform(dev)
+    fused = AggregationConfig(strategy="fused")
+    ref = StrategyRunner(make(), fused, device=dev)
+    runner = StrategyRunner(make(), fused, device=dev)
+    first = runner.rk3_trajectory(u0, dt, 2)
+    second = runner.rk3_trajectory(u0, 0.5 * dt, 2)
+    assert _equal(second, _loop(ref, u0, 0.5 * dt, 2))
+    assert _equal(first, _loop(ref, u0, dt, 2))
+    assert len(runner.trajectory_graphs) == 1
+    runner.rk3_trajectory(u0, float(dt), 2)
+    assert len(runner.trajectory_graphs) == 2     # another dt dtype
+    assert runner.stats["kernel_launches"] == 3
+
+
+@pytest.mark.parametrize("case", ["uniform", "amr"])
+def test_eager_step_after_capture_equals_fresh_runner(dev, case):
+    """Caches a body fills at first use are filled before the capture:
+    an eager step after it equals a fresh runner's."""
+    make, u0, dt = TRAJECTORY_CASES[case](dev)
+    fused = AggregationConfig(strategy="fused")
+    runner = StrategyRunner(make(), fused, device=dev)
+    runner.rk3_trajectory(u0, dt, 1)
+    fresh = StrategyRunner(make(), fused, device=dev)
+    assert _equal(runner.rk3_step(u0, dt), fresh.rk3_step(u0, dt))
+
+
+def _slow_level_body(cycles):
+    def body(s):
+        b = ops.level_batched_body(ACFG.gamma, ACFG.ghost, s)
+
+        def slow(*args, out=None):
+            torch.cuda._sleep(cycles)
+            return b(*args, out=out)
+        return slow
+    return body
+
+
+@pytest.mark.parametrize("kw", [dict(strategy="s3", max_aggregated=2),
+                                dict(strategy="s2", n_executors=4)],
+                         ids=["s3", "s2"])
+def test_captured_amr_exchange_bit_equal_to_eager_on_delayed_streams(dev,
+                                                                    kw):
+    """The captured exchange's outputs are overwritten at every stage while
+    launches on the executor streams read them; with those launches
+    delayed, the run still equals the eager exchange's bit for bit."""
+    st = amr_sedov_init(ACFG, device=dev)
+    dt = amr_courant_dt(st.uc, st.uf, ACFG)
+    outs = []
+    for capture in (True, False):
+        sc = AMRSedovScenario(ACFG, hydro_body=_slow_level_body(
+            SLEEP_CYCLES), capture_exchange=capture)
+        runner = StrategyRunner(sc, AggregationConfig(**kw), device=dev)
+        outs.append(_loop(runner, (st.uc, st.uf), dt, 2))
+        assert len(sc.exchange_graphs) == int(capture)
+    assert _equal(outs[0], outs[1])
+
+
+_RESUME_CHILD = """
+import os, signal, sys
+from repro_torch.configs.base import AggregationConfig, HydroConfig
+from repro_torch.core import StrategyRunner, UniformSedovScenario
+from repro_torch.hydro.state import sedov_init
+from repro_torch.hydro.stepper import courant_dt
+
+cfg = HydroConfig(levels=1)
+u0 = sedov_init(cfg, device="cuda").u
+runner = StrategyRunner(UniformSedovScenario(cfg), AggregationConfig(
+    strategy="s3", max_aggregated=2), device="cuda")
+save = runner._checkpoint
+
+
+def save_then_die(ckpt_dir, step, *args):
+    save(ckpt_dir, step, *args)
+    if step == 2:
+        os.kill(os.getpid(), signal.SIGKILL)
+
+
+runner._checkpoint = save_then_die
+runner.run(u0, courant_dt(u0, cfg), 4, checkpoint_every=1,
+           ckpt_dir=sys.argv[1])
+"""
+
+
+def test_killed_child_resumes_bit_identical(dev, tmp_path):
+    """A child killed by SIGKILL after checkpoint 2 of 4 resumes in this
+    process bit-identical to an uninterrupted run."""
+    import os
+    import subprocess
+    import sys
+
+    from repro_torch.checkpoint import latest_step
+
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       os.pardir, "src")
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(src))
+    ckpt = str(tmp_path / "ckpt")
+    child = subprocess.run([sys.executable, "-c", _RESUME_CHILD, ckpt],
+                           env=env, capture_output=True, text=True,
+                           timeout=300)
+    assert child.returncode == -9, child.stderr[-2000:]
+    assert latest_step(ckpt) == 2
+    agg = AggregationConfig(strategy="s3", max_aggregated=2)
+    u0 = sedov_init(CFG, device=dev).u
+    want = StrategyRunner(UniformSedovScenario(CFG), agg, device=dev).run(
+        u0, courant_dt(u0, CFG), 4)
+    runner = StrategyRunner(UniformSedovScenario(CFG), agg, device=dev)
+    assert torch.equal(runner.resume(ckpt, u0), want)
+    assert runner.stats["resumed_from_step"] == 2
+    assert runner.stats["recovery_steps"] == 2
+
+
+def test_trajectory_capture_error_raises_not_loops(dev):
+    """A body that synchronises with the host (``.item()``) cannot be
+    captured: ``rk3_trajectory`` raises, and counts nothing; the card
+    then captures and runs as before."""
+    u0 = sedov_init(CFG, device=dev).u
+    dt = courant_dt(u0, CFG)
+    body = ops.hydro_batched_body(CFG, CFG.domain / u0.shape[-1])
+
+    def syncing(u_slots, out=None):
+        float(u_slots.sum().item())
+        return body(u_slots, out=out)
+
+    runner = StrategyRunner(UniformSedovScenario(CFG, batched_body=syncing),
+                            AggregationConfig(strategy="fused"), device=dev)
+    with pytest.raises(CaptureError, match="synchroniz"):
+        runner.rk3_trajectory(u0, dt, 1)
+    assert runner.stats["kernel_launches"] == 0
+    assert not runner.trajectory_graphs
+    make, _, _ = _uniform(dev)
+    ok = StrategyRunner(make(), AggregationConfig(strategy="fused"),
+                        device=dev)
+    assert _equal(ok.rk3_trajectory(u0, dt, 1), ok.rk3_step(u0, dt))
