@@ -5,8 +5,12 @@ into static tensors it owns (a Python float becomes a 0-dim tensor of
 the first tensor's dtype), runs ``warm`` (default ``fn``) once on a side
 stream, then captures ``fn`` over the static inputs.  A call copies its
 arguments into the static inputs on the caller's stream and replays the
-graph there; it returns the graph's static outputs, which the next call
-overwrites, so a caller that keeps a result past the next call clones it.
+graph there; it returns fresh copies of the graph's static outputs.  The
+next replay overwrites the static outputs, and a result handed out may
+still be read on another stream (an executor's launch) when it comes:
+a copy is the caller's own tensor, which no later call touches and
+which the caching allocator keeps, like any tensor, until every stream
+that recorded it (``record_stream``) is done.
 
 Before the capture, the warm call does every first-use thing outside the
 graph: it builds and loads the kernel libraries, uploads their constant
@@ -21,17 +25,15 @@ eager calls.
 
 Counters: the kernel wrappers count their launches while the call is
 captured and while it warms; a replay launches the captured kernels
-again without counting them.  ``launches`` holds each wrapper's launches
-in one replay.  The graph's memory pool lives as long as the object.
+again without counting them.  The graph's memory pool lives as long as
+the object.
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
-
-from repro_torch.kernels.ops import launch_counts
 
 
 class CaptureError(RuntimeError):
@@ -66,7 +68,6 @@ class CapturedCall:
             (warm or fn)(*self.inputs)
         caller.wait_stream(side)
         torch.cuda.synchronize(device)
-        before = launch_counts()
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.stream(torch.cuda.Stream(device)):
             self.graph.capture_begin()
@@ -81,17 +82,16 @@ class CapturedCall:
                     f"{err}") from err
             self.graph.capture_end()
         self.outputs = out
-        self.launches: Dict[str, int] = {
-            k: v - before[k] for k, v in launch_counts().items()
-            if v != before[k]}
 
     def __call__(self, *args):
         """Copy ``args`` into the static inputs and replay, on the current
-        stream; returns the static outputs."""
+        stream; returns copies of the static outputs."""
         for static, a in zip(self.inputs, args):
             if isinstance(a, torch.Tensor):
                 static.copy_(a)
             else:
                 static.fill_(a)
         self.graph.replay()
-        return self.outputs
+        if isinstance(self.outputs, torch.Tensor):
+            return self.outputs.clone()
+        return tuple(o.clone() for o in self.outputs)

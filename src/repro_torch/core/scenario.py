@@ -397,19 +397,16 @@ class AMRSedovScenario(Scenario):
     raw (un-synced) level interiors, as the generic combine does.
 
     On the card the two-level exchange (:meth:`exchange`, dozens of small
-    eager ops) is one CUDA graph per state shape unless
-    ``capture_exchange=False``.
+    eager ops) is one CUDA graph per state shape.
     """
 
     LEVELS = ("coarse", "fine")
 
     def __init__(self, cfg: AMRHydroConfig, bc: str = "outflow",
-                 hydro_body: Optional[Callable[[int], Callable]] = None,
-                 capture_exchange: bool = True):
+                 hydro_body: Optional[Callable[[int], Callable]] = None):
         self.cfg = cfg
         self.bc = bc
         self.name = cfg.name
-        self.capture_exchange = capture_exchange
         self.exchange_graphs: Dict[Any, CapturedCall] = {}
         self._dtype = getattr(torch, cfg.dtype)
         self._subgrid = {"coarse": cfg.coarse_subgrid,
@@ -455,12 +452,12 @@ class AMRSedovScenario(Scenario):
         (``extract_subgrids_multilevel``).  On the card, one CUDA graph per
         state shape with static ``(uc, uf)`` inputs and static outputs,
         bit-equal to the eager exchange (inside another capture, e.g. a
-        trajectory's, the exchange is captured with it).  The outputs are
-        the graph's, overwritten by the next call: a launch that reads them
-        on another stream must be ordered before that call on the caller's
-        stream, as every strategy's wave is (``ExecutorPool.join`` before
-        ``assemble``)."""
-        if (not self.capture_exchange or uc.device.type != "cuda"
+        trajectory's, the exchange is captured with it).  A call returns
+        copies of the graph's outputs, so a launch that still reads one on
+        an executor's stream is safe from the next call's replay, whatever
+        the strategy orders: the copy is freed only after every stream that
+        recorded it is done."""
+        if (uc.device.type != "cuda"
                 or torch.cuda.is_current_stream_capturing()):
             return self._exchange_eager(uc, uf)
         key = (uc.device, tuple(uc.shape), tuple(uf.shape), uc.dtype)

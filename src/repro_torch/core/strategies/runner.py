@@ -97,7 +97,8 @@ class StrategyRunner:
                                and bool(scenario.stage_families())
                                and has_stage and agg.staging != "host")
         # (n_steps, level shapes and dtypes, dt dtype) -> the trajectory's
-        # CUDA graph (``fused`` on the card)
+        # CUDA graph (``fused`` on the card); at most one entry, a new key
+        # replaces the old graph and frees its memory pool
         self.trajectory_graphs: Dict[Any, CapturedCall] = {}
 
     @property
@@ -196,7 +197,7 @@ class StrategyRunner:
         """Run ``n_steps`` RK3 steps of one ``dt``.  Under ``fused`` every
         stage is the scenario's ``reference_rhs`` and the generic combine
         (whatever ``fuse_epilogue`` says), and the whole trajectory is ONE
-        launch: on the card one CUDA graph per ``(n_steps, state shapes and
+        launch: on the card one CUDA graph for ``(n_steps, state shapes and
         dtypes, dt's dtype)``, captured at the first call
         (:class:`~repro_torch.core.graphs.CapturedCall`) and replayed once
         per call, the state and ``dt`` copied into its static inputs, so
@@ -205,10 +206,17 @@ class StrategyRunner:
         does the result across later calls.  A step that cannot be
         captured raises :class:`~repro_torch.core.graphs.CaptureError`.
 
+        Memory: the graph keeps every intermediate of its ``n_steps`` in
+        a private pool for as long as it is cached (about one step's
+        intermediates per step; Path B's reconstruction alone is 730.6 MB
+        at 512 x 8^3).  The runner caches one graph: a call with another
+        ``n_steps``, state shape or ``dt`` type captures anew and frees
+        the previous graph.
+
         ``stats["kernel_launches"]`` counts the trajectory as one launch
         and ``stats["iterations"]`` its 3 x ``n_steps`` iterations; the
-        kernel wrappers' counters advance at the capture only (the graph's
-        ``launches`` holds one replay's).  Other strategies loop over
+        kernel wrappers' counters advance at the warm step and the capture
+        only, never at a replay.  Other strategies loop over
         ``rk3_step``."""
         if self.strategy != "fused":
             for _ in range(n_steps):
@@ -233,10 +241,11 @@ class StrategyRunner:
             def steps(n):        # (*levels, dt) -> state after n steps
                 return lambda *a: self._trajectory_impl(
                     n, tuple(a[:-1]) if tuple_state else a[0], a[-1])
+            self.trajectory_graphs.clear()
             graph = CapturedCall(steps(n_steps), levels + (dt,),
                                  self.device, warm=steps(1))
             self.trajectory_graphs[key] = graph
-        return per_level(torch.clone, graph(*levels, dt))
+        return graph(*levels, dt)
 
     # -- crash-consistent runs ---------------------------------------------
     def run(self, state, dt, n_steps: int, *, checkpoint_every: int = 0,

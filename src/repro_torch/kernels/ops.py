@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import types
 from functools import lru_cache
-from typing import Callable, Dict, Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -48,17 +48,6 @@ from repro_torch.kernels.hydro_split import (
     hydro_flux_cuda, hydro_flux_plain, hydro_reconstruct_cuda,
     hydro_reconstruct_plain,
 )
-
-
-# every CUDA kernel wrapper; each counts its launches in ``.launches``
-CUDA_WRAPPERS = (hydro_rhs_cuda, hydro_rhs_lane_cuda, hydro_reconstruct_cuda,
-                 hydro_flux_cuda, gravity_cuda, decode_attention_cuda,
-                 grouped_gemm_cuda)
-
-
-def launch_counts() -> Dict[str, int]:
-    """Each CUDA kernel wrapper's launch count, by the wrapper's name."""
-    return {f.__name__: f.launches for f in CUDA_WRAPPERS}
 
 
 def _dispatch(x: torch.Tensor, name: str, cuda: Callable, plain: Callable,

@@ -867,8 +867,8 @@ def test_trajectory_graph_bit_equal_to_step_loop(dev, case):
 
 
 def test_trajectory_graph_reused_across_dts(dev):
-    """One graph serves any dt, a 0-dim tensor or a float; an earlier
-    result survives a later replay."""
+    """One graph serves any dt of one type; an earlier result survives a
+    later replay; a float dt's graph replaces the tensor dt's."""
     make, u0, dt = _uniform(dev)
     fused = AggregationConfig(strategy="fused")
     ref = StrategyRunner(make(), fused, device=dev)
@@ -878,8 +878,10 @@ def test_trajectory_graph_reused_across_dts(dev):
     assert _equal(second, _loop(ref, u0, 0.5 * dt, 2))
     assert _equal(first, _loop(ref, u0, dt, 2))
     assert len(runner.trajectory_graphs) == 1
-    runner.rk3_trajectory(u0, float(dt), 2)
-    assert len(runner.trajectory_graphs) == 2     # another dt dtype
+    third = runner.rk3_trajectory(u0, float(dt), 2)
+    assert len(runner.trajectory_graphs) == 1     # another dt type
+    assert _equal(third, _loop(ref, u0, float(dt), 2))
+    assert _equal(first, _loop(ref, u0, dt, 2))
     assert runner.stats["kernel_launches"] == 3
 
 
@@ -919,11 +921,35 @@ def test_captured_amr_exchange_bit_equal_to_eager_on_delayed_streams(dev,
     outs = []
     for capture in (True, False):
         sc = AMRSedovScenario(ACFG, hydro_body=_slow_level_body(
-            SLEEP_CYCLES), capture_exchange=capture)
+            SLEEP_CYCLES))
+        if not capture:
+            sc.exchange = sc._exchange_eager       # the eager reference
         runner = StrategyRunner(sc, AggregationConfig(**kw), device=dev)
         outs.append(_loop(runner, (st.uc, st.uf), dt, 2))
         assert len(sc.exchange_graphs) == int(capture)
     assert _equal(outs[0], outs[1])
+
+
+def test_captured_exchange_result_survives_next_call_on_delayed_stream(dev):
+    """An exchange's result, read on an executor's stream delayed past the
+    next exchange's replay (which nothing orders after that read), still
+    holds its own exchange: a call hands out copies of the graph's
+    outputs."""
+    from repro_torch.core.executor import DeviceExecutor
+
+    st = amr_sedov_init(ACFG, device=dev)
+    sc = AMRSedovScenario(ACFG)
+    first = sc.exchange(st.uc, st.uf)
+    reader = DeviceExecutor(0, dev)
+    read = reader.run(lambda s: (torch.cuda._sleep(4 * SLEEP_CYCLES),
+                                 s.clone())[1], first[1])
+    second = sc.exchange(2.0 * st.uc, 2.0 * st.uf)
+    reader.join()
+    want = sc._exchange_eager(st.uc, st.uf)
+    assert len(sc.exchange_graphs) == 1
+    assert torch.equal(read, want[1])
+    assert torch.equal(first[0], want[0]) and torch.equal(first[1], want[1])
+    assert not torch.equal(second[1], want[1])
 
 
 _RESUME_CHILD = """
