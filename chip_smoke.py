@@ -20,7 +20,13 @@
    it at odd sub-grids (5^3 and 7^3, whose slots start off 16-byte
    boundaries in turn) and on a tensor one float past a 16-byte boundary
    against its plain version, its buckets and the lane kernel (bit for
-   bit).
+   bit).  At 16^3 (``CONFIG_16``'s 64 slots of the Sedov IC and 64 random
+   slots, two x-slabs per slot, a cluster of 6 CTAs) with a scalar width
+   and per-slot widths: within tolerance of its plain version, every slot
+   equal to its buckets of 1, 3 and 32 and to the lane kernel bit for bit;
+   15^3 at each float offset of a 16-byte unit; 64, 32 and 1 slots timed
+   by graph replay beside the lane kernel, the plain version and the
+   bound, with resident CTAs per SM.
 3. Drives the main path — uniform Sedov ``CONFIG`` (512 sub-grids of 8^3)
    stepped by TVD-RK3 through ``StrategyRunner`` — under ``fused``, ``s3``
    (caps 32 and 512) and ``s2+s3`` (4 streams, cap 32), counting the
@@ -57,15 +63,17 @@
 8. Path C: the two-level AMR blast, ``AMRSedovScenario`` at 1,024 tasks
    per iteration (a 64^3 coarse level and a 64^3 fine patch, 512 sub-grids
    of 8^3 each, one family) on each layout under the four strategy rows,
-   and the repo's ``configs/amr_sedov`` ``CONFIG`` (both layouts) and
-   ``CONFIG_MIXED`` (two families, slot_lane; slot_grid must refuse its
-   16^3 family): every row bit-identical to ``fused`` on both levels,
+   and the repo's ``configs/amr_sedov`` ``CONFIG`` and ``CONFIG_MIXED``
+   (two families, a 16^3 and an 8^3 one, also under ``s2+s3``), each on
+   both layouts: every row bit-identical to ``fused`` on both levels,
    launches equal to the greedy decomposition, each level in agreement
    with the plain bodies, the layouts with each other, and physical.
 9. Path D: uniform Sedov on the lane kernel at ``CONFIG`` and ``CONFIG_16``
    (64 sub-grids of 16^3) under ``fused``, ``s3`` cap 32 and ``s2+s3``:
    bit-identical rows, conservation, agreement with the slot_grid main
-   path (``CONFIG``) or the plain path (``CONFIG_16``).
+   path (``CONFIG``) or the plain path (``CONFIG_16``); and ``CONFIG_16``
+   on the slot_grid kernel (the paper's strategy 1) under the same rows,
+   equal to the lane kernel's path in every element.
 10. Staging: the Sedov IC's 512 padded sub-grids submitted one at a time
    as concrete tensors, 3 waves in a row, through the slot ring on 4
    streams at cap 32 (watermark 1 and 10^9), each executor stream's
@@ -82,7 +90,16 @@
    rtol 1e-5, atol 1e-5 x max|u| of the generic combine, each ``+epi``
    family launching the greedy decomposition; ``s2`` declines
    ``fuse_epilogue``.  Each row prints host ms per step and launches per
-   step beside the card's name and power limit.
+   step beside the card's name and power limit.  Measured tuning and
+   routing: the main path under ``s3`` cap 32, then autotuned with the cost
+   model under the ``cost`` flush policy with ``inner_chunk="auto"`` and
+   under ``watermark``, then ``s3`` cap 32 again; ``s2`` at its measured
+   width; ``mixed`` on Path A (``{hydro_rhs: s3, gravity: fused}`` and
+   measured) and on Path C ``CONFIG_MIXED`` (slot_grid, measured): every
+   row bit-identical to ``fused``, the autotuned rows launching the greedy
+   decomposition of their derived ladder; each prints its ladder, cost
+   table, routes, flush decisions, launches, host ms and device busy per
+   step.
 11. The whole trajectory as one CUDA graph: ``rk3_trajectory`` under
    ``fused``, 3 steps, on the main path, Path A (512 x 8^3 and
    ``configs/gravity.CONFIG``), Path B, Path C (``amr_sedov_1024``, both
@@ -504,6 +521,108 @@ def odd_and_misaligned_slots(cfg, dev):
     check_grid_buckets("kernel, slots 4 B past a 16-byte boundary", off,
                        got, h, **kw)
     return errs
+
+
+def phase_kernel_16(cfg16, dev, results):
+    """The slot_grid kernel at 16^3, two x-slabs per slot (a cluster of 6
+    CTAs): 64 slots of the Sedov IC (``CONFIG_16``) and 64 random smooth
+    slots, each with a scalar width and with per-slot widths, against the
+    plain version; every slot equal to its result from buckets of 1, 3 and
+    32 and to the lane kernel's, bit for bit; 15^3 (odd, every field's slab
+    off a 16-byte boundary in turn) in a tensor at each float offset of a
+    16-byte unit, equal to the aligned launch.  Times the 64-, 32- and
+    1-slot launches by graph replay beside the lane kernel's replay, the
+    plain version and the bound, with the resident CTAs per SM."""
+    from repro_torch.configs.base import HydroConfig
+    from repro_torch.hydro.state import extract_subgrids, sedov_init
+    from repro_torch.kernels import hydro_rhs as kern
+
+    s = cfg16.subgrid
+    kw = dict(gamma=cfg16.gamma, ghost=cfg16.ghost, subgrid=s)
+    h = cfg16.domain / (cfg16.grids_per_edge * s)
+    tol = dict(atol_scale=ATOL_SCALE, rtol=RTOL)
+    plan = kern.slab_plan(s)
+    u = extract_subgrids(sedov_init(cfg16, device=dev).u, s, cfg16.ghost)
+    n = u.shape[0]
+    errs = []
+    for label, x in (("Sedov IC", u),
+                     ("random smooth states",
+                      random_slots(n, cfg16.padded, dev, seed=7))):
+        hs = alternating_widths(n, h, dev)
+        for wlabel, widths in (("h", h), ("2h, h", hs)):
+            wk = (dict(h_slots=widths) if isinstance(widths, torch.Tensor)
+                  else dict(h=widths))
+            got = kern.hydro_rhs_cuda(x, **wk, **kw)
+            want = kern.hydro_rhs_plain(x, **wk, **kw)
+            errs.append(compare(f"kernel vs plain at {s}^3, {label}, widths "
+                                f"{wlabel} {tuple(x.shape)}", got, want,
+                                slot_field_max(want), **tol))
+            check_grid_buckets(f"kernel at {s}^3, {label}, widths {wlabel}",
+                               x, got, widths, **kw)
+            lane = kern.hydro_rhs_lane_cuda(lane_major(x), **wk, **kw)
+            check(torch.equal(slot_major(lane), got),
+                  f"the lane kernel and the slot_grid kernel differ at "
+                  f"{s}^3 ({label}, widths {wlabel})")
+    print(f"kernel at {s}^3: equals the lane kernel in every element "
+          f"(Sedov IC and random states, widths h and 2h/h)", flush=True)
+    c15 = HydroConfig(subgrid=15, levels=cfg16.levels)
+    kw15 = dict(kw, subgrid=15)
+    h15 = c15.domain / (c15.grids_per_edge * 15)
+    u15 = extract_subgrids(sedov_init(c15, device=dev).u, 15, c15.ghost)
+    got15 = kern.hydro_rhs_cuda(u15, h=h15, **kw15)
+    want15 = kern.hydro_rhs_plain(u15, h=h15, **kw15)
+    errs.append(compare(f"kernel vs plain at 15^3 {tuple(u15.shape)}",
+                        got15, want15, slot_field_max(want15), **tol))
+    check(torch.equal(slot_major(kern.hydro_rhs_lane_cuda(
+        lane_major(u15), h=h15, **kw15)), got15),
+          "the lane kernel and the slot_grid kernel differ at 15^3")
+    buf = torch.empty(u15.numel() + 4, device=dev)
+    for off in range(4):
+        x = buf[off:off + u15.numel()].view(u15.shape)
+        x.copy_(u15)
+        check(x.data_ptr() % 16 == 4 * off, "offset tensor misplaced")
+        check(torch.equal(kern.hydro_rhs_cuda(x, h=h15, **kw15), got15),
+              f"15^3 slots {4 * off} B past a 16-byte boundary differ from "
+              f"the aligned launch")
+    print("kernel at 15^3: within tolerance of the plain version, equal to "
+          "the lane kernel and to itself at every float offset of a "
+          "16-byte unit", flush=True)
+
+    got = kern.hydro_rhs_cuda(u, h=h, **kw)
+    ut = lane_major(u)
+    times = {m: time_graph_ms(lambda x=u[:m]: kern.hydro_rhs_cuda(
+        x, h=h, **kw), reps=20) for m in (n, 32, 1)}
+    lane_ms = time_graph_ms(lambda: kern.hydro_rhs_lane_cuda(ut, h=h, **kw),
+                            reps=20)
+    plain_ms = time_cuda_ms(lambda: kern.hydro_rhs_plain(u, h=h, **kw),
+                            reps=2, warm=1)
+    n_bytes = (u.numel() + got.numel()) * 4
+    n_ops = hydro_rhs_ops(n, s, cfg16.ghost)
+    b_ms, b_by = bound_ms(n_bytes, n_ops)
+    per_sm, resident = kern.occupancy(dev, s)
+    ms = times[n]
+    print(f"kernel at {s}^3, {n} slots (graph replay): {ms:.4f} ms, 32 slots "
+          f"{times[32]:.4f} ms, 1 slot {times[1]:.4f} ms; lane kernel "
+          f"{lane_ms:.4f} ms; plain version {plain_ms:.3f} ms; bound "
+          f"{b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB, "
+          f"{n_ops / 1e9:.3f} GFLOP), so {ms / b_ms:.1f}x its bound; "
+          f"{plan.slabs} x-slabs of {plan.width} cells, "
+          f"{kern.ctas_per_slot(s)} CTAs per cluster, {plan.smem} B of "
+          f"shared memory per CTA, {per_sm} CTAs per SM, {resident} clusters "
+          f"resident", flush=True)
+    results["kernel_16"] = dict(
+        name="hydro_rhs (16^3, 2 x-slabs)", route="cuda",
+        source="src/repro_torch/csrc/hydro_rhs.cu",
+        replaces="src/repro/kernels/hydro_rhs.py:140",
+        max_abs_err=max(e[0] for e in errs), ms=ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    results["kernel_16_detail"] = dict(
+        slots=n, ms_32_slots=times[32], ms_1_slot=times[1],
+        lane_kernel_ms=lane_ms, bytes=n_bytes, flop=n_ops,
+        max_rel_err=max(e[1] for e in errs), slabs=plan.slabs,
+        slab_width=plan.width, smem=plan.smem,
+        cluster=kern.ctas_per_slot(s), ctas_per_sm=per_sm,
+        resident_clusters=resident)
 
 
 def check_slot_buckets(label, n, whole, launch, sizes=(1, 3, 32)):
@@ -1043,7 +1162,7 @@ def check_lane_buckets(label, u, want_t, widths, **kw):
 
 def phase_lane_kernel(cfg, cfg16, dev, results):
     """The lane kernel at 512 x 8^3 (static h and widths h, 2h) and at
-    64 x 16^3 (the size the slot_grid kernel cannot take): against its
+    64 x 16^3 (the slot_grid kernel's two-slab size): against its
     plain version, against the slot_grid kernel at 8^3, bucket independence,
     and its times beside the two transposes and its bound."""
     from repro_torch.hydro.state import extract_subgrids, sedov_init
@@ -1493,32 +1612,15 @@ def compare_layouts(label, lane, grid, acfg):
               f"{a.numel()}", flush=True)
 
 
-def phase_mixed_slot_grid_refuses(acfg, dev, dts):
-    """CONFIG_MIXED's 16^3 family cannot run on the slot_grid kernel: the
-    wrapper's check must refuse it with NotImplementedError."""
-    from repro_torch.configs.base import AggregationConfig
-    from repro_torch.core import AMRSedovScenario, StrategyRunner
-    from repro_torch.hydro.state import amr_sedov_init
-
-    st = amr_sedov_init(acfg, device=dev)
-    runner = StrategyRunner(AMRSedovScenario(acfg),
-                            AggregationConfig(strategy="fused"), device=dev)
-    try:
-        runner.rk3_step((st.uc, st.uf), dts[0])
-    except NotImplementedError as err:
-        print(f"{acfg.name} slot_grid: refused as expected "
-              f"(NotImplementedError: {str(err)[:80]}...)", flush=True)
-    else:
-        raise CheckFailed(f"{acfg.name}: the slot_grid kernel took a "
-                          f"{acfg.coarse_subgrid}^3 family")
-
-
-def phase_lane_path(cfg, dev, steps, results, key, dts=None, grid_path=None):
+def phase_lane_path(cfg, dev, steps, results, key, dts=None, grid_path=None,
+                    layout="slot_lane"):
     """Path D: uniform Sedov on the lane kernel (``hydro_batched_body(...,
-    layout="slot_lane")``) under fused, s3 cap 32 and s2+s3 4 x 32:
+    layout="slot_lane")``), or with ``layout="slot_grid"`` its twin on the
+    slot_grid kernel, under fused, s3 cap 32 and s2+s3 4 x 32:
     bit-identical rows, launches equal to the greedy decomposition,
-    conservation, and agreement per sub-grid with the slot_grid main path
-    (``grid_path``, same dts) or, where there is none, the plain path."""
+    conservation, and agreement per sub-grid with ``grid_path`` (the other
+    layout's path, same dts) or, where there is none, the plain path.
+    Returns (rows, fused state, dts)."""
     from repro_torch.configs.base import AggregationConfig
     from repro_torch.core import StrategyRunner, UniformSedovScenario
     from repro_torch.hydro.state import sedov_init
@@ -1528,7 +1630,12 @@ def phase_lane_path(cfg, dev, steps, results, key, dts=None, grid_path=None):
 
     u0 = sedov_init(cfg, device=dev).u
     h = cfg.domain / u0.shape[-1]
-    ref, what = grid_path, "the slot_grid main path"
+    counter, other = ((kern.hydro_rhs_lane_cuda, kern.hydro_rhs_cuda)
+                      if layout == "slot_lane" else
+                      (kern.hydro_rhs_cuda, kern.hydro_rhs_lane_cuda))
+    kname = "lane" if layout == "slot_lane" else "slot_grid"
+    ref, what = grid_path, ("the slot_grid path" if layout == "slot_lane"
+                            else "the lane kernel's path")
     if ref is None:
         ref, dts, what = u0, [], "the plain path"
         for _ in range(steps):
@@ -1543,21 +1650,20 @@ def phase_lane_path(cfg, dev, steps, results, key, dts=None, grid_path=None):
     outs, table = {}, {}
     for label, agg in rows:
         sc = UniformSedovScenario(cfg, batched_body=ops.hydro_batched_body(
-            cfg, h, layout="slot_lane"))
+            cfg, h, layout=layout))
         runner = StrategyRunner(sc, agg, device=dev)
-        u, row = drive(runner, u0, dts, (kern.hydro_rhs_lane_cuda,
-                                         kern.hydro_rhs_cuda))
+        u, row = drive(runner, u0, dts, (counter, other))
         want = 3 * len(dts) * per_stage_launches(agg, cfg.n_subgrids)
         counts = row["kernel_launches"]
-        print(f"{cfg.name} on the lane kernel ({cfg.n_subgrids} x "
+        print(f"{cfg.name} on the {kname} kernel ({cfg.n_subgrids} x "
               f"{cfg.subgrid}^3), {label}: {row['ms_per_step']:.3f} ms/step, "
               f"{row['launches_per_step']:g} launches/step, kernel launches "
               f"over {len(dts)} steps {counts}", flush=True)
-        check(counts["hydro_rhs_lane_cuda"] > 0,
-              f"{cfg.name} {label}: the lane kernel was never launched")
-        check(counts["hydro_rhs_lane_cuda"] == want
+        check(counts[counter.__name__] > 0,
+              f"{cfg.name} {label}: the {kname} kernel was never launched")
+        check(counts[counter.__name__] == want
               == row["launches_per_step"] * len(dts)
-              and counts["hydro_rhs_cuda"] == 0,
+              and counts[other.__name__] == 0,
               f"{cfg.name} {label}: kernel launches {counts}, greedy "
               f"decomposition {want}")
         outs[label] = u
@@ -1565,25 +1671,26 @@ def phase_lane_path(cfg, dev, steps, results, key, dts=None, grid_path=None):
     fused = outs["fused"]
     for label, u in outs.items():
         check(torch.equal(u, fused),
-              f"{cfg.name} lane {label} is not bit-identical to fused")
-    check(bool(torch.isfinite(fused).all()), f"{cfg.name} lane path not "
+              f"{cfg.name} {kname} {label} is not bit-identical to fused")
+    check(bool(torch.isfinite(fused).all()), f"{cfg.name} {kname} path not "
           f"finite")
     wb = blocks(ref, cfg.subgrid)
-    diff, _ = compare(f"{cfg.name} lane path vs {what} after {len(dts)} "
+    diff, _ = compare(f"{cfg.name} {kname} path vs {what} after {len(dts)} "
                       f"steps, per sub-grid", blocks(fused, cfg.subgrid), wb,
                       block_scale(wb), atol_scale=1e-6, rtol=1e-5)
     c0, c1 = total_conserved(u0, h), total_conserved(fused, h)
     mass = abs(float((c1[0] - c0[0]) / c0[0]))
     energy = abs(float((c1[4] - c0[4]) / c0[4]))
-    print(f"{cfg.name} lane path: mass drift {mass:.2e}, energy drift "
+    print(f"{cfg.name} {kname} path: mass drift {mass:.2e}, energy drift "
           f"{energy:.2e} after {len(dts)} steps", flush=True)
-    check(mass < 1e-5 and energy < 1e-5, f"{cfg.name} lane path: "
+    check(mass < 1e-5 and energy < 1e-5, f"{cfg.name} {kname} path: "
           f"conservation drift too large")
     results[key] = dict(config=cfg.name, n_subgrids=cfg.n_subgrids,
-                        subgrid=cfg.subgrid, steps=len(dts), runs=table,
-                        reference=what, reference_max_abs_diff=diff,
-                        mass_drift=mass, energy_drift=energy)
-    return table
+                        subgrid=cfg.subgrid, layout=layout, steps=len(dts),
+                        runs=table, reference=what,
+                        reference_max_abs_diff=diff, mass_drift=mass,
+                        energy_drift=energy)
+    return table, fused, dts
 
 
 # ---------------------------------------------------------------------------
@@ -1877,6 +1984,138 @@ def phase_fused_stages(cfg, gcfg, acfg, dev, card, dts, results):
     print("fused stages: s2 with fuse_epilogue declines it and equals "
           "generic fused bit for bit (main path, 1 step)", flush=True)
     results["fused_stages"] = dict(card=card, runs=table)
+    return table
+
+
+# ---------------------------------------------------------------------------
+# measured tuning and per-family routing
+# ---------------------------------------------------------------------------
+
+def tuning_rows(cfg, gcfg, acfg_mixed):
+    """(path, label, config) of the tuning phase: on the main path ``s3``
+    cap 32 before and after the tuned rows (in turn: baseline, tuned,
+    tuned, baseline), the tuned ``s3`` rows under the ``cost`` and
+    ``watermark`` flush policies, ``s2`` at its measured width; ``mixed``
+    on Path A, routed explicitly and by measurement; ``mixed`` on Path C
+    (``CONFIG_MIXED``, both families on the slot_grid kernel) by
+    measurement."""
+    from repro_torch.configs.base import AggregationConfig
+
+    tuned = dict(autotune=True, cost_model=True)
+    return (
+        ("main", "s3 cap 32 (a)", AggregationConfig(strategy="s3",
+                                                    max_aggregated=32)),
+        ("main", "s3 tuned, flush cost, chunk auto", AggregationConfig(
+            strategy="s3", max_aggregated=32, flush_policy="cost",
+            inner_chunk="auto", **tuned)),
+        ("main", "s3 tuned, flush watermark", AggregationConfig(
+            strategy="s3", max_aggregated=32, flush_policy="watermark",
+            **tuned)),
+        ("main", "s3 cap 32 (b)", AggregationConfig(strategy="s3",
+                                                    max_aggregated=32)),
+        ("main", "s2 measured width, 4 streams", AggregationConfig(
+            strategy="s2", n_executors=4, cost_model=True)),
+        ("A", "mixed hydro s3, gravity fused", AggregationConfig(
+            strategy="mixed", max_aggregated=32,
+            family_strategies={"hydro_rhs": "s3", "gravity": "fused"},
+            **tuned)),
+        ("A", "mixed auto", AggregationConfig(strategy="mixed",
+                                              max_aggregated=32, **tuned)),
+        ("C", "mixed auto", AggregationConfig(strategy="mixed",
+                                              max_aggregated=16, **tuned)),
+    )
+
+
+def phase_tuning(cfg, gcfg, acfg_mixed, dev, card, dts, fused_main, results):
+    """Measured tuning and routing on the card, each row a runner through
+    ``drive`` (warmup, which times the buckets; one untimed step, in which
+    the autotuned rows retune after 2 waves; then the timed steps) and one
+    more step under ``torch.profiler`` for the device busy time: every row
+    bit-identical to ``fused`` on its path, its kernels launched; the
+    autotuned ``s3`` rows launch the greedy decomposition of each wave
+    under their derived ladder.  Each row prints its ladder, cost table in
+    ms per bucket, routes, flush decisions, launches and host ms per
+    step."""
+    from repro_torch.configs.base import AggregationConfig
+    from repro_torch.core import (
+        AMRSedovScenario, GravityScenario, StrategyRunner,
+        UniformSedovScenario,
+    )
+    from repro_torch.core.aggregation import greedy_decomposition
+    from repro_torch.hydro.state import amr_sedov_init, sedov_init
+    from repro_torch.hydro.stepper import amr_courant_dt, courant_dt
+    from repro_torch.kernels import gravity as grav
+    from repro_torch.kernels import hydro_rhs as kern
+
+    u0 = sedov_init(cfg, device=dev).u
+    st = amr_sedov_init(acfg_mixed, device=dev)
+    paths = {
+        "main": (lambda: UniformSedovScenario(cfg), u0, dts,
+                 (kern.hydro_rhs_cuda,)),
+        "A": (lambda: GravityScenario(gcfg), u0, [courant_dt(u0, cfg)],
+              (kern.hydro_rhs_cuda, grav.gravity_cuda)),
+        "C": (lambda: AMRSedovScenario(acfg_mixed), (st.uc, st.uf),
+              [amr_courant_dt(st.uc, st.uf, acfg_mixed)],
+              (kern.hydro_rhs_cuda,)),
+    }
+    fused = {"main": fused_main}
+    for key in ("A", "C"):
+        make, state, path_dts, counters = paths[key]
+        fused[key], _ = drive(StrategyRunner(make(), AggregationConfig(
+            strategy="fused"), device=dev), state, path_dts, counters)
+    table = {}
+    for key, label, agg in tuning_rows(cfg, gcfg, acfg_mixed):
+        make, state, path_dts, counters = paths[key]
+        runner = StrategyRunner(make(), agg, device=dev)
+        u, row = drive(runner, state, path_dts, counters)
+        check(states_equal(u, fused[key]),
+              f"tuning {key} {label} is not bit-identical to fused")
+        for c in counters:
+            check(row["kernel_launches"][c.__name__] > 0,
+                  f"tuning {key} {label}: {c.__name__} never launched")
+        _, prof = profiled(lambda: runner.rk3_step(state, path_dts[0]))
+        row["device_busy_ms_per_step"] = sum(
+            us for _, us in device_events(prof)) / 1e3
+        fams = {}
+        for desc, fst in runner.stats["regions"].items():
+            fams[desc] = {k: fst.get(k) for k in (
+                "ladder", "cost_model", "cost_model_paths",
+                "selected_strategy", "strategy_costs", "flush_decisions",
+                "inner_chunk", "s2_width", "tuned_by", "queue_hist",
+                "measurement_launches")}
+            if agg.autotune and agg.strategy == "s3":
+                wave = max(fst["queue_hist"])
+                chunk = fst.get("inner_chunk") or 0
+                want = {}
+                for b in greedy_decomposition(wave, fst["ladder"]):
+                    want[b] = want.get(b, 0) + 3 * len(path_dts)
+                check(row["bucket_hists"][desc] == want,
+                      f"tuning {label}: buckets {row['bucket_hists'][desc]},"
+                      f" want the greedy decomposition {want} of the "
+                      f"{wave}-task wave under {fst['ladder']}")
+                per = sum(c * (b // chunk if chunk and chunk < b
+                               and b % chunk == 0 else 1)
+                          for b, c in want.items())
+                check(row["kernel_launches"]["hydro_rhs_cuda"] == per,
+                      f"tuning {label}: {row['kernel_launches']} kernel "
+                      f"launches, want {per} (inner chunk {chunk})")
+        row["families"] = fams
+        table[f"{key}: {label}"] = row
+        print(f"tuning ({card}): {key} {label}: {row['ms_per_step']:.3f} "
+              f"ms/step (host), device busy "
+              f"{row['device_busy_ms_per_step']:.3f} ms/step, "
+              f"{row['launches_per_step']:g} launches/step, kernel launches "
+              f"{row['kernel_launches']}, bit-identical to fused", flush=True)
+        for desc, fst in fams.items():
+            print(f"  {desc}: route {fst['selected_strategy']}, ladder "
+                  f"{fst['ladder']} ({fst['tuned_by'] or 'config'}), cost "
+                  f"ms per bucket {fst['cost_model_paths'] or fst['cost_model']},"
+                  f" strategy costs ms/wave {fst['strategy_costs']}, flush "
+                  f"decisions {fst['flush_decisions']}, inner chunk "
+                  f"{fst['inner_chunk']}, s2 width {fst['s2_width']}, "
+                  f"measurement launches {fst['measurement_launches']}",
+                  flush=True)
+    results["tuning"] = dict(card=card, runs=table)
     return table
 
 
@@ -3017,6 +3256,7 @@ def main(argv=None):
     results = {"card": card, "device": torch.cuda.get_device_name(0),
                "torch": torch.__version__, "cuda": torch.version.cuda}
     phase_kernel(CONFIG, dev, results)
+    phase_kernel_16(CONFIG_16, dev, results)
     dts, fused_kernel_path = phase_main_path(CONFIG, dev, STEPS, results)
 
     gravity_512 = GravityHydroConfig(name="gravity_sedov_512", hydro=CONFIG)
@@ -3059,22 +3299,41 @@ def main(argv=None):
                 f"amr_path_{acfg.name}_{layout}", hists)
         compare_layouts(acfg.name, fused["slot_lane"], fused["slot_grid"],
                         acfg)
-    lane_plain = amr_level_bodies(CONFIG_MIXED, "slot_lane", plain=True)
-    ref, mixed_dts = amr_reference(CONFIG_MIXED, dev, STEPS, lane_plain)
-    phase_amr_path(CONFIG_MIXED, "slot_lane", rows_16, dev, ref, mixed_dts,
-                   results, "amr_path_mixed_slot_lane", {
-                       "hydro_rhs_s16[5x22x22x22,scalar]": {1: 3},
-                       "hydro_rhs_s8[5x14x14x14,scalar]": {8: 3}})
-    phase_mixed_slot_grid_refuses(CONFIG_MIXED, dev, mixed_dts)
+    # CONFIG_MIXED (a 16^3 family and an 8^3 one) on both layouts
+    rows_mixed = rows_16 + (("s2+s3 4 streams cap 16", AggregationConfig(
+        strategy="s2+s3", n_executors=4, max_aggregated=16)),)
+    mixed_fused, mixed_dts = {}, None
+    for layout in ("slot_lane", "slot_grid"):
+        ref, mixed_dts = amr_reference(CONFIG_MIXED, dev, STEPS,
+                                       amr_level_bodies(CONFIG_MIXED, layout,
+                                                        plain=True),
+                                       mixed_dts)
+        mixed_fused[layout], path_c[(CONFIG_MIXED.name, layout)] = \
+            phase_amr_path(CONFIG_MIXED, layout, rows_mixed, dev, ref,
+                           mixed_dts, results, f"amr_path_mixed_{layout}", {
+                               "hydro_rhs_s16[5x22x22x22,scalar]": {1: 3},
+                               "hydro_rhs_s8[5x14x14x14,scalar]": {8: 3}})
+    compare_layouts(CONFIG_MIXED.name, mixed_fused["slot_lane"],
+                    mixed_fused["slot_grid"], CONFIG_MIXED)
     phase_lane_path(CONFIG, dev, STEPS, results, "lane_path", dts=dts,
                     grid_path=fused_kernel_path)
-    phase_lane_path(CONFIG_16, dev, STEPS, results, "lane_path_16")
+    _, lane16, dts16 = phase_lane_path(CONFIG_16, dev, STEPS, results,
+                                       "lane_path_16")
+    path_d16, grid16, _ = phase_lane_path(
+        CONFIG_16, dev, STEPS, results, "grid_path_16", dts=dts16,
+        grid_path=lane16, layout="slot_grid")
+    check(torch.equal(grid16, lane16), "CONFIG_16: the slot_grid path and "
+          "the lane kernel's path differ after the same steps")
+    print("CONFIG_16: the slot_grid path equals the lane kernel's path in "
+          "every element", flush=True)
 
     # staging, s2 and the epilogue-fused stages
     phase_staging(CONFIG, dev, card, dts, fused_kernel_path, results)
     phase_s2(CONFIG, gravity_512, amr_1024, dev, card, dts, results)
     phase_fused_stages(CONFIG, gravity_512, amr_1024, dev, card, dts,
                        results)
+    phase_tuning(CONFIG, gravity_512, CONFIG_MIXED, dev, card, dts,
+                 fused_kernel_path, results)
 
     # the whole trajectory as one CUDA graph, crash-consistent resume and
     # the captured AMR exchange
@@ -3092,7 +3351,7 @@ def main(argv=None):
     entries = [results["kernel"], results["gravity_kernel"],
                results["reconstruct_kernel"], results["flux_kernel"],
                results["lane_kernel"], results["decode_attention_kernel"],
-               results["grouped_gemm_kernel"]]
+               results["grouped_gemm_kernel"], results["kernel_16"]]
     entries[1]["launches"] = \
         path_a["s3 cap 32"]["kernel_launches"]["gravity_cuda"]
     entries[2]["launches"] = \
@@ -3101,13 +3360,16 @@ def main(argv=None):
         path_b["s3 cap 32"]["kernel_launches"]["hydro_flux_cuda"]
     entries[4]["launches"] = path_c[(amr_1024.name, "slot_lane")][
         "s3 cap 32"]["kernel_launches"]["hydro_rhs_lane_cuda"]
+    entries[7]["launches"] = \
+        path_d16["s3 cap 32"]["kernel_launches"]["hydro_rhs_cuda"]
     results["seconds"] = time.perf_counter() - t_start
     print(f"chip_smoke: every phase passed in {results['seconds']:.1f} s, "
           f"the builds included", flush=True)
     k = results["kernel"]
     print(f"kernels: hydro_rhs (cuda, {k['source']}, replaces "
           f"{k['replaces']} and its h_slots twin :146, on the main path, "
-          f"Path A and Path C slot_grid); gravity (cuda, "
+          f"Path A, Path C slot_grid and, at 16^3 in two x-slabs per slot, "
+          f"CONFIG_16 and CONFIG_MIXED); gravity (cuda, "
           f"src/repro_torch/csrc/gravity.cu, replaces "
           f"src/repro/kernels/gravity.py:130, Path A); hydro_reconstruct and "
           f"hydro_flux (cuda, src/repro_torch/csrc/hydro_split.cu, replace "

@@ -6,11 +6,12 @@ coarse and fine sub-grids, each task with its level's cell width — through
 one aggregation executor.  With ``--mixed`` the levels use different
 sub-grid sizes, so TWO kernel families aggregate side by side.
 ``--layout slot_lane`` runs the lane kernel (tasks across each warp) in
-place of the slot_grid kernel; on the card ``--mixed`` needs it,
-the slot_grid kernel taking no 16^3 sub-grid.
+place of the slot_grid kernel; both layouts take the 16^3 family of
+``--mixed`` (the slot_grid kernel in two x-slabs per slot).
 
 Every strategy's result is checked bit-identical to the per-level fused
-reference on the same level body.
+reference on the same level body; the ``mixed`` row routes each family by
+its measured cost (``cost_model=True``) and prints the routes.
 
   PYTHONPATH=src python -m repro_torch.amr_sedov [--mixed] [--steps N] \
       [--layout slot_grid|slot_lane] [--device cuda|cpu]
@@ -31,7 +32,9 @@ from repro_torch.kernels.ops import level_batched_body
 
 ROWS = (("fused", dict(strategy="fused")),
         ("s3", dict(strategy="s3", max_aggregated=16)),
-        ("s2+s3", dict(strategy="s2+s3", n_executors=4, max_aggregated=16)))
+        ("s2+s3", dict(strategy="s2+s3", n_executors=4, max_aggregated=16)),
+        ("mixed", dict(strategy="mixed", max_aggregated=16,
+                       cost_model=True)))
 
 
 def main(argv=None):
@@ -62,6 +65,7 @@ def main(argv=None):
     for label, kw in ROWS:
         r = StrategyRunner(AMRSedovScenario(cfg, hydro_body=body),
                            AggregationConfig(**kw), device=device)
+        r.warmup()
         uc, uf = st.uc, st.uf
         for _ in range(args.steps):
             uc, uf = r.rk3_step((uc, uf), dt)
@@ -71,6 +75,11 @@ def main(argv=None):
             hists = {k: v["aggregated_hist"]
                      for k, v in r.executor.stats["regions"].items()}
             fams = f"  families={hists}"
+            routes = {k: v["selected_strategy"]
+                      for k, v in r.executor.stats["regions"].items()
+                      if "selected_strategy" in v}
+            if routes:
+                fams += f"  routes={routes}"
         print(f"  {label:6s} launches={r.stats['kernel_launches']:4d}  "
               f"bit-identical={ok}{fams}")
         if not ok:

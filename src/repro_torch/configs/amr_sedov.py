@@ -6,8 +6,8 @@
   cell width riding in as a per-task argument.
 * ``CONFIG_MIXED`` — the coarse level is a single 16^3 sub-grid while the
   fine level stays 8^3: two ``TaskSignature`` families aggregate through
-  one executor.  Its 16^3 family needs ``layout="slot_lane"`` on the card
-  (the slot_grid kernel's shared memory does not hold a 16^3 slot).
+  one executor.  Its 16^3 family runs on either layout on the card (the
+  slot_grid kernel splits a 16^3 slot into two x-slabs).
 
 Both refine the central half of the domain at 2x resolution, which fully
 contains the Sedov blast sphere.

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Tuple
+from typing import Mapping, Optional, Tuple
 
 
 # ---------------------------------------------------------------------------
@@ -103,15 +103,40 @@ class ModelConfig:
         return int(total)
 
 # strategies the port registers; the reference's others wait in ROADMAP.md
-PORTED_STRATEGIES = ("fused", "s2", "s3", "s2+s3")
-ROADMAP_STRATEGIES = ("s1", "mixed", "s4", "sharded")
+PORTED_STRATEGIES = ("fused", "s2", "s3", "s2+s3", "mixed")
+ROADMAP_STRATEGIES = ("s4", "sharded")
 STAGING_MODES = ("device", "host")
+FLUSH_POLICIES = ("eager", "watermark", "cost")
+# valid targets of per-family strategy routing (the "mixed" strategy);
+# "auto" defers to the measured cost model
+FAMILY_STRATEGY_CHOICES = ("s2", "s3", "fused", "auto")
+
+
+def resolve_family_option(value, kernel: str, default):
+    """Resolve a possibly per-family (mapping-valued) config knob for one
+    kernel family.  Lookup order: the exact kernel id, then — for an
+    epilogue-fused stage twin ``<base>+epi`` — its base kernel, then the
+    ``"*"`` wildcard, then ``default``.  A plain (non-mapping) value
+    applies to every family; ``None`` means ``default``."""
+    if value is None:
+        return default
+    if not isinstance(value, Mapping):
+        return value
+    if kernel in value:
+        return value[kernel]
+    if kernel.endswith("+epi"):
+        base = kernel[:-len("+epi")]
+        if base in value:
+            return value[base]
+    return value.get("*", default)
 
 
 @dataclass(frozen=True)
 class AggregationConfig:
     """The paper's strategies as runtime knobs.
 
+    strategy 1: larger sub-grids, a hydro config (``configs.sedov.CONFIG_16``)
+                under any strategy, not a strategy of its own
     strategy 2: ``n_executors``    — concurrent launch queues (CUDA streams)
     strategy 3: ``max_aggregated`` — on-the-fly fusion cap (bucketed)
 
@@ -121,18 +146,51 @@ class AggregationConfig:
     the epilogue-fused stage families, under a strategy with ``run_stage``
     and device staging only (the runner falls back to the generic combine
     otherwise).
+
+    Measured tuning: after ``autotune_warmup`` complete waves a region
+    re-derives its bucket ladder from its queue-length histogram (at most
+    ``compile_budget`` buckets, bucket 1 always kept), by launch count or,
+    with ``cost_model=True``, by the predicted time per wave from each
+    bucket's timed launches (the median of ``cost_samples`` samples).
+    ``inner_chunk`` evaluates a bucket as sequential launches of that many
+    slots (0: flat; ``"auto"``: timed at warmup).  ``flush_policy`` says
+    whether a partial queue drains into an idle executor: always
+    (``"eager"``), only at the learned wave peak (``"watermark"``) or when
+    the cost model predicts the split no slower (``"cost"``); a name or a
+    ``{kernel: policy}`` mapping.  ``family_strategies`` routes each family
+    under ``strategy="mixed"`` to ``"s2"``, ``"s3"``, ``"fused"`` or
+    ``"auto"`` (the measured choice), resolved by
+    :func:`resolve_family_option`.  None of these changes a result.
     """
-    strategy: str = "s3"              # "s3" | "s2+s3" | "s2" | "fused"
+    strategy: str = "s3"              # "s3" | "s2+s3" | "s2" | "mixed" |
+                                      # "fused"
     n_executors: int = 1
     max_aggregated: int = 32
     buckets: Tuple[int, ...] = ()     # () -> powers of two up to max_aggregated
     launch_watermark: int = 1         # queue depth that forces a launch
     staging: str = "device"           # "device" | "host"
+    autotune: bool = False
+    autotune_warmup: int = 2          # complete waves per region before retune
+    compile_budget: int = 4           # max distinct bucket sizes per ladder
+    inner_chunk: object = 0           # int, or "auto"
     fuse_epilogue: bool = False       # epilogue-fused RK stages
+    cost_model: bool = False
+    cost_samples: int = 3             # timed samples per bucket (median)
+    flush_policy: object = "eager"    # policy name, or {kernel: policy}
+    family_strategies: Optional[Mapping[str, str]] = None
     guard: str = "off"                # "finite" waits for containment
+    launch_timeout_s: float = 0.0     # the launch watchdog waits too
+    breaker_window: int = 0           # so do the circuit breakers
     tune_store: object = None         # waits for the tune store
+    prior: str = "off"                # "roofline" waits for it too
 
     def __post_init__(self):
+        if self.strategy == "s1":
+            raise ValueError(
+                "strategy 's1' is not a launch strategy: the paper's "
+                "strategy 1 is larger sub-grids, "
+                "repro_torch.configs.sedov.CONFIG_16 (16^3), run under any "
+                f"strategy of {PORTED_STRATEGIES}")
         if self.strategy in ROADMAP_STRATEGIES:
             raise NotImplementedError(
                 f"strategy {self.strategy!r} is not ported yet (see "
@@ -144,9 +202,17 @@ class AggregationConfig:
             raise NotImplementedError(
                 f"guard={self.guard!r} is not ported yet (containment, see "
                 f"ROADMAP.md); the port runs guard='off'")
+        if self.launch_timeout_s or self.breaker_window:
+            raise NotImplementedError(
+                "the launch watchdog and the circuit breakers are not "
+                "ported yet (containment, see ROADMAP.md)")
         if self.tune_store is not None:
             raise NotImplementedError(
                 "tune_store is not ported yet (see ROADMAP.md)")
+        if self.prior != "off":
+            raise NotImplementedError(
+                f"prior={self.prior!r} is not ported yet (warm start, see "
+                f"ROADMAP.md); the port runs prior='off'")
         if self.n_executors < 1:
             raise ValueError(f"n_executors must be >= 1, got "
                              f"{self.n_executors}")
@@ -156,6 +222,31 @@ class AggregationConfig:
         if self.launch_watermark < 1:
             raise ValueError(f"launch_watermark must be >= 1, got "
                              f"{self.launch_watermark}")
+        if self.autotune_warmup < 0 or self.compile_budget < 1:
+            raise ValueError(
+                f"autotune_warmup must be >= 0 and compile_budget >= 1, got "
+                f"{self.autotune_warmup} and {self.compile_budget}")
+        if self.inner_chunk != "auto" and (
+                isinstance(self.inner_chunk, bool)
+                or not isinstance(self.inner_chunk, int)
+                or self.inner_chunk < 0):
+            raise ValueError(f"inner_chunk must be an int >= 0 or 'auto', "
+                             f"got {self.inner_chunk!r}")
+        if self.cost_samples < 1:
+            raise ValueError(f"cost_samples must be >= 1, got "
+                             f"{self.cost_samples}")
+        policies = (self.flush_policy.values()
+                    if isinstance(self.flush_policy, Mapping)
+                    else (self.flush_policy,))
+        for fp in policies:
+            if fp not in FLUSH_POLICIES:
+                raise ValueError(f"unknown flush_policy {fp!r} — valid "
+                                 f"policies: {', '.join(FLUSH_POLICIES)}")
+        for kernel, choice in (self.family_strategies or {}).items():
+            if choice not in FAMILY_STRATEGY_CHOICES:
+                raise ValueError(
+                    f"family_strategies[{kernel!r}] = {choice!r} — valid "
+                    f"assignments: {FAMILY_STRATEGY_CHOICES}")
 
     def bucket_sizes(self) -> Tuple[int, ...]:
         if self.buckets:

@@ -1,10 +1,10 @@
 """The paper's own benchmark scenario: Sedov-Taylor blast wave, AMR off.
 
 Paper Table II: 8^3 sub-grids / 3 levels -> 512 leaves (262144 cells);
-16^3 sub-grids / 2 levels -> 64 leaves (same 262144 cells).  The port's
-slot_grid kernel takes ``CONFIG``; ``CONFIG_16`` runs on the lane kernel
-(``layout="slot_lane"``), the slot_grid kernel's shared memory being too
-small for a 16^3 slot (ROADMAP.md).
+16^3 sub-grids / 2 levels -> 64 leaves (same 262144 cells).  ``CONFIG_16``
+is the paper's strategy 1 (larger sub-grids) under any strategy; both run
+on either layout, the slot_grid kernel splitting each 16^3 slot into two
+x-slabs (``kernels.hydro_rhs.slab_plan``).
 """
 from repro_torch.configs.base import HydroConfig
 

@@ -1,17 +1,40 @@
 """Aggregation runtime of the port: executors (CUDA streams), the
-aggregation executor, scenarios and strategies."""
+aggregation executor with its measured tuning, scenarios and strategies.
+
+The reference's fault containment (``faults``), tune store (``tunestore``)
+and sharded executors (``sharding``) wait in ROADMAP.md (Queue 1 items
+9-11), so their names are not exported yet.
+"""
 from repro_torch.core.aggregation import (  # noqa: F401
-    AggregationExecutor, RangeFuture, SlotView, TaskFuture, TaskSignature,
-    gather_futures, greedy_decomposition, make_s2_scatter,
+    AggregationExecutor, BucketCostModel, LaunchTimer, RangeFuture, SlotView,
+    TaskFuture, TaskSignature, aggregation_region, derive_ladder,
+    gather_futures, greedy_decomposition, greedy_launches, ladder_candidates,
+    make_s2_scatter, reset_regions,
 )
 from repro_torch.core.buffers import BufferPool, SlotRing  # noqa: F401
 from repro_torch.core.executor import DeviceExecutor, ExecutorPool  # noqa: F401
 from repro_torch.core.scenario import (  # noqa: F401
     AMRSedovScenario, GravityScenario, KernelFamily, Scenario,
-    TaskPopulation, UniformSedovScenario,
+    TaskPopulation, UniformSedovScenario, stage_family,
 )
 from repro_torch.core.graphs import CaptureError, CapturedCall  # noqa: F401
 from repro_torch.core.strategies import (  # noqa: F401
-    AMRStrategyRunner, HydroStrategyRunner, StrategyRunner,
-    available_strategies, s2,
+    AMRStrategyRunner, HydroStrategyRunner, RunContext, Strategy,
+    StrategyRunner, available_strategies, get_strategy_class,
+    register_strategy, s2,
 )
+
+__all__ = [
+    "AggregationExecutor", "BucketCostModel", "LaunchTimer", "RangeFuture",
+    "SlotView", "TaskFuture", "TaskSignature", "aggregation_region",
+    "derive_ladder", "gather_futures", "greedy_decomposition",
+    "greedy_launches", "ladder_candidates", "make_s2_scatter",
+    "reset_regions",
+    "BufferPool", "SlotRing", "DeviceExecutor", "ExecutorPool",
+    "Scenario", "KernelFamily", "TaskPopulation", "stage_family",
+    "UniformSedovScenario", "AMRSedovScenario", "GravityScenario",
+    "CaptureError", "CapturedCall",
+    "Strategy", "RunContext", "StrategyRunner", "available_strategies",
+    "get_strategy_class", "register_strategy",
+    "AMRStrategyRunner", "HydroStrategyRunner",
+]

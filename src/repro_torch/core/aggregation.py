@@ -29,19 +29,33 @@ is queued first):
   device, or CPU tensors through a pinned :class:`BufferPool` slab and one
   H2D copy.
 
+Measured tuning: each region keeps a :class:`BucketCostModel` of timed
+launches (``cost_model=True``), a queue-length histogram of its waves and,
+under ``autotune=True``, re-derives its ladder (:func:`derive_ladder`)
+after ``autotune_warmup`` waves.  A launch is timed by :class:`LaunchTimer`
+(CUDA events around back-to-back launches on the card, the host clock on
+the CPU), or by any callable the caller passes.  The flush policies decide
+whether a partial queue drains into an idle executor, ``inner_chunk``
+evaluates a bucket as sequential chunk launches, and ``select_strategy``
+compares the measured ``s2``, ``s3`` and ``fused`` paths for the ``mixed``
+strategy.  No policy, ladder, chunk or width changes a result.
+
 ``make_s2_scatter`` builds the ``s2`` strategy's per-task launch.  The
-reference's containment, cost model, autotune and tune store wait in
-ROADMAP.md.
+reference's containment and tune store wait in ROADMAP.md (items 9, 10).
 """
 from __future__ import annotations
 
+import bisect
+import statistics
 import time
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import (
+    Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple,
+)
 
 import torch
 
-from repro_torch.configs.base import AggregationConfig
+from repro_torch.configs.base import AggregationConfig, resolve_family_option
 from repro_torch.core.buffers import BufferPool, SlotRing
 from repro_torch.core.executor import ExecutorPool
 from repro_torch.device import DeviceLike, resolve_device
@@ -256,24 +270,398 @@ def greedy_decomposition(k: int, buckets: Sequence[int]) -> Tuple[int, ...]:
     return tuple(out)
 
 
+def greedy_launches(k: int, buckets: Sequence[int]) -> int:
+    """Launches the greedy drain performs for a queue of length k."""
+    return len(greedy_decomposition(k, buckets))
+
+
+class BucketCostModel:
+    """Measured per-bucket launch times (seconds) of ONE region, per
+    execution path: ``"s3"`` (the bucket programs, keyed by bucket),
+    ``"s2"`` (the scatter launch, keyed by coalesce width) and ``"fused"``
+    (the whole-wave launch, keyed by wave size).
+
+    ``time`` is the median of a bucket's samples; ``predict`` extends the
+    table piecewise-linearly in the bucket size — clamped below the
+    smallest measured bucket, extrapolated above the largest with the last
+    segment's slope (floored at the largest measurement).  Priors
+    (``seed_prior``) live beside the samples and answer only for a path
+    without one real sample, each such answer counted in ``prior_hits``.
+    ``as_stats`` is the table in milliseconds for ``stats["regions"]``.
+    """
+
+    __slots__ = ("samples", "_paths", "priors", "_sources", "prior_hits")
+
+    def __init__(self):
+        self.samples: Dict[int, List[float]] = {}
+        # path -> {bucket/width: raw samples}; "s3" aliases ``samples``
+        self._paths: Dict[str, Dict[int, List[float]]] = {"s3": self.samples}
+        self.priors: Dict[str, Dict[int, float]] = {}
+        self._sources: Dict[Tuple[str, int], str] = {}
+        self.prior_hits = 0
+
+    def _table(self, path: str) -> Dict[int, List[float]]:
+        t = self._paths.get(path)
+        if t is None:
+            t = self._paths[path] = {}
+        return t
+
+    def record(self, bucket: int, seconds: float, path: str = "s3",
+               source: str = "measured") -> None:
+        self._table(path).setdefault(int(bucket), []).append(float(seconds))
+        self._sources[(path, int(bucket))] = source
+
+    def seed_prior(self, bucket: int, seconds: float,
+                   path: str = "s3") -> None:
+        """Install an analytical estimate for one bucket, beside the
+        samples, never in them (``time`` stays None)."""
+        self.priors.setdefault(path, {})[int(bucket)] = float(seconds)
+
+    def clear(self) -> None:
+        """Drop every sample and prior on every path (the measured
+        programs changed, e.g. the region's inner chunk)."""
+        for table in self._paths.values():
+            table.clear()
+        self.priors.clear()
+        self._sources.clear()
+
+    def clear_priors(self) -> None:
+        self.priors.clear()
+
+    def measured(self, path: str = "s3") -> bool:
+        return bool(self._paths.get(path))
+
+    def seeded(self, path: str = "s3") -> bool:
+        return bool(self.priors.get(path))
+
+    def has_data(self, path: str = "s3") -> bool:
+        """Can ``predict`` answer for this path (measured or seeded)?"""
+        return self.measured(path) or self.seeded(path)
+
+    def sources(self) -> Dict[str, Dict[int, str]]:
+        """{path: {bucket: "measured" | "prior" | ...}}: where each known
+        bucket's number came from (priors shadowed by samples)."""
+        out: Dict[str, Dict[int, str]] = {}
+        for path, prior in self.priors.items():
+            for b in prior:
+                out.setdefault(path, {})[b] = "prior"
+        for (path, b), src in self._sources.items():
+            if self._paths.get(path, {}).get(b):
+                out.setdefault(path, {})[b] = src
+        return out
+
+    def paths(self) -> Tuple[str, ...]:
+        """The execution paths with at least one measurement."""
+        return tuple(sorted(p for p, t in self._paths.items() if t))
+
+    def buckets(self, path: str = "s3") -> Tuple[int, ...]:
+        return tuple(sorted(self._paths.get(path, ())))
+
+    def time(self, bucket: int, path: str = "s3") -> Optional[float]:
+        s = self._paths.get(path, {}).get(bucket)
+        return statistics.median(s) if s else None
+
+    @staticmethod
+    def _interp(bs: Sequence[int], val: Callable[[int], float],
+                bucket: int) -> float:
+        """Clamp below the smallest entry, interpolate inside, extrapolate
+        above with the last segment's slope (floored)."""
+        if bucket <= bs[0]:
+            return val(bs[0])
+        if bucket >= bs[-1]:
+            hi = val(bs[-1])
+            if len(bs) == 1:
+                return hi * bucket / bs[-1]
+            lo = val(bs[-2])
+            slope = (hi - lo) / (bs[-1] - bs[-2])
+            return max(hi, hi + slope * (bucket - bs[-1]))
+        i = bisect.bisect_left(bs, bucket)
+        b0, b1 = bs[i - 1], bs[i]
+        t0, t1 = val(b0), val(b1)
+        return t0 + (t1 - t0) * (bucket - b0) / (b1 - b0)
+
+    def predict(self, bucket: int, path: str = "s3") -> float:
+        t = self.time(bucket, path)
+        if t is not None:
+            return t
+        bs = self.buckets(path)
+        if bs:
+            return self._interp(bs, lambda b: self.time(b, path), bucket)
+        prior = self.priors.get(path)
+        if prior:
+            self.prior_hits += 1
+            return self._interp(tuple(sorted(prior)), prior.__getitem__,
+                                bucket)
+        raise ValueError("cost model has no measurements or priors — "
+                         "check has_data() before predicting")
+
+    def predict_seq(self, buckets: Sequence[int], path: str = "s3") -> float:
+        """Predicted time of one greedy drain (a launch sequence)."""
+        return sum(self.predict(b, path) for b in buckets)
+
+    def predict_s2_wave(self, wave: int) -> Optional[Tuple[int, float]]:
+        """(best coalesce width, predicted seconds) for a ``wave``-task
+        population through the measured ``s2`` widths: width-w launches
+        over w tasks each, the remainder at width 1.  None before any
+        ``"s2"`` measurement (or when a remainder would need an unmeasured
+        width 1)."""
+        ws = self.buckets("s2") or tuple(sorted(self.priors.get("s2", ())))
+        if not ws:
+            return None
+        best = None
+        for w in ws:
+            if w > wave:
+                continue
+            rem = wave % w
+            if rem and 1 not in ws:
+                continue
+            t = (wave // w) * self.predict(w, "s2")
+            if rem:
+                t += rem * self.predict(1, "s2")
+            if best is None or t < best[1]:
+                best = (w, t)
+        return best
+
+    def as_stats(self, path: str = "s3") -> Dict[int, float]:
+        """{bucket: median milliseconds}, rounded for the stats surface."""
+        return {b: round(self.time(b, path) * 1e3, 4)
+                for b in self.buckets(path)}
+
+    def as_stats_paths(self) -> Dict[str, Dict[int, float]]:
+        return {p: self.as_stats(p) for p in self.paths()}
+
+
+class LaunchTimer:
+    """Seconds per call of a launch program ``fn``, one sample per call of
+    the timer: ``timer(fn, device, path, size)`` (``path`` and ``size``
+    name what is timed, for a timer that feeds known times).
+
+    On the card, ``reps`` back-to-back calls on the current stream between
+    two CUDA events, the elapsed time over ``reps``: a launch shorter than
+    its wrapper's host time then costs the host's pacing, which is what a
+    wave pays, and kernel times spread far less than host times do.  On
+    the CPU, the host clock around one call."""
+
+    def __init__(self, reps: int = 8):
+        if reps < 1:
+            raise ValueError(f"reps must be >= 1, got {reps}")
+        self.reps = reps
+
+    def launches_per_sample(self, device: torch.device) -> int:
+        return self.reps if device.type == "cuda" else 1
+
+    def __call__(self, fn: Callable[[], Any], device: torch.device,
+                 path: str, size: int) -> float:
+        if device.type != "cuda":
+            t0 = time.perf_counter()
+            fn()
+            return time.perf_counter() - t0
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record(stream)
+            for _ in range(self.reps):
+                fn()
+            end.record(stream)
+            end.synchronize()
+        return start.elapsed_time(end) / self.reps / 1e3
+
+
+def _samples(timer: Callable, fn: Callable[[], Any], device: torch.device,
+             path: str, size: int, count: int) -> List[float]:
+    """``count`` timer samples of ``fn``, after one untimed warm call."""
+    fn()
+    return [timer(fn, device, path, size) for _ in range(count)]
+
+
+def _launches(timer: Callable, device: torch.device, count: int) -> int:
+    """Launches of one warm call and ``count`` samples."""
+    per = getattr(timer, "launches_per_sample", None)
+    return 1 + count * (per(device) if per is not None else 1)
+
+
+def _out_like(batched_fn: Callable, stacked: Sequence[torch.Tensor]
+              ) -> torch.Tensor:
+    """An empty output of the body over ``stacked`` (sized on meta
+    tensors)."""
+    spec = batched_fn(*(torch.empty(a.shape, dtype=a.dtype, device="meta")
+                        for a in stacked))
+    return torch.empty(spec.shape, dtype=spec.dtype,
+                       device=stacked[0].device)
+
+
+def _chunked(chunk: int, k: int) -> bool:
+    """Whether a k-slot bucket runs as launches of ``chunk`` slots: a
+    chunk that divides it, smaller than it (no padding, ever)."""
+    return bool(chunk) and 0 < chunk < k and k % chunk == 0
+
+
+def _chunked_eval(batched_fn: Callable, chunk: int, *stacked: torch.Tensor,
+                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The body over a bucket as sequential launches of ``chunk`` slots,
+    each written into its slice of the bucket's output through ``out=``.
+    Bit-identical to the flat call (the body is independent per slot).
+    The flat call whenever the chunk does not divide the bucket."""
+    k = stacked[0].shape[0] if stacked else 0
+    if not _chunked(chunk, k):
+        if out is None:
+            return batched_fn(*stacked)
+        return batched_fn(*stacked, out=out)
+    if out is None:
+        out = _out_like(batched_fn, stacked)
+    for i in range(0, k, chunk):
+        batched_fn(*(a.narrow(0, i, chunk) for a in stacked),
+                   out=out.narrow(0, i, chunk))
+    return out
+
+
+def s2_width_candidates(wave: int) -> Tuple[int, ...]:
+    """The ``s2`` coalesce widths the measurement probes: 1 (one launch
+    per task), 2, and the largest power of two fitting the wave."""
+    top = 1
+    while top * 2 <= wave:
+        top *= 2
+    return tuple(sorted({1, min(2, wave), top}))
+
+
+def measure_s2_widths(batched_fn: Callable, parents: Sequence[torch.Tensor],
+                      widths: Sequence[int], samples: int = 3,
+                      timer: Optional[Callable] = None) -> Dict[int, float]:
+    """Time the ``s2`` scatter launch per coalesce width on zero-filled
+    parents of the given shapes: one warm call, then the median of
+    ``samples`` timer samples each.  Returns {width: seconds per
+    launch}."""
+    timer = timer or LaunchTimer()
+    zeros = tuple(torch.zeros(p.shape, dtype=p.dtype, device=p.device)
+                  for p in parents)
+    wave = min(p.shape[0] for p in zeros)
+    ring = _out_like(batched_fn, zeros)
+    out: Dict[int, float] = {}
+    for w in sorted(set(widths)):
+        if w > wave:
+            continue
+        scatter = make_s2_scatter(batched_fn, w)
+        out[w] = statistics.median(_samples(
+            timer, lambda: scatter(ring, 0, *zeros), ring.device, "s2", w,
+            max(1, samples)))
+    return out
+
+
+def ladder_candidates(queue_hist: Mapping[int, int], cap: int) -> set:
+    """The bucket sizes a ladder derivation considers: observed wave peaks
+    clipped to the cap, their cap-split remainders, plus powers of two up
+    to the cap."""
+    candidates = set()
+    for k in queue_hist:
+        if k <= 0:
+            continue
+        candidates.add(min(k, cap))
+        if k > cap and k % cap:
+            candidates.add(k % cap)
+    b = 1
+    while b <= cap:
+        candidates.add(b)
+        b *= 2
+    return candidates
+
+
+def derive_ladder(queue_hist: Mapping[int, int], cap: int, budget: int,
+                  cost_model: Optional[BucketCostModel] = None
+                  ) -> Tuple[int, ...]:
+    """Re-derive a bucket ladder from an observed queue-length histogram.
+
+    From ``{1}`` seeded with the dominant wave's cap decomposition, add
+    greedily the candidate (:func:`ladder_candidates`, smallest first)
+    that most lowers the per-wave objective, up to ``budget`` buckets.
+    The objective is expected launches per wave, or with a cost model the
+    predicted time per wave; under the model a final prune drops any
+    bucket whose removal does not raise the predicted time and lets the
+    search refill the budget.
+    """
+    queue_hist = {k: c for k, c in queue_hist.items() if k > 0}
+    candidates = ladder_candidates(queue_hist, cap)
+    use_model = cost_model is not None and cost_model.has_data()
+
+    def cost(ladder):
+        ls = sorted(ladder)
+        if use_model:
+            return sum(c * cost_model.predict_seq(greedy_decomposition(k, ls))
+                       for k, c in queue_hist.items())
+        return sum(c * greedy_launches(k, ls)
+                   for k, c in queue_hist.items())
+
+    ladder = {1}
+    peaks = [k for k in queue_hist if k > 0]
+    if peaks:
+        top = max(peaks, key=lambda k: (queue_hist[k], k))
+        seed = {cap, top % cap} if top > cap else {top}
+        for b in sorted(seed - {0}, reverse=True):
+            if len(ladder) < budget:
+                ladder.add(b)
+
+    def grow():
+        while len(ladder) < budget:
+            best, best_cost = None, cost(ladder)
+            for c in sorted(candidates - ladder):
+                cc = cost(ladder | {c})
+                if cc < best_cost:
+                    best, best_cost = c, cc
+            if best is None:
+                break
+            ladder.add(best)
+
+    grow()
+    if use_model:
+        while True:
+            pruned = False
+            for b in sorted(ladder - {1}, reverse=True):
+                if cost(ladder - {b}) <= cost(ladder):
+                    ladder.discard(b)
+                    pruned = True
+                    break
+            if not pruned:
+                break
+            grow()
+    return tuple(sorted(ladder))
+
+
 class _Region:
     """One aggregation region: per-TaskSignature queue, bucket ladder, slot
-    ring (made at the first per-task submission) and the two staging
-    programs (contiguous prefix, indexed gather)."""
+    ring (made at the first per-task submission), the two staging
+    programs (contiguous prefix, indexed gather), and its tuning state: the
+    inner chunk, the wave count and queue-length histogram, the cost
+    model, and the parent shapes its ranges read (which measurements
+    replay)."""
 
     __slots__ = ("signature", "batched_fn", "queue", "queued_tasks",
-                 "buckets", "stats", "ring")
+                 "buckets", "stats", "ring", "chunk", "chunk_tuned",
+                 "waves", "tuned", "_wave_peak", "cost", "_retuned_waves",
+                 "_retuned_peak", "warmup_wave", "parent_specs", "_outs")
 
     def __init__(self, signature: TaskSignature, batched_fn: Callable,
-                 buckets: Tuple[int, ...]):
+                 buckets: Tuple[int, ...], chunk: int = 0):
         self.signature = signature
         self.batched_fn = batched_fn
         self.queue: List[_Pending] = []
         self.queued_tasks = 0
         self.buckets = buckets
-        self.stats = {"submitted": 0, "launches": 0, "aggregated_hist": {},
-                      "ladder": list(buckets)}
         self.ring: Optional[SlotRing] = None
+        self.chunk = chunk            # inner chunk (0 = flat)
+        self.chunk_tuned = False      # "auto" tuning ran for this region
+        self.waves = 0                # completed waves (queue drained to 0)
+        self.tuned = False
+        self._wave_peak = 0
+        self.cost = BucketCostModel()
+        self._retuned_waves = -1      # waves at the last retune
+        self._retuned_peak = 0        # largest wave peak at the last retune
+        self.warmup_wave = 0          # the wave size warmup was told about
+        # parent shapes a range or warmup read, ((shape, dtype), ...) each
+        self.parent_specs: set = set()
+        self._outs: Dict[Tuple, Tuple] = {}   # chunked outputs' shapes
+        self.stats = {"submitted": 0, "launches": 0, "aggregated_hist": {},
+                      "queue_hist": {}, "ladder": list(buckets),
+                      "measurement_launches": 0, "prior_hits": 0}
 
     def ensure_ring(self, capacity: int, example_args: Sequence[torch.Tensor],
                     device: torch.device) -> SlotRing:
@@ -281,14 +669,58 @@ class _Region:
             self.ring = SlotRing(capacity, example_args, device=device)
         return self.ring
 
+    def remember(self, parents: Sequence[torch.Tensor]) -> None:
+        self.parent_specs.add(tuple((tuple(p.shape), p.dtype)
+                                    for p in parents))
+
+    def expected_peak(self) -> int:
+        """The modal observed wave peak (ties to the larger), what the
+        adaptive flush policies treat as a full wave; 0 before any wave."""
+        qh = self.stats["queue_hist"]
+        if not qh:
+            return 0
+        return max(qh, key=lambda k: (qh[k], k))
+
+    def eval(self, *stacked: torch.Tensor,
+             chunk: Optional[int] = None) -> torch.Tensor:
+        """The body over a staged bucket, in chunks of the region's inner
+        chunk (or ``chunk``)."""
+        chunk = self.chunk if chunk is None else chunk
+        if not _chunked(chunk, stacked[0].shape[0]):
+            return self.batched_fn(*stacked)
+        key = tuple((tuple(a.shape), a.dtype) for a in stacked)
+        spec = self._outs.get(key)
+        if spec is None:
+            out = _out_like(self.batched_fn, stacked)
+            self._outs[key] = (tuple(out.shape), out.dtype)
+        else:
+            out = torch.empty(spec[0], dtype=spec[1],
+                              device=stacked[0].device)
+        return _chunked_eval(self.batched_fn, chunk, *stacked, out=out)
+
     def apply_prefix(self, start: int, k: int, *parents: torch.Tensor):
         """Contiguous bucket: the body reads ``[start, start+k)`` of each
         parent as a view, with no staging copy."""
-        return self.batched_fn(*(p.narrow(0, start, k) for p in parents))
+        return self.eval(*(p.narrow(0, start, k) for p in parents))
 
     def apply_gathered(self, idx: torch.Tensor, *parents: torch.Tensor):
         """Any other bucket: one gather per parent feeds the body."""
-        return self.batched_fn(*(p.index_select(0, idx) for p in parents))
+        return self.eval(*(p.index_select(0, idx) for p in parents))
+
+
+# inner-chunk choices, memoized per (device, timer, body, bucket, task
+# shapes): a chunk timed on one device never serves another.  The value
+# keeps the body and the timer alive, so their ids stay valid; FIFO-bounded.
+_CHUNK_MEMO: Dict[Tuple, Tuple[Any, Any, int]] = {}
+_CHUNK_MEMO_MAX = 32
+
+
+def _device_key(device: torch.device) -> Tuple[str, str, int]:
+    """(type, name, count): what a timed choice is valid for."""
+    if device.type == "cuda":
+        return ("cuda", torch.cuda.get_device_name(device),
+                torch.cuda.device_count())
+    return (device.type, "", 1)
 
 
 class AggregationExecutor:
@@ -299,14 +731,18 @@ class AggregationExecutor:
     ``name``, further families via :meth:`register`.  ``config`` caps the
     bucket size (``max_aggregated``, also each slot ring's capacity), sizes
     the executor pool (``n_executors``: strategy 3 combined with strategy
-    2) and picks the staging of per-task submissions (``staging``).
+    2) and picks the staging of per-task submissions (``staging``); its
+    tuning knobs (``autotune``, ``cost_model``, ``inner_chunk``,
+    ``flush_policy``) act per region.  ``timer(fn, device, path, size)``
+    gives one sample of a launch's seconds (default :class:`LaunchTimer`).
     """
 
     def __init__(self, batched_fn: Optional[Callable] = None,
                  config: Optional[AggregationConfig] = None,
                  pool: Optional[ExecutorPool] = None, name: str = "region",
                  device: DeviceLike = None,
-                 buffer_pool: Optional[BufferPool] = None):
+                 buffer_pool: Optional[BufferPool] = None,
+                 timer: Optional[Callable] = None):
         self.name = name
         self.config = config or AggregationConfig()
         self.device = resolve_device(device)
@@ -316,11 +752,22 @@ class AggregationExecutor:
         self.buffers = buffer_pool or BufferPool(
             pinned=self.device.type == "cuda")
         self._buckets = tuple(sorted(self.config.bucket_sizes()))
+        ic = self.config.inner_chunk
+        self._chunk_auto = ic == "auto"
+        self._chunk = 0 if self._chunk_auto else int(ic)
+        self._flush_policy = self.config.flush_policy
+        self._cost_on = self.config.cost_model
+        self._cost_samples = self.config.cost_samples
+        self.timer = timer or LaunchTimer()
         self._bodies: Dict[str, Callable] = {}
         self._regions: Dict[TaskSignature, _Region] = {}
         self._default_kernel: Optional[str] = None
         self.stats = {"submitted": 0, "launches": 0, "aggregated_hist": {},
-                      "staging_s": 0.0, "regions": {}}
+                      "staging_s": 0.0, "regions": {},
+                      "flush_policy": (dict(self._flush_policy)
+                                       if isinstance(self._flush_policy,
+                                                     Mapping)
+                                       else self._flush_policy)}
         if batched_fn is not None:
             self.register(name, batched_fn)
 
@@ -352,10 +799,15 @@ class AggregationExecutor:
             if body is None:
                 raise KeyError(f"no batched body registered for kernel "
                                f"{kernel!r} (have {sorted(self._bodies)})")
-            region = _Region(sig, body, self._buckets)
+            region = _Region(sig, body, self._buckets, chunk=self._chunk)
             self._regions[sig] = region
             self.stats["regions"][sig.describe()] = region.stats
         return region
+
+    @property
+    def regions(self) -> Dict[TaskSignature, _Region]:
+        """The live region registry (a copy)."""
+        return dict(self._regions)
 
     @property
     def ring(self) -> Optional[SlotRing]:
@@ -368,33 +820,209 @@ class AggregationExecutor:
     # -- warmup ------------------------------------------------------------
     def warmup(self, parent_shapes: Sequence[Tuple[Tuple[int, ...],
                                                    torch.dtype]], *,
-               kernel: Optional[str] = None) -> None:
-        """Launch each ladder bucket once on every executor's stream, on
-        zero-filled parents of the given ``(shape, dtype)``s (the shapes a
-        range or a host-stacked bucket reads), and under device staging
-        once more on the family's slot ring, which this makes: builds the
-        kernel at first use and pays every first-launch cost (including
-        each stream's first allocations) before the timed run.  Launch
-        statistics are not touched.  (Per-bucket CUDA-graph capture waits
-        in ROADMAP.md.)"""
+               kernel: Optional[str] = None,
+               buckets: Optional[Sequence[int]] = None) -> None:
+        """Launch each ladder bucket (or each of ``buckets``) once on every
+        executor's stream, on zero-filled parents of the given ``(shape,
+        dtype)``s (the shapes a range or a host-stacked bucket reads), and
+        under device staging once more on the family's slot ring, which
+        this makes: builds the kernel at first use and pays every
+        first-launch cost (including each stream's first allocations)
+        before the timed run.  Launch statistics are not touched.  Under
+        ``inner_chunk="auto"`` this first times the chunks; under
+        ``cost_model=True`` it then times the buckets and, for the
+        ``mixed`` strategy's choice, the ``s2`` widths and the whole-wave
+        launch."""
         kernel = self._resolve_kernel(kernel)
         parents = tuple(torch.zeros(shape, dtype=dtype, device=self.device)
                         for shape, dtype in parent_shapes)
         region = self._region_for(kernel, [SlotView(p, 0) for p in parents])
+        region.remember(parents)
         n_parent = min(p.shape[0] for p in parents)
+        region.warmup_wave = max(region.warmup_wave, n_parent)
+        if self._chunk_auto and not region.chunk_tuned:
+            self._tune_chunk(region, parents)
+        want = region.buckets if buckets is None else tuple(sorted(buckets))
         ring = None
         if self._staging == "device":
             ring = region.ensure_ring(self.config.max_aggregated,
                                       [p[0] for p in parents], self.device)
         for ex in self.pool.executors:
-            for b in region.buckets:
+            for b in want:
                 if b <= n_parent:
                     ex.run(region.apply_prefix, 0, b, *parents)
                 if ring is not None:
                     ex.run(region.apply_prefix, 0, b, *ring.buffers())
                     ring.track_read(0, b, ex.last_event)
+        self._sync()
+        if self._cost_on:
+            self._measure_region(region, want, parents)
+
+    def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def _zeros(self, specs: Tuple) -> Tuple[torch.Tensor, ...]:
+        return tuple(torch.zeros(shape, dtype=dtype, device=self.device)
+                     for shape, dtype in specs)
+
+    def _sample(self, region: _Region, fn: Callable[[], Any], path: str,
+                size: int) -> List[float]:
+        """``cost_samples`` timer samples of one launch program."""
+        region.stats["measurement_launches"] += _launches(
+            self.timer, self.device, self._cost_samples)
+        return _samples(self.timer, fn, self.device, path, size,
+                        self._cost_samples)
+
+    # -- inner chunk and bucket cost measurement ---------------------------
+    def _tune_chunk(self, region: _Region, parents: Sequence[torch.Tensor],
+                    force: bool = False) -> None:
+        """``inner_chunk="auto"``: time the body on the region's largest
+        bucket that fits the parents over the chunks 0 (flat), 2, 4 and 8,
+        each the fastest of 3 samples, and keep the fastest.  Memoized per
+        (device, timer, body, bucket, task shapes); ``force`` (a retune's
+        re-sweep) bypasses the memo and overwrites it."""
+        n_parent = min(p.shape[0] for p in parents)
+        b = max((x for x in region.buckets if x <= n_parent), default=0)
+        if b < 2:
+            return
+        key = (_device_key(self.device), id(self.timer),
+               id(region.batched_fn), b,
+               tuple((tuple(p.shape[1:]), p.dtype) for p in parents))
+        memo = _CHUNK_MEMO.get(key)
+        if memo is not None and not force:
+            self._set_chunk(region, memo[2])
+            return
+        stacked = tuple(torch.zeros((b,) + tuple(p.shape[1:]), dtype=p.dtype,
+                                    device=self.device) for p in parents)
+        best_chunk, best_t = 0, float("inf")
+        for c in (0, 2, 4, 8):
+            if c >= b or (c and b % c):
+                continue
+            region.stats["measurement_launches"] += _launches(
+                self.timer, self.device, 3)
+            t = min(_samples(self.timer,
+                             lambda c=c: region.eval(*stacked, chunk=c),
+                             self.device, "chunk", c, 3))
+            if t < best_t:
+                best_chunk, best_t = c, t
+        while len(_CHUNK_MEMO) >= _CHUNK_MEMO_MAX:
+            _CHUNK_MEMO.pop(next(iter(_CHUNK_MEMO)))
+        _CHUNK_MEMO[key] = (region.batched_fn, self.timer, best_chunk)
+        self._set_chunk(region, best_chunk)
+
+    @staticmethod
+    def _set_chunk(region: _Region, chunk: int) -> None:
+        region.chunk = chunk
+        region.chunk_tuned = True
+        region.stats["inner_chunk"] = chunk
+
+    def _measure_region(self, region: _Region, buckets: Sequence[int],
+                        parents: Sequence[torch.Tensor],
+                        alt_paths: bool = True) -> None:
+        """Time each bucket's prefix launch on ``parents`` (zero-filled)
+        into the region's cost model; buckets with samples already are
+        skipped.  ``alt_paths``: also the ``s2`` widths and the whole-wave
+        launch (:meth:`_measure_alt_paths`)."""
+        n_slots = min(p.shape[0] for p in parents)
+        for b in sorted(set(buckets)):
+            if b > n_slots or region.cost.time(b) is not None:
+                continue
+            for t in self._sample(
+                    region, lambda b=b: region.apply_prefix(0, b, *parents),
+                    "s3", b):
+                region.cost.record(b, t)
+        if alt_paths:
+            self._measure_alt_paths(region, parents)
+        if region.cost.measured():
+            region.stats["cost_model"] = region.cost.as_stats()
+        if len(region.cost.paths()) > 1:
+            region.stats["cost_model_paths"] = region.cost.as_stats_paths()
+
+    def _measure_alt_paths(self, region: _Region,
+                           parents: Sequence[torch.Tensor]) -> None:
+        """Time the other strategies' launches for this family, so
+        ``select_strategy`` compares measured times: the ``s2`` scatter per
+        coalesce width (:func:`s2_width_candidates`) and the whole-wave
+        body.  A family routed explicitly to ``"s3"`` or ``"fused"``
+        probes nothing; one routed to ``"s2"`` only the widths (the ``s2``
+        strategy sizes its launches from them)."""
+        wave = min(p.shape[0] for p in parents)
+        if not wave:
+            return
+        route = resolve_family_option(self.config.family_strategies,
+                                      region.signature.kernel, "auto")
+        if route in ("auto", "s2") and not region.cost.measured("s2"):
+            widths = measure_s2_widths(region.batched_fn, parents,
+                                       s2_width_candidates(wave),
+                                       samples=self._cost_samples,
+                                       timer=self.timer)
+            region.stats["measurement_launches"] += len(widths) * _launches(
+                self.timer, self.device, self._cost_samples)
+            for w, t in widths.items():
+                region.cost.record(w, t, path="s2")
+        if route == "auto" and not region.cost.measured("fused"):
+            for t in self._sample(region,
+                                  lambda: region.batched_fn(*parents),
+                                  "fused", wave):
+                region.cost.record(wave, t, path="fused")
+
+    # -- per-family strategy selection -------------------------------------
+    def strategy_costs(self, kernel: str) -> Dict[str, Any]:
+        """Predicted milliseconds per wave of ``kernel``'s family under
+        each measured strategy, and the ``s2`` width; empty before any
+        measurement."""
+        region = self._primary_region(kernel)
+        if region is None:
+            return {}
+        wave = region.expected_peak() or region.warmup_wave
+        if not wave:
+            return {}
+        out: Dict[str, Any] = {}
+        if region.cost.has_data("s3"):
+            out["s3"] = round(region.cost.predict_seq(
+                greedy_decomposition(wave, region.buckets)) * 1e3, 4)
+        s2 = region.cost.predict_s2_wave(wave)
+        if s2 is not None:
+            out["s2"] = round(s2[1] * 1e3, 4)
+            out["s2_width"] = s2[0]
+        if region.cost.has_data("fused"):
+            out["fused"] = round(region.cost.predict(wave, "fused") * 1e3, 4)
+        return out
+
+    def select_strategy(self, kernel: str) -> str:
+        """The cheapest measured strategy for ``kernel``'s wave (``"s3"``,
+        ``"s2"`` or ``"fused"``; ties prefer ``"s3"``, then ``"s2"``);
+        ``"s3"`` before any measurement.  The choice and its costs go into
+        ``stats["regions"][fam]``."""
+        costs = self.strategy_costs(kernel)
+        order = ("s3", "s2", "fused")
+        timed = [(costs[s], order.index(s)) for s in order if s in costs]
+        selected = order[min(timed)[1] if timed else 0]
+        self._record(kernel, selected, costs)
+        return selected
+
+    def record_selection(self, kernel: str, selected: str) -> None:
+        """Record an explicit route (``family_strategies``) in the region
+        stats, beside whatever costs exist."""
+        self._record(kernel, selected, self.strategy_costs(kernel))
+
+    def _record(self, kernel: str, selected: str,
+                costs: Dict[str, Any]) -> None:
+        region = self._primary_region(kernel)
+        if region is None:
+            return
+        region.stats["selected_strategy"] = selected
+        if costs:
+            region.stats["strategy_costs"] = costs
+
+    def _primary_region(self, kernel: str) -> Optional[_Region]:
+        """The region selection reasons about for a kernel: the one with
+        the largest wave (one region per task shape)."""
+        regs = [r for s, r in self._regions.items() if s.kernel == kernel]
+        if not regs:
+            return None
+        return max(regs, key=lambda r: (r.expected_peak() or r.warmup_wave))
 
     # -- submission API ----------------------------------------------------
     def submit(self, *args, kernel: Optional[str] = None) -> TaskFuture:
@@ -479,6 +1107,7 @@ class AggregationExecutor:
         self._check_mode(region, entry)
         region.queue.append(entry)
         region.queued_tasks += entry.count
+        region._wave_peak = max(region._wave_peak, region.queued_tasks)
         self.stats["submitted"] += entry.count
         region.stats["submitted"] += entry.count
         self._maybe_launch()
@@ -501,7 +1130,8 @@ class AggregationExecutor:
 
     def _maybe_launch(self) -> None:
         """The paper's launch policy, per region: launch when the cap is
-        reached, or when an executor is idle (eager drain); otherwise keep
+        reached, or when an executor is idle and the flush policy agrees
+        that draining the partial queue now pays; otherwise keep
         aggregating."""
         progress = True
         while progress:
@@ -513,9 +1143,51 @@ class AggregationExecutor:
                         region, self.config.max_aggregated))
                     progress = True
                 elif (q >= self.config.launch_watermark
-                      and self.pool.any_idle()):
+                      and self.pool.any_idle()
+                      and self._idle_drain_pays(region, q)):
                     self._launch(region, self._largest_bucket(region, q))
                     progress = True
+
+    def _policy_for(self, region: _Region) -> str:
+        """The region's flush policy (per family for a mapping: exact
+        kernel, the ``+epi`` twin's base, ``"*"``, then eager)."""
+        return resolve_family_option(self._flush_policy,
+                                     region.signature.kernel, "eager")
+
+    def _idle_drain_pays(self, region: _Region, q: int) -> bool:
+        """Should a partial queue of ``q`` tasks drain into an idle
+        executor now?  ``eager``: always.  ``watermark``: only at or past
+        the learned wave peak.  ``cost``: when the cost model predicts the
+        split drain (q now, the rest later) no slower than the whole wave
+        at once (eager without a model).  Every non-eager consultation is
+        counted in ``stats["regions"][fam]["flush_decisions"]``."""
+        policy = self._policy_for(region)
+        if policy == "eager":
+            return True
+        trace = region.stats.setdefault(
+            "flush_decisions", {"policy": policy, "consulted": 0,
+                                "full_wave": 0, "drained_early": 0,
+                                "held": 0})
+        trace["consulted"] += 1
+        peak = region.expected_peak()
+        if not peak or q >= peak:
+            trace["full_wave"] += 1
+            return True
+        if policy == "watermark":
+            trace["held"] += 1
+            return False
+        if not region.cost.measured():
+            trace["drained_early"] += 1
+            return True
+        split = (region.cost.predict_seq(
+                     greedy_decomposition(q, region.buckets))
+                 + region.cost.predict_seq(
+                     greedy_decomposition(peak - q, region.buckets)))
+        full = region.cost.predict_seq(
+            greedy_decomposition(peak, region.buckets))
+        pays = split <= full
+        trace["drained_early" if pays else "held"] += 1
+        return pays
 
     @staticmethod
     def _largest_bucket(region: _Region, k: int) -> int:
@@ -553,6 +1225,8 @@ class AggregationExecutor:
         self._launch_tasks(region, tasks, k, mode)
         if mode == "ring" and not region.queue:
             region.ring.swap()    # in-flight launches keep the old buffer
+        if not region.queue:
+            self._wave_complete(region)
 
     def _stage(self, region: _Region, tasks: List[_Pending], k: int,
                mode: str):
@@ -571,6 +1245,7 @@ class AggregationExecutor:
             i0 = t.views[0].index
             indices.extend(range(i0, i0 + t.count))
         parents = tuple(v.parent for v in tasks[0].views)
+        region.remember(parents)
         if indices == list(range(indices[0], indices[0] + k)):
             return region.apply_prefix, (indices[0], k) + parents
         idx = torch.tensor(indices, device=parents[0].device)
@@ -614,6 +1289,107 @@ class AggregationExecutor:
         rhist = region.stats["aggregated_hist"]
         rhist[k] = rhist.get(k, 0) + 1
 
+    # -- ladder auto-tuning ------------------------------------------------
+    def _wave_complete(self, region: _Region) -> None:
+        """A wave ended (its queue drained to zero): record its peak queue
+        length and, past ``autotune_warmup`` waves, re-derive the ladder.
+        A peak beyond what the last retune saw re-arms the tuner."""
+        region.stats["prior_hits"] = region.cost.prior_hits
+        peak = region._wave_peak
+        if peak:
+            qh = region.stats["queue_hist"]
+            qh[peak] = qh.get(peak, 0) + 1
+            region.waves += 1
+            region._wave_peak = 0
+            if region.tuned and peak > region._retuned_peak:
+                region.tuned = False
+        if (self.config.autotune and not region.tuned
+                and region.waves >= self.config.autotune_warmup):
+            self._retune_region(region)
+
+    def _retune_region(self, region: _Region) -> None:
+        """Swap in the ladder minimizing the per-wave objective: expected
+        launches, or under ``cost_model=True`` the predicted time, after
+        re-sweeping ``inner_chunk="auto"`` and timing every candidate
+        bucket (:func:`ladder_candidates`).  The bucket kernels need no
+        compile, so the new ladder is live at once.  (Writing the tuned
+        state to a tune store waits in ROADMAP.md, item 10.)"""
+        region._retuned_waves = region.waves
+        region._retuned_peak = max(
+            (k for k in region.stats["queue_hist"] if k > 0), default=0)
+        cost_model = None
+        if self._cost_on:
+            self._resweep_chunk(region)
+            cost_model = self._measure_candidates(region)
+        ladder = derive_ladder(region.stats["queue_hist"],
+                               self.config.max_aggregated,
+                               self.config.compile_budget, cost_model)
+        region.tuned = True
+        region.stats["tuned_by"] = ("measured" if cost_model is not None
+                                    else "launches")
+        if cost_model is not None:
+            region.cost.clear_priors()
+            region.stats["cost_sources"] = {
+                p: dict(t) for p, t in region.cost.sources().items()}
+        region.stats["prior_hits"] = region.cost.prior_hits
+        region.buckets = ladder
+        region.stats["ladder"] = list(ladder)
+
+    def _resweep_chunk(self, region: _Region) -> bool:
+        """A retune's ``inner_chunk="auto"`` re-sweep, past the memo.  A
+        new chunk makes every cost sample stale: they are dropped.  Returns
+        whether the chunk changed."""
+        if not self._chunk_auto:
+            return False
+        parents = self._primary_parents(region)
+        if parents is None:
+            return False
+        old = region.chunk
+        self._tune_chunk(region, parents, force=True)
+        if region.chunk == old:
+            return False
+        region.cost.clear()
+        region.stats.pop("cost_model", None)
+        return True
+
+    def _primary_parents(self, region: _Region
+                         ) -> Optional[Tuple[torch.Tensor, ...]]:
+        """Zero-filled parents for measurements: the deepest parent set
+        seen (the biggest buckets fit), else the ring's buffers."""
+        if region.parent_specs:
+            specs = max(region.parent_specs,
+                        key=lambda sp: min(shape[0] for shape, _ in sp))
+            return self._zeros(specs)
+        if region.ring is not None:
+            return region.ring.buffers()
+        return None
+
+    def _measure_candidates(self, region: _Region
+                            ) -> Optional[BucketCostModel]:
+        """Time every drain-reachable candidate bucket of the region's
+        waves (buckets with samples are free) on each parent set seen and
+        on the ring; the model, or None when nothing was measured."""
+        cands = sorted(ladder_candidates(region.stats["queue_hist"],
+                                         self.config.max_aggregated))
+        for specs in region.parent_specs:
+            self._measure_region(region, cands, self._zeros(specs))
+        if region.ring is not None:
+            self._measure_region(region, cands, region.ring.buffers(),
+                                 alt_paths=False)
+        return region.cost if region.cost.measured() else None
+
+    def retune(self) -> Dict[str, Tuple[int, ...]]:
+        """Retune every region with at least one new complete wave since
+        its last retune; returns the ladders by family."""
+        out = {}
+        for region in self._regions.values():
+            if (region.stats["queue_hist"]
+                    and region.waves != region._retuned_waves):
+                region.tuned = False
+                self._retune_region(region)
+            out[region.signature.describe()] = region.buckets
+        return out
+
     def flush(self) -> None:
         """Launch everything still queued (greedy buckets; live regions
         round-robin) and make the caller's stream wait for every executor."""
@@ -625,6 +1401,13 @@ class AggregationExecutor:
                         region, region.queued_tasks))
             live = [r for r in live if r.queue]
         self.pool.join()
+
+    def map(self, task_args: Sequence[Tuple[Any, ...]],
+            kernel: Optional[str] = None) -> List[torch.Tensor]:
+        """Submit many tasks, flush, return their results in order."""
+        futs = [self.submit(*a, kernel=kernel) for a in task_args]
+        self.flush()
+        return [f.result() for f in futs]
 
 
 def make_s2_scatter(batched_fn: Callable, width: int = 1) -> Callable:
@@ -639,3 +1422,29 @@ def make_s2_scatter(batched_fn: Callable, width: int = 1) -> Callable:
         batched_fn(*(p.narrow(0, i, width) for p in parents), out=dst)
         return dst
     return scatter
+
+
+# ---------------------------------------------------------------------------
+# The paper's "aggregation region": a named code region that compatible
+# tasks may enter together, one executor (and executor pool) per name.
+# ---------------------------------------------------------------------------
+
+_REGIONS: Dict[str, AggregationExecutor] = {}
+
+
+def aggregation_region(name: str, batched_fn: Callable,
+                       config: Optional[AggregationConfig] = None,
+                       **kw) -> AggregationExecutor:
+    """Get or create the named region's executor (``kw`` go to
+    :class:`AggregationExecutor` at creation)."""
+    exe = _REGIONS.get(name)
+    if exe is None:
+        exe = AggregationExecutor(batched_fn, config or AggregationConfig(),
+                                  name=name, **kw)
+        _REGIONS[name] = exe
+    return exe
+
+
+def reset_regions() -> None:
+    """Forget every named region."""
+    _REGIONS.clear()

@@ -9,7 +9,7 @@ fails fast with the valid names listed.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, ClassVar, Dict, Optional, Tuple, Type
+from typing import Any, Callable, ClassVar, Dict, Optional, Tuple, Type
 
 from repro_torch.configs.base import AggregationConfig
 from repro_torch.core.aggregation import AggregationExecutor
@@ -44,14 +44,16 @@ def get_strategy_class(name: str) -> Type["Strategy"]:
 @dataclass
 class RunContext:
     """What a strategy shares across iterations: the launch config, the
-    executor pool, the (optional) aggregation executor, the stats and a
-    private per-run cache (``s2``'s launch plans)."""
+    executor pool, the (optional) aggregation executor, the stats, a
+    private per-run cache (``s2``'s launch plans, ``mixed``'s routes) and
+    the launch timer of measured choices (None: ``LaunchTimer``)."""
 
     config: AggregationConfig
     pool: ExecutorPool
     executor: Optional[AggregationExecutor]
     stats: Dict[str, Any]
     caches: Dict[Any, Any] = field(default_factory=dict)
+    timer: Optional[Callable] = None
 
 
 class Strategy:

@@ -14,6 +14,11 @@ With ``AggregationConfig(fuse_epilogue=True)`` each RK stage runs through
 the scenario's epilogue-fused stage families (``Strategy.run_stage``),
 decided at construction: only when the scenario declares stage families,
 the strategy has a ``run_stage`` and staging is on the device.
+
+Measured tuning lives in the aggregation executor: under ``autotune`` each
+family re-derives its ladder after ``autotune_warmup`` waves, and
+``stats["regions"][fam]`` carries its ``cost_model`` table and, under
+``mixed``, its ``selected_strategy``.
 """
 from __future__ import annotations
 
@@ -29,7 +34,9 @@ from repro_torch.checkpoint.ckpt import (
 from repro_torch.configs.base import (
     AggregationConfig, AMRHydroConfig, HydroConfig,
 )
-from repro_torch.core.aggregation import AggregationExecutor
+from repro_torch.core.aggregation import (
+    AggregationExecutor, greedy_decomposition,
+)
 from repro_torch.core.executor import ExecutorPool
 from repro_torch.core.graphs import CapturedCall
 from repro_torch.core.scenario import (
@@ -68,11 +75,14 @@ class StrategyRunner:
     registered strategy.  ``stats["kernel_launches"]`` and
     ``stats["iterations"]`` accumulate per call; ``stats["regions"]`` is
     the per-family launch statistics: the aggregation executor's bucket
-    histograms, or those ``s2`` publishes itself."""
+    histograms, or those ``s2`` publishes itself.  ``timer`` times the
+    launches of measured choices (see ``AggregationExecutor``)."""
 
     def __init__(self, scenario: Scenario, agg: AggregationConfig,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None,
+                 timer: Optional[Callable] = None):
         strategy_cls = get_strategy_class(agg.strategy)   # fail fast
+        self._validate_family_strategies(scenario, agg)
         self.device = resolve_device(device)
         self.scenario = scenario
         self.agg = agg
@@ -85,13 +95,14 @@ class StrategyRunner:
         if strategy_cls.uses_executor:
             self._agg_exec = AggregationExecutor(
                 None, agg, pool=self.pool, name=scenario.name,
-                device=self.device)
+                device=self.device, timer=timer)
             for fam in scenario.families() + tuple(
                     scenario.stage_families()):
                 self._agg_exec.register(fam.kernel, fam.batched_body)
             self.stats["regions"] = self._agg_exec.stats["regions"]
         self.ctx = RunContext(config=agg, pool=self.pool,
-                              executor=self._agg_exec, stats=self.stats)
+                              executor=self._agg_exec, stats=self.stats,
+                              timer=timer)
         has_stage = strategy_cls.run_stage is not Strategy.run_stage
         self._fuse_epilogue = (agg.fuse_epilogue
                                and bool(scenario.stage_families())
@@ -100,6 +111,21 @@ class StrategyRunner:
         # CUDA graph (``fused`` on the card); at most one entry, a new key
         # replaces the old graph and frees its memory pool
         self.trajectory_graphs: Dict[Any, CapturedCall] = {}
+
+    @staticmethod
+    def _validate_family_strategies(scenario: Scenario,
+                                    agg: AggregationConfig) -> None:
+        """Fail fast on a ``family_strategies`` key that is no kernel the
+        scenario can launch (plain or stage family) nor ``"*"`` (the config
+        checks the values)."""
+        known = {f.kernel for f in scenario.families()}
+        known |= {f.kernel for f in scenario.stage_families()}
+        for kernel in agg.family_strategies or {}:
+            if kernel not in known | {"*"}:
+                raise ValueError(
+                    f"family_strategies key {kernel!r} names no kernel "
+                    f"family of scenario {scenario.name!r} — known "
+                    f"families: {sorted(known)} (or '*')")
 
     @property
     def fuse_epilogue(self) -> bool:
@@ -117,12 +143,15 @@ class StrategyRunner:
         ``fused`` launches outside the pool)."""
         return self.pool.launches_by_family
 
-    def warmup(self) -> None:
+    def warmup(self, wave_only: bool = False) -> None:
         """Launch every family's bucket ladder once at the shapes of the
         scenario's submission waves (executor strategies), or each family's
         body once over its whole wave (``fused``, ``s2``).  On the fused
         stage path only the stage waves are warmed: the plain families
-        never launch there.  Builds the CUDA kernel at first use."""
+        never launch there.  Builds the CUDA kernel at first use, and
+        under ``cost_model=True`` times the buckets warmed.
+        ``wave_only=True`` warms only the buckets of a full wave's greedy
+        decomposition under the config's ladder."""
         specs_of = (self.scenario.stage_warmup_parent_specs
                     if self._fuse_epilogue
                     else self.scenario.warmup_parent_specs)
@@ -133,7 +162,12 @@ class StrategyRunner:
                 continue
             seen.add(key)
             if self._agg_exec is not None:
-                self._agg_exec.warmup(specs, kernel=kernel)
+                buckets = None
+                if wave_only:
+                    wave = min(shape[0] for shape, _ in specs)
+                    buckets = sorted(set(greedy_decomposition(
+                        wave, self._agg_exec.config.bucket_sizes())))
+                self._agg_exec.warmup(specs, kernel=kernel, buckets=buckets)
                 continue
             parents = [torch.zeros(shape, dtype=dtype, device=self.device)
                        for shape, dtype in specs]

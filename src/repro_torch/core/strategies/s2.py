@@ -18,15 +18,17 @@ ring, which a later iteration would overwrite.  Each launch records the
 ring on its stream, so the allocator hands the block out again only after
 every launch that writes it.
 
-The classic width 1 is the only width.  The reference's measured width
-selection under ``cost_model=True`` (``measure_s2_widths``,
-``s2_width_candidates``) waits for the cost model (ROADMAP.md, Queue 1
-item 8).
+The classic width is 1.  Under ``cost_model=True`` the width is measured:
+the scatter launch is timed at ``s2_width_candidates`` (or the table the
+``mixed`` strategy's executor already measured is read) and the width with
+the least predicted time per wave is kept; width-w launches cover the
+divisible span, width-1 launches the remainder.  Every width gives the
+same values per task: the body is independent per slot.
 
 Stats: per family, ``ctx.stats["regions"][desc]`` (``desc`` the
 ``TaskSignature`` key the aggregation executor would use) carries
-``submitted``, ``launches``, ``aggregated_hist``, ``selected_strategy`` and
-``s2_width``.
+``submitted``, ``launches``, ``aggregated_hist``, ``selected_strategy``,
+``s2_width`` and, when measured, ``cost_model_paths``.
 """
 from __future__ import annotations
 
@@ -35,13 +37,34 @@ import math
 import torch
 
 from repro_torch.core.aggregation import (
-    SlotView, TaskSignature, make_s2_scatter,
+    BucketCostModel, SlotView, TaskSignature, make_s2_scatter,
+    measure_s2_widths, s2_width_candidates,
 )
 from repro_torch.core.strategies.base import (
     RunContext, Strategy, register_strategy,
 )
 
-WIDTH = 1
+
+def _measured_width(body, pop, ctx: RunContext, stats) -> int:
+    """The coalesce width with the least predicted time for the
+    population: from the executor's table for the family when the
+    ``mixed`` strategy measured it at warmup, else timed here."""
+    model = None
+    exe = ctx.executor
+    if exe is not None:
+        region = exe._primary_region(pop.kernel)
+        if region is not None and region.cost.measured("s2"):
+            model = region.cost
+    if model is None:
+        model = BucketCostModel()
+        for w, t in measure_s2_widths(
+                body, pop.parents, s2_width_candidates(pop.n_tasks),
+                samples=ctx.config.cost_samples, timer=ctx.timer).items():
+            model.record(w, t, path="s2")
+    if model.measured("s2"):
+        stats["cost_model_paths"] = {"s2": model.as_stats("s2")}
+    best = model.predict_s2_wave(pop.n_tasks)
+    return 1 if best is None else best[0]
 
 
 @register_strategy("s2")
@@ -50,9 +73,9 @@ class S2Strategy(Strategy):
 
     @staticmethod
     def _plan_for(scenario, pop, ctx: RunContext):
-        """The launch plan of one (kernel, parent shapes): the scatter, the
-        output ring's shape and dtype, and the family's stats.  Built once
-        per run."""
+        """The launch plan of one (kernel, parent shapes): the width, the
+        scatters by width, the output ring's shape and dtype, and the
+        family's stats.  Built once per run."""
         shapes = tuple((tuple(p.shape), p.dtype) for p in pop.parents)
         key = ("s2_plan", pop.kernel, shapes)
         plan = ctx.caches.get(key)
@@ -65,32 +88,42 @@ class S2Strategy(Strategy):
             pop.kernel, [SlotView(p, 0) for p in pop.parents]).describe()
         stats = ctx.stats.setdefault("regions", {}).setdefault(
             desc, {"submitted": 0, "launches": 0, "aggregated_hist": {}})
+        width = (_measured_width(body, pop, ctx, stats)
+                 if ctx.config.cost_model and pop.n_tasks else 1)
         stats["selected_strategy"] = "s2"
-        stats["s2_width"] = WIDTH
-        plan = (make_s2_scatter(body, WIDTH), (spec.shape, spec.dtype),
-                stats)
+        stats["s2_width"] = width
+        scatters = {w: make_s2_scatter(body, w) for w in {width, 1}}
+        plan = (width, scatters, (spec.shape, spec.dtype), stats)
         ctx.caches[key] = plan
         return plan
 
     def launch_population(self, scenario, pop, ctx: RunContext):
-        """One launch per task into a fresh output ring; returns the ring
-        (the caller joins the pool before reading it)."""
-        scatter, (shape, dtype), stats = self._plan_for(scenario, pop, ctx)
+        """Width-w launches over the divisible span, width-1 launches over
+        the remainder, into a fresh output ring; returns the ring (the
+        caller joins the pool before reading it)."""
+        width, scatters, (shape, dtype), stats = self._plan_for(
+            scenario, pop, ctx)
         device = pop.parents[0].device
         ring = (torch.full(shape, math.nan, dtype=dtype, device=device)
                 if dtype.is_floating_point
                 else torch.empty(shape, dtype=dtype, device=device))
         n = pop.n_tasks
-        for i in range(0, n, WIDTH):
-            ctx.pool.get().launch(scatter, ring, i, *pop.parents,
+        main = n - n % width
+        for i in range(0, main, width):
+            ctx.pool.get().launch(scatters[width], ring, i, *pop.parents,
                                   family=pop.kernel)
-        launches = n // WIDTH
+        for i in range(main, n):
+            ctx.pool.get().launch(scatters[1], ring, i, *pop.parents,
+                                  family=pop.kernel)
+        launches = main // width + (n - main)
         ctx.stats["kernel_launches"] += launches
         stats["submitted"] += n
         stats["launches"] += launches
-        if launches:
-            hist = stats["aggregated_hist"]
-            hist[WIDTH] = hist.get(WIDTH, 0) + launches
+        hist = stats["aggregated_hist"]
+        if main:
+            hist[width] = hist.get(width, 0) + main // width
+        if n - main:
+            hist[1] = hist.get(1, 0) + (n - main)
         return ring
 
     def run_iteration(self, scenario, state, ctx: RunContext):

@@ -176,10 +176,11 @@ __device__ __forceinline__ void knp_flux(const float (&qL)[kFields],
 }
 
 // The two states of quadrature entry q of an AXIS face, reconstructed from
-// the padded slot staged in shared memory (the fused kernel).
+// the padded slot, or an x-slab of it, staged in shared memory (the fused
+// kernel): field f's planes at us + f * fstride, each P x P.
 struct PpmStates {
-  const float* __restrict__ us;   // (F, P, P, P)
-  int P;
+  const float* __restrict__ us;   // (F, planes, P, P), fields fstride apart
+  int P, fstride;
 
   template <int AXIS>
   __device__ __forceinline__ void prime(int, int) const {}
@@ -188,7 +189,7 @@ struct PpmStates {
   __device__ __forceinline__ void load(int q, int c, int e,
                                        float (&qL)[kFields],
                                        float (&qR)[kFields]) const {
-    const int P2 = P * P, P3 = P2 * P;
+    const int P2 = P * P;
     const int* l = c_tab.dir_l[AXIS][q];
     const int* r = c_tab.dir_r[AXIS][q];
     const int dl = l[0] * P2 + l[1] * P + l[2];
@@ -196,8 +197,8 @@ struct PpmStates {
     const int pl = c_tab.plus_l[AXIS][q], pr = c_tab.plus_r[AXIS][q];
 #pragma unroll
     for (int f = 0; f < kFields; ++f) {
-      qL[f] = ppm_side(us + f * P3 + c, dl, pl);
-      qR[f] = ppm_side(us + f * P3 + c + e, dr, pr);
+      qL[f] = ppm_side(us + f * fstride + c, dl, pl);
+      qR[f] = ppm_side(us + f * fstride + c + e, dr, pr);
     }
   }
 };
@@ -305,15 +306,19 @@ __device__ __forceinline__ void axis_divergence(const ClusterFaces& faces,
   }
 }
 
-// face_flux at every face of one slot's AXIS face grid, one face per
-// thread per step, stored field-major into `face` (ClusterFaces' layout
-// with one lane).  `states.prime<AXIS>(c, e)` runs before each face.
+// face_flux at the first `nx` x-rows of one slot's AXIS face grid (all
+// of them: nx = S + (AXIS == 0)), or of an x-slab's, whose planes the
+// states index from the slab's first; one face per thread per step, stored
+// field-major into `face`, fields `stride` floats apart (ClusterFaces'
+// layout with one lane when stride is the face count).
+// `states.prime<AXIS>(c, e)` runs before each face.
 template <int AXIS, class States>
 __device__ void axis_faces(const States& states, float* __restrict__ face,
-                           int S, float gamma, float gm1) {
+                           int nx, int stride, int S, float gamma,
+                           float gm1) {
   const int P = states.P, P2 = P * P;
   const int NY = S + (AXIS == 1), NZ = S + (AXIS == 2);
-  const int nface = (S + (AXIS == 0)) * NY * NZ;
+  const int nface = nx * NY * NZ;
   const int e = AXIS == 0 ? P2 : (AXIS == 1 ? P : 1);
   for (int fi = threadIdx.x; fi < nface; fi += kCtaThreads) {
     const int z = fi % NZ, y = (fi / NZ) % NY, x = fi / (NZ * NY);
@@ -324,8 +329,15 @@ __device__ void axis_faces(const States& states, float* __restrict__ face,
     float acc[kFields];
     face_flux<AXIS>(states, c, e, gamma, gm1, acc);
 #pragma unroll
-    for (int f = 0; f < kFields; ++f) face[f * nface + fi] = acc[f];
+    for (int f = 0; f < kFields; ++f) face[f * stride + fi] = acc[f];
   }
+}
+
+// Faces of AXIS's face grid over `nx` x-rows of a slot's cells (one row
+// more along x than the slot has cells when AXIS is 0 and nx = S + 1).
+template <int AXIS>
+__device__ __forceinline__ int face_rows(int nx, int S) {
+  return nx * (S + (AXIS == 1)) * (S + (AXIS == 2));
 }
 
 // The CTA of rank `axis` evaluates its axis' faces of one slot.
@@ -334,11 +346,12 @@ __device__ __forceinline__ void cluster_faces(int axis, const States& states,
                                               float* __restrict__ face, int S,
                                               float gamma, float gm1) {
   if (axis == 0)
-    axis_faces<0>(states, face, S, gamma, gm1);
+    axis_faces<0>(states, face, S + 1, face_rows<0>(S + 1, S), S, gamma,
+                  gm1);
   else if (axis == 1)
-    axis_faces<1>(states, face, S, gamma, gm1);
+    axis_faces<1>(states, face, S, face_rows<1>(S, S), S, gamma, gm1);
   else
-    axis_faces<2>(states, face, S, gamma, gm1);
+    axis_faces<2>(states, face, S, face_rows<2>(S, S), S, gamma, gm1);
 }
 
 // After the cluster.sync() that follows the face passes: CTA `axis` writes
@@ -361,14 +374,15 @@ __device__ __forceinline__ void cluster_divergence(const ClusterFaces& faces,
   }
 }
 
-// A launch of `ctas` CTAs in clusters of kCluster along x, `threads` each,
-// `smem` bytes of dynamic shared memory, `grid_y` rows; `attr` holds the
-// cluster-dimension attribute and must outlive the launch.
+// A launch of `ctas` CTAs in clusters of `cluster` along x, `threads`
+// each, `smem` bytes of dynamic shared memory, `grid_y` rows; `attr` holds
+// the cluster-dimension attribute and must outlive the launch.
 inline cudaLaunchConfig_t cluster_config(unsigned ctas, unsigned grid_y,
                                          unsigned threads, size_t smem,
-                                         cudaLaunchAttribute& attr) {
+                                         cudaLaunchAttribute& attr,
+                                         unsigned cluster = kCluster) {
   attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = kCluster;
+  attr.val.clusterDim.x = cluster;
   attr.val.clusterDim.y = 1;
   attr.val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
@@ -381,17 +395,19 @@ inline cudaLaunchConfig_t cluster_config(unsigned ctas, unsigned grid_y,
 }
 
 // Resident CTAs per SM and clusters on the device for `kernel` launched
-// with `threads` threads and `smem` bytes of dynamic shared memory per CTA.
+// with `threads` threads and `smem` bytes of dynamic shared memory per CTA,
+// in clusters of `cluster` CTAs.
 template <class Kernel>
 inline cudaError_t cluster_occupancy(Kernel kernel, unsigned threads,
                                      size_t smem, int* ctas_per_sm,
-                                     int* clusters) {
+                                     int* clusters,
+                                     unsigned cluster = kCluster) {
   cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       ctas_per_sm, kernel, (int)threads, smem);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = cluster_config(kCluster, 1, threads, smem,
-                                                attr);
+  const cudaLaunchConfig_t cfg = cluster_config(cluster, 1, threads, smem,
+                                                attr, cluster);
   return cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
 }
 

@@ -4,7 +4,8 @@ two layouts.
 
 ``slot_grid``: ``hydro_rhs_cuda`` launches ``csrc/hydro_rhs.cu`` on the
 current stream for a CUDA tensor ``(n, F, P, P, P)`` and returns ``(n, F,
-S, S, S)``, one thread-block cluster of ``CLUSTER`` CTAs per slot.
+S, S, S)``, one thread-block cluster of ``CLUSTER`` CTAs per x-slab of a
+slot, the slabs from ``slab_plan`` (one up to 14^3, two at 15^3-17^3).
 ``slot_lane``: ``hydro_rhs_lane_cuda`` launches ``csrc/hydro_rhs_lane.cu``
 for the lane-major ``(F, P, P, P, n)`` and returns ``(F, S, S, S, n)``, one
 cluster of ``CLUSTER`` CTAs per tile of cells and ``LANES`` tasks, the tile
@@ -35,9 +36,12 @@ from repro_torch.kernels._build import SMEM_PER_BLOCK
 
 KERNEL_GHOST = 3                  # the kernels' index bounds assume g = 3
 # the slot_grid kernel's launch shape, fixed in csrc/hydro_common.cuh: CTAs
-# per slot (an axis each) and threads per CTA (one face each at S=8)
+# per x-slab of a slot (an axis each) and threads per CTA (one face each at
+# S=8); a slot splits into at most MAX_SLABS slabs, so a cluster stays
+# within the 8 CTAs every sm_90 device schedules
 CLUSTER = 3
 CTA_THREADS = 576
+MAX_SLABS = 2
 # the lane kernel's, fixed in csrc/hydro_rhs_lane.cu: tasks per cluster
 # (16: a warp reads two 64-byte segments) and threads per CTA; its cluster
 # is CLUSTER CTAs too
@@ -100,12 +104,56 @@ def hydro_rhs_lane_plain(u_t: torch.Tensor, *, h: Optional[float] = None,
     return acc
 
 
-def smem_bytes(subgrid: int, ghost: int = KERNEL_GHOST) -> int:
-    """Dynamic shared memory of one CTA: 16 B of slack to align the slot's
-    middle, the padded slot, then one axis' face fluxes (the layout
-    ``csrc/hydro_rhs.cu`` reads)."""
+class SlabPlan(NamedTuple):
+    """The slot_grid kernel's split of a slot into x-slabs: the slab count,
+    the widest slab's cells along x, the staged fields' stride and each
+    field's staged floats (the widest slab's planes, widened by the
+    stencil), and one CTA's dynamic shared memory in bytes (the layout
+    ``csrc/hydro_rhs.cu`` reads: 16 B of alignment slack, 5 fields
+    ``field_stride`` floats apart, then one axis' face fluxes over the
+    widest slab)."""
+    slabs: int
+    width: int
+    field_stride: int
+    span: int
+    smem: int
+
+
+def _slab_layout(subgrid: int, ghost: int, slabs: int) -> SlabPlan:
     p = subgrid + 2 * ghost
-    return 4 * (4 + N_FIELDS * (p ** 3 + (subgrid + 1) * subgrid ** 2))
+    width = -(-subgrid // slabs)
+    span = (width + 2 * ghost) * p * p
+    # congruent to P^3 mod 4, so field f's run lies as far off a 16-byte
+    # boundary in shared memory as it does in the slot
+    stride = span + (p ** 3 - span) % 4
+    faces = max((width + 1) * subgrid ** 2, width * (subgrid + 1) * subgrid)
+    return SlabPlan(slabs, width, stride, span,
+                    4 * (4 + (N_FIELDS - 1) * stride + span
+                         + N_FIELDS * faces))
+
+
+@lru_cache(maxsize=None)
+def slab_plan(subgrid: int, ghost: int = KERNEL_GHOST) -> SlabPlan:
+    """The fewest x-slabs, up to ``MAX_SLABS``, whose CTA fits the shared
+    memory of an sm_90 block: one slab (the whole slot) up to 14^3, two at
+    15^3-17^3.  Above that, the ``MAX_SLABS`` layout, which does not fit
+    (``check_kernel_args`` raises)."""
+    for slabs in range(1, MAX_SLABS + 1):
+        plan = _slab_layout(subgrid, ghost, slabs)
+        if plan.smem <= SMEM_PER_BLOCK:
+            return plan
+    return plan
+
+
+def smem_bytes(subgrid: int, ghost: int = KERNEL_GHOST) -> int:
+    """Dynamic shared memory of one CTA under ``slab_plan``: 4 * (4 + 5 *
+    (P^3 + (S+1) * S^2)) bytes for one slab."""
+    return slab_plan(subgrid, ghost).smem
+
+
+def ctas_per_slot(subgrid: int, ghost: int = KERNEL_GHOST) -> int:
+    """CTAs of one slot's cluster: ``CLUSTER`` per slab."""
+    return CLUSTER * slab_plan(subgrid, ghost).slabs
 
 
 def tile_face_grids(box: Tuple[int, int, int]) -> Tuple[int, int, int]:
@@ -200,16 +248,18 @@ def check_kernel_args(u_slots: torch.Tensor, h: Optional[float],
                       h_slots: Optional[torch.Tensor], ghost: int,
                       subgrid: int) -> None:
     """Raise for anything the slot_grid kernel does not take (device
-    aside): any sub-grid whose slot and one axis' faces fit in shared
-    memory, odd ones included, and slots at any (float-aligned) address."""
+    aside): any sub-grid whose x-slab (``slab_plan``) and one axis' faces
+    fit in shared memory, up to 17^3, odd ones included, and slots at any
+    (float-aligned) address."""
     _check_width_and_ghost(h, h_slots, ghost)
     need = smem_bytes(subgrid, ghost)
     if need > SMEM_PER_BLOCK:
         raise NotImplementedError(
-            f"subgrid={subgrid} needs {need} B of shared memory per block, "
-            f"above the {SMEM_PER_BLOCK} B an sm_90 block may use; larger "
-            f"sub-grids need a tiled kernel or layout='slot_lane' (see "
-            f"ROADMAP.md)")
+            f"subgrid={subgrid} needs {need} B of shared memory per block "
+            f"even split into {MAX_SLABS} x-slabs (a cluster of "
+            f"{CLUSTER * MAX_SLABS} CTAs), above the {SMEM_PER_BLOCK} B an "
+            f"sm_90 block may use; layout='slot_lane' takes any sub-grid "
+            f"size")
     p = subgrid + 2 * ghost
     n = u_slots.shape[0] if u_slots.dim() else 0
     _check_state(u_slots, (n, N_FIELDS, p, p, p),
@@ -253,10 +303,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.hydro_rhs_init.argtypes = [ctypes.POINTER(cf), ctypes.POINTER(ci)]
     lib.hydro_rhs_init.restype = ci
     lib.hydro_rhs_launch.argtypes = [
-        vp, vp, vp, ci, ci, cf, cf, cf, ctypes.c_size_t, vp]
+        vp, vp, vp, ci, ci, ci, cf, cf, cf, ctypes.c_size_t, vp]
     lib.hydro_rhs_launch.restype = ci
     lib.hydro_rhs_occupancy.argtypes = [
-        ctypes.c_size_t, ctypes.POINTER(ci), ctypes.POINTER(ci)]
+        ctypes.c_size_t, ci, ctypes.POINTER(ci), ctypes.POINTER(ci)]
     lib.hydro_rhs_occupancy.restype = ci
     lib.hydro_rhs_error_string.argtypes = [ci]
     lib.hydro_rhs_error_string.restype = ctypes.c_char_p
@@ -284,10 +334,10 @@ def hydro_rhs_cuda(u_slots: torch.Tensor, *, h: Optional[float] = None,
                    ghost: int, subgrid: int,
                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch the cluster kernel on the current stream: (n, F, P, P, P) ->
-    (n, F, S, S, S), into ``out`` if given (a contiguous float32 tensor of
-    that shape, e.g. a slice of an output ring; checked).  Counts each
-    launch in ``hydro_rhs_cuda.launches`` (an empty bucket launches
-    nothing)."""
+    (n, F, S, S, S), ``slab_plan``'s x-slabs per slot, into ``out`` if
+    given (a contiguous float32 tensor of that shape, e.g. a slice of an
+    output ring; checked).  Counts each launch in
+    ``hydro_rhs_cuda.launches`` (an empty bucket launches nothing)."""
     if u_slots.device.type != "cuda":
         raise ValueError(
             f"hydro_rhs_cuda needs a CUDA tensor, got one on "
@@ -299,14 +349,16 @@ def hydro_rhs_cuda(u_slots: torch.Tensor, *, h: Optional[float] = None,
     lib = build()
     if n == 0:
         return out
+    plan = slab_plan(s, ghost)
     with torch.cuda.device(u_slots.device):
         _ready(lib, u_slots.device)
         stream = torch.cuda.current_stream(u_slots.device).cuda_stream
         err = lib.hydro_rhs_launch(
             u_slots.data_ptr(),
             None if h_slots is None else h_slots.data_ptr(),
-            out.data_ptr(), n, s, 0.0 if h is None else float(h), gamma,
-            gamma - 1.0, smem_bytes(s, ghost), stream)
+            out.data_ptr(), n, s, plan.slabs,
+            0.0 if h is None else float(h), gamma, gamma - 1.0, plan.smem,
+            stream)
     _build.raise_on(err, lib.hydro_rhs_error_string, "hydro_rhs kernel launch")
     hydro_rhs_cuda.launches += 1
     return out
@@ -339,14 +391,15 @@ def hydro_rhs_prefix(ring: torch.Tensor, start: int, bucket: int, *,
 def occupancy(device: torch.device, subgrid: int,
               ghost: int = KERNEL_GHOST) -> Tuple[int, int]:
     """(resident CTAs per SM, clusters resident on the card) for the
-    cluster kernel at ``subgrid``, as the CUDA occupancy calculator gives
-    them."""
+    cluster kernel at ``subgrid`` (``slab_plan``'s cluster), as the CUDA
+    occupancy calculator gives them."""
     lib = build()
+    plan = slab_plan(subgrid, ghost)
     per_sm, clusters = ctypes.c_int(0), ctypes.c_int(0)
     with torch.cuda.device(device):
         _ready(lib, device)
         _build.raise_on(lib.hydro_rhs_occupancy(
-            smem_bytes(subgrid, ghost), ctypes.byref(per_sm),
+            plan.smem, plan.slabs, ctypes.byref(per_sm),
             ctypes.byref(clusters)),
             lib.hydro_rhs_error_string, "hydro_rhs occupancy query")
     return per_sm.value, clusters.value

@@ -437,7 +437,8 @@ def test_lane_kernel_matches_plain_and_slot_grid(dev):
 
 
 def test_lane_kernel_at_16(dev):
-    """64^3 of 16^3 sub-grids: the size the slot_grid kernel refuses."""
+    """64^3 of 16^3 sub-grids, which the slot_grid kernel takes in two
+    x-slabs per slot: the two kernels agree bit for bit."""
     c16 = HydroConfig(subgrid=16, levels=1)
     sedov = extract_subgrids(sedov_init(c16, device=dev).u, 16, 3)
     u = torch.cat([random_slots(75, 2, dev, s=16), sedov]).contiguous()
@@ -447,8 +448,8 @@ def test_lane_kernel_at_16(dev):
     want = kern.hydro_rhs_lane_plain(ut, h=0.01, subgrid=16, **LKW)
     assert_within_kernel_tol(slot_major(got), slot_major(want))
     assert_buckets_independent(u, got, 0.01, 16)
-    with pytest.raises(NotImplementedError, match="shared memory"):
-        kern.hydro_rhs_cuda(u, h=0.01, subgrid=16, **LKW)
+    assert torch.equal(kern.hydro_rhs_cuda(u, h=0.01, subgrid=16, **LKW),
+                       slot_major(got))
 
 
 @pytest.mark.parametrize("s", [8, 16])
@@ -477,17 +478,18 @@ def test_lane_kernel_buckets(dev, n, s):
 
 
 def test_amr_path_both_layouts_bit_identical_to_reference(dev):
-    """AMR CONFIG on both layouts and CONFIG_MIXED on slot_lane: every
-    strategy equals the per-level fused reference on the same bodies;
-    CONFIG_MIXED's 16^3 family is refused on slot_grid."""
-    for cfg, layouts in ((ACFG, ("slot_grid", "slot_lane")),
-                         (CONFIG_MIXED, ("slot_lane",))):
+    """AMR CONFIG and CONFIG_MIXED (a 16^3 family) on both layouts: every
+    strategy equals the per-level fused reference on the same bodies, and
+    the two layouts agree within the kernel tolerance."""
+    for cfg in (ACFG, CONFIG_MIXED):
         st = amr_sedov_init(cfg, device=dev)
         dt = amr_courant_dt(st.uc, st.uf, cfg)
-        for layout in layouts:
+        refs = {}
+        for layout in ("slot_grid", "slot_lane"):
             body = functools.partial(ops.level_batched_body, cfg.gamma,
                                      cfg.ghost, layout=layout)
             ref = amr_reference_step(st.uc, st.uf, dt, cfg, level_body=body)
+            refs[layout] = ref
             for agg in (AggregationConfig(strategy="fused"),
                         AggregationConfig(strategy="s3", max_aggregated=2),
                         AggregationConfig(strategy="s2+s3",
@@ -499,10 +501,146 @@ def test_amr_path_both_layouts_bit_identical_to_reference(dev):
                 torch.cuda.synchronize(dev)
                 assert torch.equal(out[0], ref[0]), (cfg.name, layout, agg)
                 assert torch.equal(out[1], ref[1]), (cfg.name, layout, agg)
-    runner = StrategyRunner(AMRSedovScenario(CONFIG_MIXED),
-                            AggregationConfig(strategy="fused"), device=dev)
+        for grid, lane in zip(refs["slot_grid"], refs["slot_lane"]):
+            assert_within_kernel_tol(grid[None], lane[None])
+
+
+@pytest.mark.parametrize("n", [1, 3, 32, 64])
+def test_slot_grid_kernel_at_16(dev, n):
+    """The slot_grid kernel at 16^3 (two x-slabs per slot, a cluster of 6
+    CTAs): n slots with a scalar width and per-slot widths, within the
+    kernel tolerance of the plain version, equal to the lane kernel and to
+    the same slots of a 64-slot launch bit for bit."""
+    u = sedov_and_random(dev, 16, 84, total=64)
+    assert kern.slab_plan(16).slabs == 2 and kern.ctas_per_slot(16) == 6
+    hs = torch.where(torch.arange(64, device=dev) % 2 == 0,
+                     torch.tensor(0.02, device=dev),
+                     torch.tensor(0.01, device=dev)).float().contiguous()
+    for widths in (0.01, hs):
+        kw = (dict(h_slots=widths) if isinstance(widths, torch.Tensor)
+              else dict(h=widths))
+        whole = kern.hydro_rhs_cuda(u, subgrid=16, **kw, **LKW)
+        for a in bucket_starts(n, 64):
+            part = (dict(h_slots=widths[a:a + n].contiguous())
+                    if isinstance(widths, torch.Tensor) else kw)
+            before = kern.hydro_rhs_cuda.launches
+            got = kern.hydro_rhs_cuda(u[a:a + n], subgrid=16, **part, **LKW)
+            torch.cuda.synchronize(dev)
+            assert kern.hydro_rhs_cuda.launches == before + 1
+            assert torch.equal(got, whole[a:a + n]), a
+            lane = kern.hydro_rhs_lane_cuda(lane_major(u[a:a + n]),
+                                            subgrid=16, **part, **LKW)
+            assert torch.equal(got, slot_major(lane)), a
+        want = kern.hydro_rhs_plain(u[a:a + n], subgrid=16, **part, **LKW)
+        assert_within_kernel_tol(got, want)
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+def test_slot_grid_kernel_at_15_every_offset(dev, offset):
+    """15^3 (odd: every slot and every field's slab starts at another
+    float offset of a 16-byte unit), in a tensor ``offset`` floats past a
+    16-byte boundary: within tolerance of the plain version and equal to
+    the lane kernel and to the aligned launch bit for bit."""
+    u = sedov_and_random(dev, 15, 85, total=64)
+    buf = torch.empty(u.numel() + 4, device=dev)
+    x = buf[offset:offset + u.numel()].view(u.shape)
+    x.copy_(u)
+    assert x.data_ptr() % 16 == 4 * offset
+    got = kern.hydro_rhs_cuda(x, h=0.01, subgrid=15, **LKW)
+    assert torch.equal(got, kern.hydro_rhs_cuda(u, h=0.01, subgrid=15,
+                                                **LKW))
+    assert torch.equal(got, slot_major(kern.hydro_rhs_lane_cuda(
+        lane_major(u), h=0.01, subgrid=15, **LKW)))
+    assert_within_kernel_tol(got, kern.hydro_rhs_plain(u, h=0.01,
+                                                       subgrid=15, **LKW))
+
+
+def test_slot_grid_kernel_refuses_what_two_slabs_cannot_hold(dev):
+    """18^3 needs more shared memory than a CTA has even in two x-slabs:
+    the wrapper raises, launches nothing and takes no plain path."""
+    p = 18 + 6
+    u = torch.zeros((1, 5, p, p, p), device=dev)
+    before = kern.hydro_rhs_cuda.launches
     with pytest.raises(NotImplementedError, match="shared memory"):
-        runner.rk3_step((st.uc, st.uf), dt)
+        kern.hydro_rhs_cuda(u, h=0.01, subgrid=18, **LKW)
+    assert kern.hydro_rhs_cuda.launches == before
+
+
+@pytest.mark.parametrize("strategy", ["s3", "s2+s3"])
+def test_config_16_on_slot_grid_bit_identical_to_fused(dev, strategy):
+    """The paper's strategy 1 (CONFIG_16, 64 sub-grids of 16^3) on the
+    default slot_grid body: the aggregated rows equal ``fused`` bit for
+    bit, and ``fused`` agrees with the lane kernel's ``fused`` within the
+    kernel tolerance."""
+    from repro_torch.configs.sedov import CONFIG_16
+
+    u = sedov_init(CONFIG_16, device=dev).u
+    dt = courant_dt(u, CONFIG_16)
+    ref = StrategyRunner(UniformSedovScenario(CONFIG_16),
+                         AggregationConfig(strategy="fused"),
+                         device=dev).rk3_step(u, dt)
+    h = CONFIG_16.domain / (CONFIG_16.grids_per_edge * CONFIG_16.subgrid)
+    lane_body = ops.hydro_batched_body(CONFIG_16, h, layout="slot_lane")
+    lane = StrategyRunner(UniformSedovScenario(CONFIG_16,
+                                               batched_body=lane_body),
+                          AggregationConfig(strategy="fused"),
+                          device=dev).rk3_step(u, dt)
+    runner = StrategyRunner(UniformSedovScenario(CONFIG_16), AggregationConfig(
+        strategy=strategy, max_aggregated=32, n_executors=4), device=dev)
+    runner.warmup()
+    out = runner.rk3_step(u, dt)
+    torch.cuda.synchronize(dev)
+    assert torch.equal(out, ref)
+    assert_within_kernel_tol(ref[None], lane[None])
+
+
+def test_launch_timer_medians_and_ladder(dev):
+    """The event timer gives positive finite seconds per launch, and a cost
+    model fed from it (through the executor's warmup and a retune) derives
+    a ladder that holds bucket 1, bit-equal results throughout."""
+    from repro_torch.core import LaunchTimer
+
+    timer = LaunchTimer(reps=4)
+    u = sedov_and_random(dev, 8, 86, total=64)
+    sample = timer(lambda: kern.hydro_rhs_cuda(u, **KW), dev, "s3", 64)
+    assert np.isfinite(sample) and sample > 0
+    agg = AggregationConfig(strategy="s3", max_aggregated=32, autotune=True,
+                            autotune_warmup=1, cost_model=True,
+                            inner_chunk="auto")
+    runner = StrategyRunner(UniformSedovScenario(CFG), agg, device=dev,
+                            timer=timer)
+    runner.warmup()
+    st = sedov_init(CFG, device=dev).u
+    ref = StrategyRunner(UniformSedovScenario(CFG),
+                         AggregationConfig(strategy="fused"),
+                         device=dev).rk3_step(st, 1e-4)
+    for _ in range(2):
+        out = runner.rk3_step(st, 1e-4)
+        torch.cuda.synchronize(dev)
+        assert torch.equal(out, ref)
+    (fam,) = runner.stats["regions"].values()
+    table = fam["cost_model"]
+    assert table and all(np.isfinite(t) and t > 0 for t in table.values())
+    assert fam["tuned_by"] == "measured" and 1 in fam["ladder"]
+
+
+def test_mixed_routes_bit_identical_to_fused(dev):
+    """``mixed`` on the gravity path, each family on each route and the
+    measured choice (``auto``), equals ``fused`` bit for bit."""
+    st = sedov_init(GCFG.hydro, device=dev).u
+    ref = StrategyRunner(GravityScenario(GCFG),
+                         AggregationConfig(strategy="fused"),
+                         device=dev).rk3_step(st, 1e-4)
+    for routes in ({"hydro_rhs": "s3", "gravity": "fused"},
+                   {"hydro_rhs": "s2", "gravity": "s3"}, None):
+        agg = AggregationConfig(strategy="mixed", max_aggregated=32,
+                                n_executors=4, cost_model=routes is None,
+                                family_strategies=routes)
+        runner = StrategyRunner(GravityScenario(GCFG), agg, device=dev)
+        runner.warmup()
+        out = runner.rk3_step(st, 1e-4)
+        torch.cuda.synchronize(dev)
+        assert torch.equal(out, ref), routes
 
 
 # ---------------------------------------------------------------------------

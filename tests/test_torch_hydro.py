@@ -170,10 +170,10 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take():
     kw = dict(h=0.01, h_slots=None)
     with pytest.raises(NotImplementedError, match="ghost=3"):
         kern.check_kernel_args(u, ghost=2, subgrid=10, **kw)
-    p16 = CONFIG_16.padded
-    u16 = torch.zeros((1, 5, p16, p16, p16))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        kern.check_kernel_args(u16, ghost=3, subgrid=16, **kw)
+    p18 = 18 + 6
+    u18 = torch.zeros((1, 5, p18, p18, p18))
+    with pytest.raises(NotImplementedError, match="slot_lane"):
+        kern.check_kernel_args(u18, ghost=3, subgrid=18, **kw)
     with pytest.raises(TypeError, match="float32"):
         kern.check_kernel_args(u.double(), ghost=3, subgrid=8, **kw)
     with pytest.raises(ValueError, match="expected"):
@@ -190,10 +190,11 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take():
     assert kern.smem_bytes(8) == 66_416
 
 
-def test_kernel_wrapper_takes_odd_and_misaligned_slots_not_16():
+def test_kernel_wrapper_takes_odd_misaligned_and_16_refuses_18():
     """The slot_grid kernel takes odd sub-grids and slots at any float
     address (a bulk copy for the 16-byte-aligned middle, plain loads for
-    head and tail), and still refuses what shared memory cannot hold."""
+    head and tail), 15^3 to 17^3 in two x-slabs per slot, and still
+    refuses what shared memory cannot hold even in two slabs (18^3)."""
     u = T(random_slots(42, 2))
     kw = dict(h=0.01, h_slots=None, ghost=3, subgrid=8)
     n = u.numel()
@@ -206,10 +207,20 @@ def test_kernel_wrapper_takes_odd_and_misaligned_slots_not_16():
         kern.check_kernel_args(odd, h=0.01, h_slots=None, ghost=3,
                                subgrid=s)
         assert kern.smem_bytes(s) <= kern.SMEM_PER_BLOCK
-    p16 = CONFIG_16.padded
+    for s in (15, 16, 17):
+        p = s + 6
+        kern.check_kernel_args(torch.zeros((2, 5, p, p, p)), h=0.01,
+                               h_slots=None, ghost=3, subgrid=s)
+        plan = kern.slab_plan(s)
+        assert plan.slabs == 2 and kern.ctas_per_slot(s) == 6
+        assert plan.smem <= kern.SMEM_PER_BLOCK
+    # 16^3: two slabs of 8 cells, ~181.6 KB per CTA (the whole slot would
+    # need 300,016 B)
+    assert kern.smem_bytes(16) == 181_616
+    assert kern.slab_plan(14).slabs == 1
     with pytest.raises(NotImplementedError, match="shared memory"):
-        kern.check_kernel_args(torch.zeros((1, 5, p16, p16, p16)), h=0.01,
-                               h_slots=None, ghost=3, subgrid=16)
+        kern.check_kernel_args(torch.zeros((1, 5, 24, 24, 24)), h=0.01,
+                               h_slots=None, ghost=3, subgrid=18)
 
 
 def _slot_copy(addr, nslot):
@@ -288,11 +299,11 @@ def test_kernel_quadrature_table_and_bounds():
     assert 0 <= lo and hi <= p - 1
 
 
-def _emulate_kernel(u, h, gamma, s=8, g=3):
-    """numpy float32 mirror of csrc/hydro_rhs.cu's face layout and index
-    arithmetic, vectorised over slots and faces."""
-    n, nf, p = u.shape[0], u.shape[1], u.shape[2]
-    flat = u.reshape(n, nf, p ** 3)
+def _face_flux(read, c, e, a, gamma, p):
+    """numpy float32 mirror of hydro_common.cuh's face_flux: the weighted
+    KNP flux of axis a's faces whose left cell sits at index c of the
+    staged block (its right cell at c + e); ``read(idx)`` gives the staged
+    values (n, F, len(idx)) at flat indices ``idx``, P x P planes."""
     weights, table = kern._quad_table()
     w = np.asarray(weights, np.float32).reshape(3, 9)
     t = np.asarray(table).reshape(3, 9, 8)
@@ -300,7 +311,7 @@ def _emulate_kernel(u, h, gamma, s=8, g=3):
     f32 = np.float32
 
     def side(c, d, plus):
-        um2, um1, u0, up1, up2 = (flat[:, :, c + k * d] for k in range(-2, 3))
+        um2, um1, u0, up1, up2 = (read(c + k * d) for k in range(-2, 3))
         ul = f32(7 / 12) * (um1 + u0) - f32(1 / 12) * (um2 + up1)
         ur = f32(7 / 12) * (u0 + up1) - f32(1 / 12) * (um1 + up2)
         ext = (ur - u0) * (u0 - ul) <= 0
@@ -326,38 +337,142 @@ def _emulate_kernel(u, h, gamma, s=8, g=3):
         f[:, 1 + a] += pr
         return f
 
+    acc = None
+    for q in range(9):
+        qL = side(c, t[a, q, :3] @ strides, t[a, q, 3])
+        qR = side(c + e, t[a, q, 4:7] @ strides, t[a, q, 7])
+        (rL, vL, pL), (rR, vR, pR) = prim(qL), prim(qR)
+        cL = np.sqrt(f32(gamma) * pL / rL)
+        cR = np.sqrt(f32(gamma) * pR / rR)
+        ap = np.maximum(np.maximum(vL[:, a] + cL, vR[:, a] + cR), 0)
+        am = np.minimum(np.minimum(vL[:, a] - cL, vR[:, a] - cR), 0)
+        fL, fR = phys(qL, vL, pL, a), phys(qR, vR, pR, a)
+        span = ap - am
+        ok = span > f32(1e-12)
+        inv = np.where(ok, f32(1) / np.maximum(span, f32(1e-12)), 0)
+        ap, am, inv, ok = (v[:, None] for v in (ap, am, inv, ok))
+        fl = np.where(ok, (ap * fL - am * fR) * inv
+                      + (ap * am) * inv * (qR - qL), f32(0.5) * (fL + fR))
+        acc = w[a, q] * fl if acc is None else acc + w[a, q] * fl
+    return acc
+
+
+def _face_rows(a, nx, s, g, p):
+    """The faces of axis a's grid over nx x-rows (axis_faces' order): face
+    indices and the staged index of each face's left cell."""
+    ny, nz = s + (a == 1), s + (a == 2)
+    fi = np.arange(nx * ny * nz)
+    z, y, x = fi % nz, (fi // nz) % ny, fi // (nz * ny)
+    c = ((g + x - (a == 0)) * p * p + (g + y - (a == 1)) * p
+         + (g + z - (a == 2)))
+    return fi, c
+
+
+def _emulate_kernel(u, h, gamma, s=8, g=3):
+    """numpy float32 mirror of csrc/hydro_rhs.cu's face layout and index
+    arithmetic over whole slots (one slab), vectorised over slots and
+    faces."""
+    n, nf, p = u.shape[0], u.shape[1], u.shape[2]
+    flat = u.reshape(n, nf, p ** 3)
     out = None
     for a in range(3):
         ny, nz = s + (a == 1), s + (a == 2)
-        fi = np.arange((s + (a == 0)) * ny * nz)
-        z, y, x = fi % nz, (fi // nz) % ny, fi // (nz * ny)
-        c = ((g + x - (a == 0)) * p * p + (g + y - (a == 1)) * p
-             + (g + z - (a == 2)))
-        e = (p * p, p, 1)[a]
-        acc = None
-        for q in range(9):
-            qL = side(c, t[a, q, :3] @ strides, t[a, q, 3])
-            qR = side(c + e, t[a, q, 4:7] @ strides, t[a, q, 7])
-            (rL, vL, pL), (rR, vR, pR) = prim(qL), prim(qR)
-            cL = np.sqrt(f32(gamma) * pL / rL)
-            cR = np.sqrt(f32(gamma) * pR / rR)
-            ap = np.maximum(np.maximum(vL[:, a] + cL, vR[:, a] + cR), 0)
-            am = np.minimum(np.minimum(vL[:, a] - cL, vR[:, a] - cR), 0)
-            fL, fR = phys(qL, vL, pL, a), phys(qR, vR, pR, a)
-            span = ap - am
-            ok = span > f32(1e-12)
-            inv = np.where(ok, f32(1) / np.maximum(span, f32(1e-12)), 0)
-            ap, am, inv, ok = (v[:, None] for v in (ap, am, inv, ok))
-            fl = np.where(ok, (ap * fL - am * fR) * inv
-                          + (ap * am) * inv * (qR - qL),
-                          f32(0.5) * (fL + fR))
-            acc = w[a, q] * fl if acc is None else acc + w[a, q] * fl
+        _, c = _face_rows(a, s + (a == 0), s, g, p)
+        acc = _face_flux(lambda idx: flat[:, :, idx], c, (p * p, p, 1)[a],
+                         a, gamma, p)
         ci = np.arange(s ** 3)
         z, y, x = ci % s, (ci // s) % s, ci // (s * s)
         lo = (x * ny + y) * nz + z
-        d = (acc[:, :, lo + (ny * nz, nz, 1)[a]] - acc[:, :, lo]) / f32(h)
+        d = (acc[:, :, lo + (ny * nz, nz, 1)[a]] - acc[:, :, lo]) / np.float32(h)
         out = -d if out is None else out - d
     return out.reshape(n, nf, s, s, s)
+
+
+def _head(addr):
+    """Floats before the first 16-byte boundary at byte address addr."""
+    return ((16 - addr % 16) % 16) // 4
+
+
+def _emulate_slab_kernel(u, h, gamma, s, g=3, base=0):
+    """numpy float32 replay of csrc/hydro_rhs.cu's x-slab scheme for slots
+    starting at byte address ``base`` + slot offset: each CTA (slab j,
+    axis a) stages its slab's runs (head and tail loads, the bulk middle)
+    into its own shared memory laid out as the kernel lays it out, checks
+    every staged float is written once and lies below the face buffer,
+    evaluates its faces from the staged block alone (unstaged floats are
+    NaN) into a buffer of the kernel's strides, and the divergence reads
+    the faces where the kernel reads them, the next slab's face 0 for a
+    slab's last cell.  Returns (n, F, S, S, S)."""
+    n, nf, p = u.shape[0], u.shape[1], u.shape[2]
+    plan = kern.slab_plan(s, g)
+    # slab j's cells along x: [j S / k, (j + 1) S / k), as the kernel cuts
+    starts = [j * s // plan.slabs for j in range(plan.slabs + 1)]
+    smem = plan.smem // 4
+    p2, p3 = p * p, p ** 3
+    face_at = 4 + (nf - 1) * plan.field_stride + plan.span
+    wmax = plan.width
+    stride = ((wmax + 1) * s * s, wmax * (s + 1) * s, wmax * s * (s + 1))
+    assert face_at + nf * max(stride) <= smem
+    f32 = np.float32
+    out = np.full((n, nf, s, s, s), np.nan, f32)
+    for i in range(n):
+        slot = u[i].reshape(-1)
+        faces = {}
+        for j in range(plan.slabs):
+            x0, w = starts[j], starts[j + 1] - starts[j]
+            src = base + 4 * (i * nf * p3 + x0 * p2)  # byte address
+            runs = 1 if plan.slabs == 1 else nf
+            run = nf * p3 if plan.slabs == 1 else (w + 2 * g) * p2
+            us = (4 - _head(src)) % 4
+            stage = np.full(smem, np.nan, f32)
+            written = np.zeros(smem, int)
+            for r in range(runs):
+                addr = src + 4 * r * p3
+                hd = _head(addr)
+                bulk = (run - hd) // 4 * 16
+                dst = us + r * plan.field_stride
+                assert (addr + 4 * hd) % 16 == 0 and (4 * (dst + hd)) % 16 == 0
+                seg = slot[r * p3 + x0 * p2:r * p3 + x0 * p2 + run]
+                stage[dst:dst + run] = seg
+                written[dst:dst + run] += 1
+                assert 0 <= run - hd - bulk // 4 < 4
+                assert dst + run <= face_at
+            assert written.max() == 1
+
+            def read(idx, stage=stage, us=us):
+                return np.stack([stage[us + f * plan.field_stride + idx]
+                                 for f in range(nf)])[None]
+
+            for a in range(3):
+                nx = w + (a == 0 and j == plan.slabs - 1)
+                _, c = _face_rows(a, nx, s, g, p)
+                acc = _face_flux(read, c, (p2, p, 1)[a], a, gamma, p)
+                buf = np.full(nf * stride[a], np.nan, f32)
+                for f in range(nf):
+                    buf[f * stride[a]:f * stride[a] + len(c)] = acc[0, f]
+                faces[(j, a)] = buf
+        for j in range(plan.slabs):
+            x0, w = starts[j], starts[j + 1] - starts[j]
+            nx0 = w + (j == plan.slabs - 1)
+            ci = np.arange(w * s * s)
+            z, y, x = ci % s, (ci // s) % s, ci // (s * s)
+            for f in range(nf):
+                f0, f1, f2 = (faces[(j, a)][f * stride[a]:] for a in range(3))
+                lo0 = x * s * s + y * s + z
+                if j + 1 < plan.slabs:
+                    nxt = faces[(j + 1, 0)][f * stride[0]:]
+                    hi = np.where(x + 1 < nx0, f0[np.minimum(lo0 + s * s,
+                                                             len(f0) - 1)],
+                                  nxt[y * s + z])
+                else:
+                    hi = f0[lo0 + s * s]
+                acc = -((hi - f0[lo0]) / f32(h))
+                lo1 = (x * (s + 1) + y) * s + z
+                acc = acc - (f1[lo1 + s] - f1[lo1]) / f32(h)
+                lo2 = (x * s + y) * (s + 1) + z
+                acc = acc - (f2[lo2 + 1] - f2[lo2]) / f32(h)
+                out[i, f, x0:x0 + w] = acc.reshape(w, s, s)
+    return out
 
 
 def test_kernel_index_arithmetic_emulated_matches_plain(sedov_slots):
@@ -366,6 +481,34 @@ def test_kernel_index_arithmetic_emulated_matches_plain(sedov_slots):
     u = np.concatenate([random_slots(50, 1), sedov_slots[3:4]])
     want = kern.hydro_rhs_plain(T(u), **KW).numpy()
     got = _emulate_kernel(u, KW["h"], KW["gamma"])
+    np.testing.assert_allclose(got, want, **_tol(want))
+
+
+@pytest.mark.parametrize("s,base", [(8, 0), (15, 0), (15, 4), (15, 8),
+                                    (15, 12), (16, 0), (16, 4)])
+def test_kernel_slabs_replayed_equal_whole_slot(s, base):
+    """The x-slab scheme at 16^3 and 15^3 (and one slab at 8^3), replayed
+    in numpy with the kernel's staging (every float of a slab's runs
+    written once, each bulk middle 16-byte aligned in memory and in shared
+    memory, at each float offset of the tensor), face ownership (a face
+    between two slabs evaluated once, by the upper slab) and divergence
+    indexing: equal to the whole-slot replay in every bit, and within the
+    kernel tolerance of the plain version."""
+    rng = np.random.default_rng(51)
+    p = s + 6
+    rho = 1.0 + 0.3 * rng.random((2, 1, p, p, p))
+    vel = 0.2 * rng.standard_normal((2, 3, p, p, p))
+    e = 2.0 + rng.random((2, 1, p, p, p))
+    u = np.concatenate([rho, rho * vel, e], axis=1).astype(np.float32)
+    if s == 16:
+        cfg = CONFIG_16
+        u[1] = state.extract_subgrids(
+            state.sedov_init(cfg, device="cpu").u, 16, 3)[21].numpy()
+    got = _emulate_slab_kernel(u, 0.01, 1.4, s, base=base)
+    assert not np.isnan(got).any()
+    np.testing.assert_array_equal(got, _emulate_kernel(u, 0.01, 1.4, s=s))
+    want = kern.hydro_rhs_plain(T(u), h=0.01, gamma=1.4, ghost=3,
+                                subgrid=s).numpy()
     np.testing.assert_allclose(got, want, **_tol(want))
 
 

@@ -388,12 +388,15 @@ def test_lane_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="h_slots"):
         chk(u_t, None, torch.ones(3), 3, 8)
     chk(u_t, None, torch.ones(2), 3, 8)
-    # nothing of size P^3 is staged: 16^3 is taken, unlike the slot_grid
-    # kernel's shared memory
+    # nothing of size P^3 is staged: 16^3 is taken, as the slot_grid
+    # kernel takes it in two x-slabs per slot; 18^3 only the lane kernel
     u16 = torch.zeros((5, 22, 22, 22, 1))
     chk(u16, H, None, 3, 16)
+    kern.check_kernel_args(slot_major(u16).contiguous(), H, None, 3, 16)
+    u18 = torch.zeros((5, 24, 24, 24, 1))
+    chk(u18, H, None, 3, 18)
     with pytest.raises(NotImplementedError, match="shared memory"):
-        kern.check_kernel_args(slot_major(u16).contiguous(), H, None, 3, 16)
+        kern.check_kernel_args(slot_major(u18).contiguous(), H, None, 3, 18)
     with pytest.raises(ValueError, match="unknown layout"):
         ops.hydro_rhs(T(random_slots(93, 2)), h=H, layout="lanes", **KW)
     with pytest.raises(ValueError, match="unknown layout"):

@@ -196,14 +196,21 @@ def test_executor_pool_on_cpu_is_inline_and_round_robin():
 # ---------------------------------------------------------------------------
 
 def test_unported_config_values_raise_naming_roadmap():
-    for strategy in ("s1", "mixed", "s4", "sharded"):
+    for strategy in ("s4", "sharded"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             AggregationConfig(strategy=strategy)
-    for value in ("finite",):
+    for kw in (dict(guard="finite"), dict(launch_timeout_s=1.0),
+               dict(breaker_window=2), dict(prior="roofline")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            AggregationConfig(guard=value)
-    # s2, host staging and fused stages are ported now
+            AggregationConfig(**kw)
+    # strategy 1 is a config (16^3 sub-grids) under any strategy
+    with pytest.raises(ValueError, match="CONFIG_16"):
+        AggregationConfig(strategy="s1")
+    # s2, mixed, host staging, fused stages and the tuning knobs are ported
     AggregationConfig(strategy="s2", staging="host", fuse_epilogue=True)
+    AggregationConfig(strategy="mixed", autotune=True, cost_model=True,
+                      flush_policy={"hydro_rhs": "cost"}, inner_chunk="auto",
+                      family_strategies={"hydro_rhs": "s3"})
     with pytest.raises(ValueError, match="valid modes"):
         AggregationConfig(staging="pinned")
     with pytest.raises(ValueError, match="valid strategies"):
