@@ -117,7 +117,28 @@
    fused stages, each executor stream's launches delayed, bit-equal to
    the eager exchange; prints the ops of one exchange and host ms/step,
    captured and eager.
-12. Holds the serving kernels (``csrc/decode_attention.cu``,
+12. Containment: (1) the main path under ``s3`` cap 32 and ``s2+s3`` (4
+   streams, cap 32) with ``guard="finite"`` and ``launch_timeout_s=1.0``
+   bit-equal to fused, host ms and device busy per step with both off,
+   on, on, off; (2) a payload NaN on task 17 of the main path's hydro wave:
+   only 17 fails, 2 log2(32) = 10 bisection launches through the slot_grid
+   kernel at buckets 16, 8, 4, 2, 1, survivors bit-equal, the runner's
+   error naming the task; (3) per-task ring staging on 4 delayed streams,
+   3 waves of 512 before one flush with a ring poison in wave 0 and a
+   payload poison in wave 2, and a compaction between guarded launches and
+   their audit: exactly the poisoned tasks fail, survivors bit-equal;
+   (4) a compile fault at bucket 32 and a transient launch fault: the
+   degraded counters, bit-equal; (5) a real stall (``torch.cuda._sleep``
+   of ~10 budgets before the kernel) under ``launch_timeout_s=0.02``:
+   ``LaunchTimeoutError`` naming the family within a few budgets, then a
+   clean wave bit-equal to fused; (6) Path A under ``mixed``: gravity's
+   breaker opens on payload faults, gravity runs under ``s3`` (bucket 1)
+   until a clean half-open probe closes it, then returns to ``fused``;
+   (7) ``fused`` and ``s2`` raise ``NonFiniteStateError`` on a NaN state;
+   (8) qwen2-moe-a2.7b at published widths and 4 layers, 8 requests: a
+   poisoned request evicted and its slot reused, the others' tokens equal
+   a fault-free run, ``healthz`` reporting a shared executor's breakers.
+13. Holds the serving kernels (``csrc/decode_attention.cu``,
    ``csrc/grouped_gemm.cu``) against their plain versions at the full-width
    qwen2-moe-a2.7b shapes in bf16 (8 requests, a 1,024-position cache with
    ragged lengths 1 to 1,024; 60 experts of (2048, 1408) and (1408, 2048)
@@ -128,7 +149,7 @@
    version, one PyTorch call and its bound, decode attention by CUDA-graph
    replays with L2 cold (as the serving path finds a layer's cache) and
    warm, beside SDPA at B 1, 2, 4 and 8 in the same call.
-13. The serving path: qwen2-moe-a2.7b at full width and depth in bf16
+14. The serving path: qwen2-moe-a2.7b at full width and depth in bf16
    (14.3 B weights from a seeded generator on the card) behind
    ``ServingEngine(max_batch=8, max_len=1024)`` on 12 requests (prompts of
    8-96 tokens and one of 640, 8-24 new tokens each): every request done,
@@ -143,7 +164,7 @@
    logits must stay within ``F32_LOGIT_TOL`` of the kernels'.
    Prints tokens/s, ms per launch by bucket, the cache gather and scatter
    copies' device time and peak memory.
-14. Prints one line naming the kernels, one JSON line of kernels, the card
+15. Prints one line naming the kernels, one JSON line of kernels, the card
    line, and as its last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the run exits non-zero and prints no result;
@@ -2616,6 +2637,560 @@ def phase_amr_exchange(acfg, dev, card, results):
 
 
 # ---------------------------------------------------------------------------
+# containment: the guard, bisection, degraded buckets, the watchdog, the
+# circuit breakers, the executor-less tripwire and serving eviction
+# ---------------------------------------------------------------------------
+
+# the launch watchdog's budget in the real-stall check, and the stall: a
+# torch.cuda._sleep of about 10 budgets at ~2 GHz
+STALL_BUDGET_S = 0.02
+STALL_CYCLES = 400_000_000
+# gravity's breaker states on Path A: two faulted direct waves, then four
+# mixed iterations (tests/test_torch_faults_mixed.py, BREAKER_SEQUENCE)
+BREAKER_SEQUENCE = ["closed", "open", "open", "half_open", "closed",
+                    "closed"]
+CONTAIN_LAYERS = 4      # qwen2-moe-a2.7b depth in the serving eviction check
+
+
+def recording(region, sizes):
+    """Wrap a region's body so each launch's bucket size is appended to
+    ``sizes``."""
+    body = region.batched_fn
+
+    def rec(*args, out=None):
+        sizes.append(args[0].shape[0])
+        return body(*args) if out is None else body(*args, out=out)
+    region.batched_fn = rec
+
+
+def counts(xs):
+    out = {}
+    for x in xs:
+        out[x] = out.get(x, 0) + 1
+    return dict(sorted(out.items()))
+
+
+GUARD_ORDER = ("off", "both", "watchdog", "watchdog", "both", "off")
+GUARD_KW = {"off": {}, "watchdog": dict(launch_timeout_s=1.0),
+            "both": dict(guard="finite", launch_timeout_s=1.0)}
+
+
+def contain_guard_cost(cfg, dev, card, dts, fused_main):
+    """Check 1: the main path under s3 cap 32 and s2+s3 (4 streams, cap
+    32), with the guard and the watchdog both on (``both``), the watchdog
+    alone, and neither, in the order of ``GUARD_ORDER`` in one process:
+    bit-equal to fused, host ms per step (best of 3 x 3 steps) and device
+    busy per step (one profiled step)."""
+    from repro_torch.configs.base import AggregationConfig
+    from repro_torch.core import StrategyRunner, UniformSedovScenario
+    from repro_torch.hydro.state import sedov_init
+    from repro_torch.kernels import hydro_rhs as kern
+
+    u0 = sedov_init(cfg, device=dev).u
+    rows = {}
+    for label, base in (("s3 cap 32", dict(strategy="s3", max_aggregated=32)),
+                        ("s2+s3 4 streams cap 32", dict(
+                            strategy="s2+s3", n_executors=4,
+                            max_aggregated=32))):
+        runs = []
+        for guard in GUARD_ORDER:
+            runner = StrategyRunner(UniformSedovScenario(cfg),
+                                    AggregationConfig(**base,
+                                                      **GUARD_KW[guard]),
+                                    device=dev)
+            u, row = drive(runner, u0, dts, (kern.hydro_rhs_cuda,))
+            check(torch.equal(u, fused_main),
+                  f"containment {label}, guard {guard}: not bit-identical "
+                  f"to fused")
+            check(row["kernel_launches"]["hydro_rhs_cuda"] > 0,
+                  f"containment {label}: the kernel never launched")
+
+            def steps(runner=runner):
+                u = u0
+                for dt in dts:
+                    u = runner.rk3_step(u, dt)
+            host = host_ms(steps, len(dts))
+            _, prof = profiled(lambda: runner.rk3_step(u0, dts[0]))
+            busy = sum(us for _, us in device_events(prof)) / 1e3
+            faults = {d: dict(r["faults"]) for d, r in
+                      runner.stats["regions"].items()}
+            check(all(f["trips"] == 0 and f["timeouts"] == 0
+                      for f in faults.values()),
+                  f"containment {label}: a clean run tripped {faults}")
+            runs.append(dict(guard=guard, host_ms_per_step=host,
+                             device_busy_ms_per_step=busy,
+                             launches_per_step=row["launches_per_step"]))
+        rows[label] = runs
+        print(f"containment ({card}): 1. main path {label}, {len(dts)} "
+              f"steps, each row bit-identical to fused; rows "
+              f"{'/'.join(GUARD_ORDER)} (both: guard=finite and "
+              f"launch_timeout_s=1.0; watchdog: launch_timeout_s=1.0): host "
+              f"ms/step (best of 3) "
+              f"{[round(r['host_ms_per_step'], 4) for r in runs]}, device "
+              f"busy ms/step "
+              f"{[round(r['device_busy_ms_per_step'], 4) for r in runs]}, "
+              f"{runs[0]['launches_per_step']:g} launches/step", flush=True)
+    return rows
+
+
+def contain_payload(cfg, dev, card):
+    """Check 2: a payload NaN on task 17 of the main path's hydro wave
+    (s3 cap 32, guard on): 17 fails, 10 bisection launches through the
+    slot_grid kernel at buckets 16, 8, 4, 2 and 1, the survivors bit-equal
+    to the fault-free kernel, and the runner names the sub-grid."""
+    from repro_torch.configs.base import AggregationConfig
+    from repro_torch.core import (
+        FaultInjector, FaultSpec, StrategyRunner, TaskFailedError,
+        UniformSedovScenario,
+    )
+    from repro_torch.hydro.state import sedov_init
+    from repro_torch.kernels import hydro_rhs as kern
+
+    u0 = sedov_init(cfg, device=dev).u
+    spec = FaultSpec(site="payload", kernel="hydro_rhs", task=17, times=1)
+    runner = StrategyRunner(UniformSedovScenario(cfg), AggregationConfig(
+        strategy="s3", max_aggregated=32, guard="finite"), device=dev,
+        fault_injector=FaultInjector([spec]))
+    runner.warmup()
+    exe = runner.executor
+    (pop,) = runner.scenario.populations(u0)
+    want = runner.scenario.family("hydro_rhs").batched_body(*pop.parents)
+    region = next(iter(exe.regions.values()))
+    sizes = []
+    recording(region, sizes)
+    kern.hydro_rhs_cuda.launches = 0
+    fut = pop.submit_to(exe)
+    exe.flush()
+    sync()
+    launches = kern.hydro_rhs_cuda.launches
+    f = dict(exe.stats["regions"][region.signature.describe()]["faults"])
+    check(fut.failed_indices() == [17],
+          f"payload fault: failed {fut.failed_indices()}, want [17]")
+    check(f["trips"] == 1 and f["bisection_launches"] == 10
+          and f["failed_tasks"] == 1,
+          f"payload fault: faults {f}, want 1 trip and 2*log2(32) = 10 "
+          f"bisection launches")
+    sizes = counts(sizes)
+    check(sizes == {1: 2, 2: 2, 4: 2, 8: 2, 16: 2, 32: 16},
+          f"payload fault: launch sizes {sizes}")
+    check(launches == 26, f"payload fault: {launches} slot_grid kernel "
+          f"launches, want 16 + 10")
+    keep = [i for i in range(pop.n_tasks) if i != 17]
+    got = torch.stack([fut.task_result(i) for i in keep])
+    check(torch.equal(got, want[keep]),
+          "payload fault: a survivor differs from the fault-free kernel")
+    runner.set_fault_injector(FaultInjector([spec]))
+    try:
+        runner.rhs(u0)
+        raise CheckFailed("payload fault: rhs did not raise")
+    except TaskFailedError as err:
+        msg = str(err)
+    check(msg.startswith("task 17 of family 'hydro_rhs'"),
+          f"payload fault: the error does not name the task: {msg}")
+    print(f"containment ({card}): 2. payload NaN on task 17 of the main "
+          f"path's 512-task hydro wave, s3 cap 32: failed [17], faults "
+          f"{f}, body launches by size {sizes}, slot_grid kernel "
+          f"launches {launches} (16 + 10), 511 survivors bit-equal to the "
+          f"fault-free kernel; rhs raised: {msg[:120]}", flush=True)
+    return dict(faults=f, sizes=sizes, kernel_launches=launches)
+
+
+def contain_ring(cfg, dev, card):
+    """Check 3: per-task ring staging on 4 delayed streams, 3 waves of 512
+    sub-grids before one flush, a ring-site poison in wave 0 and a payload
+    poison in wave 2; then a compaction between guarded launches and their
+    audit: exactly the poisoned tasks fail, every survivor bit-equal to
+    the fused kernel."""
+    from repro_torch.configs.base import AggregationConfig
+    from repro_torch.core import AggregationExecutor, FaultInjector, FaultSpec
+    from repro_torch.hydro.state import extract_subgrids, sedov_init
+    from repro_torch.kernels import hydro_rhs as kern
+    from repro_torch.kernels import ops
+
+    u0 = sedov_init(cfg, device=dev).u
+    h = cfg.domain / u0.shape[-1]
+    kw = dict(h=h, gamma=cfg.gamma, ghost=cfg.ghost, subgrid=cfg.subgrid)
+    subs = extract_subgrids(u0, cfg.subgrid, cfg.ghost)
+    want = kern.hydro_rhs_cuda(subs, **kw)
+    n = subs.shape[0]
+    out = {}
+    # region wave r holds tasks [32 r, 32 r + 32): the ring poison lands on
+    # task 37 (user wave 0), the payload on task 2 n + 3 * 32 + 7 (wave 2)
+    cases = (
+        ("three waves, one flush", dict(max_aggregated=32), WAVES,
+         [FaultSpec(site="ring", task=5, wave=1),
+          FaultSpec(site="payload", task=7, wave=2 * 16 + 3)],
+         [37, 2 * n + 3 * 32 + 7]),
+        ("compaction before the audit", dict(max_aggregated=4,
+                                             buckets=(1, 3)), 1,
+         [FaultSpec(site="ring", task=4), FaultSpec(site="payload",
+                                                    task=13)], [4, 13]))
+    for label, cfg_kw, n_waves, specs, want_failed in cases:
+        exe = AggregationExecutor(
+            delayed(ops.hydro_batched_body(cfg, h)), AggregationConfig(
+                strategy="s2+s3", n_executors=4, launch_watermark=10 ** 9,
+                guard="finite", **cfg_kw), device=dev,
+            fault_injector=FaultInjector(specs))
+        exe.warmup((((n,) + tuple(subs.shape[1:]), subs.dtype),))
+        futs, refs = [], []
+        sync()
+        t0 = time.perf_counter()
+        for w in range(n_waves):
+            order = torch.roll(torch.arange(n, device=dev), 37 * w)
+            futs += [exe.submit(t) for t in subs[order].unbind(0)]
+            refs.append(want[order])
+        exe.flush()
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        refs = torch.cat(refs)
+        failed = [i for i, fut in enumerate(futs) if fut.failed()]
+        check(failed == want_failed,
+              f"ring hazard, {label}: failed {failed}, want {want_failed}")
+        keep = [i for i in range(len(futs)) if i not in want_failed]
+        got = torch.stack([futs[i].result() for i in keep])
+        check(torch.equal(got, refs[keep]),
+              f"ring hazard, {label}: a survivor differs from the fused "
+              f"kernel")
+        ring = exe.ring
+        f = dict(next(iter(exe.stats["regions"].values()))["faults"])
+        check(f["trips"] == 2, f"ring hazard, {label}: faults {f}")
+        if n_waves > 1:
+            check(ring.swaps >= 3 * n_waves, f"ring hazard: {ring.swaps} "
+                  f"swaps")
+        else:
+            check(ring.compactions > 0, "ring hazard: no compaction")
+        out[label] = dict(failed=failed, faults=f, ms=ms, swaps=ring.swaps,
+                          compactions=ring.compactions,
+                          launches=exe.stats["launches"])
+        print(f"containment ({card}): 3. ring hazard, {label}: "
+              f"{len(futs)} per-task submissions on 4 streams delayed "
+              f"{SLEEP_CYCLES} cycles per launch, one flush: failed "
+              f"{failed}, faults {f}, ring swaps {ring.swaps}, compactions "
+              f"{ring.compactions}, {exe.stats['launches']} launches, "
+              f"{len(keep)} survivors bit-equal to the fused kernel, "
+              f"{ms:.1f} ms", flush=True)
+    # the cost of a guarded ring launch's record: one copy of its slice
+    ring_buf = torch.zeros((32,) + tuple(subs.shape[1:]), device=dev)
+
+    def copy():
+        return ring_buf.narrow(0, 0, 32).clone()
+    dev_ms = time_graph_ms(copy, 200)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        copy()
+    host_us = (time.perf_counter() - t0) / 200 * 1e6
+    sync()
+    out["record_copy"] = dict(bytes=ring_buf.numel() * 4, device_ms=dev_ms,
+                              host_us=host_us)
+    print(f"containment ({card}): 3. a guarded 32-slot ring launch's record "
+          f"copies its slice, {ring_buf.numel() * 4 / 1e6:.2f} MB: "
+          f"{dev_ms * 1e3:.2f} us of device (a graph of 200 copies), "
+          f"{host_us:.1f} us of host per launch", flush=True)
+    return out
+
+
+def contain_degraded(cfg, dev, card, pop, pop_want):
+    """Check 4: a compile fault at bucket 32 and one launch fault at bucket
+    16 on the main path's wave (s3 cap 32): the counters the CPU test
+    expects (tests/test_torch_faults.py, ``degrade_at_cap_32``), 32
+    launches of 16, bit-equal to the fused kernel."""
+    from repro_torch.configs.base import AggregationConfig
+    from repro_torch.core import (
+        AggregationExecutor, FaultInjector, FaultSpec, UniformSedovScenario,
+    )
+
+    exe = AggregationExecutor(None, AggregationConfig(
+        strategy="s3", max_aggregated=32), device=dev,
+        fault_injector=FaultInjector([
+            FaultSpec(site="compile", kernel="hydro_rhs", bucket=32),
+            FaultSpec(site="launch", kernel="hydro_rhs", bucket=16,
+                      mode="fail", times=1)]))
+    exe.register("hydro_rhs", UniformSedovScenario(cfg).family(
+        "hydro_rhs").batched_body)
+    fut = pop.submit_to(exe)
+    exe.flush()
+    got = fut.result()
+    sync()
+    f = dict(next(iter(exe.stats["regions"].values()))["faults"])
+    hist = dict(exe.stats["aggregated_hist"])
+    check(f["compile_failures"] == 1 and f["launch_failures"] == 1
+          and f["retries"] == 1 and f["degraded_launches"] == 2,
+          f"degraded buckets: faults {f}")
+    check(hist == {16: 32}, f"degraded buckets: buckets {hist}")
+    check(torch.equal(got, pop_want), "degraded buckets: the result differs "
+          "from the fused kernel")
+    print(f"containment ({card}): 4. compile fault at bucket 32, one launch "
+          f"fault at bucket 16, main path s3 cap 32: faults {f}, buckets "
+          f"{hist}, bit-equal to the fused kernel", flush=True)
+    return dict(faults=f, hist=hist)
+
+
+def contain_stall(cfg, dev, card, pop, pop_want):
+    """Check 5: a body that sleeps ~10 budgets on its stream before the
+    kernel, under launch_timeout_s=0.02: the flush raises
+    LaunchTimeoutError naming the family within a few budgets; once the
+    sleep ends the executor runs a clean wave bit-equal to fused."""
+    from repro_torch.configs.base import AggregationConfig
+    from repro_torch.core import AggregationExecutor, UniformSedovScenario
+    from repro_torch.core.faults import LaunchTimeoutError
+
+    body = UniformSedovScenario(cfg).family("hydro_rhs").batched_body
+    stall = {"on": False}
+
+    def stalling(*args, out=None):
+        if stall["on"]:
+            torch.cuda._sleep(STALL_CYCLES)
+        return body(*args) if out is None else body(*args, out=out)
+
+    exe = AggregationExecutor(None, AggregationConfig(
+        strategy="s3", max_aggregated=512, launch_timeout_s=STALL_BUDGET_S),
+        device=dev)
+    exe.register("stalled_hydro", stalling)
+    exe.submit_range(pop.parents, 0, pop.n_tasks, kernel="stalled_hydro")
+    exe.flush()                     # first-use costs, unstalled
+    sync()
+    stall["on"] = True
+    t0 = time.perf_counter()
+    try:
+        exe.submit_range(pop.parents, 0, pop.n_tasks,
+                         kernel="stalled_hydro")
+        exe.flush()
+        raise CheckFailed("real stall: the flush did not raise")
+    except LaunchTimeoutError as err:
+        raised_s = time.perf_counter() - t0
+        msg = str(err)
+    still = not exe.pool.executors[0].last_event.query()
+    sync()
+    stalled_s = time.perf_counter() - t0
+    f = dict(next(iter(exe.stats["regions"].values()))["faults"])
+    check("stalled_hydro" in msg, f"real stall: {msg}")
+    check(f["timeouts"] == 1, f"real stall: faults {f}")
+    check(raised_s < 5 * STALL_BUDGET_S + 0.05 and still,
+          f"real stall: raised after {raised_s:.3f} s (stall still running: "
+          f"{still})")
+    stall["on"] = False
+    fut = exe.submit_range(pop.parents, 0, pop.n_tasks,
+                           kernel="stalled_hydro")
+    exe.flush()
+    check(torch.equal(fut.result(), pop_want),
+          "real stall: the clean wave after the stall differs from fused")
+    print(f"containment ({card}): 5. a {STALL_CYCLES}-cycle stall under "
+          f"launch_timeout_s={STALL_BUDGET_S}: LaunchTimeoutError after "
+          f"{raised_s * 1e3:.1f} ms, the stall over after "
+          f"{stalled_s * 1e3:.1f} ms, timeouts {f['timeouts']}; {msg}; the "
+          f"next wave bit-equal to fused", flush=True)
+    return dict(raised_ms=raised_s * 1e3, stall_ms=stalled_s * 1e3,
+                faults=f)
+
+
+def contain_breakers(gcfg, dev, card):
+    """Check 6: Path A under mixed ({hydro_rhs: s3, gravity: fused}),
+    guard on, breakers (window 4, threshold 2, cooldown 2): two direct
+    gravity waves with a payload fault open gravity's breaker; while it is
+    not closed gravity runs under s3 (bucket 1 while open), a clean
+    half-open probe closes it, and it returns to fused.  Every iteration
+    bit-equal to fused; the states equal the CPU test's."""
+    from repro_torch.configs.base import AggregationConfig
+    from repro_torch.core import (
+        FaultInjector, FaultSpec, GravityScenario, StrategyRunner,
+    )
+    from repro_torch.core.aggregation import greedy_decomposition
+    from repro_torch.hydro.state import sedov_init
+    from repro_torch.kernels import gravity as grav
+
+    u0 = sedov_init(gcfg.hydro, device=dev).u
+    fused = StrategyRunner(GravityScenario(gcfg), AggregationConfig(
+        strategy="fused"), device=dev).rhs(u0)
+    agg = AggregationConfig(
+        strategy="mixed", max_aggregated=32, launch_watermark=10 ** 9,
+        family_strategies={"hydro_rhs": "s3", "gravity": "fused"},
+        guard="finite", breaker_window=4, breaker_threshold=2,
+        breaker_cooldown=2)
+    ladder = agg.bucket_sizes()
+    inj = FaultInjector([FaultSpec(site="payload", kernel="gravity",
+                                   task=3, times=2)])
+    runner = StrategyRunner(GravityScenario(gcfg), agg, device=dev,
+                            fault_injector=inj)
+    routes = runner._strategy.routes(runner.scenario, runner.ctx)
+    check(routes["gravity"] == "fused", f"breakers: routes {routes}")
+    exe = runner.executor
+    pops = {p.kernel: p for p in runner.scenario.populations(u0)}
+    states, launches, grav_launches = [], [], []
+    for _ in range(2):
+        fut = pops["gravity"].submit_to(exe)
+        exe.flush()
+        check(fut.failed_indices() == [3],
+              f"breakers: failed {fut.failed_indices()}")
+        states.append(exe.breaker_state("gravity"))
+    for _ in range(4):
+        before = exe.stats["launches"]
+        grav.gravity_cuda.launches = 0
+        out = runner.rhs(u0)
+        sync()
+        launches.append(exe.stats["launches"] - before)
+        grav_launches.append(grav.gravity_cuda.launches)
+        states.append(exe.breaker_state("gravity"))
+        check(torch.equal(out, fused),
+              "breakers: a mixed iteration differs from fused")
+    n = pops["gravity"].n_tasks
+    hydro = len(greedy_decomposition(pops["hydro_rhs"].n_tasks, ladder))
+    ladder_n = len(greedy_decomposition(n, ladder))
+    check(states == BREAKER_SEQUENCE,
+          f"breakers: states {states}, want {BREAKER_SEQUENCE}")
+    check(launches == [hydro + n, hydro + n, hydro + ladder_n, hydro],
+          f"breakers: executor launches per iteration {launches}")
+    check(grav_launches == [n, n, ladder_n, 1],
+          f"breakers: gravity kernel launches {grav_launches}")
+    check(runner.ctx.caches[("mixed_route", "gravity")] == "fused",
+          "breakers: the cached route was overwritten")
+    print(f"containment ({card}): 6. Path A mixed, gravity's breaker: "
+          f"states {states}; executor launches per iteration {launches}, "
+          f"gravity kernel launches {grav_launches} (bucket 1 while open, "
+          f"the ladder at the half-open probe, one fused launch once "
+          f"closed); every iteration bit-equal to fused", flush=True)
+    return exe, dict(states=states, launches=launches,
+                     gravity_kernel_launches=grav_launches)
+
+
+def contain_tripwire(cfg, dev, card):
+    """Check 7: fused and s2 under guard=finite: a state holding one NaN
+    raises NonFiniteStateError, a clean one passes."""
+    from repro_torch.configs.base import AggregationConfig
+    from repro_torch.core import (
+        NonFiniteStateError, StrategyRunner, UniformSedovScenario,
+    )
+    from repro_torch.hydro.state import sedov_init
+
+    u0 = sedov_init(cfg, device=dev).u
+    bad = u0.clone()
+    bad[0, 20, 20, 20] = float("nan")
+    for strategy in ("fused", "s2"):
+        runner = StrategyRunner(UniformSedovScenario(cfg), AggregationConfig(
+            strategy=strategy, n_executors=4, guard="finite"), device=dev)
+        runner.rhs(u0)
+        try:
+            runner.rhs(bad)
+            raise CheckFailed(f"tripwire: {strategy} did not raise")
+        except NonFiniteStateError as err:
+            msg = str(err)
+        print(f"containment ({card}): 7. {strategy} under guard=finite, a "
+              f"state holding one NaN: NonFiniteStateError ({msg[:80]}...)",
+              flush=True)
+
+
+def contain_serving(dev, card, exe):
+    """Check 8: qwen2-moe-a2.7b at published widths and CONTAIN_LAYERS
+    layers in bf16, 8 requests on max_batch 4; a payload poison on one
+    request at its last decode launch: that request is evicted, its slot
+    serves a later request, every other request's tokens equal the
+    fault-free run (the two schedules agree launch for launch, since the
+    poison frees the slot where the clean run frees it; a slot freed
+    earlier would change later buckets, whose GEMMs may round otherwise),
+    and healthz reports the shared executor's breakers."""
+    from repro_torch.configs.base import AggregationConfig
+    from repro_torch.configs.qwen2_moe_a2_7b import CONFIG
+    from repro_torch.core import FaultInjector, FaultSpec
+    from repro_torch.models import model as model_mod
+    from repro_torch.serving import Request, ServingEngine
+
+    class Tracked(ServingEngine):
+        """Records the launch (``_step_no``) of each request's last token
+        and the slot each request ran in."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.last_launch, self.slot_of = {}, {}
+
+        def _launch(self, slots, toks):
+            rids = [self.active[s].rid for s in slots.tolist()]
+            out = super()._launch(slots, toks)
+            for s, rid in zip(slots.tolist(), rids):
+                self.last_launch[rid] = self._step_no
+                self.slot_of[rid] = s
+            return out
+
+    cfg = CONFIG.replace(n_layers=CONTAIN_LAYERS)
+    m = model_mod.init_params(cfg, seed=0, device=dev)
+    rng = np.random.default_rng(22)
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, n)]
+               for n in rng.integers(4, 13, 8)]
+    news = [6, 9, 4, 11, 7, 5, 8, 10]
+    target = 2
+
+    def run(injector):
+        eng = Tracked(cfg, m, max_batch=4, max_len=64, device=dev,
+                      agg=AggregationConfig(max_aggregated=4,
+                                            guard="finite"),
+                      fault_injector=injector, executor=exe)
+        reqs = [Request(i, p, max_new_tokens=k)
+                for i, (p, k) in enumerate(zip(prompts, news))]
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        return eng, reqs
+
+    clean_eng, clean = run(None)
+    wave = clean_eng.last_launch[target]
+    eng, reqs = run(FaultInjector([FaultSpec(
+        site="payload", kernel="decode", task=target, wave=wave)]))
+    bad = reqs[target]
+    check(bad.failed and bad.done and "evicted" in (bad.error or ""),
+          f"serving: request {target} not evicted ({bad.error})")
+    check(eng.stats["faults"] == {"trips": 1, "evicted": 1, "shed": 0},
+          f"serving: faults {eng.stats['faults']}")
+    check(bad.output == clean[target].output[:-1],
+          "serving: the evicted request's tokens before the poison differ")
+    for r, c in zip(reqs, clean):
+        if r.rid != target:
+            check(r.done and not r.failed and r.output == c.output,
+                  f"serving: request {r.rid}'s tokens differ from the "
+                  f"fault-free run")
+    reused = [r.rid for r in reqs if r.rid > target
+              and eng.slot_of[r.rid] == eng.slot_of[target]
+              and eng.last_launch[r.rid] > wave]
+    check(reused, "serving: no later request ran in the evicted slot")
+    health = eng.healthz()
+    check(health["breakers"] == exe.breaker_states() and health["breakers"]
+          and health["evicted"] == 1, f"serving: healthz {health}")
+    print(f"containment ({card}): 8. {cfg.name} at published widths, "
+          f"{CONTAIN_LAYERS} layers, bf16, 8 requests on max_batch 4: "
+          f"request {target} poisoned at launch {wave} (its last decode) "
+          f"and evicted, its slot {eng.slot_of[target]} reused by request "
+          f"{reused[0]}, the other 7 requests' tokens equal the fault-free "
+          f"run; faults {eng.stats['faults']}; healthz breakers "
+          f"{health['breakers']}", flush=True)
+    del m
+    torch.cuda.empty_cache()
+    return dict(wave=wave, reused_by=reused, faults=eng.stats["faults"],
+                breakers=health["breakers"])
+
+
+def phase_containment(cfg, gcfg, dev, card, dts, fused_main, results):
+    """Checks 1-8 of the containment phase (see the functions above)."""
+    from repro_torch.core import UniformSedovScenario
+    from repro_torch.hydro.state import sedov_init
+
+    t0 = time.perf_counter()
+    out = {"card": card}
+    out["guard_cost"] = contain_guard_cost(cfg, dev, card, dts, fused_main)
+    out["payload"] = contain_payload(cfg, dev, card)
+    out["ring"] = contain_ring(cfg, dev, card)
+    sc = UniformSedovScenario(cfg)
+    (pop,) = sc.populations(sedov_init(cfg, device=dev).u)
+    pop_want = sc.family("hydro_rhs").batched_body(*pop.parents)
+    out["degraded"] = contain_degraded(cfg, dev, card, pop, pop_want)
+    out["stall"] = contain_stall(cfg, dev, card, pop, pop_want)
+    exe, out["breakers"] = contain_breakers(gcfg, dev, card)
+    contain_tripwire(cfg, dev, card)
+    out["serving"] = contain_serving(dev, card, exe)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"containment ({card}): checks 1-8 passed in "
+          f"{out['seconds']:.1f} s", flush=True)
+    results["containment"] = out
+
+
+# ---------------------------------------------------------------------------
 # the serving path: decode attention, the grouped GEMM, qwen2-moe-a2.7b
 # ---------------------------------------------------------------------------
 
@@ -2966,7 +3541,7 @@ def phase_serving_path(dev, card, results):
     ``ServingEngine(max_batch=8, max_len=1024)``: 12 requests, every one
     done, the kernels launched 24x and 72x per engine launch, each emitted
     token the argmax of its solo replay (or within LOGIT_TOL of it); three
-    replays through the kernels hook (item 11 of the module docstring)."""
+    replays through the kernels hook (item 14 of the module docstring)."""
     from repro_torch.configs.qwen2_moe_a2_7b import CONFIG as cfg
     from repro_torch.data.pipeline import length_bucket
     from repro_torch.kernels import decode_attention as da
@@ -3342,6 +3917,11 @@ def main(argv=None):
                      dev, card, results)
     phase_resume(CONFIG, amr_1024, dev, card, results)
     phase_amr_exchange(amr_1024, dev, card, results)
+
+    # containment: the guard, bisection, degraded buckets, the watchdog,
+    # the breakers, the tripwire and serving eviction
+    phase_containment(CONFIG, gravity_512, dev, card, dts, fused_kernel_path,
+                      results)
 
     # the serving kernels, then the serving path (qwen2-moe-a2.7b)
     phase_lm_kernels(dev, card, results)

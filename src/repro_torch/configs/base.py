@@ -107,6 +107,7 @@ PORTED_STRATEGIES = ("fused", "s2", "s3", "s2+s3", "mixed")
 ROADMAP_STRATEGIES = ("s4", "sharded")
 STAGING_MODES = ("device", "host")
 FLUSH_POLICIES = ("eager", "watermark", "cost")
+GUARD_MODES = ("off", "finite")
 # valid targets of per-family strategy routing (the "mixed" strategy);
 # "auto" defers to the measured cost model
 FAMILY_STRATEGY_CHOICES = ("s2", "s3", "fused", "auto")
@@ -161,6 +162,20 @@ class AggregationConfig:
     under ``strategy="mixed"`` to ``"s2"``, ``"s3"``, ``"fused"`` or
     ``"auto"`` (the measured choice), resolved by
     :func:`resolve_family_option`.  None of these changes a result.
+
+    Containment: ``guard="finite"`` audits every launch at ``flush`` with
+    one finite reduction and bisects a tripped bucket down to the culprit
+    tasks (a task tripping ``quarantine_threshold`` times is quarantined:
+    later trips run it alone).  A failed launch is retried up to
+    ``max_bucket_retries`` times (backoff from ``retry_backoff_s``,
+    doubled, each sleep capped at ``retry_backoff_max_s``); a bucket whose
+    build fails, or whose launches keep failing, is banned and its tasks
+    drained through smaller buckets.  ``launch_timeout_s > 0`` bounds each
+    launch's completion (``LaunchTimeoutError``).  ``breaker_window > 0``
+    arms a circuit breaker per family: ``breaker_threshold`` faults over
+    the last ``breaker_window`` waves open it (the family drains at bucket
+    1), and after ``breaker_cooldown`` waves a half-open probe closes or
+    reopens it.  Only a fault changes a result.
     """
     strategy: str = "s3"              # "s3" | "s2+s3" | "s2" | "mixed" |
                                       # "fused"
@@ -178,9 +193,17 @@ class AggregationConfig:
     cost_samples: int = 3             # timed samples per bucket (median)
     flush_policy: object = "eager"    # policy name, or {kernel: policy}
     family_strategies: Optional[Mapping[str, str]] = None
-    guard: str = "off"                # "finite" waits for containment
-    launch_timeout_s: float = 0.0     # the launch watchdog waits too
-    breaker_window: int = 0           # so do the circuit breakers
+    # containment: "finite" checks every launch for non-finite output at
+    # flush and bisects a tripped bucket down to its culprits
+    guard: str = "off"                # "off" | "finite"
+    max_bucket_retries: int = 2       # retries of a failed launch
+    retry_backoff_s: float = 0.0      # first retry's sleep, doubled each
+    retry_backoff_max_s: float = 1.0  # cap of one backoff sleep
+    quarantine_threshold: int = 2     # trips before a task is quarantined
+    launch_timeout_s: float = 0.0     # the launch watchdog's budget (0: off)
+    breaker_window: int = 0           # waves a breaker counts (0: off)
+    breaker_threshold: int = 3        # faults in the window that open it
+    breaker_cooldown: int = 2         # open waves before a half-open probe
     tune_store: object = None         # waits for the tune store
     prior: str = "off"                # "roofline" waits for it too
 
@@ -198,14 +221,9 @@ class AggregationConfig:
         if self.staging not in STAGING_MODES:
             raise ValueError(f"unknown staging mode {self.staging!r} — "
                              f"valid modes: {', '.join(STAGING_MODES)}")
-        if self.guard != "off":
-            raise NotImplementedError(
-                f"guard={self.guard!r} is not ported yet (containment, see "
-                f"ROADMAP.md); the port runs guard='off'")
-        if self.launch_timeout_s or self.breaker_window:
-            raise NotImplementedError(
-                "the launch watchdog and the circuit breakers are not "
-                "ported yet (containment, see ROADMAP.md)")
+        if self.guard not in GUARD_MODES:
+            raise ValueError(f"unknown guard mode {self.guard!r} — valid "
+                             f"modes: {', '.join(GUARD_MODES)}")
         if self.tune_store is not None:
             raise NotImplementedError(
                 "tune_store is not ported yet (see ROADMAP.md)")

@@ -40,13 +40,23 @@ evaluates a bucket as sequential chunk launches, and ``select_strategy``
 compares the measured ``s2``, ``s3`` and ``fused`` paths for the ``mixed``
 strategy.  No policy, ladder, chunk or width changes a result.
 
+Containment: under ``guard="finite"`` each launch issues one finite
+reduction on its own stream, and ``flush`` reads every verdict in one
+copy; a tripped bucket is bisected down to its culprits, which fail
+(:class:`~repro_torch.core.faults.TaskFailedError`) while the survivors
+are fulfilled bit for bit.  Injected compile and launch faults degrade a
+bucket (bounded retries, rung bans, bucket 1 as the floor), the launch
+watchdog bounds each launch by ``launch_timeout_s`` and a per-family
+circuit breaker pins a faulting family to bucket 1 (DESIGN.md §11, §14).
+
 ``make_s2_scatter`` builds the ``s2`` strategy's per-task launch.  The
-reference's containment and tune store wait in ROADMAP.md (items 9, 10).
+reference's tune store waits in ROADMAP.md (item 10).
 """
 from __future__ import annotations
 
 import bisect
 import statistics
+import threading
 import time
 from dataclasses import dataclass
 from typing import (
@@ -57,28 +67,57 @@ import torch
 
 from repro_torch.configs.base import AggregationConfig, resolve_family_option
 from repro_torch.core.buffers import BufferPool, SlotRing
-from repro_torch.core.executor import ExecutorPool
+from repro_torch.core.executor import DeviceExecutor, ExecutorPool
+from repro_torch.core.faults import (
+    BucketCompileError, FaultInjector, LaunchFaultError, LaunchTimeoutError,
+    QuarantineList, RegionFaultError, TaskFailedError, all_finite_async,
+    poison_slots,
+)
 from repro_torch.device import DeviceLike, resolve_device
 
 
 class TaskFuture:
     """Resolves to one task's slot of a batched launch (lazily: fulfilment
-    records (batch, slot); ``result()`` slices)."""
+    records (batch, slot); ``result()`` slices).
 
-    __slots__ = ("_batch", "_slot", "_done")
+    Under ``guard="finite"`` a future may resolve failed instead:
+    ``failed()`` says so, ``error()`` carries the
+    :class:`~repro_torch.core.faults.TaskFailedError` and ``result()``
+    raises it.  A contained fault never returns garbage."""
+
+    __slots__ = ("_batch", "_slot", "_done", "_error")
 
     def __init__(self):
         self._batch = None
         self._slot = -1
         self._done = False
+        self._error = None
 
     def _fulfil(self, batch_out: torch.Tensor, slot: int) -> None:
         self._batch, self._slot, self._done = batch_out, slot, True
 
+    def _fail(self, err: Exception) -> None:
+        self._error, self._done = err, True
+        self._batch = None
+
+    def _retract(self) -> None:
+        """Un-fulfil: the launch that fulfilled this future tripped the
+        guard; containment fulfils or fails it again."""
+        self._done = False
+        self._batch = None
+
     def ready(self) -> bool:
         return self._done
 
+    def failed(self) -> bool:
+        return self._error is not None
+
+    def error(self) -> Optional[Exception]:
+        return self._error
+
     def result(self) -> torch.Tensor:
+        if self._error is not None:
+            raise self._error
         if not self._done:
             raise RuntimeError("task not launched yet — call executor.flush()")
         return self._batch[self._slot]
@@ -92,14 +131,21 @@ class RangeFuture:
     ``(range_offset, batch, slot, n)``.  ``result()`` assembles the
     ``(count, ...)`` batch — the launch output itself, with no copy, when
     one launch covered the whole range.
+
+    Containment may mark single offsets failed: ``failed_indices()`` lists
+    them, ``error(i)`` returns one task's
+    :class:`~repro_torch.core.faults.TaskFailedError`, ``task_result(i)``
+    reads one survivor, and ``result()`` and ``gather_futures`` raise
+    rather than assemble a batch with garbage slots in it.
     """
 
-    __slots__ = ("_parts", "_count", "_value")
+    __slots__ = ("_parts", "_count", "_value", "_failed")
 
     def __init__(self, count: int):
         self._parts: List[Tuple[int, torch.Tensor, int, int]] = []
         self._count = count
         self._value = None
+        self._failed: Dict[int, Exception] = {}
 
     def __len__(self) -> int:
         return self._count
@@ -108,19 +154,49 @@ class RangeFuture:
                       n: int) -> None:
         self._parts.append((offset, batch_out, slot, n))
 
+    def _fail_range(self, offset: int, n: int, err: Exception) -> None:
+        for i in range(offset, offset + n):
+            self._failed[i] = err
+
+    def _retract(self, batch_out: torch.Tensor) -> None:
+        """Drop every segment a tripped launch contributed (containment
+        fulfils or fails those offsets again after bisection)."""
+        self._parts = [p for p in self._parts if p[1] is not batch_out]
+
     def ready(self) -> bool:
         if self._value is not None:
             return True
-        return sum(p[3] for p in self._parts) == self._count
+        return (sum(p[3] for p in self._parts) + len(self._failed)
+                == self._count)
+
+    def failed(self) -> bool:
+        return bool(self._failed)
+
+    def failed_indices(self) -> List[int]:
+        return sorted(self._failed)
+
+    def error(self, index: Optional[int] = None) -> Optional[Exception]:
+        if index is not None:
+            return self._failed.get(index)
+        return next(iter(self._failed.values()), None)
 
     def result(self) -> torch.Tensor:
         """The whole range as one batched tensor (task axis leading)."""
+        if self._failed:
+            raise TaskFailedError(
+                f"{len(self._failed)} of {self._count} tasks in this range "
+                f"failed (indices {self.failed_indices()}) — read survivors "
+                f"individually with task_result()",
+                task_ids=self.failed_indices())
         if self._value is None:
             self._value = _assemble_segments(list(self._segments()))
             self._parts = []
         return self._value
 
     def task_result(self, index: int) -> torch.Tensor:
+        """One task's result (raises its error if containment failed it)."""
+        if index in self._failed:
+            raise self._failed[index]
         if not 0 <= index < self._count:
             raise IndexError(f"task {index} out of range [0, {self._count})")
         if self._value is not None:
@@ -131,6 +207,12 @@ class RangeFuture:
         raise RuntimeError("task not launched yet — call executor.flush()")
 
     def _segments(self):
+        if self._failed:
+            raise TaskFailedError(
+                f"range contains {len(self._failed)} failed tasks "
+                f"(indices {self.failed_indices()}) — gather_futures would "
+                f"assemble garbage slots; read survivors with task_result()",
+                task_ids=self.failed_indices())
         if self._value is not None:
             yield self._value, 0, self._value.shape[0]
             return
@@ -182,6 +264,8 @@ def gather_futures(futs: Sequence[Any]) -> torch.Tensor:
     for f in futs:
         if isinstance(f, RangeFuture):
             segments.extend(f._segments())
+        elif f._error is not None:    # a failed task never assembles
+            raise f._error
         elif not f._done:
             raise RuntimeError("task not launched yet — call executor.flush()")
         else:
@@ -237,18 +321,72 @@ class _Pending:
     slot: int = -1                        # ring mode: the task's ring slot
     count: int = 1                        # tasks in this entry (>1: a range)
     fut_offset: int = 0                   # offset in its RangeFuture
+    wave_index: int = 0                   # first task's wave-relative id
 
     def split(self, n: int) -> Tuple["_Pending", "_Pending"]:
         """Split a range entry: first ``n`` tasks / the rest.  Both halves
         share the future (each fulfils its own offset)."""
         assert 0 < n < self.count
         head = _Pending(self.future, self.views, count=n,
-                        fut_offset=self.fut_offset)
+                        fut_offset=self.fut_offset,
+                        wave_index=self.wave_index)
         tail = _Pending(
             self.future,
             tuple(SlotView(v.parent, v.index + n) for v in self.views),
-            count=self.count - n, fut_offset=self.fut_offset + n)
+            count=self.count - n, fut_offset=self.fut_offset + n,
+            wave_index=self.wave_index + n)
         return head, tail
+
+
+@dataclass
+class _LaunchRecord:
+    """What the guard needs to audit one launch and, on a trip, run any
+    subset of its positions again: subset ``S`` re-runs as
+    ``region.apply_gathered(indices[S], *parents)``.  ``parents`` are the
+    submitted parents (ref staging), the bucket's ring slice copied at
+    launch (ring staging: the ring itself is rewritten in place by later
+    waves and compactions) or the stacked batch (host staging).
+    ``poisoned`` maps the wave ids that carried an injected payload fault
+    at launch to its mode; re-executions apply exactly those again."""
+
+    region: "_Region"
+    out: torch.Tensor                 # the launch's batched output
+    k: int                            # bucket size
+    parents: Tuple[torch.Tensor, ...]
+    indices: List[int]                # per-position index into ``parents``
+    tasks: List[_Pending]             # the entries this launch fulfilled
+    wave_ids: List[int]               # per-position wave-relative task id
+    wave: int                         # region wave counter at launch
+    poisoned: Dict[int, str]          # wave id -> injected payload mode
+    verdict: Any = True               # 0-dim bool tensor, read at flush
+
+
+def _split_taken(entries: List[_Pending], n: int
+                 ) -> Tuple[List[_Pending], List[_Pending]]:
+    """Split an entry list at task boundary ``n``: the first ``n`` tasks'
+    entries and the rest, a range entry split at the boundary (a queue
+    drained by a bucket, or taken tasks carved to a smaller bucket)."""
+    head: List[_Pending] = []
+    rest = list(entries)
+    need = n
+    while need:
+        e = rest[0]
+        if e.count <= need:
+            head.append(rest.pop(0))
+            need -= e.count
+        else:
+            h, t = e.split(need)
+            rest[0] = t
+            head.append(h)
+            need = 0
+    return head, rest
+
+
+def _index_tensor(indices: Sequence[int], device: torch.device
+                  ) -> torch.Tensor:
+    """An index tensor on ``device``, copied without a host sync."""
+    return torch.tensor(list(indices), dtype=torch.long).to(
+        device, non_blocking=True)
 
 
 def _entry_mode(entry: _Pending) -> str:
@@ -632,15 +770,21 @@ class _Region:
     programs (contiguous prefix, indexed gather), and its tuning state: the
     inner chunk, the wave count and queue-length histogram, the cost
     model, and the parent shapes its ranges read (which measurements
-    replay)."""
+    replay); and its containment state: the quarantine list, the rungs
+    banned by degraded launches, the wave-relative task counter and the
+    circuit breaker."""
 
     __slots__ = ("signature", "batched_fn", "queue", "queued_tasks",
                  "buckets", "stats", "ring", "chunk", "chunk_tuned",
                  "waves", "tuned", "_wave_peak", "cost", "_retuned_waves",
-                 "_retuned_peak", "warmup_wave", "parent_specs", "_outs")
+                 "_retuned_peak", "warmup_wave", "parent_specs", "_outs",
+                 "quarantine", "bad_buckets", "_wave_submitted",
+                 "breaker_state", "_breaker_counts", "_breaker_wave_mark",
+                 "_breaker_mark", "_breaker_open_waves")
 
     def __init__(self, signature: TaskSignature, batched_fn: Callable,
-                 buckets: Tuple[int, ...], chunk: int = 0):
+                 buckets: Tuple[int, ...], chunk: int = 0,
+                 quarantine_threshold: int = 2):
         self.signature = signature
         self.batched_fn = batched_fn
         self.queue: List[_Pending] = []
@@ -659,9 +803,26 @@ class _Region:
         # parent shapes a range or warmup read, ((shape, dtype), ...) each
         self.parent_specs: set = set()
         self._outs: Dict[Tuple, Tuple] = {}   # chunked outputs' shapes
+        self.quarantine = QuarantineList(threshold=quarantine_threshold)
+        self.bad_buckets: set = set()     # rungs banned by degraded launches
+        self._wave_submitted = 0          # wave-relative task ids
+        # circuit breaker: a sliding window of per-wave fault counts; open
+        # drains at the bucket-1 floor
+        self.breaker_state = "closed"     # closed | open | half_open
+        self._breaker_counts: List[int] = []
+        self._breaker_wave_mark = 0       # waves at the last breaker tick
+        self._breaker_mark = 0            # cumulative faults at that tick
+        self._breaker_open_waves = 0      # waves spent open (cooldown)
         self.stats = {"submitted": 0, "launches": 0, "aggregated_hist": {},
                       "queue_hist": {}, "ladder": list(buckets),
-                      "measurement_launches": 0, "prior_hits": 0}
+                      "measurement_launches": 0, "prior_hits": 0,
+                      "breaker": "closed",
+                      "faults": {"trips": 0, "bisection_launches": 0,
+                                 "failed_tasks": 0, "quarantined": [],
+                                 "retries": 0, "compile_failures": 0,
+                                 "launch_failures": 0, "timeouts": 0,
+                                 "breaker_trips": 0,
+                                 "degraded_launches": 0}}
 
     def ensure_ring(self, capacity: int, example_args: Sequence[torch.Tensor],
                     device: torch.device) -> SlotRing:
@@ -735,6 +896,11 @@ class AggregationExecutor:
     tuning knobs (``autotune``, ``cost_model``, ``inner_chunk``,
     ``flush_policy``) act per region.  ``timer(fn, device, path, size)``
     gives one sample of a launch's seconds (default :class:`LaunchTimer`).
+
+    Containment (``guard="finite"``, the launch watchdog, the circuit
+    breakers) and ``fault_injector`` (a
+    :class:`~repro_torch.core.faults.FaultInjector`) act at dispatch and at
+    :meth:`flush`: see :meth:`_launch_tasks` and :meth:`flush`.
     """
 
     def __init__(self, batched_fn: Optional[Callable] = None,
@@ -742,7 +908,8 @@ class AggregationExecutor:
                  pool: Optional[ExecutorPool] = None, name: str = "region",
                  device: DeviceLike = None,
                  buffer_pool: Optional[BufferPool] = None,
-                 timer: Optional[Callable] = None):
+                 timer: Optional[Callable] = None,
+                 fault_injector: Optional[FaultInjector] = None):
         self.name = name
         self.config = config or AggregationConfig()
         self.device = resolve_device(device)
@@ -759,6 +926,21 @@ class AggregationExecutor:
         self._cost_on = self.config.cost_model
         self._cost_samples = self.config.cost_samples
         self.timer = timer or LaunchTimer()
+        cfg = self.config
+        self._guard = cfg.guard
+        self._injector = fault_injector
+        self._max_retries = max(0, int(cfg.max_bucket_retries))
+        self._retry_backoff = float(cfg.retry_backoff_s)
+        self._retry_backoff_max = max(0.0, float(cfg.retry_backoff_max_s))
+        self._qthreshold = max(1, int(cfg.quarantine_threshold))
+        self._launch_timeout = max(0.0, float(cfg.launch_timeout_s))
+        self._breaker_window = max(0, int(cfg.breaker_window))
+        self._breaker_threshold = max(1, int(cfg.breaker_threshold))
+        self._breaker_cooldown = max(1, int(cfg.breaker_cooldown))
+        # (deadline, completion event, region, bucket) of every launch the
+        # watchdog must see complete within its budget
+        self._watchdog_records: List[Tuple[float, Any, _Region, int]] = []
+        self._guard_records: List[_LaunchRecord] = []
         self._bodies: Dict[str, Callable] = {}
         self._regions: Dict[TaskSignature, _Region] = {}
         self._default_kernel: Optional[str] = None
@@ -784,6 +966,13 @@ class AggregationExecutor:
             self._default_kernel = kernel
         return kernel
 
+    def set_fault_injector(self,
+                           injector: Optional[FaultInjector]) -> None:
+        """Attach (or detach, with None) a deterministic fault schedule:
+        payload faults on launch outputs, ring corruption at submission,
+        compile and launch faults at dispatch."""
+        self._injector = injector
+
     def _resolve_kernel(self, kernel: Optional[str]) -> str:
         kernel = kernel or self._default_kernel
         if kernel is None:
@@ -799,7 +988,8 @@ class AggregationExecutor:
             if body is None:
                 raise KeyError(f"no batched body registered for kernel "
                                f"{kernel!r} (have {sorted(self._bodies)})")
-            region = _Region(sig, body, self._buckets, chunk=self._chunk)
+            region = _Region(sig, body, self._buckets, chunk=self._chunk,
+                             quarantine_threshold=self._qthreshold)
             self._regions[sig] = region
             self.stats["regions"][sig.describe()] = region.stats
         return region
@@ -948,7 +1138,8 @@ class AggregationExecutor:
         probes nothing; one routed to ``"s2"`` only the widths (the ``s2``
         strategy sizes its launches from them)."""
         wave = min(p.shape[0] for p in parents)
-        if not wave:
+        if not wave or region.breaker_state != "closed":
+            # a family whose breaker is not closed is pinned to s3
             return
         route = resolve_family_option(self.config.family_strategies,
                                       region.signature.kernel, "auto")
@@ -980,8 +1171,10 @@ class AggregationExecutor:
             return {}
         out: Dict[str, Any] = {}
         if region.cost.has_data("s3"):
+            ladder = [b for b in region.buckets
+                      if b not in region.bad_buckets] or [1]
             out["s3"] = round(region.cost.predict_seq(
-                greedy_decomposition(wave, region.buckets)) * 1e3, 4)
+                greedy_decomposition(wave, ladder)) * 1e3, 4)
         s2 = region.cost.predict_s2_wave(wave)
         if s2 is not None:
             out["s2"] = round(s2[1] * 1e3, 4)
@@ -993,12 +1186,15 @@ class AggregationExecutor:
     def select_strategy(self, kernel: str) -> str:
         """The cheapest measured strategy for ``kernel``'s wave (``"s3"``,
         ``"s2"`` or ``"fused"``; ties prefer ``"s3"``, then ``"s2"``);
-        ``"s3"`` before any measurement.  The choice and its costs go into
-        ``stats["regions"][fam]``."""
+        ``"s3"`` before any measurement, and while the family's breaker is
+        not closed (only ``s3`` has the bucket-1 floor and bisection).
+        The choice and its costs go into ``stats["regions"][fam]``."""
         costs = self.strategy_costs(kernel)
         order = ("s3", "s2", "fused")
         timed = [(costs[s], order.index(s)) for s in order if s in costs]
         selected = order[min(timed)[1] if timed else 0]
+        if self.breaker_state(kernel) != "closed":
+            selected = "s3"
         self._record(kernel, selected, costs)
         return selected
 
@@ -1062,6 +1258,13 @@ class AggregationExecutor:
             for p in region.queue:
                 p.slot -= first
         slot = ring.write(args)
+        if self._injector is not None:
+            # ring site: this task's staged inputs go bad between
+            # submission and launch
+            bad = self._injector.corrupt_ring(kernel, region.waves,
+                                              region._wave_submitted)
+            if bad is not None:
+                ring.poison(slot, bad)
         self.stats["staging_s"] += time.perf_counter() - t0
         self._enqueue(region, _Pending(fut, slot=slot))
         return fut
@@ -1105,6 +1308,10 @@ class AggregationExecutor:
 
     def _enqueue(self, region: _Region, entry: _Pending) -> None:
         self._check_mode(region, entry)
+        # wave-relative task identity: the position in the current wave,
+        # what payload specs and the quarantine list key on
+        entry.wave_index = region._wave_submitted
+        region._wave_submitted += entry.count
         region.queue.append(entry)
         region.queued_tasks += entry.count
         region._wave_peak = max(region._wave_peak, region.queued_tasks)
@@ -1191,9 +1398,14 @@ class AggregationExecutor:
 
     @staticmethod
     def _largest_bucket(region: _Region, k: int) -> int:
+        if region.breaker_state == "open":
+            # an open breaker drains at the never-banned bucket-1 floor
+            return 1
         best = region.buckets[0]
         for b in region.buckets:
-            if b <= k:
+            # rungs banned by degraded launches are skipped; bucket 1 is
+            # never banned
+            if b <= k and b not in region.bad_buckets:
                 best = b
         if best > k:
             raise RuntimeError(
@@ -1201,21 +1413,11 @@ class AggregationExecutor:
                 f"{region.buckets} lacks a remainder bucket")
         return best
 
-    def _take(self, region: _Region, k: int) -> List[_Pending]:
+    @staticmethod
+    def _take(region: _Region, k: int) -> List[_Pending]:
         """Pop k tasks' worth of entries off the queue, splitting a range
         entry at the bucket boundary."""
-        taken: List[_Pending] = []
-        need = k
-        while need:
-            e = region.queue[0]
-            if e.count <= need:
-                taken.append(region.queue.pop(0))
-                need -= e.count
-            else:
-                head, tail = e.split(need)
-                region.queue[0] = tail
-                taken.append(head)
-                need = 0
+        taken, region.queue = _split_taken(region.queue, k)
         region.queued_tasks -= k
         return taken
 
@@ -1230,16 +1432,28 @@ class AggregationExecutor:
 
     def _stage(self, region: _Region, tasks: List[_Pending], k: int,
                mode: str):
-        """One bucket's program and arguments.  Ref: a contiguous slot run
-        reads a view of its parents, anything else gathers by index; ring:
-        the ring's prefix in place; host: the bucket stacked."""
+        """One bucket's program and arguments, and the recipe that runs
+        any subset of its positions again: ``(fn, call_args, parents,
+        indices)``.  Ref: a contiguous slot run reads a view of its
+        parents, anything else gathers by index; ring: the ring's prefix in
+        place; host: the bucket stacked.  The recipe is built only under
+        the guard (None otherwise): the submitted parents, the bucket's
+        ring slice copied on the caller's stream (later writes into the
+        ring are ordered after it), or the stacked batch."""
+        guard = self._guard == "finite"
         if mode == "ring":
-            return (region.apply_prefix,
-                    (tasks[0].slot, k) + region.ring.buffers())
+            first = tasks[0].slot
+            rings = region.ring.buffers()
+            recipe = (None, None)
+            if guard:
+                recipe = (tuple(r.narrow(0, first, k).clone() for r in rings),
+                          list(range(k)))
+            return (region.apply_prefix, (first, k) + rings) + recipe
         if mode == "host":
-            return region.batched_fn, tuple(
-                self._stack([t.args[j] for t in tasks])
-                for j in range(len(tasks[0].args)))
+            stacked = tuple(self._stack([t.args[j] for t in tasks])
+                            for j in range(len(tasks[0].args)))
+            return (region.batched_fn, stacked, stacked,
+                    list(range(k)) if guard else None)
         indices: List[int] = []
         for t in tasks:
             i0 = t.views[0].index
@@ -1247,9 +1461,10 @@ class AggregationExecutor:
         parents = tuple(v.parent for v in tasks[0].views)
         region.remember(parents)
         if indices == list(range(indices[0], indices[0] + k)):
-            return region.apply_prefix, (indices[0], k) + parents
+            return (region.apply_prefix, (indices[0], k) + parents, parents,
+                    indices)
         idx = torch.tensor(indices, device=parents[0].device)
-        return region.apply_gathered, (idx,) + parents
+        return region.apply_gathered, (idx,) + parents, parents, indices
 
     def _stack(self, parts: List[torch.Tensor]) -> torch.Tensor:
         """One host-staged argument of a bucket: tensors on the device are
@@ -1266,15 +1481,40 @@ class AggregationExecutor:
         return staged
 
     def _launch_tasks(self, region: _Region, tasks: List[_Pending], k: int,
-                      mode: str) -> None:
+                      mode: str, degraded: bool = False) -> None:
+        """Stage and dispatch one bucket of taken tasks and fulfil their
+        futures.  An injected payload fault and, under ``guard="finite"``,
+        the bucket's finite reduction run on the launch's executor stream
+        right after it (its completion event covers both); the launch is
+        recorded for the audit at :meth:`flush`.  A compile or launch
+        fault degrades the bucket (:meth:`_degrade`) instead of
+        propagating."""
         t0 = time.perf_counter()
-        fn, call_args = self._stage(region, tasks, k, mode)
+        fn, call_args, parents, indices = self._stage(region, tasks, k, mode)
         self.stats["staging_s"] += time.perf_counter() - t0
-        ex = self.pool.get()
-        out = ex.launch(fn, *call_args, family=region.signature.kernel)
+        try:
+            out, ex = self._dispatch(region, fn, call_args, k)
+        except (BucketCompileError, LaunchFaultError,
+                LaunchTimeoutError) as err:
+            self._degrade(region, tasks, k, mode, err)
+            return
         if mode == "ring":
             region.ring.track_read(tasks[0].slot, tasks[0].slot + k,
                                    ex.last_event)
+        wave_ids: List[int] = []
+        for t in tasks:
+            wave_ids.extend(range(t.wave_index, t.wave_index + t.count))
+        poisoned: Dict[int, str] = {}
+        hit = {}
+        if self._injector is not None:
+            # payload site: the matched tasks' outputs go non-finite
+            hit = self._injector.poison_positions(
+                region.signature.kernel, region.waves, wave_ids)
+            poisoned = {wave_ids[p]: m for p, m in hit.items()}
+        verdict = True
+        if hit or self._guard == "finite":
+            verdict = ex.follow(self._poison_and_check, out, hit,
+                                self._guard == "finite")
         slot = 0
         for t in tasks:
             if isinstance(t.future, RangeFuture):
@@ -1282,18 +1522,363 @@ class AggregationExecutor:
             else:
                 t.future._fulfil(out, slot)
             slot += t.count
+        if self._guard == "finite":
+            self._guard_records.append(_LaunchRecord(
+                region=region, out=out, k=k, parents=parents,
+                indices=indices, tasks=list(tasks), wave_ids=wave_ids,
+                wave=region.waves, poisoned=poisoned, verdict=verdict))
         self.stats["launches"] += 1
         hist = self.stats["aggregated_hist"]
         hist[k] = hist.get(k, 0) + 1
         region.stats["launches"] += 1
         rhist = region.stats["aggregated_hist"]
         rhist[k] = rhist.get(k, 0) + 1
+        if degraded:
+            region.stats["faults"]["degraded_launches"] += 1
+
+    @staticmethod
+    def _poison_and_check(out: torch.Tensor, hit: Dict[int, str],
+                          check: bool):
+        """On the launch's stream: poison the injected positions of a
+        fresh output in place, then (``check``) issue its finite
+        reduction."""
+        if hit:
+            poison_slots(out, sorted(hit), hit, inplace=True)
+        return all_finite_async(out) if check else True
+
+    def _dispatch(self, region: _Region, fn: Callable, call_args, k: int
+                  ) -> Tuple[torch.Tensor, DeviceExecutor]:
+        """One pool launch with the dispatch-site injection and bounded
+        retries: launch faults and injected hangs are transient by
+        assumption (retried with exponential backoff from
+        ``retry_backoff_s``, each sleep capped at ``retry_backoff_max_s``),
+        compile faults deterministic (never retried).  Under
+        ``launch_timeout_s`` the launch's completion event is recorded for
+        the watchdog at :meth:`flush`.  Only these three fault types are
+        caught: a real build, load or launch error propagates unchanged.
+        Returns the output and the executor it runs on."""
+        kern = region.signature.kernel
+        faults = region.stats["faults"]
+        attempts = 0
+        while True:
+            try:
+                inj = self._injector
+                if inj is not None:
+                    if inj.compile_fails(kern, k):
+                        faults["compile_failures"] += 1
+                        raise BucketCompileError(
+                            f"injected compile failure: kernel {kern!r} "
+                            f"bucket {k}")
+                    lf = inj.launch_fault(kern, k)
+                    if lf is not None:
+                        self._injected_launch_fault(kern, k, faults, *lf)
+                ex = self.pool.get()
+                out = ex.launch(fn, *call_args, family=kern)
+                if self._launch_timeout:
+                    self._watchdog_records.append(
+                        (time.monotonic() + self._launch_timeout,
+                         ex.last_event, region, k))
+                return out, ex
+            except BucketCompileError:
+                raise
+            except (LaunchFaultError, LaunchTimeoutError):
+                if attempts >= self._max_retries:
+                    raise
+                attempts += 1
+                faults["retries"] += 1
+                if self._retry_backoff:
+                    time.sleep(min(
+                        self._retry_backoff * (2 ** (attempts - 1)),
+                        self._retry_backoff_max))
+
+    def _injected_launch_fault(self, kern: str, k: int,
+                               faults: Dict[str, Any], mode: str,
+                               delay: float) -> None:
+        """An injected launch fault: ``delay`` stalls the dispatch,
+        ``hang`` raises :class:`LaunchTimeoutError` after a token wait
+        (or, with no watchdog budget, :class:`RegionFaultError`: the
+        stall would never end), ``fail`` raises
+        :class:`LaunchFaultError`."""
+        if mode == "delay":
+            time.sleep(delay)
+        elif mode == "hang":
+            if not self._launch_timeout:
+                raise RegionFaultError(
+                    f"injected hang: kernel {kern!r} bucket {k} would stall "
+                    f"the drain forever (no watchdog — set "
+                    f"AggregationConfig.launch_timeout_s)")
+            # the consumed budget, modelled without parking for all of it
+            time.sleep(min(self._launch_timeout, 0.01))
+            faults["timeouts"] += 1
+            raise LaunchTimeoutError(
+                f"launch of kernel {kern!r} bucket {k} hung past "
+                f"launch_timeout_s={self._launch_timeout}")
+        else:
+            faults["launch_failures"] += 1
+            raise LaunchFaultError(
+                f"injected launch failure: kernel {kern!r} bucket {k}")
+
+    def _degrade(self, region: _Region, tasks: List[_Pending], k: int,
+                 mode: str, err: Exception) -> None:
+        """Ban the failing rung and re-drain the taken tasks greedily
+        through the remaining rungs, down to bucket 1.  A failure at
+        bucket 1 has nowhere smaller to go: those tasks fail, with the
+        dispatch error attached to their futures."""
+        if k == 1:
+            self._fail_tasks(region, tasks, err)
+            return
+        region.bad_buckets.add(k)
+        remaining = list(tasks)
+        n_left = sum(t.count for t in remaining)
+        while n_left:
+            good = [b for b in region.buckets
+                    if b <= n_left and b not in region.bad_buckets]
+            b = max(good) if good else 1
+            head, remaining = _split_taken(remaining, b)
+            self._launch_tasks(region, head, b, mode, degraded=True)
+            n_left -= b
+
+    def _fail_tasks(self, region: _Region, tasks: List[_Pending],
+                    err: Exception) -> None:
+        n = 0
+        for t in tasks:
+            ids = tuple(range(t.wave_index, t.wave_index + t.count))
+            cause = TaskFailedError(
+                f"task(s) {list(ids)} of {region.signature.describe()} "
+                f"failed: {err}", task_ids=ids,
+                kernel=region.signature.kernel)
+            cause.__cause__ = err
+            if isinstance(t.future, RangeFuture):
+                t.future._fail_range(t.fut_offset, t.count, cause)
+            else:
+                t.future._fail(cause)
+            n += t.count
+        region.stats["faults"]["failed_tasks"] += n
+
+    # -- the guard at flush: detection, bisection, containment -------------
+    def _run_guard(self) -> None:
+        """Read every recorded launch's verdict in one device-to-host copy
+        (after the join, so the caller's stream is past every launch); a
+        tripped launch's futures are retracted and resolved again by
+        bisection."""
+        records, self._guard_records = self._guard_records, []
+        flags = [r.verdict for r in records
+                 if isinstance(r.verdict, torch.Tensor)]
+        read = iter(torch.stack(flags).cpu().tolist() if flags else ())
+        for rec in records:
+            ok = (next(read) if isinstance(rec.verdict, torch.Tensor)
+                  else rec.verdict)
+            if not ok:
+                self._contain(rec)
+
+    def _contain(self, rec: _LaunchRecord) -> None:
+        """Isolate the offending slots of a tripped launch in O(log bucket)
+        re-executions: quarantined repeat offenders run alone, everything
+        else halves recursively; clean groups fulfil their futures again
+        (bit-identical: the body is independent per slot), non-finite
+        single positions fail."""
+        region = rec.region
+        faults = region.stats["faults"]
+        faults["trips"] += 1
+        for t in rec.tasks:
+            if isinstance(t.future, RangeFuture):
+                t.future._retract(rec.out)
+            else:
+                t.future._retract()
+        # position -> (owning entry, the entry's first position)
+        owner: Dict[int, Tuple[_Pending, int]] = {}
+        pos = 0
+        for t in rec.tasks:
+            for p in range(pos, pos + t.count):
+                owner[p] = (t, pos)
+            pos += t.count
+        quarantined = [p for p in range(rec.k)
+                       if rec.wave_ids[p] in region.quarantine]
+        rest = [p for p in range(rec.k)
+                if rec.wave_ids[p] not in region.quarantine]
+        # the root group is known bad only when no quarantined position
+        # could carry the trip: then its own re-execution is skipped
+        groups: List[Tuple[List[int], bool]] = [([p], False)
+                                                for p in quarantined]
+        if rest:
+            groups.append((rest, not quarantined))
+        culprits: List[int] = []
+        while groups:
+            grp, known_bad = groups.pop()
+            if known_bad:
+                if len(grp) == 1:
+                    culprits.append(grp[0])
+                else:
+                    mid = len(grp) // 2
+                    groups.append((grp[:mid], False))
+                    groups.append((grp[mid:], False))
+                continue
+            out, ok = self._reexec(rec, grp)
+            faults["bisection_launches"] += 1
+            if ok:
+                self._refulfil(rec, owner, grp, out)
+            elif len(grp) == 1:
+                culprits.append(grp[0])
+            else:
+                mid = len(grp) // 2
+                groups.append((grp[:mid], False))
+                groups.append((grp[mid:], False))
+        for p in culprits:
+            tid = rec.wave_ids[p]
+            region.quarantine.record_offense(tid)
+            faults["quarantined"] = region.quarantine.as_stats()
+            err = TaskFailedError(
+                f"non-finite output isolated to task {tid} of "
+                f"{region.signature.describe()} (wave {rec.wave}, launch "
+                f"bucket {rec.k})", task_ids=(tid,),
+                kernel=region.signature.kernel)
+            t, first = owner[p]
+            if isinstance(t.future, RangeFuture):
+                t.future._fail_range(t.fut_offset + (p - first), 1, err)
+            else:
+                t.future._fail(err)
+        faults["failed_tasks"] += len(culprits)
+
+    def _reexec(self, rec: _LaunchRecord, grp: List[int]
+                ) -> Tuple[torch.Tensor, bool]:
+        """Run one position subset again through the region's gather
+        program; the injected payload poison is applied again by wave id
+        (a property of the task), so bisection converges on it.  Returns
+        the output and whether it is finite (one host read)."""
+        region = rec.region
+        idx = _index_tensor([rec.indices[p] for p in grp], self.device)
+        ex = self.pool.get()
+        out = ex.launch(region.apply_gathered, idx, *rec.parents,
+                        family=region.signature.kernel)
+        pois = {j: rec.poisoned[rec.wave_ids[p]]
+                for j, p in enumerate(grp)
+                if rec.wave_ids[p] in rec.poisoned}
+        verdict = ex.follow(self._poison_and_check, out, pois, True)
+        ex.join()
+        return out, bool(verdict)
+
+    @staticmethod
+    def _refulfil(rec: _LaunchRecord, owner: Dict[int, Tuple[_Pending, int]],
+                  grp: List[int], out: torch.Tensor) -> None:
+        """Fulfil a clean re-executed group (groups stay contiguous
+        position runs, so segment assembly stays slice-shaped)."""
+        for j, p in enumerate(grp):
+            t, first = owner[p]
+            if isinstance(t.future, RangeFuture):
+                t.future._fulfil_range(out, j, t.fut_offset + (p - first), 1)
+            else:
+                t.future._fulfil(out, j)
+
+    # -- the launch watchdog and the circuit breakers ----------------------
+    def _enforce_watchdog(self) -> None:
+        """Bound the completion of every recorded launch by its deadline,
+        with no polling: a daemon thread waits on each launch's completion
+        event (``Event.synchronize`` releases the GIL) and sets a
+        ``threading.Event``; the caller waits on that with the latest
+        deadline as its timeout.  A stalled launch raises
+        :class:`LaunchTimeoutError` naming its family within its budget,
+        while the waiter stays parked on the stalled stream.  On the CPU a
+        launch has completed when it returns (no event): nothing waits."""
+        records, self._watchdog_records = self._watchdog_records, []
+        pending = [ev for _, ev, _, _ in records
+                   if ev is not None and not ev.query()]
+        if not pending:
+            return
+        done = threading.Event()
+
+        def _block():
+            try:
+                for ev in pending:
+                    try:
+                        ev.synchronize()
+                    except Exception:    # the verdict read surfaces it
+                        pass
+            finally:
+                done.set()
+
+        threading.Thread(target=_block, daemon=True,
+                         name="agg-watchdog").start()
+        # one deadline per flush, the latest record's: each record's budget
+        # started at its dispatch
+        deadline = max(r[0] for r in records)
+        if done.wait(max(0.0, deadline - time.monotonic())):
+            return
+        for _, ev, region, k in records:       # blame the stalled launch
+            if ev is not None and not ev.query():
+                region.stats["faults"]["timeouts"] += 1
+                raise LaunchTimeoutError(
+                    f"launch of kernel {region.signature.kernel!r} bucket "
+                    f"{k} exceeded launch_timeout_s={self._launch_timeout}")
+
+    def _update_breakers(self) -> None:
+        """Advance every region's circuit breaker at flush time, after the
+        guard's audit.  Faults (guard trips, launch failures, timeouts) are
+        counted as the cumulative counters' delta over the waves completed
+        since the last tick."""
+        if not self._breaker_window:
+            return
+        for region in self._regions.values():
+            elapsed = region.waves - region._breaker_wave_mark
+            if not elapsed:
+                continue
+            region._breaker_wave_mark = region.waves
+            f = region.stats["faults"]
+            cum = f["trips"] + f["launch_failures"] + f["timeouts"]
+            delta = cum - region._breaker_mark
+            region._breaker_mark = cum
+            if region.breaker_state == "closed":
+                region._breaker_counts.extend(
+                    [delta] + [0] * (elapsed - 1))
+                del region._breaker_counts[:-self._breaker_window]
+                if sum(region._breaker_counts) >= self._breaker_threshold:
+                    self._trip_breaker(region)
+            elif region.breaker_state == "open":
+                region._breaker_open_waves += elapsed
+                if region._breaker_open_waves >= self._breaker_cooldown:
+                    # cooled down: the next wave runs the whole ladder as
+                    # a probe; clean closes the breaker, faulty re-opens it
+                    region.breaker_state = "half_open"
+            else:                                         # half-open probe
+                if delta:
+                    self._trip_breaker(region)
+                else:
+                    region.breaker_state = "closed"
+                    region._breaker_counts = []
+            region.stats["breaker"] = region.breaker_state
+
+    @staticmethod
+    def _trip_breaker(region: _Region) -> None:
+        region.breaker_state = "open"
+        region._breaker_open_waves = 0
+        region._breaker_counts = []
+        region.stats["breaker"] = "open"
+        region.stats["faults"]["breaker_trips"] += 1
+
+    def breaker_state(self, kernel: str) -> str:
+        """The breaker state of ``kernel``'s primary region (``"closed"``,
+        ``"open"`` or ``"half_open"``; ``"closed"`` for an unknown
+        family).  ``mixed`` pins a family that is not closed to ``s3``."""
+        region = self._primary_region(kernel)
+        return region.breaker_state if region is not None else "closed"
+
+    def breaker_states(self) -> Dict[str, str]:
+        """Per-family breaker states (a family with several shape regions
+        reports its worst: open > half_open > closed), what
+        ``ServingEngine.healthz()`` reports."""
+        rank = {"closed": 0, "half_open": 1, "open": 2}
+        out: Dict[str, str] = {}
+        for sig, region in self._regions.items():
+            prev = out.get(sig.kernel, "closed")
+            if rank[region.breaker_state] >= rank[prev]:
+                out[sig.kernel] = region.breaker_state
+        return out
 
     # -- ladder auto-tuning ------------------------------------------------
     def _wave_complete(self, region: _Region) -> None:
         """A wave ended (its queue drained to zero): record its peak queue
         length and, past ``autotune_warmup`` waves, re-derive the ladder.
         A peak beyond what the last retune saw re-arms the tuner."""
+        region._wave_submitted = 0        # wave-relative task ids restart
         region.stats["prior_hits"] = region.cost.prior_hits
         peak = region._wave_peak
         if peak:
@@ -1392,7 +1977,11 @@ class AggregationExecutor:
 
     def flush(self) -> None:
         """Launch everything still queued (greedy buckets; live regions
-        round-robin) and make the caller's stream wait for every executor."""
+        round-robin) and make the caller's stream wait for every executor
+        (on the device: the host does not block).  Then, in the reference's
+        order: the watchdog bounds the launches' completion (before
+        anything reads a result on the host), the guard reads its verdicts
+        in one copy and contains what tripped, and the breakers advance."""
         live = [r for r in self._regions.values() if r.queue]
         while live:
             for region in live:
@@ -1401,6 +1990,11 @@ class AggregationExecutor:
                         region, region.queued_tasks))
             live = [r for r in live if r.queue]
         self.pool.join()
+        if self._watchdog_records:
+            self._enforce_watchdog()
+        if self._guard_records:
+            self._run_guard()
+        self._update_breakers()
 
     def map(self, task_args: Sequence[Tuple[Any, ...]],
             kernel: Optional[str] = None) -> List[torch.Tensor]:

@@ -70,6 +70,22 @@ class DeviceExecutor:
                 self.launches_by_family.get(family, 0) + 1
         return out
 
+    def follow(self, fn: Callable, *args):
+        """Run ``fn(*args)`` on this executor's stream after its last
+        launch, uncounted (the guard's poison and finite reduction): the
+        stream does not wait for the caller's, and the completion event is
+        recorded again, so :meth:`join` and :attr:`last_event` cover it.
+        A tensor result is recorded on the caller's stream, as a launch's
+        output is."""
+        if self.stream is None:
+            return fn(*args)
+        with torch.cuda.stream(self.stream):
+            out = fn(*args)
+        if isinstance(out, torch.Tensor):
+            out.record_stream(torch.cuda.current_stream(self.device))
+        self._event = self.stream.record_event()
+        return out
+
     @property
     def last_event(self):
         """The completion event of the last launch (None on the CPU or

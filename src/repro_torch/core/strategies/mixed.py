@@ -19,14 +19,22 @@ any measurement).  Routes resolve once per run and go into
 
 Every route runs the family's same batched body; only the batch
 decomposition differs, so every assignment is bit-identical to ``fused``.
-(The reference's circuit-breaker override, which pins a faulting family
-to ``s3``, and its non-finite tripwire for the ``s2`` and ``fused``
-routes come with containment, ROADMAP.md Queue 1 item 9.)
+
+Containment: a family whose circuit breaker is not closed runs under
+``s3`` for that wave (only the executor has the bucket-1 floor and
+bisection), its cached route kept for when the breaker closes.  The
+``s2`` and ``fused`` routes have no bucket to bisect: injected payload
+faults fire on them too (the same schedule, wave-relative task ids), and
+under ``guard="finite"`` a non-finite output raises
+``NonFiniteStateError`` naming the family and its route.
 """
 from __future__ import annotations
 
 from repro_torch.configs.base import resolve_family_option
 from repro_torch.core.aggregation import SlotView, TaskSignature
+from repro_torch.core.faults import (
+    NonFiniteStateError, all_finite, poison_slots,
+)
 from repro_torch.core.strategies.base import (
     RunContext, Strategy, register_strategy,
 )
@@ -45,6 +53,9 @@ class MixedStrategy(Strategy):
 
     # -- routing -----------------------------------------------------------
     def _route(self, kernel: str, ctx: RunContext) -> str:
+        if ctx.executor.breaker_state(kernel) != "closed":
+            # breaker override for this wave; the cached route stays
+            return "s3"
         key = ("mixed_route", kernel)
         choice = ctx.caches.get(key)
         if choice is not None:
@@ -92,7 +103,37 @@ class MixedStrategy(Strategy):
         ctx.stats["staging_s"] += exe.stats["staging_s"] - before_staging
         ctx.stats["kernel_launches"] += (exe.stats["launches"]
                                          - before_launches)
+        self._audit(pops, routes, outs, ctx)
         return outs
+
+    @staticmethod
+    def _audit(pops, routes, outs, ctx: RunContext) -> None:
+        """Fault injection and the guard's tripwire for the ``s2`` and
+        ``fused`` routes (the ``s3`` ones are audited in the executor's
+        flush), after the drain joined every stream: the poison is a copy
+        made on the caller's stream."""
+        exe = ctx.executor
+        injector = exe._injector
+        guard = ctx.config.guard == "finite"
+        if injector is None and not guard:
+            return
+        for i, (pop, route) in enumerate(zip(pops, routes)):
+            if route == "s3" or outs[i] is None:
+                continue
+            if injector is not None:
+                wave_key = ("mixed_wave", pop.kernel)
+                wave = ctx.caches.get(wave_key, 0)
+                ctx.caches[wave_key] = wave + 1
+                poisons = injector.poison_positions(
+                    pop.kernel, wave, list(range(pop.n_tasks)))
+                if poisons:
+                    outs[i] = poison_slots(outs[i], sorted(poisons), poisons)
+            if guard and not all_finite(outs[i]):
+                raise NonFiniteStateError(
+                    f"non-finite output in family {pop.kernel!r} routed to "
+                    f"{route!r} under 'mixed' — only aggregated (s3-routed) "
+                    f"families can bisect; assign the family to 's3' in "
+                    f"family_strategies to isolate the task")
 
     @staticmethod
     def _launch_fused(scenario, pop, ctx: RunContext):

@@ -19,6 +19,12 @@ Measured tuning lives in the aggregation executor: under ``autotune`` each
 family re-derives its ladder after ``autotune_warmup`` waves, and
 ``stats["regions"][fam]`` carries its ``cost_model`` table and, under
 ``mixed``, its ``selected_strategy``.
+
+Containment (``guard="finite"``, ``fault_injector=``) lives there too;
+the executor-less strategies (``fused``, ``s2``) have no bucket to bisect,
+so under the guard ``rhs`` checks the whole iteration instead and raises
+``NonFiniteStateError``.  ``rk3_trajectory`` is never guarded: it runs
+``reference_rhs``, as the reference does.
 """
 from __future__ import annotations
 
@@ -38,6 +44,9 @@ from repro_torch.core.aggregation import (
     AggregationExecutor, greedy_decomposition,
 )
 from repro_torch.core.executor import ExecutorPool
+from repro_torch.core.faults import (
+    FaultInjector, NonFiniteStateError, all_finite,
+)
 from repro_torch.core.graphs import CapturedCall
 from repro_torch.core.scenario import (
     AMRSedovScenario, Scenario, UniformSedovScenario,
@@ -76,11 +85,13 @@ class StrategyRunner:
     ``stats["iterations"]`` accumulate per call; ``stats["regions"]`` is
     the per-family launch statistics: the aggregation executor's bucket
     histograms, or those ``s2`` publishes itself.  ``timer`` times the
-    launches of measured choices (see ``AggregationExecutor``)."""
+    launches of measured choices (see ``AggregationExecutor``);
+    ``fault_injector`` goes to the aggregation executor."""
 
     def __init__(self, scenario: Scenario, agg: AggregationConfig,
                  device: DeviceLike = None,
-                 timer: Optional[Callable] = None):
+                 timer: Optional[Callable] = None,
+                 fault_injector: Optional[FaultInjector] = None):
         strategy_cls = get_strategy_class(agg.strategy)   # fail fast
         self._validate_family_strategies(scenario, agg)
         self.device = resolve_device(device)
@@ -95,7 +106,8 @@ class StrategyRunner:
         if strategy_cls.uses_executor:
             self._agg_exec = AggregationExecutor(
                 None, agg, pool=self.pool, name=scenario.name,
-                device=self.device, timer=timer)
+                device=self.device, timer=timer,
+                fault_injector=fault_injector)
             for fam in scenario.families() + tuple(
                     scenario.stage_families()):
                 self._agg_exec.register(fam.kernel, fam.batched_body)
@@ -126,6 +138,13 @@ class StrategyRunner:
                     f"family_strategies key {kernel!r} names no kernel "
                     f"family of scenario {scenario.name!r} — known "
                     f"families: {sorted(known)} (or '*')")
+
+    def set_fault_injector(self,
+                           injector: Optional[FaultInjector]) -> None:
+        """Attach (or detach) a fault schedule to the aggregation executor
+        (executor strategies; the others have no injection site)."""
+        if self._agg_exec is not None:
+            self._agg_exec.set_fault_injector(injector)
 
     @property
     def fuse_epilogue(self) -> bool:
@@ -188,7 +207,17 @@ class StrategyRunner:
     def rhs(self, state):
         self._check_state(state)
         self.stats["iterations"] += 1
-        return self._strategy.run_iteration(self.scenario, state, self.ctx)
+        out = self._strategy.run_iteration(self.scenario, state, self.ctx)
+        if self.agg.guard == "finite" and self._agg_exec is None:
+            # executor-less strategies have no per-bucket containment: the
+            # guard is a whole-iteration tripwire (one host read)
+            if not all_finite(out):
+                raise NonFiniteStateError(
+                    f"non-finite rhs output under strategy "
+                    f"{self.strategy!r} (iteration "
+                    f"{self.stats['iterations']}); executor-less strategies "
+                    f"cannot bisect — rerun under s3 to isolate the task")
+        return out
 
     # -- RK3 (three iterations per time-step, as in the paper) -------------
     def rk3_step(self, state, dt):

@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.aggregation import gather_futures
+from repro_torch.core.faults import LaunchTimeoutError, TaskFailedError
 from repro_torch.core.strategies.base import (
     RunContext, Strategy, register_strategy,
 )
@@ -66,12 +67,30 @@ class S3Strategy(Strategy):
     @staticmethod
     def _drain(scenario, exe, pops, futs):
         """Flush the wave and gather each population's outputs; an empty
-        population yields a zero-length batch of the body's output shape."""
-        exe.flush()
+        population yields a zero-length batch of the body's output shape.
+        A watchdog timeout names the wave's families; a failed task is
+        named in the scenario's words (``describe_task``)."""
+        try:
+            exe.flush()
+        except LaunchTimeoutError as err:
+            # a real stall caught at flush: its futures were fulfilled
+            # already, so it cannot be retried here
+            fams = sorted({pop.kernel for pop in pops if pop.n_tasks})
+            raise LaunchTimeoutError(
+                f"watchdog timeout while draining wave of families "
+                f"{fams}: {err}") from err
         outs = []
         for pop, f in zip(pops, futs):
             if f:
-                outs.append(gather_futures(f))
+                try:
+                    outs.append(gather_futures(f))
+                except TaskFailedError as err:
+                    what = ", ".join(
+                        scenario.describe_task(pop.kernel, tid)
+                        for tid in err.task_ids) or "unknown task"
+                    raise TaskFailedError(
+                        f"{what} failed during aggregated execution: {err}",
+                        task_ids=err.task_ids, kernel=pop.kernel) from err
                 continue
             body = scenario.family(pop.kernel).batched_body
             spec = body(*(torch.empty(p.shape, dtype=p.dtype, device="meta")

@@ -17,10 +17,17 @@ layer:
 Each launch gathers the bucket's slots of the whole cache, runs
 ``decode_step`` on them (24 decode-attention and 72 grouped-GEMM kernel
 launches per step for qwen2-moe-a2.7b) and scatters them back, as the
-reference does.  The fault injector with ``guard="finite"``, the tune
-store and the shared executor or batcher that ``healthz`` reports on are
-not ported yet: asking for any of them raises ``NotImplementedError``
-naming ROADMAP.md.
+reference does.
+
+Containment: a ``fault_injector`` poisons the logits rows of matched
+requests (payload site ``"decode"``, keyed by request id, the launch
+counter as the wave); under ``AggregationConfig(guard="finite")`` a
+non-finite row evicts exactly its request and recycles its slot, while the
+co-batched requests decode on.  The row flags come back in the same
+device-to-host copy as the tokens.  ``healthz()["breakers"]`` reports a
+shared ``executor``'s circuit breakers.  The tune store and the tenant
+``batcher`` are not ported yet: asking for either raises
+``NotImplementedError`` naming ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -33,6 +40,7 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch.configs.base import AggregationConfig
+from repro_torch.core.faults import FaultInjector, poison_slots
 from repro_torch.data.pipeline import length_bucket
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import model as model_mod
@@ -69,13 +77,11 @@ class ServingEngine:
     def __init__(self, cfg, model: model_mod.Model, *, max_batch: int = 8,
                  max_len: int = 256, max_pending: int = 0,
                  agg: Optional[AggregationConfig] = None,
-                 fault_injector=None, executor=None, batcher=None,
+                 fault_injector: Optional[FaultInjector] = None,
+                 executor=None, batcher=None,
                  device: DeviceLike = None):
-        if fault_injector is not None:
-            raise _unported("the serving fault injector (containment)")
-        if executor is not None or batcher is not None:
-            raise _unported("a shared executor or tenant batcher in "
-                            "healthz (tenancy)")
+        if batcher is not None:
+            raise _unported("a tenant batcher in healthz (tenancy)")
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"the model lies on {model.device}, the engine "
@@ -85,6 +91,10 @@ class ServingEngine:
                              f"not for the config given ({cfg.name})")
         self.cfg = cfg
         self.model = model
+        # a shared AggregationExecutor whose breakers healthz() reports
+        # (anything with ``breaker_states()``); decoding does not use it
+        self._executor = executor
+        self._injector = fault_injector
         self.max_batch = max_batch
         self.max_len = max_len
         # backpressure: 0 = unbounded; > 0 bounds ``pending`` and submit()
@@ -93,6 +103,7 @@ class ServingEngine:
         self._draining = False
         self._closed = False
         self.agg = agg or AggregationConfig(max_aggregated=max_batch)
+        self.guard = self.agg.guard
         self.buckets = tuple(b for b in self.agg.bucket_sizes()
                              if b <= max_batch) or (max_batch,)
         self.cache = model_mod.init_cache(model, max_batch, max_len)
@@ -100,6 +111,7 @@ class ServingEngine:
         self.active: Dict[int, Request] = {}     # slot -> request
         self.pending: List[Request] = []
         self.next_token = np.zeros((max_batch,), np.int32)
+        self._step_no = 0                        # launch counter ("wave")
         self.stats = {"launches": 0, "tokens": 0, "aggregated_hist": {},
                       "faults": {"trips": 0, "evicted": 0, "shed": 0}}
 
@@ -180,6 +192,10 @@ class ServingEngine:
             self._zero_slot_states(slot)
             for tok in req.prompt[:-1]:
                 self._prefill_token(slot, tok)
+                if req.failed:        # the guard evicted it mid-prefill
+                    break
+            if req.failed:
+                continue              # its slot is already recycled
             self.next_token[slot] = req.prompt[-1]
 
     def _zero_slot_states(self, slot: int) -> None:
@@ -231,10 +247,47 @@ class ServingEngine:
         sub = self._gather(slot_idx)
         logits, sub = model_mod.decode_step(self.model, sub, tokens)
         self._scatter(slot_idx, sub)
+        logits = logits[:n]
+        self._step_no += 1
+        if self._injector is not None:
+            # payload site: one request's logits row goes non-finite
+            rids = [self.active[s].rid for s in slots.tolist()]
+            hit = self._injector.poison_positions("decode", self._step_no,
+                                                  rids)
+            if hit:
+                logits = poison_slots(logits, sorted(hit), hit)
         self.stats["launches"] += 1
         h = self.stats["aggregated_hist"]
         h[bucket] = h.get(bucket, 0) + 1
-        return torch.argmax(logits[:n], dim=-1).cpu().numpy()
+        toks_out = torch.argmax(logits, dim=-1)
+        if self.guard != "finite":
+            return toks_out.cpu().numpy()
+        # the row flags ride in the tokens' device-to-host copy
+        row_ok = torch.isfinite(logits.reshape(n, -1)).all(dim=1)
+        both = torch.stack([toks_out, row_ok.to(toks_out.dtype)]).cpu()
+        self._evict_rows(slots, both[1].numpy().astype(bool))
+        return both[0].numpy()
+
+    def _evict_rows(self, slots: np.ndarray, row_ok: np.ndarray) -> None:
+        """A non-finite logits row belongs to exactly one request (the
+        slot-array decode is exact per row): that request fails and is
+        evicted, its slot recycled, while the co-batched requests decode
+        on.  Its token is never delivered; its slot's cache is reset at the
+        next admission."""
+        if row_ok.all():
+            return
+        self.stats["faults"]["trips"] += 1
+        for i, slot in enumerate(slots.tolist()):
+            if row_ok[i]:
+                continue
+            req = self.active[slot]
+            req.failed = True
+            req.done = True
+            req.error = (f"request {req.rid}: non-finite logits at decode "
+                         f"step {self._step_no} (slot {slot}) — evicted")
+            del self.active[slot]
+            self.slots_free.append(slot)
+            self.stats["faults"]["evicted"] += 1
 
     # -- engine loop ---------------------------------------------------------
     def step(self) -> int:
@@ -248,7 +301,9 @@ class ServingEngine:
         out = self._launch(slots, toks)
         finished = []
         for i, slot in enumerate(slots):
-            req = self.active[slot]
+            req = self.active.get(slot)
+            if req is None:           # evicted by the guard in this launch
+                continue
             tok = int(out[i])
             req.output.append(tok)
             self.next_token[slot] = tok
@@ -270,7 +325,8 @@ class ServingEngine:
     # -- health + lifecycle --------------------------------------------------
     def healthz(self) -> Dict[str, object]:
         """Capacity (free slots, queue depth against its bound), lifecycle
-        state and the cumulative fault counters."""
+        state, the cumulative fault counters and a shared executor's
+        per-family breaker states."""
         f = self.stats["faults"]
         return {
             "slots_free": len(self.slots_free),
@@ -283,7 +339,8 @@ class ServingEngine:
             "trips": f["trips"],
             "evicted": f["evicted"],
             "shed": f["shed"],
-            "breakers": {},
+            "breakers": (self._executor.breaker_states()
+                         if self._executor is not None else {}),
             "tenants": self._tenant_health(),
         }
 

@@ -1166,3 +1166,133 @@ def test_trajectory_capture_error_raises_not_loops(dev):
     ok = StrategyRunner(make(), AggregationConfig(strategy="fused"),
                         device=dev)
     assert _equal(ok.rk3_trajectory(u0, dt, 1), ok.rk3_step(u0, dt))
+
+
+# ---------------------------------------------------------------------------
+# containment on the card: ring records, poison on a delayed stream, the
+# launch watchdog against a real stall
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("case", ["ring_reused_by_later_waves",
+                                  "compaction_before_audit"])
+def test_guarded_ring_launch_bisects_its_own_inputs(dev, case):
+    """Per-task ring staging on 4 delayed executor streams, guarded, one
+    flush at the end: by then the ring buffers of the early launches hold
+    later tasks (3 waves of 64 at cap 8: a buffer comes round every other
+    launch) or were rolled by a compaction (a ladder (1, 3) at cap 4).  A
+    launch record that kept the live ring instead of its own copy bisects
+    on other tasks' inputs: the poisoned tasks would pass and survivors
+    take other tasks' results.  Exactly the poisoned tasks fail; every
+    survivor equals the kernel on its own input bit for bit."""
+    from repro_torch.core import AggregationExecutor, FaultInjector, FaultSpec
+
+    h = 1.0 / 32
+    c = HydroConfig(levels=2)
+    subs = extract_subgrids(sedov_init(c, device=dev).u, 8, 3)
+    subs = torch.cat([random_slots(82, 32, dev), subs[:32]]).contiguous()
+    want = kern.hydro_rhs_cuda(subs, **dict(KW, h=h))
+    if case == "ring_reused_by_later_waves":
+        # region wave r holds tasks [8 r, 8 r + 8): ring poison on task 13
+        # (user wave 0), payload on task 128 + 3 * 8 + 6 (user wave 2)
+        cfg_kw, n_waves = dict(max_aggregated=8), 3
+        specs = [FaultSpec(site="ring", task=5, wave=1),
+                 FaultSpec(site="payload", task=6, wave=2 * 8 + 3)]
+        want_failed = [13, 128 + 3 * 8 + 6]
+    else:
+        cfg_kw, n_waves = dict(max_aggregated=4, buckets=(1, 3)), 1
+        specs = [FaultSpec(site="ring", task=4),
+                 FaultSpec(site="payload", task=13)]
+        want_failed = [4, 13]
+    exe = AggregationExecutor(
+        _delayed(ops.hydro_batched_body(c, h)), AggregationConfig(
+            strategy="s2+s3", n_executors=4, launch_watermark=10 ** 9,
+            guard="finite", **cfg_kw), device=dev,
+        fault_injector=FaultInjector(specs))
+    futs, refs = [], []
+    for w in range(n_waves):
+        order = torch.roll(torch.arange(64, device=dev), 11 * w)
+        futs += [exe.submit(t) for t in subs[order].unbind(0)]
+        refs.append(want[order])
+    exe.flush()
+    refs = torch.cat(refs)
+    assert [i for i, f in enumerate(futs) if f.failed()] == want_failed
+    for i, f in enumerate(futs):
+        if i not in want_failed:
+            assert torch.equal(f.result(), refs[i]), i
+    if n_waves > 1:
+        assert exe.ring.swaps >= 3 * 8
+    else:
+        assert exe.ring.compactions > 0
+
+
+def test_poison_lands_after_the_kernel_on_a_delayed_stream(dev):
+    """An injected payload poison is written on the launch's own stream,
+    after the kernel: on a stream delayed ~2.5 ms the poisoned slot must
+    read NaN (a poison issued on the caller's stream would land first and
+    be overwritten by the kernel), the others the kernel's values; under
+    the guard the same launch trips and bisects to the task."""
+    from repro_torch.core import AggregationExecutor, FaultInjector, FaultSpec
+
+    u = random_slots(83, 16, dev)
+    want = kern.hydro_rhs_cuda(u, **KW)
+    body = _delayed(ops.hydro_batched_body(CFG, KW["h"]))
+    for guard in ("off", "finite"):
+        exe = AggregationExecutor(body, AggregationConfig(
+            strategy="s2+s3", n_executors=2, max_aggregated=16,
+            guard=guard), device=dev,
+            fault_injector=FaultInjector([FaultSpec(site="payload",
+                                                    task=5)]))
+        fut = exe.submit_range((u,), 0, 16)
+        exe.flush()
+        if guard == "off":
+            got = fut.result()
+            assert torch.isnan(got[5]).all()
+            keep = [i for i in range(16) if i != 5]
+            assert torch.equal(got[keep], want[keep])
+        else:
+            assert fut.failed_indices() == [5]
+            assert torch.equal(fut.task_result(4), want[4])
+
+
+def test_watchdog_catches_a_real_stall_and_the_executor_recovers(dev):
+    """A body that sleeps ~0.2 s on its stream before the kernel under
+    launch_timeout_s=0.02: the flush raises LaunchTimeoutError naming the
+    family while the stall still runs (the host never blocked on the
+    stream), counts one timeout, and once the sleep is over the executor
+    runs a clean wave equal to the kernel."""
+    import time
+
+    from repro_torch.core import AggregationExecutor
+    from repro_torch.core.faults import LaunchTimeoutError
+
+    u = random_slots(84, 32, dev)
+    want = kern.hydro_rhs_cuda(u, **KW)
+    plain = ops.hydro_batched_body(CFG, KW["h"])
+    stall = {"on": False}
+
+    def body(*args, out=None):
+        if stall["on"]:
+            torch.cuda._sleep(400_000_000)
+        return plain(*args, out=out)
+
+    exe = AggregationExecutor(None, AggregationConfig(
+        max_aggregated=32, launch_timeout_s=0.02), device=dev)
+    exe.register("stalled", body)
+    exe.submit_range((u,), 0, 32, kernel="stalled")
+    exe.flush()
+    torch.cuda.synchronize()
+    stall["on"] = True
+    t0 = time.perf_counter()
+    with pytest.raises(LaunchTimeoutError, match="stalled"):
+        exe.submit_range((u,), 0, 32, kernel="stalled")
+        exe.flush()
+    raised = time.perf_counter() - t0
+    assert not exe.pool.executors[0].last_event.query()   # still stalled
+    assert raised < 0.15
+    torch.cuda.synchronize()
+    assert exe.stats["regions"]["stalled[5x14x14x14]"]["faults"][
+        "timeouts"] == 1
+    stall["on"] = False
+    fut = exe.submit_range((u,), 0, 32, kernel="stalled")
+    exe.flush()
+    assert torch.equal(fut.result(), want)

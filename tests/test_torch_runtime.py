@@ -199,10 +199,13 @@ def test_unported_config_values_raise_naming_roadmap():
     for strategy in ("s4", "sharded"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             AggregationConfig(strategy=strategy)
-    for kw in (dict(guard="finite"), dict(launch_timeout_s=1.0),
-               dict(breaker_window=2), dict(prior="roofline")):
+    for kw in (dict(prior="roofline"), dict(tune_store="/nonexistent")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             AggregationConfig(**kw)
+    # containment is ported: the guard, the watchdog and the breakers build
+    AggregationConfig(guard="finite", launch_timeout_s=1.0, breaker_window=2)
+    with pytest.raises(ValueError, match="guard mode"):
+        AggregationConfig(guard="paranoid")
     # strategy 1 is a config (16^3 sub-grids) under any strategy
     with pytest.raises(ValueError, match="CONFIG_16"):
         AggregationConfig(strategy="s1")

@@ -29,6 +29,7 @@ from repro.serving import ServingEngine as JServingEngine  # noqa: E402
 from repro_torch import serve  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.configs.base import AggregationConfig  # noqa: E402
+from repro_torch.core import AggregationExecutor, FaultInjector  # noqa: E402
 from repro_torch.models import convert  # noqa: E402
 from repro_torch.models import model  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
@@ -312,13 +313,14 @@ def test_unported_engine_options_raise_naming_roadmap():
     cfg, m = pair("granite-8b")[:2]
     kw = dict(max_batch=2, max_len=16, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServingEngine(cfg, m, fault_injector=object(), **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServingEngine(cfg, m, executor=object(), **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        AggregationConfig(guard="finite")
+        ServingEngine(cfg, m, batcher=object(), **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         AggregationConfig(tune_store="/nonexistent")
+    # containment is ported: an injector, a shared executor and the guard
+    ServingEngine(cfg, m, fault_injector=FaultInjector([]),
+                  executor=AggregationExecutor(device="cpu"),
+                  agg=AggregationConfig(max_aggregated=2, guard="finite"),
+                  **kw)
     with pytest.raises(ValueError, match="built for"):
         ServingEngine(pair("qwen2-moe-a2.7b")[0], m, **kw)
 
