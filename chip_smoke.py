@@ -138,7 +138,26 @@
    (8) qwen2-moe-a2.7b at published widths and 4 layers, 8 requests: a
    poisoned request evicted and its slot reused, the others' tokens equal
    a fault-free run, ``healthz`` reporting a shared executor's breakers.
-13. Holds the serving kernels (``csrc/decode_attention.cu``,
+13. Warm start: this process tunes the main path under ``s3`` cap 32 with
+   the cost model and autotune into a tune store (the retune writes it
+   back); a fresh child process warms up from it: tuned by the store, 0
+   measurement launches, the saved ladder and cost table, no library
+   built, 3 steps bit-identical to ``fused``; a fresh process under
+   ``prior="roofline"`` seeds its ladder before any measurement launch,
+   steps bit-identical to ``fused``, its ladder's predicted wave time
+   within 1.5x of the tuned ladder's, every cost source measured after
+   the retune; ``run(checkpoint_every=1)`` writes the store at the first
+   checkpoint.  Prints the warmup host seconds, cold and warm, and the
+   prior's micro-benchmark of the card.
+14. Tenancy: 1, 2, 4, 8 and 16 tenants of ``CONFIG`` through a
+   ``TenantBatcher`` under ``s4`` caps 32 and 512, 3 steps: every tenant
+   bit-identical to its solo ``s3`` run, 3 merged waves per step, the
+   captured extract and assemble phases live (no eager fallback); prints
+   launches, host ms per step per tenant against 1 tenant, device busy,
+   the graphs' copies and the peak memory.  Two AMR tenants
+   (``configs/amr_sedov``), staged and eager, bit-identical to the solo
+   run.
+15. Holds the serving kernels (``csrc/decode_attention.cu``,
    ``csrc/grouped_gemm.cu``) against their plain versions at the full-width
    qwen2-moe-a2.7b shapes in bf16 (8 requests, a 1,024-position cache with
    ragged lengths 1 to 1,024; 60 experts of (2048, 1408) and (1408, 2048)
@@ -149,7 +168,7 @@
    version, one PyTorch call and its bound, decode attention by CUDA-graph
    replays with L2 cold (as the serving path finds a layer's cache) and
    warm, beside SDPA at B 1, 2, 4 and 8 in the same call.
-14. The serving path: qwen2-moe-a2.7b at full width and depth in bf16
+16. The serving path: qwen2-moe-a2.7b at full width and depth in bf16
    (14.3 B weights from a seeded generator on the card) behind
    ``ServingEngine(max_batch=8, max_len=1024)`` on 12 requests (prompts of
    8-96 tokens and one of 640, 8-24 new tokens each): every request done,
@@ -164,7 +183,7 @@
    logits must stay within ``F32_LOGIT_TOL`` of the kernels'.
    Prints tokens/s, ms per launch by bucket, the cache gather and scatter
    copies' device time and peak memory.
-15. Prints one line naming the kernels, one JSON line of kernels, the card
+17. Prints one line naming the kernels, one JSON line of kernels, the card
    line, and as its last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the run exits non-zero and prints no result;
@@ -172,7 +191,6 @@ so does a host without a CUDA device (exit 2), or a directory without the
 repo's ``src/repro_torch`` beside the script (exit 1).
 """
 import argparse
-import itertools
 import json
 import os
 import subprocess
@@ -344,52 +362,6 @@ def cold_flow_slots(n, p, device, seed):
     ).to(device)
 
 
-def hydro_rhs_ops(n, subgrid, ghost=3):
-    """fp32 operations the function needs for n slots: the reference's
-    branch-free formulas with every distinct value computed once (add,
-    sub, mul, div, sqrt, min, max, compare each one; selects and index
-    arithmetic not counted).  Per field:
-
-    * each PPM interface value once, shared by the two cells beside it: 5;
-    * each (pair, cell) the consumed faces read: extremum test 4, du 1,
-      u6 4, du*du and du*u6 2; then each side used, 5 toward +d, 4
-      toward -d;
-
-    per reconstructed state, primitives 14 and sound speed 3; per face
-    point, signal speeds 8, physical fluxes 14, span and test 2, KNP flux
-    39 (the span > 1e-12 branch: the pressure floor keeps the sound speed,
-    and so the span, above it for any density below 1e12); per face, 9
-    weights and 8 accumulating adds per field; per cell, field and axis,
-    3 for the divergence.
-    """
-    from repro_torch.hydro.flux import FACE_QUAD
-    from repro_torch.hydro.ppm import DIR_PAIRS
-
-    states, face_points = set(), 0
-    for a in range(3):
-        span = [range(ghost - 1, ghost + subgrid) if d == a
-                else range(ghost, ghost + subgrid) for d in range(3)]
-        for (_, pl, sl, pr, sr) in FACE_QUAD[a]:
-            for c in itertools.product(*span):
-                right = tuple(c[d] + (d == a) for d in range(3))
-                states.add((pl, sl, c))
-                states.add((pr, sr, right))
-            face_points += (subgrid + 1) * subgrid * subgrid
-    recon = {(pair, c) for (pair, _, c) in states}
-    faces = set()
-    for pair, c in recon:
-        d = DIR_PAIRS[pair]
-        faces.add((pair, c))
-        faces.add((pair, tuple(c[k] - d[k] for k in range(3))))
-    plus = sum(1 for (_, side, _) in states if side)
-    per_field = (5 * len(faces) + 11 * len(recon) + 5 * plus
-                 + 4 * (len(states) - plus))
-    per_slot = (5 * per_field + 17 * len(states) + 63 * face_points
-                + 85 * 3 * (subgrid + 1) * subgrid * subgrid
-                + 3 * 3 * 5 * subgrid ** 3)
-    return n * per_slot
-
-
 def bound_ms(n_bytes, n_ops, flop_per_s=FP32_FLOP_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S
     t_ops = n_ops / flop_per_s
@@ -400,6 +372,7 @@ def bound_ms(n_bytes, n_ops, flop_per_s=FP32_FLOP_PER_S):
 def phase_kernel(cfg, dev, results):
     from repro_torch.hydro.state import extract_subgrids, sedov_init
     from repro_torch.kernels import hydro_rhs as kern
+    from repro_torch.kernels.counts import hydro_rhs_ops
 
     kw = dict(gamma=cfg.gamma, ghost=cfg.ghost, subgrid=cfg.subgrid)
     h = cfg.domain / (cfg.grids_per_edge * cfg.subgrid)
@@ -557,6 +530,7 @@ def phase_kernel_16(cfg16, dev, results):
     from repro_torch.configs.base import HydroConfig
     from repro_torch.hydro.state import extract_subgrids, sedov_init
     from repro_torch.kernels import hydro_rhs as kern
+    from repro_torch.kernels.counts import hydro_rhs_ops
 
     s = cfg16.subgrid
     kw = dict(gamma=cfg16.gamma, ghost=cfg16.ghost, subgrid=s)
@@ -783,43 +757,6 @@ def phase_main_path(cfg, dev, steps, results):
 # the gravity kernel and the split pair against their plain versions
 # ---------------------------------------------------------------------------
 
-def gravity_ops(n, subgrid, ghost, n_iter):
-    """fp32 operations the gravity function needs for n slots: the
-    right-hand side (2 per cell off the frame, and h*h and 0.5/h once); the
-    first sweep from phi = 0 (1 per cell: -rhs / 6); each later sweep 7 per
-    cell (5 adds, a subtract, a divide), but the last only on the cells the
-    gradient reads (the interior and one layer beyond each face, S^3 +
-    6 S^2); the gradient 2 per cell and axis."""
-    m = subgrid + 2 * ghost - 2
-    last = subgrid ** 3 + 6 * subgrid ** 2
-    per_slot = (2 * m ** 3 + 2 + m ** 3 + 7 * m ** 3 * max(n_iter - 2, 0)
-                + 7 * last * (n_iter >= 2) + 6 * subgrid ** 3)
-    return n * per_slot
-
-
-def reconstruct_ops(n, p):
-    """fp32 operations of Reconstruct for n slots: per (pair, field, cell)
-    of the padded block, one interface value (5; each is shared by the two
-    cells beside it), the limiter's extremum test, du, u6 and tests (11),
-    and both sides (5 toward +d, 4 toward -d)."""
-    return n * 13 * 5 * p ** 3 * (5 + 11 + 9)
-
-
-def flux_ops(n, subgrid, ghost=3):
-    """fp32 operations of Flux for n slots: ``hydro_rhs_ops`` without the
-    reconstruction, i.e. per staged state read, primitives and sound speed
-    (17); per face point, signal speeds, physical fluxes, span, test and
-    KNP flux (63); per face, weights and accumulation (85); per cell, field
-    and axis, the divergence (3)."""
-    from repro_torch.kernels.hydro_split import flux_read_states
-
-    faces = (subgrid + 1) * subgrid * subgrid
-    per_slot = (17 * len(flux_read_states(subgrid, ghost))
-                + 63 * 3 * 9 * faces + 85 * 3 * faces
-                + 3 * 3 * 5 * subgrid ** 3)
-    return n * per_slot
-
-
 def flux_sector_bytes(n, subgrid, ghost=3):
     """Bytes of the 32-byte sectors holding the values Flux must read (the
     memory's unit of transfer): a face reads rows of S floats at P-float
@@ -906,6 +843,7 @@ def phase_gravity_kernel(gcfg, dev, results):
     from repro_torch.hydro.state import extract_subgrids, sedov_init
     from repro_torch.kernels import gravity as grav
     from repro_torch.kernels import hydro_rhs as kern
+    from repro_torch.kernels.counts import gravity_ops
 
     hc = gcfg.hydro
     kw = dict(ghost=hc.ghost, subgrid=hc.subgrid, g_const=gcfg.g_const,
@@ -1057,6 +995,7 @@ def reconstruct_odd_and_misaligned(cfg, dev, u, rk):
 def phase_split_kernels(cfg, dev, results):
     from repro_torch.hydro.state import extract_subgrids, sedov_init
     from repro_torch.kernels import hydro_rhs as kern
+    from repro_torch.kernels.counts import flux_ops, reconstruct_ops
     from repro_torch.kernels import hydro_split as split
 
     kw = dict(gamma=cfg.gamma, ghost=cfg.ghost, subgrid=cfg.subgrid)
@@ -1188,6 +1127,7 @@ def phase_lane_kernel(cfg, cfg16, dev, results):
     and its times beside the two transposes and its bound."""
     from repro_torch.hydro.state import extract_subgrids, sedov_init
     from repro_torch.kernels import hydro_rhs as kern
+    from repro_torch.kernels.counts import hydro_rhs_ops
 
     tol = dict(atol_scale=ATOL_SCALE, rtol=RTOL)
     errs, detail = [], {}
@@ -2406,6 +2346,16 @@ class Crash(Exception):
     pass
 
 
+def run_child(script, args, timeout=300):
+    """``python -c script *args`` with the checkout's ``src`` first on the
+    path; returns the completed process."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(HERE, "src")]
+        + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    return subprocess.run([sys.executable, "-c", script, *args], env=env,
+                          capture_output=True, text=True, timeout=timeout)
+
+
 def phase_resume(cfg, acfg, dev, card, results):
     """A child process runs the main path under ``s3`` cap 32 for 4 steps
     with a checkpoint after each and dies by SIGKILL after checkpoint 2;
@@ -2425,14 +2375,9 @@ def phase_resume(cfg, acfg, dev, card, results):
 
     work = tempfile.mkdtemp(prefix="chip_smoke_resume_", dir=HERE)
     try:
-        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-            [os.path.join(HERE, "src")]
-            + [p for p in [os.environ.get("PYTHONPATH")] if p]))
         ckpt = os.path.join(work, "main")
         t0 = time.perf_counter()
-        child = subprocess.run([sys.executable, "-c", RESUME_CHILD, ckpt],
-                               env=env, capture_output=True, text=True,
-                               timeout=300)
+        child = run_child(RESUME_CHILD, [ckpt])
         child_s = time.perf_counter() - t0
         check(child.returncode == -9, f"resume: the child exited "
               f"{child.returncode}, not by SIGKILL:\n{child.stderr[-2000:]}")
@@ -3191,6 +3136,379 @@ def phase_containment(cfg, gcfg, dev, card, dts, fused_main, results):
 
 
 # ---------------------------------------------------------------------------
+# warm start: the tune store across processes and the roofline prior
+# ---------------------------------------------------------------------------
+
+# process two of the warm start (``warm``) and the prior's fresh process
+# (``prior``): argv = mode, store directory, data file (u0, dts, the fused
+# path's state), result file.  Prints nothing; writes one JSON object.
+WARM_CHILD = """
+import json, sys, time
+import torch
+from repro_torch.configs.base import AggregationConfig
+from repro_torch.configs.sedov import CONFIG
+from repro_torch.core import StrategyRunner, UniformSedovScenario
+from repro_torch.core.aggregation import greedy_decomposition
+from repro_torch.kernels import _build
+from repro_torch.kernels import hydro_rhs as kern
+
+mode, store, data_file, out_file = sys.argv[1:5]
+data = torch.load(data_file)
+dev = torch.device("cuda", 0)
+kw = dict(strategy="s3", max_aggregated=32, autotune=True, cost_model=True)
+if mode == "warm":
+    kw["tune_store"] = store
+else:
+    kw["prior"] = "roofline"
+runner = StrategyRunner(UniformSedovScenario(CONFIG), AggregationConfig(**kw),
+                        device=dev)
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+runner.warmup()
+torch.cuda.synchronize()
+out = {"warmup_s": time.perf_counter() - t0}
+exe = runner.executor
+(region,) = exe.regions.values()
+fam = region.stats
+out.update(tuned_by=fam.get("tuned_by"), ladder=list(fam["ladder"]),
+           measurement_launches=fam["measurement_launches"],
+           cost_sources=fam.get("cost_sources"),
+           cost_model=fam.get("cost_model"),
+           cost_model_paths=fam.get("cost_model_paths"),
+           built={k: v["seconds"] for k, v in _build.BUILD_LOG.items()})
+if mode == "prior":
+    out["priors"] = {p: {str(b): t * 1e3 for b, t in tbl.items()}
+                     for p, tbl in region.cost.priors.items()}
+    out["prior_ladder"] = list(region.buckets)
+kern.hydro_rhs_cuda.launches = 0
+u = data["u0"].to(dev)
+for dt in data["dts"]:
+    u = runner.rk3_step(u, dt.to(dev))
+torch.cuda.synchronize()
+out["equal"] = bool(torch.equal(u.cpu(), data["want"]))
+out["kernel_launches"] = kern.hydro_rhs_cuda.launches
+out["after"] = dict(tuned_by=fam.get("tuned_by"), ladder=list(fam["ladder"]),
+                    measurement_launches=fam["measurement_launches"],
+                    cost_sources=fam.get("cost_sources"))
+if mode == "prior":
+    wave = CONFIG.n_subgrids
+    tuned = list(region.buckets)
+    out["prior_wave_ms"] = region.cost.predict_seq(
+        greedy_decomposition(wave, out["prior_ladder"])) * 1e3
+    out["tuned_wave_ms"] = region.cost.predict_seq(
+        greedy_decomposition(wave, tuned)) * 1e3
+    out["priors_left"] = bool(region.cost.priors)
+with open(out_file, "w") as f:
+    json.dump(out, f)
+"""
+
+
+def warm_child(mode, store, data_file, work):
+    out_file = os.path.join(work, f"{mode}.json")
+    t0 = time.perf_counter()
+    proc = run_child(WARM_CHILD, [mode, store, data_file, out_file])
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, f"warm_start: the {mode} child exited "
+          f"{proc.returncode}:\n{proc.stderr[-3000:]}")
+    with open(out_file) as f:
+        out = json.load(f)
+    out["process_s"] = seconds
+    return out
+
+
+def phase_warm_start(cfg, dev, card, dts, fused_main, results):
+    """Process one (this one) tunes the main path under ``s3`` cap 32 with
+    the cost model and autotune into a tune store: warmup, then 3 steps,
+    the retune after 2 waves writing the store back, then ``save_tuning``.
+    Process two, a fresh interpreter, warms up from the store: every
+    region tuned by the store, 0 measurement launches, ladder and cost
+    table equal to what process one saved, no library built, 3 steps
+    bit-equal to ``fused``.  A third process under ``prior="roofline"``:
+    the seeded ladder before any measurement launch, the steps bit-equal
+    to ``fused``, the prior ladder's predicted per-wave time within 1.5x
+    of the tuned ladder's on the measured table, every cost source
+    ``"measured"`` after the retune.  Last, ``run(checkpoint_every=1)``
+    with a store writes it at the first checkpoint.  Prints the warmup
+    host seconds, cold and warm, and the card's figures from the prior's
+    micro-benchmark."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs.base import AggregationConfig
+    from repro_torch.core import (
+        StrategyRunner, TuneStore, UniformSedovScenario,
+    )
+    from repro_torch.core.aggregation import _backend_key
+    from repro_torch.core.tunestore.prior import DEVICE_PEAKS, microbenchmark
+    from repro_torch.hydro.state import sedov_init
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_warm_", dir=HERE)
+    try:
+        store = os.path.join(work, "store")
+        agg = AggregationConfig(strategy="s3", max_aggregated=32,
+                                autotune=True, cost_model=True,
+                                tune_store=store)
+        u0 = sedov_init(cfg, device=dev).u
+        cold = StrategyRunner(UniformSedovScenario(cfg), agg, device=dev)
+        sync()
+        t0 = time.perf_counter()
+        cold.warmup()
+        sync()
+        cold_s = time.perf_counter() - t0
+        u = u0
+        for dt in dts:
+            u = cold.rk3_step(u, dt)
+        sync()
+        check(torch.equal(u, fused_main), "warm_start: the cold tuned run "
+              "is not bit-identical to fused")
+        (fam,) = cold.stats["regions"].values()
+        check(fam["tuned_by"] == "measured",
+              f"warm_start: process one tuned by {fam.get('tuned_by')}")
+        check(os.path.isfile(os.path.join(store, "tunestore.json")),
+              "warm_start: the retune wrote no store")
+        cold.save_tuning()
+        (entry,) = TuneStore(store).entries().values()
+        data_file = os.path.join(work, "data.pt")
+        torch.save({"u0": u0.cpu(), "dts": [d.cpu() for d in dts],
+                    "want": fused_main.cpu()}, data_file)
+
+        warm = warm_child("warm", store, data_file, work)
+        check(warm["tuned_by"] == "store", f"warm_start: process two tuned "
+              f"by {warm['tuned_by']}")
+        check(warm["measurement_launches"] == 0
+              and warm["after"]["measurement_launches"] == 0,
+              f"warm_start: process two made "
+              f"{warm['after']['measurement_launches']} measurement "
+              f"launches")
+        check(warm["ladder"] == entry["ladder"] == fam["ladder"],
+              f"warm_start: ladder {warm['ladder']}, saved {entry['ladder']}")
+        saved_ms = {str(b): round(t * 1e3, 4)
+                    for b, t in entry["cost_model"]["s3"].items()}
+        check({str(b): t for b, t in warm["cost_model"].items()} == saved_ms,
+              f"warm_start: cost table {warm['cost_model']}, saved "
+              f"{saved_ms}")
+        check(warm["built"] and all(s is None
+                                    for s in warm["built"].values()),
+              f"warm_start: process two built {warm['built']}")
+        check(warm["equal"], "warm_start: process two's steps are not "
+              "bit-identical to fused")
+        check(warm["kernel_launches"] > 0, "warm_start: process two never "
+              "launched the kernel")
+        print(f"warm_start ({card}): process one (cost model, autotune) "
+              f"warmup {cold_s:.3f} s host, ladder {fam['ladder']}, "
+              f"{fam['measurement_launches']} measurement launches; process "
+              f"two from the store: warmup {warm['warmup_s']:.3f} s host "
+              f"(process {warm['process_s']:.1f} s), tuned by the store, "
+              f"0 measurement launches, no library built "
+              f"({sorted(warm['built'])} cached), cost ms per bucket "
+              f"{warm['cost_model']}, 3 steps bit-identical to fused",
+              flush=True)
+
+        prior = warm_child("prior", store, data_file, work)
+        check(prior["tuned_by"] == "prior"
+              and prior["measurement_launches"] == 0,
+              f"warm_start: prior process tuned by {prior['tuned_by']} with "
+              f"{prior['measurement_launches']} measurement launches")
+        check(prior["equal"], "warm_start: the prior run is not "
+              "bit-identical to fused")
+        after = prior["after"]
+        check(after["tuned_by"] == "measured" and not prior["priors_left"]
+              and all(v == "measured" for tbl in after["cost_sources"].values()
+                      for v in tbl.values()),
+              f"warm_start: after the retune, tuned by {after['tuned_by']}, "
+              f"sources {after['cost_sources']}")
+        ratio = prior["prior_wave_ms"] / prior["tuned_wave_ms"]
+        check(ratio <= 1.5, f"warm_start: the prior ladder "
+              f"{prior['prior_ladder']} predicts {prior['prior_wave_ms']:.4f}"
+              f" ms per wave, {ratio:.2f}x the tuned ladder's "
+              f"{after['ladder']}")
+        print(f"warm_start ({card}): prior='roofline' seeds ladder "
+              f"{prior['prior_ladder']} with 0 measurement launches (prior "
+              f"ms per bucket {prior['priors'].get('s3')}); after the "
+              f"retune ladder {after['ladder']}, every cost source measured; "
+              f"the prior ladder predicts {prior['prior_wave_ms']:.4f} ms per "
+              f"512-task wave on the measured table, {ratio:.3f}x the tuned "
+              f"ladder's {prior['tuned_wave_ms']:.4f} ms; steps bit-identical "
+              f"to fused", flush=True)
+
+        ck_store = os.path.join(work, "ck_store")
+        runner = StrategyRunner(UniformSedovScenario(cfg), AggregationConfig(
+            strategy="s3", max_aggregated=32, cost_model=True,
+            tune_store=ck_store), device=dev)
+        runner.warmup()
+        seen = []
+        save = runner._checkpoint
+
+        def save_and_look(ckpt_dir, step, *args):
+            save(ckpt_dir, step, *args)
+            seen.append((step, os.path.isfile(
+                os.path.join(ck_store, "tunestore.json"))))
+        runner._checkpoint = save_and_look
+        check(not os.path.exists(ck_store), "warm_start: a store before the "
+              "first checkpoint")
+        runner.run(u0, dts[0], 2, checkpoint_every=1,
+                   ckpt_dir=os.path.join(work, "ckpt"))
+        check(seen and seen[0] == (1, True), f"warm_start: store file "
+              f"after the checkpoints: {seen}")
+
+        bw, flops, launch = microbenchmark(dev)
+        table = DEVICE_PEAKS.get("h100")
+        print(f"warm_start ({card}): the prior's micro-benchmark on this "
+              f"card ({_backend_key(dev)[1]}): {bw / 1e12:.3f} TB/s "
+              f"streaming, {flops / 1e12:.2f} TFLOP/s fp32 matmul 512^3, "
+              f"launch {launch * 1e6:.2f} us; the table's h100 row "
+              f"{table}", flush=True)
+        results["warm_start"] = dict(
+            card=card, cold_warmup_s=cold_s, warm_warmup_s=warm["warmup_s"],
+            warm_process_s=warm["process_s"], ladder=fam["ladder"],
+            cold_measurement_launches=fam["measurement_launches"],
+            prior_ladder=prior["prior_ladder"],
+            prior_tuned_ladder=after["ladder"],
+            prior_wave_ms=prior["prior_wave_ms"],
+            tuned_wave_ms=prior["tuned_wave_ms"],
+            prior_warmup_s=prior["warmup_s"],
+            microbenchmark=dict(bytes_per_s=bw, flop_per_s=flops,
+                                launch_s=launch),
+            seconds=time.perf_counter() - t_phase)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"warm_start ({card}): passed in "
+          f"{results['warm_start']['seconds']:.1f} s", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# tenancy on one card: TenantBatcher under s4
+# ---------------------------------------------------------------------------
+
+TENANTS = (1, 2, 4, 8, 16)
+TENANT_STEPS = 3
+
+
+def tenant_batcher(dev, cap, n, make, state, dt, eager=False):
+    from repro_torch.configs.base import AggregationConfig
+    from repro_torch.core import ShardedAggregationExecutor, TenantBatcher
+
+    tb = TenantBatcher(ShardedAggregationExecutor(config=AggregationConfig(
+        strategy="s4", max_aggregated=cap), name="tenancy", device=dev))
+    tb._eager = eager
+    for tid in range(n):
+        tb.add(tid, make(), state, dt)
+    return tb
+
+
+def phase_tenancy(cfg, acfg, dev, card, dts, results):
+    """Uniform tenants of the main path (512 x 8^3 each) at 1, 2, 4, 8 and
+    16 tenants under ``s4`` caps 32 and 512, 3 RK3 steps of one dt: each
+    tenant bit-equal to its solo ``s3`` runner, 3 merged waves per step,
+    the staged (captured) path live; per row, launches per step, host ms
+    per step per tenant against 1 tenant (steps 2 and 3; step 1 captures
+    the two phases), device busy of a 4th step by ``torch.profiler`` with
+    the graphs' input and output copies (DtoD) apart, and the peak
+    memory.  Then 2 tenants of ``configs/amr_sedov.CONFIG``, staged: bit-
+    equal to the solo runner and to the eager batcher."""
+    from repro_torch.configs.base import AggregationConfig
+    from repro_torch.core import (
+        AMRSedovScenario, StrategyRunner, UniformSedovScenario,
+    )
+    from repro_torch.core.aggregation import greedy_decomposition
+    from repro_torch.hydro.state import amr_sedov_init, sedov_init
+    from repro_torch.hydro.stepper import amr_courant_dt
+    from repro_torch.kernels import hydro_rhs as kern
+
+    t_phase = time.perf_counter()
+    u0 = sedov_init(cfg, device=dev).u
+    dt = dts[0]
+    rows = {}
+    for cap in (32, 512):
+        solo = StrategyRunner(UniformSedovScenario(cfg), AggregationConfig(
+            strategy="s3", max_aggregated=cap), device=dev)
+        want = u0
+        for _ in range(TENANT_STEPS):
+            want = solo.rk3_step(want, dt)
+        per_wave = {}
+        for n in TENANTS:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            tb = tenant_batcher(dev, cap, n, lambda: UniformSedovScenario(cfg),
+                                u0, dt)
+            tb.rk3_step_all()
+            sync()
+            kern.hydro_rhs_cuda.launches = 0
+            t0 = time.perf_counter()
+            for _ in range(TENANT_STEPS - 1):
+                out = tb.rk3_step_all()
+            sync()
+            wall = time.perf_counter() - t0
+            launches = kern.hydro_rhs_cuda.launches / (TENANT_STEPS - 1)
+            for tid in range(n):
+                check(torch.equal(out[tid], want), f"tenancy: {n} tenants "
+                      f"cap {cap}, tenant {tid} differs from its solo run")
+            check(tb.stats["waves"] == 3 * TENANT_STEPS,
+                  f"tenancy: {tb.stats['waves']} waves in {TENANT_STEPS} "
+                  f"steps")
+            check(tb.stats["eager_fallbacks"] == 0 and not tb._eager,
+                  "tenancy: the staged path fell back to eager")
+            want_launches = 3 * len(greedy_decomposition(
+                n * cfg.n_subgrids, AggregationConfig(
+                    max_aggregated=cap).bucket_sizes()))
+            check(launches == want_launches, f"tenancy: {launches} kernel "
+                  f"launches per step, want {want_launches}")
+            peak = torch.cuda.max_memory_allocated() / 2 ** 20
+            _, prof = profiled(tb.rk3_step_all)
+            events = device_events(prof)
+            busy = sum(us for _, us in events) / 1e3
+            copies = sum(us for name, us in events
+                         if "Memcpy DtoD" in name) / 1e3
+            ms = wall / (TENANT_STEPS - 1) * 1e3
+            per_wave[n] = dict(
+                host_ms_per_step=ms, host_ms_per_step_per_tenant=ms / n,
+                launches_per_step=launches, device_busy_ms_per_step=busy,
+                dtod_copy_ms_per_step=copies, peak_mib=peak)
+            base = per_wave[1]["host_ms_per_step_per_tenant"]
+            print(f"tenancy ({card}): {n:2d} tenants x {cfg.n_subgrids} "
+                  f"sub-grids, s4 cap {cap}: {ms:.3f} ms/step host, "
+                  f"{ms / n:.3f} ms/step per tenant ({ms / n / base:.3f}x "
+                  f"1 tenant), {launches:g} kernel launches/step, device "
+                  f"busy {busy:.3f} ms/step (graph input/output copies "
+                  f"{copies:.3f} ms), peak {peak:.1f} MiB, every tenant "
+                  f"bit-identical to its solo s3 run", flush=True)
+            del tb, out
+        rows[cap] = per_wave
+
+    st = amr_sedov_init(acfg, device=dev)
+    state = (st.uc, st.uf)
+    adt = amr_courant_dt(st.uc, st.uf, acfg)
+    solo = StrategyRunner(AMRSedovScenario(acfg), AggregationConfig(
+        strategy="s3", max_aggregated=16), device=dev)
+    want = state
+    for _ in range(TENANT_STEPS):
+        want = solo.rk3_step(want, adt)
+    got = {}
+    for eager in (False, True):
+        tb = tenant_batcher(dev, 16, 2, lambda: AMRSedovScenario(acfg),
+                            state, adt, eager=eager)
+        for _ in range(TENANT_STEPS):
+            out = tb.rk3_step_all()
+        got[eager] = out
+        check(tb.stats["eager_fallbacks"] == 0,
+              "tenancy: the AMR batcher fell back to eager")
+        check(bool(tb._stage_cache) is not eager,
+              f"tenancy: AMR stage cache {len(tb._stage_cache)}, eager "
+              f"{eager}")
+    for tid in range(2):
+        check(states_equal(got[False][tid], want)
+              and states_equal(got[True][tid], want),
+              f"tenancy: AMR tenant {tid} (staged or eager) differs from "
+              f"its solo run")
+    seconds = time.perf_counter() - t_phase
+    print(f"tenancy ({card}): 2 tenants of {acfg.name} (uc, uf), staged "
+          f"and eager, {TENANT_STEPS} steps bit-identical to the solo s3 "
+          f"run; phase {seconds:.1f} s", flush=True)
+    results["tenancy"] = dict(card=card, uniform=rows, seconds=seconds)
+
+
+# ---------------------------------------------------------------------------
 # the serving path: decode attention, the grouped GEMM, qwen2-moe-a2.7b
 # ---------------------------------------------------------------------------
 
@@ -3922,6 +4240,11 @@ def main(argv=None):
     # the breakers, the tripwire and serving eviction
     phase_containment(CONFIG, gravity_512, dev, card, dts, fused_kernel_path,
                       results)
+
+    # warm start (the tune store across processes, the roofline prior) and
+    # tenancy on one card (TenantBatcher under s4)
+    phase_warm_start(CONFIG, dev, card, dts, fused_kernel_path, results)
+    phase_tenancy(CONFIG, AMR_CONFIG, dev, card, dts, results)
 
     # the serving kernels, then the serving path (qwen2-moe-a2.7b)
     phase_lm_kernels(dev, card, results)

@@ -3,9 +3,8 @@ hydro scenarios and the aggregation knobs the port runs.
 
 ``ModelConfig``, ``HydroConfig``, ``AMRHydroConfig`` and
 ``GravityHydroConfig`` are the reference's as they are.
-``AggregationConfig`` keeps only the fields the port reads; a value the
-port does not run yet (another strategy, the finite guard, a tune store)
-raises ``NotImplementedError`` naming ROADMAP.md instead of being ignored.
+``AggregationConfig`` keeps the fields the port reads, and an invalid
+value raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -102,12 +101,12 @@ class ModelConfig:
         total += self.vocab_size * d * (1 if self.tie_embeddings else 2)
         return int(total)
 
-# strategies the port registers; the reference's others wait in ROADMAP.md
-PORTED_STRATEGIES = ("fused", "s2", "s3", "s2+s3", "mixed")
-ROADMAP_STRATEGIES = ("s4", "sharded")
+# the launch strategies the port registers (the reference's set)
+PORTED_STRATEGIES = ("fused", "s2", "s3", "s2+s3", "mixed", "s4", "sharded")
 STAGING_MODES = ("device", "host")
 FLUSH_POLICIES = ("eager", "watermark", "cost")
 GUARD_MODES = ("off", "finite")
+PRIOR_MODES = ("off", "roofline")
 # valid targets of per-family strategy routing (the "mixed" strategy);
 # "auto" defers to the measured cost model
 FAMILY_STRATEGY_CHOICES = ("s2", "s3", "fused", "auto")
@@ -140,6 +139,10 @@ class AggregationConfig:
                 under any strategy, not a strategy of its own
     strategy 2: ``n_executors``    — concurrent launch queues (CUDA streams)
     strategy 3: ``max_aggregated`` — on-the-fly fusion cap (bucketed)
+
+    ``strategy="s4"`` (``"sharded"``) drains each range over a mesh of
+    ``shard_devices`` cards (0: every visible card); the port's mesh is one
+    card.
 
     ``staging="device"`` reads ranges in place and stages per-task tensors
     into the region's slot ring; ``"host"`` stacks each bucket at launch
@@ -176,6 +179,12 @@ class AggregationConfig:
     the last ``breaker_window`` waves open it (the family drains at bucket
     1), and after ``breaker_cooldown`` waves a half-open probe closes or
     reopens it.  Only a fault changes a result.
+
+    Warm start: ``tune_store`` (a directory, a ``TuneStore``, or None for
+    the ``REPRO_TUNE_STORE`` environment variable) restores each family's
+    tuned state at warmup instead of measuring it, and every retune writes
+    it back; ``prior="roofline"`` seeds an unmeasured family's cost model
+    and ladder from the roofline of its shapes.  Neither changes a result.
     """
     strategy: str = "s3"              # "s3" | "s2+s3" | "s2" | "mixed" |
                                       # "fused"
@@ -204,8 +213,11 @@ class AggregationConfig:
     breaker_window: int = 0           # waves a breaker counts (0: off)
     breaker_threshold: int = 3        # faults in the window that open it
     breaker_cooldown: int = 2         # open waves before a half-open probe
-    tune_store: object = None         # waits for the tune store
-    prior: str = "off"                # "roofline" waits for it too
+    # warm start: a store directory (or TuneStore; None: the
+    # REPRO_TUNE_STORE environment variable), and the analytical prior
+    tune_store: object = None
+    prior: str = "off"                # "off" | "roofline"
+    shard_devices: int = 0            # s4's mesh: cards (0: every card)
 
     def __post_init__(self):
         if self.strategy == "s1":
@@ -214,23 +226,18 @@ class AggregationConfig:
                 "strategy 1 is larger sub-grids, "
                 "repro_torch.configs.sedov.CONFIG_16 (16^3), run under any "
                 f"strategy of {PORTED_STRATEGIES}")
-        if self.strategy in ROADMAP_STRATEGIES:
-            raise NotImplementedError(
-                f"strategy {self.strategy!r} is not ported yet (see "
-                f"ROADMAP.md); the port runs {PORTED_STRATEGIES}")
         if self.staging not in STAGING_MODES:
             raise ValueError(f"unknown staging mode {self.staging!r} — "
                              f"valid modes: {', '.join(STAGING_MODES)}")
         if self.guard not in GUARD_MODES:
             raise ValueError(f"unknown guard mode {self.guard!r} — valid "
                              f"modes: {', '.join(GUARD_MODES)}")
-        if self.tune_store is not None:
-            raise NotImplementedError(
-                "tune_store is not ported yet (see ROADMAP.md)")
-        if self.prior != "off":
-            raise NotImplementedError(
-                f"prior={self.prior!r} is not ported yet (warm start, see "
-                f"ROADMAP.md); the port runs prior='off'")
+        if self.prior not in PRIOR_MODES:
+            raise ValueError(f"unknown prior mode {self.prior!r} — valid "
+                             f"modes: {', '.join(PRIOR_MODES)}")
+        if self.shard_devices < 0:
+            raise ValueError(f"shard_devices must be >= 0, got "
+                             f"{self.shard_devices}")
         if self.n_executors < 1:
             raise ValueError(f"n_executors must be >= 1, got "
                              f"{self.n_executors}")

@@ -1,11 +1,9 @@
 """Aggregation runtime of the port: executors (CUDA streams), the
 aggregation executor with its measured tuning, scenarios and strategies.
 
-Fault injection and containment (``faults``: the error taxonomy, the
-injector, the quarantine list and the finite check) are exported as the
-reference exports them.  The reference's tune store (``tunestore``) and
-sharded executors (``sharding``) wait in ROADMAP.md (Queue 1 items 10
-and 11), so their names are not exported yet.
+Fault injection and containment (``faults``), the warm-start tune store
+and roofline prior (``tunestore``), and the sharded executor and tenant
+batcher (``sharding``) are exported as the reference exports them.
 """
 from repro_torch.core.aggregation import (  # noqa: F401
     AggregationExecutor, BucketCostModel, LaunchTimer, RangeFuture, SlotView,
@@ -25,6 +23,12 @@ from repro_torch.core.scenario import (  # noqa: F401
     TaskPopulation, UniformSedovScenario, stage_family,
 )
 from repro_torch.core.graphs import CaptureError, CapturedCall  # noqa: F401
+from repro_torch.core.sharding import (  # noqa: F401
+    ShardedAggregationExecutor, TenantBatcher,
+)
+from repro_torch.core.tunestore import (  # noqa: F401
+    RooflinePrior, TuneStore, TuneStoreWarning,
+)
 from repro_torch.core.strategies import (  # noqa: F401
     AMRStrategyRunner, HydroStrategyRunner, RunContext, Strategy,
     StrategyRunner, available_strategies, get_strategy_class,
@@ -44,6 +48,8 @@ __all__ = [
     "Scenario", "KernelFamily", "TaskPopulation", "stage_family",
     "UniformSedovScenario", "AMRSedovScenario", "GravityScenario",
     "CaptureError", "CapturedCall",
+    "ShardedAggregationExecutor", "TenantBatcher",
+    "TuneStore", "RooflinePrior", "TuneStoreWarning",
     "Strategy", "RunContext", "StrategyRunner", "available_strategies",
     "get_strategy_class", "register_strategy",
     "AMRStrategyRunner", "HydroStrategyRunner",

@@ -49,8 +49,15 @@ bucket (bounded retries, rung bans, bucket 1 as the floor), the launch
 watchdog bounds each launch by ``launch_timeout_s`` and a per-family
 circuit breaker pins a faulting family to bucket 1 (DESIGN.md §11, §14).
 
-``make_s2_scatter`` builds the ``s2`` strategy's per-task launch.  The
-reference's tune store waits in ROADMAP.md (item 10).
+Warm start (DESIGN.md §13): with a ``tune_store`` a region restores its
+tuned state (ladder, chunk, cost tables, queue histogram, strategy
+selection) at warmup instead of measuring it, and every retune writes the
+tuned state back; ``prior="roofline"`` seeds an unmeasured region's cost
+model and ladder from the roofline of its shapes
+(:class:`~repro_torch.core.tunestore.RooflinePrior`) until the first
+retune measures for real.  Entries are keyed by :func:`_backend_key`.
+
+``make_s2_scatter`` builds the ``s2`` strategy's per-task launch.
 """
 from __future__ import annotations
 
@@ -58,6 +65,7 @@ import bisect
 import statistics
 import threading
 import time
+import warnings
 from dataclasses import dataclass
 from typing import (
     Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple,
@@ -65,13 +73,18 @@ from typing import (
 
 import torch
 
-from repro_torch.configs.base import AggregationConfig, resolve_family_option
+from repro_torch.configs.base import (
+    AggregationConfig, resolve_family_option, validate_ladder,
+)
 from repro_torch.core.buffers import BufferPool, SlotRing
 from repro_torch.core.executor import DeviceExecutor, ExecutorPool
 from repro_torch.core.faults import (
     BucketCompileError, FaultInjector, LaunchFaultError, LaunchTimeoutError,
     QuarantineList, RegionFaultError, TaskFailedError, all_finite_async,
     poison_slots,
+)
+from repro_torch.core.tunestore import (
+    RooflinePrior, TuneStore, TuneStoreWarning,
 )
 from repro_torch.device import DeviceLike, resolve_device
 
@@ -619,13 +632,31 @@ def _launches(timer: Callable, device: torch.device, count: int) -> int:
     return 1 + count * (per(device) if per is not None else 1)
 
 
+# a body's per-task output (shape, dtype), memoised per (body, task shapes):
+# sizing walks the body's plain version on meta tensors, about a second for
+# the hydro body.  The value keeps the body alive, so its id stays valid;
+# FIFO-bounded.
+_OUT_SPECS: Dict[Tuple, Tuple[Any, Tuple[int, ...], torch.dtype]] = {}
+_OUT_SPECS_MAX = 64
+
+
 def _out_like(batched_fn: Callable, stacked: Sequence[torch.Tensor]
               ) -> torch.Tensor:
-    """An empty output of the body over ``stacked`` (sized on meta
-    tensors)."""
-    spec = batched_fn(*(torch.empty(a.shape, dtype=a.dtype, device="meta")
-                        for a in stacked))
-    return torch.empty(spec.shape, dtype=spec.dtype,
+    """An empty output of the body over ``stacked``: the per-task output is
+    sized once on one-slot meta tensors (a body is independent per slot)
+    and memoised."""
+    key = (id(batched_fn),
+           tuple((tuple(a.shape[1:]), a.dtype) for a in stacked))
+    memo = _OUT_SPECS.get(key)
+    if memo is None:
+        spec = batched_fn(*(torch.empty((1,) + tuple(a.shape[1:]),
+                                        dtype=a.dtype, device="meta")
+                            for a in stacked))
+        while len(_OUT_SPECS) >= _OUT_SPECS_MAX:
+            _OUT_SPECS.pop(next(iter(_OUT_SPECS)))
+        memo = _OUT_SPECS[key] = (batched_fn, tuple(spec.shape[1:]),
+                                  spec.dtype)
+    return torch.empty((stacked[0].shape[0],) + memo[1], dtype=memo[2],
                        device=stacked[0].device)
 
 
@@ -884,6 +915,15 @@ def _device_key(device: torch.device) -> Tuple[str, str, int]:
     return (device.type, "", 1)
 
 
+def _backend_key(device: torch.device) -> Tuple[str, str, str]:
+    """(type, device name, ``"d<count>"``): the identity a stored tuning
+    entry is valid for, in the reference's form.  The device count keeps a
+    ladder tuned on one card from warm-starting a run over several; the
+    CPU's name is ``"cpu"``."""
+    kind, name, count = _device_key(device)
+    return kind, name or kind, f"d{count}"
+
+
 class AggregationExecutor:
     """Aggregates submissions of kernel families into bucketed launches.
 
@@ -927,6 +967,11 @@ class AggregationExecutor:
         self._cost_samples = self.config.cost_samples
         self.timer = timer or LaunchTimer()
         cfg = self.config
+        # warm start: the store (None: cold, unless REPRO_TUNE_STORE names
+        # one) and the analytical prior, made at its first use
+        self._store = TuneStore.open(cfg.tune_store)
+        self._prior_on = cfg.prior == "roofline"
+        self._prior: Optional[RooflinePrior] = None
         self._guard = cfg.guard
         self._injector = fault_injector
         self._max_retries = max(0, int(cfg.max_bucket_retries))
@@ -946,6 +991,7 @@ class AggregationExecutor:
         self._default_kernel: Optional[str] = None
         self.stats = {"submitted": 0, "launches": 0, "aggregated_hist": {},
                       "staging_s": 0.0, "regions": {},
+                      "warm_start": False,   # a region restored from store
                       "flush_policy": (dict(self._flush_policy)
                                        if isinstance(self._flush_policy,
                                                      Mapping)
@@ -1011,28 +1057,48 @@ class AggregationExecutor:
     def warmup(self, parent_shapes: Sequence[Tuple[Tuple[int, ...],
                                                    torch.dtype]], *,
                kernel: Optional[str] = None,
-               buckets: Optional[Sequence[int]] = None) -> None:
+               buckets: Optional[Sequence[int]] = None,
+               store: Optional[Any] = None) -> None:
         """Launch each ladder bucket (or each of ``buckets``) once on every
         executor's stream, on zero-filled parents of the given ``(shape,
         dtype)``s (the shapes a range or a host-stacked bucket reads), and
         under device staging once more on the family's slot ring, which
         this makes: builds the kernel at first use and pays every
         first-launch cost (including each stream's first allocations)
-        before the timed run.  Launch statistics are not touched.  Under
-        ``inner_chunk="auto"`` this first times the chunks; under
-        ``cost_model=True`` it then times the buckets and, for the
-        ``mixed`` strategy's choice, the ``s2`` widths and the whole-wave
-        launch."""
+        before the timed run.  Launch statistics are not touched.
+
+        A tune store (``store``, a path or a ``TuneStore``, else the
+        config's) with an entry for this family on this device restores
+        its tuned state first (:meth:`_restore_region`); otherwise, under
+        ``prior="roofline"``, the roofline prior seeds its cost model and
+        ladder (:meth:`_seed_prior`).  Either way the installed ladder's
+        decomposition of the wave is warmed too.  Under
+        ``inner_chunk="auto"`` the chunks are timed (unless restored);
+        under ``cost_model=True`` the buckets without a time are timed,
+        and, for the ``mixed`` strategy's choice, the ``s2`` widths and the
+        whole-wave launch, unless the prior seeded the region (its first
+        retune measures): a restored region measures nothing."""
         kernel = self._resolve_kernel(kernel)
+        if store is not None:
+            self._store = TuneStore.open(store)
         parents = tuple(torch.zeros(shape, dtype=dtype, device=self.device)
                         for shape, dtype in parent_shapes)
         region = self._region_for(kernel, [SlotView(p, 0) for p in parents])
         region.remember(parents)
+        restored = self._restore_region(region)
         n_parent = min(p.shape[0] for p in parents)
         region.warmup_wave = max(region.warmup_wave, n_parent)
         if self._chunk_auto and not region.chunk_tuned:
             self._tune_chunk(region, parents)
+        if (self._prior_on and not restored and not region.cost.measured()
+                and not region.cost.seeded()):
+            self._seed_prior(region, parent_shapes)
         want = region.buckets if buckets is None else tuple(sorted(buckets))
+        if region.stats.get("tuned_by") in ("store", "prior"):
+            # the installed ladder is what the drain launches: warm its
+            # decomposition of the wave too
+            want = tuple(sorted(set(want).union(
+                greedy_decomposition(region.warmup_wave, region.buckets))))
         ring = None
         if self._staging == "device":
             ring = region.ensure_ring(self.config.max_aggregated,
@@ -1045,8 +1111,146 @@ class AggregationExecutor:
                     ex.run(region.apply_prefix, 0, b, *ring.buffers())
                     ring.track_read(0, b, ex.last_event)
         self._sync()
-        if self._cost_on:
+        if self._cost_on and not region.cost.seeded():
             self._measure_region(region, want, parents)
+
+    # -- persistent warm start (DESIGN.md §13) -----------------------------
+    def _restore_region(self, region: _Region) -> bool:
+        """Install the store's entry for this region on this device, if
+        there is one: the ladder (validated: a store is data), the inner
+        chunk, every cost path's table (tagged ``"store"``, so the
+        measurements skip those buckets), the queue histogram and the
+        strategy selection.  The region comes up tuned; a wave peak beyond
+        the stored histogram re-arms the tuner, as after a live retune.  A
+        malformed entry warns (:class:`TuneStoreWarning`) and leaves the
+        region cold.  Returns whether the region is restored."""
+        if region.stats.get("tuned_by") == "store":
+            return True                      # a repeated warmup
+        if self._store is None:
+            return False
+        entry = self._store.get(_backend_key(self.device),
+                                region.signature.describe())
+        if not entry:
+            return False
+        try:
+            ladder = validate_ladder([int(b) for b in entry["ladder"]],
+                                     self.config.max_aggregated)
+            cost_tables = {
+                str(path): {int(b): float(t) for b, t in dict(table).items()}
+                for path, table in dict(entry.get("cost_model",
+                                                  {})).items()}
+            queue_hist = {int(k): int(v) for k, v in dict(
+                entry.get("queue_hist", {})).items()}
+            chunk = entry.get("inner_chunk")
+            chunk = None if chunk is None else int(chunk)
+        except (KeyError, TypeError, ValueError) as err:
+            warnings.warn(
+                f"tune store entry for {region.signature.describe()} is "
+                f"unusable ({err}) — falling back to cold-start "
+                f"measurement", TuneStoreWarning, stacklevel=3)
+            return False
+        if chunk is not None:
+            self._set_chunk(region, chunk)
+        for path, table in cost_tables.items():
+            for b, sec in sorted(table.items()):
+                region.cost.record(b, sec, path=path, source="store")
+        region.buckets = ladder
+        region.stats["ladder"] = list(ladder)
+        qh = region.stats["queue_hist"]
+        for k, c in queue_hist.items():
+            qh[k] = qh.get(k, 0) + c
+        region.warmup_wave = max(region.warmup_wave,
+                                 int(entry.get("warmup_wave", 0) or 0))
+        region.tuned = True
+        region._retuned_waves = region.waves
+        region._retuned_peak = max(queue_hist, default=0)
+        for k in ("selected_strategy", "strategy_costs"):
+            if k in entry:
+                region.stats[k] = entry[k]
+        if region.cost.measured():
+            region.stats["cost_model"] = region.cost.as_stats()
+        if len(region.cost.paths()) > 1:
+            region.stats["cost_model_paths"] = region.cost.as_stats_paths()
+        region.stats["tuned_by"] = "store"
+        region.stats["cost_sources"] = {
+            p: dict(t) for p, t in region.cost.sources().items()}
+        region.stats["warm_start"] = True
+        self.stats["warm_start"] = True
+        return True
+
+    def _seed_prior(self, region: _Region, parent_shapes: Sequence[
+            Tuple[Tuple[int, ...], torch.dtype]]) -> None:
+        """First contact without a timer: fill the region's cost model with
+        roofline estimates (every candidate bucket of the wave on
+        ``"s3"``, the ``s2`` widths, the whole wave on ``"fused"``), then
+        derive the ladder from them.  The entries are tagged ``"prior"``
+        and the region stays untuned: its first retune measures and
+        retires them."""
+        wave = min(shape[0] for shape, _ in parent_shapes)
+        if not wave:
+            return
+        if self._prior is None:
+            self._prior = RooflinePrior(_backend_key(self.device))
+        task_specs = tuple((tuple(shape[1:]), dtype)
+                           for shape, dtype in parent_shapes)
+        fn = region.batched_fn
+        cap = self.config.max_aggregated
+        for b in sorted(ladder_candidates({wave: 1}, cap)):
+            region.cost.seed_prior(b, self._prior.predict(fn, task_specs, b))
+        for w in s2_width_candidates(wave):
+            region.cost.seed_prior(w, self._prior.predict(fn, task_specs, w),
+                                   path="s2")
+        region.cost.seed_prior(wave, self._prior.predict(fn, task_specs,
+                                                         wave),
+                               path="fused")
+        ladder = validate_ladder(
+            derive_ladder({wave: 1}, cap, self.config.compile_budget,
+                          region.cost), cap)
+        region.buckets = ladder
+        region.stats["ladder"] = list(ladder)
+        region.stats["tuned_by"] = "prior"
+        region.stats["cost_sources"] = {
+            p: dict(t) for p, t in region.cost.sources().items()}
+        region.stats["prior_hits"] = region.cost.prior_hits
+
+    def _persist_region(self, region: _Region,
+                        store: Optional[TuneStore] = None) -> None:
+        """Put one region's tuned state into the store (measured medians
+        only: priors are seeds, not knowledge)."""
+        store = self._store if store is None else store
+        entry: Dict[str, Any] = {
+            "cost_model": {path: {str(b): region.cost.time(b, path)
+                                  for b in region.cost.buckets(path)}
+                           for path in region.cost.paths()},
+            "ladder": [int(b) for b in region.buckets],
+            "inner_chunk": int(region.chunk),
+            "queue_hist": {str(k): int(v)
+                           for k, v in region.stats["queue_hist"].items()},
+            "warmup_wave": int(region.warmup_wave),
+            "tuned_by": region.stats.get("tuned_by", "measured"),
+        }
+        for k in ("selected_strategy", "strategy_costs"):
+            if k in region.stats:
+                entry[k] = region.stats[k]
+        store.put(_backend_key(self.device), region.signature.describe(),
+                  entry)
+
+    def save_tuning(self, store: Optional[Any] = None) -> Optional[str]:
+        """Put every tuned or measured region into the tune store (the
+        executor's, or ``store``, a path or a ``TuneStore``) and write it
+        atomically.  Returns the store file's path, or None without a
+        store."""
+        target = TuneStore.open(store) if store is not None else self._store
+        if target is None:
+            return None
+        wrote = False
+        for region in self._regions.values():
+            if region.tuned or region.cost.measured():
+                self._persist_region(region, target)
+                wrote = True
+        if wrote or len(target) == 0:
+            target.save()
+        return target.path
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -1896,9 +2100,10 @@ class AggregationExecutor:
         """Swap in the ladder minimizing the per-wave objective: expected
         launches, or under ``cost_model=True`` the predicted time, after
         re-sweeping ``inner_chunk="auto"`` and timing every candidate
-        bucket (:func:`ladder_candidates`).  The bucket kernels need no
-        compile, so the new ladder is live at once.  (Writing the tuned
-        state to a tune store waits in ROADMAP.md, item 10.)"""
+        bucket (:func:`ladder_candidates`); real measurements retire the
+        prior's seeds.  The bucket kernels need no compile, so the new
+        ladder is live at once.  With a tune store, the tuned state is
+        written back (what process two restores)."""
         region._retuned_waves = region.waves
         region._retuned_peak = max(
             (k for k in region.stats["queue_hist"] if k > 0), default=0)
@@ -1919,6 +2124,9 @@ class AggregationExecutor:
         region.stats["prior_hits"] = region.cost.prior_hits
         region.buckets = ladder
         region.stats["ladder"] = list(ladder)
+        if self._store is not None:
+            self._persist_region(region)
+            self._store.save()
 
     def _resweep_chunk(self, region: _Region) -> bool:
         """A retune's ``inner_chunk="auto"`` re-sweep, past the memo.  A

@@ -14,16 +14,20 @@
              s2, s3 or fused, explicitly (``family_strategies``) or by the
              measured cost model.
 * ``fused``— whole-graph upper bound (``fused.py``).
+* ``s4`` / ``sharded`` — ``s3``'s submission through the
+             ``ShardedAggregationExecutor`` (``s4.py``); the port's mesh
+             is one card (DESIGN.md §15).
 
-``s4``/``sharded`` wait in ROADMAP.md.  All strategies are bit-identical in
-results to the scenario's fused reference; only the launch structure
-differs.
+All strategies are bit-identical in results to the scenario's fused
+reference; only the launch structure differs.
 """
 from repro_torch.core.strategies.base import (
     RunContext, Strategy, available_strategies, get_strategy_class,
     register_strategy,
 )
-from repro_torch.core.strategies import fused, mixed, s2, s3  # noqa: F401 (register)
+from repro_torch.core.strategies import (  # noqa: F401 (register)
+    fused, mixed, s2, s3, s4,
+)
 from repro_torch.core.strategies.runner import (
     AMRStrategyRunner, HydroStrategyRunner, StrategyRunner,
 )

@@ -59,10 +59,13 @@ class RunContext:
 class Strategy:
     """One launch structure, stateless by convention.  ``uses_executor``
     tells the runner to build an aggregation executor with the scenario's
-    families registered."""
+    families registered; ``executor_cls`` picks its class (None: the
+    ``AggregationExecutor``; ``s4`` the ``ShardedAggregationExecutor``,
+    which takes the same constructor)."""
 
     name: ClassVar[str] = ""
     uses_executor: ClassVar[bool] = False
+    executor_cls: ClassVar[Optional[type]] = None
 
     def run_iteration(self, scenario, state, ctx: RunContext):
         """One solver iteration: launch every population, assemble

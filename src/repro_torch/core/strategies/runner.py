@@ -18,7 +18,10 @@ the strategy has a ``run_stage`` and staging is on the device.
 Measured tuning lives in the aggregation executor: under ``autotune`` each
 family re-derives its ladder after ``autotune_warmup`` waves, and
 ``stats["regions"][fam]`` carries its ``cost_model`` table and, under
-``mixed``, its ``selected_strategy``.
+``mixed``, its ``selected_strategy``.  With a tune store
+(``AggregationConfig(tune_store=)`` or ``warmup(store=)``) warmup restores
+each family's tuned state, and ``save_tuning`` (also at every checkpoint
+of ``run``) writes it, so a second or resumed process warm-starts.
 
 Containment (``guard="finite"``, ``fault_injector=``) lives there too;
 the executor-less strategies (``fused``, ``s2``) have no bucket to bisect,
@@ -104,7 +107,8 @@ class StrategyRunner:
         self.stats: Dict[str, Any] = {"kernel_launches": 0, "iterations": 0,
                                       "staging_s": 0.0, "regions": {}}
         if strategy_cls.uses_executor:
-            self._agg_exec = AggregationExecutor(
+            exe_cls = strategy_cls.executor_cls or AggregationExecutor
+            self._agg_exec = exe_cls(
                 None, agg, pool=self.pool, name=scenario.name,
                 device=self.device, timer=timer,
                 fault_injector=fault_injector)
@@ -162,7 +166,8 @@ class StrategyRunner:
         ``fused`` launches outside the pool)."""
         return self.pool.launches_by_family
 
-    def warmup(self, wave_only: bool = False) -> None:
+    def warmup(self, wave_only: bool = False,
+               store: Optional[Any] = None) -> None:
         """Launch every family's bucket ladder once at the shapes of the
         scenario's submission waves (executor strategies), or each family's
         body once over its whole wave (``fused``, ``s2``).  On the fused
@@ -170,7 +175,10 @@ class StrategyRunner:
         never launch there.  Builds the CUDA kernel at first use, and
         under ``cost_model=True`` times the buckets warmed.
         ``wave_only=True`` warms only the buckets of a full wave's greedy
-        decomposition under the config's ladder."""
+        decomposition under the config's ladder.  ``store`` (a path or a
+        ``TuneStore``, else the config's ``tune_store``) restores each
+        family's tuned state from the store, measuring nothing for it
+        (executor strategies; the others have no tuned state)."""
         specs_of = (self.scenario.stage_warmup_parent_specs
                     if self._fuse_epilogue
                     else self.scenario.warmup_parent_specs)
@@ -186,12 +194,21 @@ class StrategyRunner:
                     wave = min(shape[0] for shape, _ in specs)
                     buckets = sorted(set(greedy_decomposition(
                         wave, self._agg_exec.config.bucket_sizes())))
-                self._agg_exec.warmup(specs, kernel=kernel, buckets=buckets)
+                self._agg_exec.warmup(specs, kernel=kernel, buckets=buckets,
+                                      store=store)
                 continue
             parents = [torch.zeros(shape, dtype=dtype, device=self.device)
                        for shape, dtype in specs]
             self.scenario.family(kernel).batched_body(*parents)
         self._sync()
+
+    def save_tuning(self, store: Optional[Any] = None) -> Optional[str]:
+        """Write every tuned family's state into the tune store (the
+        config's, or ``store``); the store file's path, or None (no store,
+        or an executor-less strategy)."""
+        if self._agg_exec is None:
+            return None
+        return self._agg_exec.save_tuning(store)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -329,16 +346,17 @@ class StrategyRunner:
 
     def _checkpoint(self, ckpt_dir: str, step: int, state, dt,
                     n_steps: int, checkpoint_every: int) -> None:
-        """Synchronise, then save ``state`` with the run's meta.  ``dt`` is
-        read on the host here only (a 0-dim device tensor stays on the card
-        between saves).  The reference also saves its tune store here; the
-        port's waits for the tune store itself (ROADMAP.md, Queue 1 item
-        10)."""
+        """Synchronise, then save ``state`` with the run's meta, and the
+        tuning (:meth:`save_tuning`), so a resumed process restores its
+        ladders and cost tables instead of measuring them.  ``dt`` is read
+        on the host here only (a 0-dim device tensor stays on the card
+        between saves)."""
         self._sync()
         meta = {"dt": float(dt), "n_steps": int(n_steps),
                 "checkpoint_every": int(checkpoint_every),
                 "scenario": self.scenario.name, "strategy": self.strategy}
         save_checkpoint(ckpt_dir, step, state, {}, meta=meta)
+        self.save_tuning()
 
     def resume(self, ckpt_dir: str, state_template, *,
                dt: Optional[float] = None, n_steps: Optional[int] = None,

@@ -17,7 +17,9 @@ transposes back, as the reference does around its ``pallas_call``.
 The ``*_batched_body`` factories build the aggregation-region bodies the
 scenarios register: the uniform hydro RHS (scalar h), the hydro RHS with a
 per-task width (``level_batched_body``), the gravity solve, and the
-paper's two-kernel Reconstruct + Flux body.  Each takes ``out=``.
+paper's two-kernel Reconstruct + Flux body.  Each takes ``out=`` and
+carries ``ops_per_task()``, its kernels' fp32 operations per task
+(``kernels.counts``), which the warm-start prior reads.
 
 The serving path reaches its two kernels, ``decode_attention`` and
 ``grouped_gemm``, through this module: ``models.model.decode_step`` takes
@@ -27,12 +29,15 @@ plain versions to swap in on the card.
 from __future__ import annotations
 
 import types
-from functools import lru_cache
+from functools import lru_cache, partial
 from typing import Callable, Optional
 
 import torch
 
 from repro_torch.configs.base import GravityHydroConfig, HydroConfig
+from repro_torch.kernels.counts import (
+    flux_ops, gravity_ops, hydro_rhs_ops, reconstruct_ops,
+)
 from repro_torch.kernels.decode_attention import (
     decode_attention_cuda, decode_attention_plain,
 )
@@ -140,17 +145,21 @@ PLAIN_LM = types.SimpleNamespace(decode_attention=decode_attention_plain,
                                  grouped_gemm=grouped_gemm_plain)
 
 
+@lru_cache(maxsize=None)
 def hydro_batched_body(cfg: HydroConfig, h: float,
                        layout: str = "slot_grid") -> Callable:
     """The uniform-grid batched task body ``(n, F, P, P, P) -> (n, F, S, S,
     S)`` with the cell width fixed: the layout's kernel on the card, its
-    plain version on the CPU (``pallas_batched_body``'s counterpart)."""
+    plain version on the CPU (``pallas_batched_body``'s counterpart).
+    Cached, so scenarios of one config register the same callable (the
+    tenants a ``TenantBatcher`` merges into one family)."""
     check_layout(layout)
 
     def batched(u_slots: torch.Tensor,
                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
         return hydro_rhs(u_slots, h=h, gamma=cfg.gamma, ghost=cfg.ghost,
                          subgrid=cfg.subgrid, layout=layout, out=out)
+    batched.ops_per_task = partial(hydro_rhs_ops, 1, cfg.subgrid, cfg.ghost)
     return batched
 
 
@@ -167,6 +176,7 @@ def level_batched_body(gamma: float, ghost: int, subgrid: int,
                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
         return hydro_rhs(u_slots, h_slots=h_slots, gamma=gamma, ghost=ghost,
                          subgrid=subgrid, layout=layout, out=out)
+    batched.ops_per_task = partial(hydro_rhs_ops, 1, subgrid, ghost)
     return batched
 
 
@@ -180,6 +190,8 @@ def gravity_batched_body(cfg: GravityHydroConfig) -> Callable:
                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
         return gravity(u_slots, h_slots, ghost=hc.ghost, subgrid=hc.subgrid,
                        g_const=cfg.g_const, n_iter=cfg.relax_iters, out=out)
+    batched.ops_per_task = partial(gravity_ops, 1, hc.subgrid, hc.ghost,
+                                   cfg.relax_iters)
     return batched
 
 
@@ -192,4 +204,6 @@ def hydro_split_batched_body(cfg: HydroConfig, h: float) -> Callable:
                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
         return hydro_flux(hydro_reconstruct(u_slots), h=h, gamma=cfg.gamma,
                           ghost=cfg.ghost, subgrid=cfg.subgrid, out=out)
+    batched.ops_per_task = lambda: (reconstruct_ops(1, cfg.padded)
+                                    + flux_ops(1, cfg.subgrid, cfg.ghost))
     return batched

@@ -25,9 +25,16 @@ counter as the wave); under ``AggregationConfig(guard="finite")`` a
 non-finite row evicts exactly its request and recycles its slot, while the
 co-batched requests decode on.  The row flags come back in the same
 device-to-host copy as the tokens.  ``healthz()["breakers"]`` reports a
-shared ``executor``'s circuit breakers.  The tune store and the tenant
-``batcher`` are not ported yet: asking for either raises
-``NotImplementedError`` naming ROADMAP.md.
+shared ``executor``'s circuit breakers, and ``healthz()["tenants"]``
+merges the engine's requests by tenant with an attached ``batcher``'s
+(a :class:`~repro_torch.core.sharding.TenantBatcher`) scenario tenants.
+
+Warm start: ``agg.tune_store`` (or ``REPRO_TUNE_STORE``) is opened and
+reported in ``stats["tune_store"]`` and ``stats["warm_start"]``.  The
+reference points JAX's compilation cache at it, so a restarted server's
+bucket programs load instead of compiling; the port's kernels are built
+once into the persistent build cache (``kernels._build``) whatever the
+store says, and the engine keeps no tuned state of its own.
 """
 from __future__ import annotations
 
@@ -41,6 +48,7 @@ from torch.profiler import record_function
 
 from repro_torch.configs.base import AggregationConfig
 from repro_torch.core.faults import FaultInjector, poison_slots
+from repro_torch.core.tunestore import TuneStore
 from repro_torch.data.pipeline import length_bucket
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import model as model_mod
@@ -69,10 +77,6 @@ class Request:
     _deadline: Optional[float] = field(default=None, repr=False)
 
 
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (see ROADMAP.md)")
-
-
 class ServingEngine:
     def __init__(self, cfg, model: model_mod.Model, *, max_batch: int = 8,
                  max_len: int = 256, max_pending: int = 0,
@@ -80,8 +84,6 @@ class ServingEngine:
                  fault_injector: Optional[FaultInjector] = None,
                  executor=None, batcher=None,
                  device: DeviceLike = None):
-        if batcher is not None:
-            raise _unported("a tenant batcher in healthz (tenancy)")
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"the model lies on {model.device}, the engine "
@@ -94,6 +96,8 @@ class ServingEngine:
         # a shared AggregationExecutor whose breakers healthz() reports
         # (anything with ``breaker_states()``); decoding does not use it
         self._executor = executor
+        # a TenantBatcher whose tenants healthz() merges into "tenants"
+        self._batcher = batcher
         self._injector = fault_injector
         self.max_batch = max_batch
         self.max_len = max_len
@@ -104,6 +108,7 @@ class ServingEngine:
         self._closed = False
         self.agg = agg or AggregationConfig(max_aggregated=max_batch)
         self.guard = self.agg.guard
+        self._store = TuneStore.open(self.agg.tune_store)
         self.buckets = tuple(b for b in self.agg.bucket_sizes()
                              if b <= max_batch) or (max_batch,)
         self.cache = model_mod.init_cache(model, max_batch, max_len)
@@ -113,6 +118,9 @@ class ServingEngine:
         self.next_token = np.zeros((max_batch,), np.int32)
         self._step_no = 0                        # launch counter ("wave")
         self.stats = {"launches": 0, "tokens": 0, "aggregated_hist": {},
+                      "warm_start": self._store is not None,
+                      "tune_store": (self._store.root
+                                     if self._store is not None else None),
                       "faults": {"trips": 0, "evicted": 0, "shed": 0}}
 
     # -- admission ---------------------------------------------------------
@@ -345,15 +353,23 @@ class ServingEngine:
         }
 
     def _tenant_health(self) -> Dict[str, object]:
-        """The engine's pending and active requests grouped by tenant."""
+        """The engine's pending and active requests grouped by tenant,
+        merged with an attached batcher's tenants (queue depths added,
+        its shard occupancy)."""
         queue: Dict[object, int] = {}
         for r in self.pending:
             queue[r.tenant] = queue.get(r.tenant, 0) + 1
         active: Dict[object, int] = {}
         for r in self.active.values():
             active[r.tenant] = active.get(r.tenant, 0) + 1
+        occupancy: List[int] = []
+        if self._batcher is not None:
+            bh = self._batcher.healthz()
+            for tid, depth in bh.get("queue_depth", {}).items():
+                queue[tid] = queue.get(tid, 0) + depth
+            occupancy = bh.get("shard_occupancy", [])
         return {"count": len(set(queue) | set(active)), "queue_depth": queue,
-                "active": active, "shard_occupancy": []}
+                "active": active, "shard_occupancy": occupancy}
 
     def drain(self, max_steps: int = 10000) -> None:
         """Stop admitting new requests (submit raises EngineOverloaded) but

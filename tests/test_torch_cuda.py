@@ -1296,3 +1296,122 @@ def test_watchdog_catches_a_real_stall_and_the_executor_recovers(dev):
     fut = exe.submit_range((u,), 0, 32, kernel="stalled")
     exe.flush()
     assert torch.equal(fut.result(), want)
+
+
+# ---------------------------------------------------------------------------
+# warm start and tenancy on one card
+# ---------------------------------------------------------------------------
+
+_WARM_CHILD = """
+import json, sys
+import torch
+from repro_torch.configs.base import AggregationConfig, HydroConfig
+from repro_torch.core import StrategyRunner, UniformSedovScenario
+from repro_torch.kernels import _build
+
+store, data = sys.argv[1], torch.load(sys.argv[2])
+runner = StrategyRunner(UniformSedovScenario(HydroConfig(levels=1)),
+                        AggregationConfig(strategy="s3", max_aggregated=4,
+                                          autotune=True, cost_model=True),
+                        device="cuda")
+runner.warmup(store=store)
+u = data["u0"].cuda()
+for _ in range(2):
+    u = runner.rk3_step(u, data["dt"].cuda())
+(fam,) = runner.stats["regions"].values()
+print(json.dumps({"tuned_by": fam["tuned_by"], "ladder": fam["ladder"],
+                  "measured": fam["measurement_launches"],
+                  "built": {k: v["seconds"] for k, v
+                            in _build.BUILD_LOG.items()},
+                  "equal": bool(torch.equal(u.cpu(), data["want"]))}))
+"""
+
+
+def test_warm_start_round_trip_in_a_child_process(dev, tmp_path):
+    """This process tunes (cost model, autotune) and saves; a fresh child
+    warms up from the store: tuned by the store, no measurement launch,
+    no library built, and its steps equal this process's bit for bit."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    agg = AggregationConfig(strategy="s3", max_aggregated=4, autotune=True,
+                            cost_model=True, tune_store=str(tmp_path))
+    u0 = sedov_init(CFG, device=dev).u
+    dt = courant_dt(u0, CFG)
+    cold = StrategyRunner(UniformSedovScenario(CFG), agg, device=dev)
+    cold.warmup()
+    u = u0
+    for _ in range(2):
+        u = cold.rk3_step(u, dt)
+    (fam,) = cold.stats["regions"].values()
+    assert fam["tuned_by"] == "measured" and fam["measurement_launches"]
+    assert os.path.isfile(tmp_path / "tunestore.json")   # the write-back
+    torch.save({"u0": u0.cpu(), "dt": dt.cpu(), "want": u.cpu()},
+               tmp_path / "data.pt")
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       os.pardir, "src")
+    child = subprocess.run(
+        [sys.executable, "-c", _WARM_CHILD, str(tmp_path),
+         str(tmp_path / "data.pt")],
+        env=dict(os.environ, PYTHONPATH=os.path.abspath(src)),
+        capture_output=True, text=True, timeout=300)
+    assert child.returncode == 0, child.stderr[-2000:]
+    got = json.loads(child.stdout.strip().splitlines()[-1])
+    assert got["tuned_by"] == "store" and got["measured"] == 0
+    assert got["ladder"] == fam["ladder"]
+    assert got["built"] and all(s is None for s in got["built"].values())
+    assert got["equal"]
+
+
+def _tenant_batcher(dev, n, scenario, state, dt, cap=32):
+    from repro_torch.core import ShardedAggregationExecutor, TenantBatcher
+
+    tb = TenantBatcher(ShardedAggregationExecutor(config=AggregationConfig(
+        strategy="s4", max_aggregated=cap), name="tenancy", device=dev))
+    for tid in range(n):
+        tb.add(tid, scenario(), state, dt)
+    return tb
+
+
+def test_eight_staged_tenants_bit_equal_to_solo(dev):
+    """Eight tenants of the main path's small config, two steps through
+    the captured extract and assemble phases: each equals its solo s3
+    run bit for bit, 3 merged waves per step, and no eager fallback."""
+    u0 = sedov_init(CFG, device=dev).u
+    dt = courant_dt(u0, CFG)
+    solo = StrategyRunner(UniformSedovScenario(CFG), AggregationConfig(
+        strategy="s3", max_aggregated=32), device=dev)
+    want = solo.rk3_step(solo.rk3_step(u0, dt), dt)
+    tb = _tenant_batcher(dev, 8, lambda: UniformSedovScenario(CFG), u0, dt)
+    tb.rk3_step_all()
+    out = tb.rk3_step_all()
+    for tid in range(8):
+        assert torch.equal(out[tid], want), tid
+    assert tb.stats["waves"] == 6 and tb.stats["eager_fallbacks"] == 0
+    assert len(tb._stage_cache) == 1 and not tb._eager
+    # 64 tasks per wave under cap 32: two launches of 32
+    assert tb.executor.stats["aggregated_hist"] == {32: 12}
+
+
+class _HostSyncScenario(UniformSedovScenario):
+    """The main path's scenario with a population that reads a value on
+    the host (``.item()``), which no CUDA graph can capture."""
+
+    def populations(self, state):
+        assert state.sum().item() > 0
+        return super().populations(state)
+
+
+def test_host_sync_population_falls_to_eager_and_is_counted(dev):
+    u0 = sedov_init(CFG, device=dev).u
+    dt = courant_dt(u0, CFG)
+    want = StrategyRunner(UniformSedovScenario(CFG), AggregationConfig(
+        strategy="s3", max_aggregated=32), device=dev).rk3_step(u0, dt)
+    tb = _tenant_batcher(dev, 2, lambda: _HostSyncScenario(CFG), u0, dt)
+    out = tb.rk3_step_all()
+    assert tb._eager and tb.stats["eager_fallbacks"] == 1
+    assert tb.stats["waves"] == 3
+    for tid in range(2):
+        assert torch.equal(out[tid], want)

@@ -196,12 +196,18 @@ def test_executor_pool_on_cpu_is_inline_and_round_robin():
 # ---------------------------------------------------------------------------
 
 def test_unported_config_values_raise_naming_roadmap():
+    # warm start and s4 are ported: they build, and s4 runs on one card
     for strategy in ("s4", "sharded"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            AggregationConfig(strategy=strategy)
-    for kw in (dict(prior="roofline"), dict(tune_store="/nonexistent")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            AggregationConfig(**kw)
+        AggregationConfig(strategy=strategy)
+        StrategyRunner(UniformSedovScenario(CFG),
+                       AggregationConfig(strategy=strategy), device="cpu")
+    AggregationConfig(prior="roofline", tune_store="/nonexistent")
+    with pytest.raises(ValueError, match="prior mode"):
+        AggregationConfig(prior="bogus")
+    # a mesh over several cards waits for distributed/ (item 14)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        StrategyRunner(UniformSedovScenario(CFG), AggregationConfig(
+            strategy="s4", shard_devices=2), device="cpu")
     # containment is ported: the guard, the watchdog and the breakers build
     AggregationConfig(guard="finite", launch_timeout_s=1.0, breaker_window=2)
     with pytest.raises(ValueError, match="guard mode"):

@@ -312,10 +312,19 @@ def test_engine_without_a_device_needs_the_card(monkeypatch):
 def test_unported_engine_options_raise_naming_roadmap():
     cfg, m = pair("granite-8b")[:2]
     kw = dict(max_batch=2, max_len=16, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServingEngine(cfg, m, batcher=object(), **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        AggregationConfig(tune_store="/nonexistent")
+    # tenancy and the tune store are ported: a batcher is accepted and
+    # reported in healthz, the store in stats
+    class Batcher:
+        def healthz(self):
+            return {"count": 1, "queue_depth": {"acme": 4},
+                    "shard_occupancy": [4]}
+    eng = ServingEngine(cfg, m, batcher=Batcher(), agg=AggregationConfig(
+        max_aggregated=2, tune_store="/nonexistent"), **kw)
+    assert eng.healthz()["tenants"] == {
+        "count": 1, "queue_depth": {"acme": 4}, "active": {},
+        "shard_occupancy": [4]}
+    assert eng.stats["tune_store"] == "/nonexistent"
+    assert eng.stats["warm_start"] is True
     # containment is ported: an injector, a shared executor and the guard
     ServingEngine(cfg, m, fault_injector=FaultInjector([]),
                   executor=AggregationExecutor(device="cpu"),
