@@ -167,7 +167,12 @@
    that rows past group_len are exactly 0; times each against its plain
    version, one PyTorch call and its bound, decode attention by CUDA-graph
    replays with L2 cold (as the serving path finds a layer's cache) and
-   warm, beside SDPA at B 1, 2, 4 and 8 in the same call.
+   warm, beside SDPA at B 1, 2, 4 and 8 in the same call.  Then the same
+   checks and times at the shapes the families of item 17 give the two
+   kernels (``FAMILY_DA_ROWS``: h2o-danube's D 80, seamless's MHA at D 64,
+   starcoder2's group of 12, dbrx's group of 6, llama-vision's cross
+   attention over 6,404 positions at full length; dbrx's (16, C, 6144) @
+   (16, 6144, 10752) and (16, C, 10752) @ (16, 10752, 6144) expert GEMMs).
 16. The serving path: qwen2-moe-a2.7b at full width and depth in bf16
    (14.3 B weights from a seeded generator on the card) behind
    ``ServingEngine(max_batch=8, max_len=1024)`` on 12 requests (prompts of
@@ -183,7 +188,23 @@
    logits must stay within ``F32_LOGIT_TOL`` of the kernels'.
    Prints tokens/s, ms per launch by bucket, the cache gather and scatter
    copies' device time and peak memory.
-17. Prints one line naming the kernels, one JSON line of kernels, the card
+17. The families: h2o-danube-1.8b, starcoder2-15b, seamless-m4t-large-v2
+   (published depths), qwen1.5-32b (32 of 64 layers), dbrx-132b (4 of 40)
+   and llama-3.2-vision-90b (10 of 100, the full 6,404 stub vision tokens)
+   at published widths in bf16, one after the other, each freed before the
+   next (``FAMILY_DEPTHS`` says why each cut), behind
+   ``ServingEngine(max_batch=8, max_len=256)`` on 6 requests (prompts of
+   4-32 tokens, 8 new tokens each): every request done, decode_attention
+   launched once per attention read of each engine launch (two per
+   seamless decoder layer) and grouped_gemm 3x per dbrx layer; each
+   emitted token its solo replay's argmax within ``LOGIT_TOL``; one replay
+   with every kernel launch held to its plain version; fp32 at
+   ``F32_LAYERS`` layers (one group for vlm) with the plain versions'
+   logits within ``F32_LOGIT_TOL`` of the kernels'.  Prints tokens/s, host
+   ms per launch by bucket, device busy and idle share per launch at
+   buckets 1 and 8 from ``torch.profiler``, the cache gather per launch
+   and peak memory.
+18. Prints one line naming the kernels, one JSON line of kernels, the card
    line, and as its last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the run exits non-zero and prints no result;
@@ -191,6 +212,7 @@ so does a host without a CUDA device (exit 2), or a directory without the
 repo's ``src/repro_torch`` beside the script (exit 1).
 """
 import argparse
+import gc
 import json
 import os
 import subprocess
@@ -3625,6 +3647,51 @@ def gg_bytes_ops(x, w, gl):
             2 * rows * k * n)
 
 
+def timed_engine(*args, **kw):
+    """A ``ServingEngine`` that keeps the host time of every launch by
+    bucket in ``launch_ms`` (each launch ends in the argmax's copy to the
+    host, so it is synchronised)."""
+    from repro_torch.data.pipeline import length_bucket
+    from repro_torch.serving import ServingEngine
+
+    class TimedEngine(ServingEngine):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.launch_ms = {}
+
+        def _launch(self, slots, toks):
+            bucket = length_bucket(len(slots), self.buckets)
+            t0 = time.perf_counter()
+            out = super()._launch(slots, toks)
+            self.launch_ms.setdefault(bucket, []).append(
+                (time.perf_counter() - t0) * 1e3)
+            return out
+
+    return TimedEngine(*args, **kw)
+
+
+def replay_alone(model, req, kernels, max_len):
+    """Request ``req`` alone (bucket 1) through ``decode_step`` with
+    ``kernels``, fed the engine's own tokens, against the engine's stub
+    memory: the fp32 logits of each emitted token, (n, V)."""
+    from repro_torch.models import model as model_mod
+
+    dev = model.device
+    cache = model_mod.init_cache(model, 1, max_len)
+    for tok in req.prompt[:-1]:
+        model_mod.decode_step(model, cache,
+                              torch.tensor([[tok]], device=dev),
+                              kernels=kernels)
+    tok, rows = req.prompt[-1], []
+    for nxt in req.output:
+        lg, cache = model_mod.decode_step(
+            model, cache, torch.tensor([[tok]], device=dev),
+            kernels=kernels)
+        rows.append(lg[0].float())
+        tok = nxt
+    return torch.stack(rows)
+
+
 def phase_lm_kernels(dev, card, results):
     """The two serving kernels against their plain versions at the
     full-width qwen2-moe-a2.7b shapes (bf16), at fp32 and at granite-8b's
@@ -3697,18 +3764,6 @@ def phase_lm_kernels(dev, card, results):
 
     def kernel_call(qq, kk, vv, cc):
         return lambda: da.decode_attention_cuda(qq, kk, vv, cc)
-
-    def sdpa_call(qq, kk, vv, cc):
-        """One PyTorch call for the same function: SDPA with the boolean
-        length mask (built, like the GQA expansion, outside the call)."""
-        g = qq.shape[1] // kk.shape[2]
-        qs = qq[:, :, None, :]
-        ks = kk.transpose(1, 2).repeat_interleave(g, dim=1)
-        vs = vv.transpose(1, 2).repeat_interleave(g, dim=1)
-        mask = (torch.arange(s, device=dev)[None, :]
-                < cc[:, None])[:, None, None, :]
-        return lambda: F.scaled_dot_product_attention(qs, ks, vs,
-                                                      attn_mask=mask)
 
     allclose_err("library call (scaled_dot_product_attention) vs plain",
                  sdpa_call(q, k, v, cl)()[:, :, 0],
@@ -3852,6 +3907,189 @@ def phase_lm_kernels(dev, card, results):
         tokens=b, group_len=gll, shapes={k2: {kk: vv for kk, vv in v2.items()
                                               if kk != "bytes_ops"}
                                          for k2, v2 in t.items()})
+    family_kernel_rows(dev, card, results)
+
+
+# the families phase's new kernel shapes: (label, Hq, Hkv, D, S, every
+# request at full length) of decode attention at four families' self
+# attention over the serving phase's cache, and llama-vision's cross
+# attention over its 6,404 stub vision tokens (full length: every position
+# is memory)
+FAMILY_DA_ROWS = (
+    ("h2o-danube-1.8b GQA 32/8 D 80", 32, 8, 80, MAX_LEN, False),
+    ("seamless-m4t-large-v2 MHA 16/16 D 64", 16, 16, 64, MAX_LEN, False),
+    ("starcoder2-15b GQA 48/4 (group 12)", 48, 4, 128, MAX_LEN, False),
+    ("dbrx-132b GQA 48/8 (group 6)", 48, 8, 128, MAX_LEN, False),
+    ("llama-3.2-vision-90b cross 64/8 (group 8), S 6404", 64, 8, 128, 6404,
+     True),
+)
+
+
+def sdpa_call(qq, kk, vv, cc):
+    """One PyTorch call for decode attention: SDPA with the boolean length
+    mask (built, like the GQA expansion, outside the call)."""
+    import torch.nn.functional as F
+
+    g = qq.shape[1] // kk.shape[2]
+    qs = qq[:, :, None, :]
+    ks = kk.transpose(1, 2).repeat_interleave(g, dim=1)
+    vs = vv.transpose(1, 2).repeat_interleave(g, dim=1)
+    mask = (torch.arange(kk.shape[1], device=kk.device)[None, :]
+            < cc[:, None])[:, None, None, :]
+    return lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)
+
+
+def family_kernel_rows(dev, card, results):
+    """The two serving kernels at the shapes the six families of the
+    ``families`` phase give them (``FAMILY_DA_ROWS``; dbrx-132b's expert
+    GEMMs): each in bf16 and fp32 against its plain version, every request
+    or expert row bit-equal to its solo launch, NaN past cache_len never
+    read, rows past group_len exactly 0; timed (bf16, L2 cold for decode
+    attention) beside the plain version, one PyTorch call and the bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import grouped_gemm as gg
+    from repro_torch.models import moe
+    from repro_torch.models.common import Init
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    rng = np.random.default_rng(24)
+    b = MAX_BATCH
+    rows = {}
+    for label, hq, hkv, d, s, full in FAMILY_DA_ROWS:
+        lens = (np.full(b, s) if full else np.concatenate(
+            [[1, s], rng.integers(2, s, b - 2)])).astype(np.int32)
+        cl = torch.from_numpy(lens).to(dev)
+        errs = []
+        for dtype in (f32, bf16):           # bf16 last: it is timed
+            q = draw(rng, (b, hq, d), dtype, dev)
+            k = draw(rng, (b, s, hkv, d), dtype, dev)
+            v = draw(rng, (b, s, hkv, d), dtype, dev)
+            got = da.decode_attention_cuda(q, k, v, cl)
+            errs.append(allclose_err(
+                f"decode_attention kernel vs plain, {label}, {dtype}", got,
+                da.decode_attention_plain(q, k, v, cl), DA_TOL[dtype]))
+            for i in range(b):
+                solo = da.decode_attention_cuda(q[i:i + 1], k[i:i + 1],
+                                                v[i:i + 1], cl[i:i + 1])
+                check(torch.equal(solo[0], got[i]),
+                      f"decode_attention {label} {dtype}: request {i} "
+                      f"differs between its solo launch and the bucket")
+            if not full:
+                k2, v2 = k.clone(), v.clone()
+                for i, n in enumerate(lens.tolist()):
+                    k2[i, n:] = float("nan")
+                    v2[i, n:] = float("nan")
+                check(torch.equal(da.decode_attention_cuda(q, k2, v2, cl),
+                                  got),
+                      f"decode_attention {label} {dtype}: NaN stored past "
+                      f"cache_len changed the result")
+                del k2, v2
+        # bf16 (the serving dtype) times, L2 cold by graph replays
+        n_bytes, n_ops = attention_bytes_ops(q, k, lens)
+        g = hq // hkv
+        calls, k_exc = l2_cold_calls(
+            lambda qq, kk, vv: lambda: da.decode_attention_cuda(qq, kk, vv,
+                                                                cl),
+            (q, k, v), n_bytes)
+        ms = time_graph_ms(calls, 200)
+        ms_warm = time_graph_ms(calls[0], 200)
+        del calls
+        lib, l_exc = l2_cold_calls(lambda qq, kk, vv: sdpa_call(qq, kk, vv,
+                                                                cl),
+                                   (q, k, v),
+                                   2 * g * k.numel() * k.element_size())
+        library_ms = time_graph_ms(lib, 50)
+        del lib
+        plain_ms = time_cuda_ms(lambda: da.decode_attention_plain(q, k, v,
+                                                                  cl), 10)
+        b_ms, b_by = bound_ms(n_bytes, n_ops, flop_rate(bf16))
+        chunk, n_chunks = da.launch_plan(s, d)
+        rows[label] = dict(hq=hq, hkv=hkv, d=d, s=s, cache_len=lens.tolist(),
+                           max_abs_err=max(errs), ms=ms, ms_warm=ms_warm,
+                           plain_ms=plain_ms, library_ms=library_ms,
+                           bound_ms=b_ms, bound_by=b_by, chunk=chunk,
+                           n_chunks=n_chunks, l2_exceeded=[k_exc, l_exc])
+        print(f"decode_attention {label} bf16 B={b}: {ms:.4f} ms L2 cold "
+              f"({ms_warm:.4f} warm; graph replays); plain {plain_ms:.4f} "
+              f"ms; scaled_dot_product_attention {library_ms:.4f} ms (L2 "
+              f"cold); bound {b_ms:.5f} ms ({b_by}), so {ms / b_ms:.1f}x its "
+              f"bound and {ms / library_ms:.2f}x SDPA; {chunk}-position "
+              f"chunks, {n_chunks} per (kv head, request) ({card})",
+              flush=True)
+        del q, k, v
+    print(f"decode_attention: the {len(FAMILY_DA_ROWS)} family shapes "
+          f"within tolerance of the plain version in bf16 and fp32, every "
+          f"request equal to its solo launch bit for bit, NaN past "
+          f"cache_len never read", flush=True)
+
+    # dbrx-132b's expert GEMMs, routed by a full-width router
+    cfg = get_config("dbrx-132b")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(24)
+    layer = moe.MoE(cfg, Init(gen, dev), bf16)
+    r = moe.route(layer, draw(rng, (b, cfg.d_model), bf16, dev), cfg)
+    x, gl = r.x_cap, r.group_len
+    e, c = x.shape[:2]
+    gll = gl.tolist()
+    check(c == moe.expert_capacity(b, cfg),
+          f"dbrx capacity {c} != expert_capacity({b})")
+    gate = gg.grouped_gemm_cuda(x, layer.w_gate, gl)
+    h = (F.silu(gate) * gg.grouped_gemm_cuda(x, layer.w_up, gl)).contiguous()
+    down = gg.grouped_gemm_cuda(h, layer.w_down, gl)
+    live_rows = (torch.arange(c, device=dev)[None, :]
+                 < gl[:, None])[..., None].to(bf16)
+    dead = live_rows[..., 0] == 0
+    gg_rows = {}
+    for name, xi, w, out in (("gate/up", x, layer.w_gate, gate),
+                             ("down", h, layer.w_down, down)):
+        label = f"dbrx-132b {name} ({e}, {c}, {w.shape[1]}) @ ({e}, " \
+                f"{w.shape[1]}, {w.shape[2]})"
+        errs = [allclose_err(f"grouped_gemm kernel vs plain, {label}, bf16",
+                             out, gg.grouped_gemm_plain(xi, w, gl),
+                             GG_TOL[bf16])]
+        x32, w32 = xi.float(), w.float()
+        errs.append(allclose_err(
+            f"grouped_gemm kernel vs plain, {label}, f32",
+            gg.grouped_gemm_cuda(x32, w32, gl),
+            gg.grouped_gemm_plain(x32, w32, gl), GG_TOL[f32]))
+        del x32, w32
+        check(not bool(out[dead].any()),
+              f"grouped_gemm {label}: a row past group_len is not 0")
+        ex = next(i for i, n in enumerate(gll) if n)
+        x2 = draw(rng, tuple(xi.shape), bf16, dev)
+        x2[ex, 0] = xi[ex, 0]
+        check(torch.equal(gg.grouped_gemm_cuda(x2, w, torch.full_like(gl, c))
+                          [ex, 0], out[ex, 0]),
+              f"grouped_gemm {label}: a row changed when the other rows "
+              f"changed")
+        del x2
+        n_bytes, n_ops = gg_bytes_ops(xi, w, gl)
+        b_ms, b_by = bound_ms(n_bytes, n_ops, flop_rate(bf16))
+        gg_rows[name] = dict(
+            shape=[e, c, int(w.shape[1]), int(w.shape[2])], group_len=gll,
+            max_abs_err=max(errs),
+            ms=time_cuda_ms(lambda: gg.grouped_gemm_cuda(xi, w, gl), 20),
+            plain_ms=time_cuda_ms(lambda: gg.grouped_gemm_plain(xi, w, gl),
+                                  3),
+            library_ms=time_cuda_ms(lambda: torch.bmm(xi, w).mul_(live_rows),
+                                    20),
+            bound_ms=b_ms, bound_by=b_by, bytes=n_bytes, flop=n_ops)
+        row = gg_rows[name]
+        print(f"grouped_gemm {label} bf16, {sum(gll)} live rows in "
+              f"{sum(1 for n in gll if n)} experts: {row['ms']:.4f} ms; "
+              f"plain {row['plain_ms']:.4f} ms; torch.bmm + mask "
+              f"{row['library_ms']:.4f} ms; bound {b_ms:.4f} ms ({b_by}: "
+              f"{n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.4f} GFLOP), so "
+              f"{row['ms'] / b_ms:.2f}x its bound ({card})", flush=True)
+    print(f"grouped_gemm: dbrx-132b's shapes within tolerance in bf16 and "
+          f"fp32, rows past group_len and the {gll.count(0)} empty experts "
+          f"exactly 0, a row bit-equal with every other row changed",
+          flush=True)
+    results["family_kernel_rows"] = dict(decode_attention=rows,
+                                         grouped_gemm=gg_rows)
 
 
 def phase_serving_path(dev, card, results):
@@ -3861,28 +4099,11 @@ def phase_serving_path(dev, card, results):
     token the argmax of its solo replay (or within LOGIT_TOL of it); three
     replays through the kernels hook (item 14 of the module docstring)."""
     from repro_torch.configs.qwen2_moe_a2_7b import CONFIG as cfg
-    from repro_torch.data.pipeline import length_bucket
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import grouped_gemm as gg
     from repro_torch.kernels import ops
     from repro_torch.models import model as model_mod
     from repro_torch.serving import Request, ServingEngine
-
-    class TimedEngine(ServingEngine):
-        """Host time of every launch by bucket (each launch ends in the
-        argmax's copy to the host, so it is synchronised)."""
-
-        def __init__(self, *a, **kw):
-            super().__init__(*a, **kw)
-            self.launch_ms = {}
-
-        def _launch(self, slots, toks):
-            bucket = length_bucket(len(slots), self.buckets)
-            t0 = time.perf_counter()
-            out = super()._launch(slots, toks)
-            self.launch_ms.setdefault(bucket, []).append(
-                (time.perf_counter() - t0) * 1e3)
-            return out
 
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
@@ -3913,7 +4134,7 @@ def phase_serving_path(dev, card, results):
     reqs = [Request(i, [int(t) for t in rng.integers(0, cfg.vocab_size, n)],
                     max_new_tokens=new)
             for i, (n, new) in enumerate(zip(plens, news))]
-    eng = TimedEngine(cfg, m, **kw)
+    eng = timed_engine(cfg, m, **kw)
     for r in reqs:
         eng.submit(r)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -3965,21 +4186,8 @@ def phase_serving_path(dev, card, results):
               f"{card})", flush=True)
         del sub
 
-    # replay each request alone (bucket 1), fed the engine's own tokens
     def replay(model, req, kernels):
-        cache = model_mod.init_cache(model, 1, MAX_LEN)
-        for tok in req.prompt[:-1]:
-            model_mod.decode_step(model, cache,
-                                  torch.tensor([[tok]], device=dev),
-                                  kernels=kernels)
-        tok, rows = req.prompt[-1], []
-        for nxt in req.output:
-            lg, cache = model_mod.decode_step(
-                model, cache, torch.tensor([[tok]], device=dev),
-                kernels=kernels)
-            rows.append(lg[0].float())
-            tok = nxt
-        return torch.stack(rows)
+        return replay_alone(model, req, kernels, MAX_LEN)
 
     t0 = time.perf_counter()
     kept, n_steps, n_near = {}, 0, 0
@@ -4088,6 +4296,249 @@ def phase_serving_path(dev, card, results):
         f32_logit_tol=F32_LOGIT_TOL)
     results["decode_attention_kernel"]["launches"] = n_da
     results["grouped_gemm_kernel"]["launches"] = n_gg
+
+
+# the families phase: each architecture at published widths in bf16, at
+# its published depth (None) unless one 80 GB card or the run's time
+# forces a cut, and why
+FAMILY_DEPTHS = (
+    ("h2o-danube-1.8b", None, ""),
+    ("starcoder2-15b", None, ""),
+    ("seamless-m4t-large-v2", None, ""),
+    ("qwen1.5-32b", 32, "its 64 layers are 70.4 GB of bf16 weights, which "
+     "leave too little of the card's 80 GB for the engine's caches, the "
+     "replays' plain versions and the fp32 check"),
+    ("dbrx-132b", 4, "its 40 layers are 263 GB of bf16 weights, three "
+     "cards' memory"),
+    ("llama-3.2-vision-90b", 10, "its 100 layers are 175 GB of bf16 "
+     "weights; 10 keep two groups of 4 self-attention blocks and a gated "
+     "cross-attention block over the full 6,404 stub vision tokens"),
+)
+FAMILY_REQUESTS = 6
+FAMILY_PROMPTS = (4, 32)        # prompt lengths, drawn in this range
+FAMILY_NEW_TOKENS = 8
+FAMILY_MAX_LEN = 256
+FAMILY_PROFILED_STEPS = 4       # decode launches profiled per bucket
+
+
+def attention_reads(cfg):
+    """Decode-attention launches per decode step: one per self-attention
+    layer, one per vlm cross block, two per enc-dec decoder layer."""
+    if cfg.family == "vlm":
+        return cfg.n_layers // cfg.cross_attn_every * cfg.cross_attn_every
+    if cfg.family == "audio":
+        return 2 * cfg.n_layers
+    return cfg.n_layers
+
+
+def profile_buckets(cfg, m, dev, buckets=(1, MAX_BATCH)):
+    """Device busy per decode launch from ``torch.profiler`` and the
+    profiled host ms per launch, at each bucket: that many one-token
+    requests decoding ``FAMILY_PROFILED_STEPS`` tokens (the first launch,
+    which admits them, stays out of the window)."""
+    from repro_torch.serving import Request, ServingEngine
+
+    out = {}
+    for bk in buckets:
+        eng = ServingEngine(cfg, m, max_batch=MAX_BATCH,
+                            max_len=FAMILY_MAX_LEN, device=dev)
+        for i in range(bk):
+            eng.submit(Request(i, [1 + i], max_new_tokens=1
+                               + FAMILY_PROFILED_STEPS))
+        eng.step()
+        sync()
+
+        def window():
+            t0 = time.perf_counter()
+            for _ in range(FAMILY_PROFILED_STEPS):
+                eng.step()
+            sync()
+            return (time.perf_counter() - t0) * 1e3
+
+        wall, prof = profiled(window)
+        busy = sum(us for _, us in device_events(prof)) / 1e3
+        out[bk] = dict(host_ms=wall / FAMILY_PROFILED_STEPS,
+                       busy_ms=busy / FAMILY_PROFILED_STEPS,
+                       idle_share=max(0.0, 1.0 - busy / wall))
+        del eng, prof
+    return out
+
+
+def serve_family(arch, layers, why, dev, card):
+    """One architecture behind ``ServingEngine(max_batch=8, max_len=256)``
+    (module docstring, item 17); returns its measurements."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import grouped_gemm as gg
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as model_mod
+    from repro_torch.serving import Request, ServingEngine
+
+    cfg = get_config(arch)
+    depth = (f"{cfg.n_layers} layers, the published depth" if layers is None
+             else f"{layers} of {cfg.n_layers} layers: {why}")
+    if layers is not None:
+        cfg = cfg.replace(n_layers=layers)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    m = model_mod.init_params(cfg, seed=0, device=dev)
+    sync()
+    init_s = time.perf_counter() - t0
+    pbytes = sum(p.numel() * p.element_size() for p in m.parameters())
+    print(f"families: {cfg.name} ({cfg.family}, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.resolved_head_dim}"
+          f"), {depth}; {pbytes / 1e9:.2f} GB of {cfg.dtype} weights drawn "
+          f"in {init_s:.1f} s ({card})", flush=True)
+
+    kw = dict(max_batch=MAX_BATCH, max_len=FAMILY_MAX_LEN, device=dev)
+    warm = ServingEngine(cfg, m, **kw)      # every bucket once
+    for i in range(MAX_BATCH):
+        warm.submit(Request(-1 - i, [1 + i, 2 + i], max_new_tokens=1 + i))
+    warm.run()
+    check(set(warm.stats["aggregated_hist"]) == {1, 2, 4, 8},
+          f"{cfg.name}: warmup buckets {warm.stats['aggregated_hist']}")
+    del warm
+
+    rng = np.random.default_rng(17)
+    lo, hi = FAMILY_PROMPTS
+    plens = [int(n) for n in rng.integers(lo, hi + 1, FAMILY_REQUESTS)]
+    reqs = [Request(i, [int(t) for t in rng.integers(0, cfg.vocab_size, n)],
+                    max_new_tokens=FAMILY_NEW_TOKENS)
+            for i, n in enumerate(plens)]
+    eng = timed_engine(cfg, m, **kw)
+    for r in reqs:
+        eng.submit(r)
+    sync()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    eng.run(max_steps=10_000)
+    sync()
+    wall = time.perf_counter() - t0
+    n_da = da.decode_attention_cuda.launches
+    n_gg = gg.grouped_gemm_cuda.launches
+    launches = eng.stats["launches"]
+    hist = dict(sorted(eng.stats["aggregated_hist"].items()))
+    reads = attention_reads(cfg)
+    n_gemm = 3 * cfg.n_layers if cfg.n_experts else 0
+    check(all(r.done and not r.failed and len(r.output) == r.max_new_tokens
+              for r in reqs), f"{cfg.name}: not every request was served")
+    check(nonzero_launch_counts() == {
+        k: v for k, v in (("decode_attention_cuda", reads * launches),
+                          ("grouped_gemm_cuda", n_gemm * launches)) if v},
+          f"{cfg.name}: kernel launches {nonzero_launch_counts()} over "
+          f"{launches} engine launches: want decode_attention {reads}x and "
+          f"grouped_gemm {n_gemm}x")
+    tokens = eng.stats["tokens"]
+    step_ms = {bk: float(np.mean(v)) for bk, v in
+               sorted(eng.launch_ms.items())}
+    copies = {}
+    for bk in (1, MAX_BATCH):
+        idx = torch.arange(bk, device=dev)
+        sub = eng._gather(idx)
+        copies[bk] = dict(
+            gather_ms=time_cuda_ms(lambda: eng._gather(idx), 5),
+            scatter_ms=time_cuda_ms(lambda: eng._scatter(idx, sub), 5),
+            gather_bytes=sum(t.numel() * t.element_size()
+                             for t in sub.values()))
+        del sub
+    del eng
+    prof = profile_buckets(cfg, m, dev)
+    print(f"families: {cfg.name}: {len(reqs)} requests (prompts {plens}, "
+          f"{FAMILY_NEW_TOKENS} new tokens each) in {wall:.2f} s: {tokens} "
+          f"tokens, {tokens / wall:.1f} tok/s; {launches} engine launches, "
+          f"buckets {hist}; decode_attention_cuda {n_da} launches ({reads} "
+          f"per launch), grouped_gemm_cuda {n_gg} ({n_gemm} per launch); "
+          f"host ms per launch by bucket "
+          + ", ".join(f"{bk}: {v:.2f}" for bk, v in step_ms.items())
+          + "; profiled: " + ", ".join(
+              f"bucket {bk} busy {p['busy_ms']:.3f} ms of {p['host_ms']:.3f} "
+              f"ms per launch (idle share {p['idle_share']:.3f})"
+              for bk, p in prof.items())
+          + "; gather per launch: " + ", ".join(
+              f"bucket {bk} {c['gather_ms']:.4f} ms "
+              f"({c['gather_bytes'] / 1e6:.1f} MB)"
+              for bk, c in copies.items())
+          + f" ({card})", flush=True)
+
+    # each request alone: an emitted token is its replay's argmax, or the
+    # replay's top-2 margin is below LOGIT_TOL x max|logit|
+    n_near = 0
+    for r in reqs:
+        lg = replay_alone(m, r, ops, FAMILY_MAX_LEN)
+        top = lg.topk(2, dim=-1)
+        margin = top.values[:, 0] - top.values[:, 1]
+        differ = top.indices[:, 0] != torch.tensor(r.output, device=dev)
+        check(bool((~differ | (margin < LOGIT_TOL * lg.abs().amax(dim=-1)))
+                   .all()),
+              f"{cfg.name} request {r.rid}: an emitted token is not its "
+              f"solo replay's argmax beyond the margin tolerance")
+        n_near += int(differ.sum())
+    # one replay with every kernel launch held to its plain version
+    shortest = min(reqs, key=lambda r: len(r.prompt))
+    held = CheckedKernels()
+    replay_alone(m, shortest, held, FAMILY_MAX_LEN)
+    check(held.calls["decode_attention"] == reads * (
+        len(shortest.prompt) - 1 + FAMILY_NEW_TOKENS),
+          f"{cfg.name}: held replay launched decode_attention "
+          f"{held.calls['decode_attention']} times")
+    peak = torch.cuda.max_memory_allocated(dev)
+    del m
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # fp32 at full width and F32_LAYERS layers (one group for vlm): the
+    # kernels' logits and the plain versions' agree within F32_LOGIT_TOL
+    kw32 = dict(dtype="float32", n_layers=F32_LAYERS)
+    if cfg.family == "vlm":
+        kw32["n_layers"] = cfg.cross_attn_every
+    if cfg.family == "audio":
+        kw32["n_encoder_layers"] = F32_LAYERS
+    m32 = model_mod.init_params(cfg.replace(**kw32), seed=0, device=dev)
+    lk = replay_alone(m32, shortest, ops, FAMILY_MAX_LEN)
+    lp = replay_alone(m32, shortest, ops.PLAIN_LM, FAMILY_MAX_LEN)
+    f32_rel = float(((lp - lk).abs().amax(dim=-1)
+                     / lk.abs().amax(dim=-1)).max())
+    check(f32_rel <= F32_LOGIT_TOL,
+          f"{cfg.name} fp32 {kw32['n_layers']} layers: the plain versions' "
+          f"logits differ from the kernels' by {f32_rel:.3e} of max|logit|")
+    del m32
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"families: {cfg.name}: every emitted token its solo replay's "
+          f"argmax ({n_near} within the top-2 margin tolerance); request "
+          f"{shortest.rid} replayed with every kernel launch held to its "
+          f"plain version (decode_attention {held.calls['decode_attention']}"
+          f" launches, max abs err {held.max_err['decode_attention']:.3e}; "
+          f"grouped_gemm {held.calls['grouped_gemm']}, "
+          f"{held.max_err['grouped_gemm']:.3e}); fp32 at {kw32['n_layers']} "
+          f"layers: plain within {f32_rel:.3e} of max|logit| of the kernels "
+          f"(bound {F32_LOGIT_TOL:g}); peak {peak / 2**30:.2f} GiB ({card})",
+          flush=True)
+    return dict(layers=cfg.n_layers, depth=depth, params_bytes=pbytes,
+                init_s=init_s, prompt_lens=plens, wall_s=wall, tokens=tokens,
+                tokens_per_s=tokens / wall, launches=launches, buckets=hist,
+                decode_attention_launches=n_da, grouped_gemm_launches=n_gg,
+                attention_reads_per_launch=reads,
+                ms_per_launch_by_bucket=step_ms, profiled=prof,
+                copies=copies, replay_not_argmax=n_near,
+                held_calls=held.calls, held_max_err=held.max_err,
+                f32_layers=kw32["n_layers"], f32_plain_max_rel=f32_rel,
+                peak_bytes=peak)
+
+
+def phase_families(dev, card, results):
+    """The six attention-stack families beside the serving path's
+    qwen2-moe-a2.7b, one after the other, each freed before the next."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = {}
+    for arch, layers, why in FAMILY_DEPTHS:
+        out[arch] = serve_family(arch, layers, why, dev, card)
+    seconds = time.perf_counter() - t0
+    print(f"families: {len(out)} architectures served in {seconds:.1f} s",
+          flush=True)
+    results["families"] = dict(card=card, seconds=seconds, archs=out)
 
 
 def main(argv=None):
@@ -4249,6 +4700,8 @@ def main(argv=None):
     # the serving kernels, then the serving path (qwen2-moe-a2.7b)
     phase_lm_kernels(dev, card, results)
     phase_serving_path(dev, card, results)
+    # the six other attention-stack families the port serves
+    phase_families(dev, card, results)
 
     # launches on each kernel's own path, the s3 cap 32 row
     entries = [results["kernel"], results["gravity_kernel"],

@@ -2,8 +2,9 @@
 ``amr_sedov``) and the language models it serves.
 
 ``get_config(name)`` / ``--arch <id>`` resolves a model.  The port serves
-the dense and moe families; the reference's other architectures wait in
-ROADMAP.md and ``get_config`` raises ``NotImplementedError`` for them.
+the dense, moe, vlm and audio families (8 architectures); the reference's
+ssm and hybrid architectures wait in ROADMAP.md and ``get_config`` raises
+``NotImplementedError`` for them.
 """
 from __future__ import annotations
 
@@ -11,16 +12,26 @@ from repro_torch.configs.base import (  # noqa: F401
     AggregationConfig, AMRHydroConfig, GravityHydroConfig, HydroConfig,
     ModelConfig, validate_ladder,
 )
+from repro_torch.configs.dbrx_132b import CONFIG as dbrx_132b
 from repro_torch.configs.granite_8b import CONFIG as granite_8b
+from repro_torch.configs.h2o_danube_1_8b import CONFIG as h2o_danube_1_8b
+from repro_torch.configs.llama_3_2_vision_90b import (
+    CONFIG as llama_3_2_vision_90b,
+)
+from repro_torch.configs.qwen1_5_32b import CONFIG as qwen1_5_32b
 from repro_torch.configs.qwen2_moe_a2_7b import CONFIG as qwen2_moe_a2_7b
+from repro_torch.configs.seamless_m4t_large_v2 import (
+    CONFIG as seamless_m4t_large_v2,
+)
+from repro_torch.configs.starcoder2_15b import CONFIG as starcoder2_15b
 
-ARCHS = {c.name: c for c in (granite_8b, qwen2_moe_a2_7b)}
+ARCHS = {c.name: c for c in (
+    starcoder2_15b, granite_8b, qwen1_5_32b, h2o_danube_1_8b, dbrx_132b,
+    qwen2_moe_a2_7b, seamless_m4t_large_v2, llama_3_2_vision_90b)}
 
-# the reference's other architectures: their configs (and, for ssm, hybrid,
-# vlm and audio, their model families) are not ported yet
-UNPORTED_ARCHS = ("starcoder2-15b", "qwen1.5-32b", "h2o-danube-1.8b",
-                  "dbrx-132b", "xlstm-125m", "seamless-m4t-large-v2",
-                  "zamba2-2.7b", "llama-3.2-vision-90b")
+# the reference's ssm and hybrid architectures: their configs and model
+# families (models/ssm.py) are not ported yet
+UNPORTED_ARCHS = ("xlstm-125m", "zamba2-2.7b")
 
 
 def _key(name: str) -> str:

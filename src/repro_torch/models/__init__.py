@@ -1,1 +1,2 @@
-"""The served language models (dense and moe families), decode path."""
+"""The served language models (dense, moe, vlm and audio families),
+serving path."""

@@ -1,6 +1,8 @@
-"""Shared building blocks of the served models: initialisation, RMSNorm,
-RoPE, the attention projections and the gated MLP, as plain functions on
-tensors (``repro.models.common``'s counterparts, decode path only).
+"""Shared building blocks of the served models: initialisation, RMSNorm
+and LayerNorm, RoPE, the attention projections, the full-sequence
+attention the audio encoder runs, and the gated and plain MLPs, as plain
+functions on tensors (``repro.models.common``'s counterparts, serving path
+only).
 
 Weights keep the reference's ``x @ W`` orientation, ``W`` of shape
 ``(d_in, d_out)``, so a JAX parameter carries across without a transpose.
@@ -79,11 +81,13 @@ class Init:
 
 
 class Attention(nn.Module):
-    """Self-attention weights (``attn_init``): ``wq (d, Hq hd)``, ``wk, wv
-    (d, Hkv hd)``, ``wo (Hq hd, d)``, and the QKV biases where the config
-    has them."""
+    """Attention weights (``attn_init``): ``wq (d, Hq hd)``, ``wk, wv (d,
+    Hkv hd)``, ``wo (Hq hd, d)``, the QKV biases where the config has them,
+    and, for a cross-attention layer, the 0-d ``gate`` (llama-vision's
+    tanh gate, 0 at init)."""
 
-    def __init__(self, cfg, init: Init, dtype: torch.dtype):
+    def __init__(self, cfg, init: Init, dtype: torch.dtype,
+                 cross: bool = False):
         super().__init__()
         d, hd = cfg.d_model, cfg.resolved_head_dim
         nq, nkv = cfg.n_heads, cfg.n_kv_heads
@@ -95,6 +99,8 @@ class Attention(nn.Module):
             self.bq = frozen(init.zeros((nq * hd,), dtype))
             self.bk = frozen(init.zeros((nkv * hd,), dtype))
             self.bv = frozen(init.zeros((nkv * hd,), dtype))
+        if cross:
+            self.gate = frozen(init.zeros((), dtype))
 
 
 class SwiGLU(nn.Module):
@@ -109,8 +115,31 @@ class SwiGLU(nn.Module):
         self.w_down = frozen(init(dense_init, d_ff, d_model, dtype))
 
 
+class GeluMLP(nn.Module):
+    """The plain MLP's weights (``mlp_init`` with ``gated=False``): ``w_up
+    (d, ff)``, ``b_up (ff,)``, ``w_down (ff, d)``, ``b_down (d,)``."""
+
+    def __init__(self, init: Init, d_model: int, d_ff: int,
+                 dtype: torch.dtype):
+        super().__init__()
+        self.w_up = frozen(init(dense_init, d_model, d_ff, dtype))
+        self.b_up = frozen(init.zeros((d_ff,), dtype))
+        self.w_down = frozen(init(dense_init, d_ff, d_model, dtype))
+        self.b_down = frozen(init.zeros((d_model,), dtype))
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm weights ``w`` (ones) and ``b`` (zeros), the reference's
+    ``{"w", "b"}`` norm of a non-gated (GPT-style) stack."""
+
+    def __init__(self, init: Init, d_model: int, dtype: torch.dtype):
+        super().__init__()
+        self.w = frozen(init.ones((d_model,), dtype))
+        self.b = frozen(init.zeros((d_model,), dtype))
+
+
 # ---------------------------------------------------------------------------
-# Norm, RoPE
+# Norms, RoPE
 # ---------------------------------------------------------------------------
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5):
@@ -118,6 +147,19 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5):
     x = x.float()
     x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
     return (x * w.float()).to(dt)
+
+
+def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+              eps: float = 1e-5):
+    """The reference's formula in fp32 (mean, then the mean of squared
+    deviations, then rsqrt), not ``F.layer_norm``, whose reduction order
+    differs."""
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * w.float() + b.float()).to(dt)
 
 
 @lru_cache(maxsize=None)
@@ -143,6 +185,64 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Full-sequence attention (the audio encoder's; plain PyTorch, as the
+# reference's is plain jnp)
+# ---------------------------------------------------------------------------
+
+DEFAULT_Q_CHUNK = 512      # the reference's query-chunk length
+NEG_INF = -1e30            # the reference's mask value
+
+
+def _attend_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  mask: Optional[torch.Tensor], scale: float) -> torch.Tensor:
+    """q (B, Hq, Qc, hd), k, v (B, Hkv, S, hd), mask (1, 1, Qc, S) or None:
+    the kv heads repeated to the query heads, fp32 scores, the masked
+    softmax and P.V, in v's dtype."""
+    g = q.shape[1] // k.shape[1]
+    if g > 1:
+        k = torch.repeat_interleave(k, g, dim=1)
+        v = torch.repeat_interleave(v, g, dim=1)
+    scores = torch.einsum("bhqd,bhsd->bhqs", q.float(), k.float()) * scale
+    if mask is not None:
+        scores = torch.where(mask, scores,
+                             torch.full((), NEG_INF, device=q.device))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhqs,bhsd->bhqd", probs, v.float())
+    return out.to(v.dtype)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool, q_positions: torch.Tensor,
+              kv_positions: torch.Tensor, sliding_window: int = 0,
+              q_chunk: int = DEFAULT_Q_CHUNK) -> torch.Tensor:
+    """q (B, Sq, Hq, hd), k, v (B, Skv, Hkv, hd) -> (B, Sq, Hq, hd), masked
+    by the absolute positions (causal and/or a sliding window).  A query
+    length that is a multiple of ``q_chunk`` above it runs chunk by chunk,
+    as the reference's scan does."""
+    sq, hd = q.shape[1], q.shape[3]
+    scale = 1.0 / math.sqrt(hd)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def mask_for(qpos):
+        m = None
+        if causal:
+            m = qpos[:, None] >= kv_positions[None, :]
+        if sliding_window:
+            w = qpos[:, None] - kv_positions[None, :] < sliding_window
+            m = w if m is None else (m & w)
+        return None if m is None else m[None, None]
+
+    if sq <= q_chunk or sq % q_chunk != 0:
+        out = _attend_chunk(qt, kt, vt, mask_for(q_positions), scale)
+    else:
+        out = torch.cat([
+            _attend_chunk(qt[:, :, i:i + q_chunk], kt, vt,
+                          mask_for(q_positions[i:i + q_chunk]), scale)
+            for i in range(0, sq, q_chunk)], dim=2)
+    return out.transpose(1, 2)
 
 
 # ---------------------------------------------------------------------------
@@ -175,6 +275,17 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     return h @ w_down
 
 
-def mlp_apply(p, x: torch.Tensor) -> torch.Tensor:
-    """The gated (SwiGLU) MLP; ``p`` holds ``w_gate, w_up, w_down``."""
-    return swiglu(x, p.w_gate, p.w_up, p.w_down)
+def gelu_mlp(x: torch.Tensor, w_up: torch.Tensor, b_up: torch.Tensor,
+             w_down: torch.Tensor, b_down: torch.Tensor) -> torch.Tensor:
+    """The plain MLP, with the tanh GELU of ``jax.nn.gelu(approximate=
+    True)``."""
+    h = F.gelu((x @ w_up) + b_up, approximate="tanh")
+    return (h @ w_down) + b_down
+
+
+def mlp_apply(p, x: torch.Tensor, gated: bool) -> torch.Tensor:
+    """The gated (SwiGLU: ``p`` holds ``w_gate, w_up, w_down``) or plain
+    (GELU: ``w_up, b_up, w_down, b_down``) MLP."""
+    if gated:
+        return swiglu(x, p.w_gate, p.w_up, p.w_down)
+    return gelu_mlp(x, p.w_up, p.b_up, p.w_down, p.b_down)

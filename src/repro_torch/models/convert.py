@@ -1,12 +1,16 @@
 """Weights carried across from the reference: the JAX ``init_params``
-pytree, as numpy arrays with the layers stacked on a leading axis, into
-the port's ``Model``, and back.
+pytree, as numpy arrays with the layers stacked on leading axes, into the
+port's ``Model``, and back.
 
 Both sides keep ``x @ W`` with ``W (d_in, d_out)``, so every leaf copies as
-it is; only the layer axis is split (``layers.<path>[i]`` is
-``model.layers[i].<path>``) and ``embed.{emb, ln_f, head}`` are the
-model's top-level weights.  bf16 leaves (numpy's ``bfloat16`` extension
-type) pass through fp32, which holds every bf16 value exactly.
+it is; only the stacked axes are split.  A port parameter
+``<stack>.<i>[.<j>].<path>`` is the reference's ``<stack>.<path>[i[, j]]``:
+``layers`` (dense, moe), ``selfs`` (vlm, stacked twice: ``(G, every-1,
+...)``), ``crosses`` (vlm, its 0-d ``attn.gate`` stacked to ``(G,)``),
+``encoder`` and ``decoder`` (audio).  ``emb``, ``ln_f`` and ``head`` are the
+reference's ``embed.*``; ``enc_ln`` is its own top-level leaf.  bf16 leaves
+(numpy's ``bfloat16`` extension type) pass through fp32, which holds every
+bf16 value exactly.
 """
 from __future__ import annotations
 
@@ -19,16 +23,23 @@ from repro_torch.device import DeviceLike
 from repro_torch.models.model import Model, empty_model
 
 Params = Dict[str, Any]
+EMBED = ("emb", "ln_f", "head")
 
 
-def _leaves(model: Model) -> Iterator[Tuple[Tuple[str, ...], Any, torch.Tensor]]:
-    """(path in the reference pytree, layer index or None, the port's
-    tensor) for every weight of ``model``."""
-    for name, p in model.named_parameters(recurse=False):
-        yield ("embed", name), None, p
-    for i, layer in enumerate(model.layers):
-        for name, p in layer.named_parameters():
-            yield ("layers",) + tuple(name.split(".")), i, p
+def _leaves(model: Model) -> Iterator[Tuple[Tuple[str, ...], Tuple[int, ...],
+                                            torch.Tensor]]:
+    """(path in the reference pytree, index into the leaf's stacked axes,
+    the port's tensor) for every weight of ``model``."""
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        if len(parts) == 1:
+            yield ("embed", name) if name in EMBED else (name,), (), p
+            continue
+        rest = parts[1:]
+        idx = []
+        while rest[0].isdigit():
+            idx.append(int(rest.pop(0)))
+        yield (parts[0],) + tuple(rest), tuple(idx), p
 
 
 def _get(tree: Params, path: Tuple[str, ...]):
@@ -57,40 +68,52 @@ def params_from_reference(np_params: Params, cfg,
                           device: DeviceLike = None) -> Model:
     """The reference's parameters (numpy leaves) as the port's ``Model``
     on ``device`` (the card unless ``device="cpu"``).  Raises if a leaf is
-    missing, left over, or of another shape."""
+    missing, left over, or of another shape (a stack of another depth
+    included)."""
     model = empty_model(cfg, device)
-    used = set()
+    leaves = list(_leaves(model))
+    extents: Dict[Tuple[str, ...], Tuple[int, ...]] = {}  # the port's stacks
+    for path, i, _ in leaves:
+        extents[path] = tuple(max(a + 1, n) for a, n in
+                              zip(i, extents.get(path, (0,) * len(i))))
+    for path, ext in extents.items():
+        ref = np.shape(_get(np_params, path))[:len(ext)]
+        if ref != ext:
+            raise ValueError(f"{'.'.join(path)}: the reference stacks {ref}, "
+                             f"the port's model {ext}")
+    if len(extents) != _count(np_params):
+        raise ValueError(f"the reference params hold {_count(np_params)} "
+                         f"leaves, the port's {cfg.name} model "
+                         f"{len(extents)}")
     with torch.no_grad():
-        for path, i, p in _leaves(model):
-            leaf = _get(np_params, path)
-            src = _to_torch(leaf if i is None else np.asarray(leaf)[i])
+        for path, i, p in leaves:
+            src = _to_torch(np.asarray(_get(np_params, path))[i])
             if tuple(src.shape) != tuple(p.shape):
                 raise ValueError(f"{'.'.join(path)}: reference shape "
                                  f"{tuple(src.shape)}, port "
                                  f"{tuple(p.shape)}")
             p.copy_(src.to(p.dtype))
-            used.add(path)
-    if len(used) != _count(np_params):
-        raise ValueError(f"the reference params hold {_count(np_params)} "
-                         f"leaves, the port's {cfg.name} model {len(used)}")
     return model
 
 
 def params_to_reference(model: Model) -> Params:
     """The port's weights as the reference's pytree of numpy arrays (fp32
-    for bf16 weights), layers stacked on a leading axis."""
+    for bf16 weights), the layers stacked on leading axes."""
     out: Params = {}
-    stacks: Dict[Tuple[str, ...], list] = {}
+    stacks: Dict[Tuple[str, ...], Dict[Tuple[int, ...], np.ndarray]] = {}
     for path, i, p in _leaves(model):
         a = p.detach().float().cpu().numpy() if p.dtype == torch.bfloat16 \
             else p.detach().cpu().numpy()
-        if i is None:
-            out.setdefault(path[0], {})[path[1]] = a
-        else:
-            stacks.setdefault(path, []).append(a)
-    for path, arrays in stacks.items():
+        stacks.setdefault(path, {})[i] = a
+    for path, parts in stacks.items():
+        first = next(iter(parts.values()))
+        lead = tuple(1 + max(i[ax] for i in parts)
+                     for ax in range(len(next(iter(parts)))))
+        leaf = np.empty(lead + first.shape, dtype=first.dtype)
+        for i, a in parts.items():
+            leaf[i] = a
         node = out
         for key in path[:-1]:
             node = node.setdefault(key, {})
-        node[path[-1]] = np.stack(arrays)
+        node[path[-1]] = leaf
     return out

@@ -1,17 +1,26 @@
 """Model assembly for serving: init, cache and one decode step, for the
-dense and moe families (``repro.models.model``'s counterpart, decode path
-only; training and the other families wait in ROADMAP.md).
+dense, moe, vlm and audio families (``repro.models.model``'s counterpart,
+serving path only; training and the ssm and hybrid families wait in
+ROADMAP.md).
 
-``Model`` holds the weights (an ``nn.Module`` of frozen parameters, one
-``Block`` per layer).  ``init_params(cfg, seed, device)`` draws them from a
-seeded ``torch.Generator`` on the device, layer by layer; ``init_cache``
-and ``decode_step`` are functions of the model, as in the reference.  The
-reference's scan over stacked layers becomes a Python loop that writes each
+``Model`` holds the weights (an ``nn.Module`` of frozen parameters):
+
+  dense/moe : ``layers``, one ``Block`` per layer
+  vlm       : ``selfs`` (G groups of ``cross_attn_every - 1`` self blocks)
+              and ``crosses`` (G gated cross-attention blocks), G =
+              n_layers / cross_attn_every (llama-3.2-vision)
+  audio     : ``encoder`` (``n_encoder_layers`` self blocks), ``decoder``
+              (``DecoderLayer``s) and the encoder's final norm ``enc_ln``
+
+``init_params(cfg, seed, device)`` draws them from a seeded
+``torch.Generator`` on the device, layer by layer; ``init_cache`` and
+``decode_step`` are functions of the model, as in the reference.  The
+reference's scans over stacked layers become Python loops that write each
 layer's cache in place.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -21,12 +30,16 @@ from repro_torch.kernels import ops as default_kernels
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import Init, dense_init, dtype_of, frozen, rmsnorm
 
-PORTED_FAMILIES = ("dense", "moe")
+PORTED_FAMILIES = ("dense", "moe", "vlm", "audio")
+STUB_FRAMES = 8           # audio frames of the engine's stub input
+# cache leaves written once by ``init_cache`` and only read by decode
+CROSS_LEAVES = ("cross_k", "cross_v")
 
 
 class Model(nn.Module):
     """Embedding (``emb (V, d)``), final norm ``ln_f``, an untied ``head
-    (d, V)`` unless the config ties it to ``emb``, and ``layers``."""
+    (d, V)`` unless the config ties it to ``emb``, and the family's
+    stacks (module docstring)."""
 
     def __init__(self, cfg, init: Init):
         super().__init__()
@@ -41,9 +54,25 @@ class Model(nn.Module):
         if not cfg.tie_embeddings:
             self.head = frozen(init(dense_init, cfg.d_model, cfg.vocab_size,
                                     dtype))
-        kind = "moe" if cfg.n_experts else "self"
-        self.layers = nn.ModuleList(tfm.Block(cfg, init, dtype, kind)
-                                    for _ in range(cfg.n_layers))
+
+        def blocks(n, kind):
+            return nn.ModuleList(tfm.Block(cfg, init, dtype, kind)
+                                 for _ in range(n))
+
+        if cfg.family in ("dense", "moe"):
+            self.layers = blocks(cfg.n_layers,
+                                 "moe" if cfg.n_experts else "self")
+        elif cfg.family == "vlm":
+            every = cfg.cross_attn_every
+            groups = cfg.n_layers // every
+            self.selfs = nn.ModuleList(blocks(every - 1, "self")
+                                       for _ in range(groups))
+            self.crosses = blocks(groups, "cross")
+        else:                                               # audio
+            self.encoder = blocks(cfg.n_encoder_layers, "self")
+            self.decoder = nn.ModuleList(tfm.DecoderLayer(cfg, init, dtype)
+                                         for _ in range(cfg.n_layers))
+            self.enc_ln = frozen(init.ones((cfg.d_model,), dtype))
 
     @property
     def device(self) -> torch.device:
@@ -76,15 +105,69 @@ def _logits_head(model: Model, h: torch.Tensor) -> torch.Tensor:
     return h @ w
 
 
-def init_cache(model: Model, batch_size: int,
-               max_len: int) -> Dict[str, torch.Tensor]:
-    """The decode cache on the model's device: ``len (B,)`` int32 and the
-    stacked layer caches ``k, v (L, B, S, Hkv, hd)``."""
+def stub_batch(cfg, batch_size: int,
+               device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """The serving engine's stand-in memory, fp32 (``init_cache`` casts
+    it): zero ``vision (B, vision_tokens, d)`` for vlm, zero ``frames (B,
+    STUB_FRAMES, d)`` for audio, nothing for the other families."""
+    shape = {"vlm": ("vision", cfg.vision_tokens),
+             "audio": ("frames", STUB_FRAMES)}.get(cfg.family)
+    if shape is None:
+        return {}
+    name, n = shape
+    return {name: torch.zeros((batch_size, n, cfg.d_model),
+                              dtype=torch.float32, device=device)}
+
+
+def forward_encoder(model: Model, frames: torch.Tensor) -> torch.Tensor:
+    """The audio encoder over frames (B, Sm, d) in the model's dtype: its
+    self blocks without a causal mask, then RMSNorm ``enc_ln``."""
     cfg = model.cfg
+    pos = torch.arange(frames.shape[1], device=frames.device)
+    h = frames
+    for layer in model.encoder:
+        h = tfm.self_block_apply(layer, h, cfg, pos, causal=False)
+    return rmsnorm(h, model.enc_ln, cfg.norm_eps)
+
+
+def init_cache(model: Model, batch_size: int, max_len: int,
+               batch: Optional[Dict[str, torch.Tensor]] = None
+               ) -> Dict[str, torch.Tensor]:
+    """The decode cache on the model's device: ``len (B,)`` int32, the
+    stacked self-attention caches ``k, v (L, B, S, Hkv, hd)`` (L the
+    family's self-attention layers in order: vlm layer ``j`` of group
+    ``g`` is ``g (every - 1) + j``), and for vlm and audio the memory's
+    ``cross_k, cross_v (G or L, B, Sm, Hkv, hd)``, from ``batch["vision"]``
+    or the encoded ``batch["frames"]`` (``stub_batch``'s zeros when
+    ``batch`` is None).  Every leaf but ``len`` carries the slot axis at
+    position 1."""
+    cfg = model.cfg
+    dtype, dev = dtype_of(cfg), model.device
     cache = {"len": torch.zeros((batch_size,), dtype=torch.int32,
-                                device=model.device)}
-    cache.update(tfm.kv_cache_init(cfg, batch_size, max_len, dtype_of(cfg),
-                                   model.device, cfg.n_layers))
+                                device=dev)}
+    if cfg.family == "vlm":
+        n_self = cfg.n_layers // cfg.cross_attn_every \
+            * (cfg.cross_attn_every - 1)
+    else:
+        n_self = cfg.n_layers
+    cache.update(tfm.kv_cache_init(cfg, batch_size, max_len, dtype, dev,
+                                   n_self))
+    if cfg.family not in ("vlm", "audio"):
+        return cache
+    if batch is None:
+        batch = stub_batch(cfg, batch_size, dev)
+    if cfg.family == "vlm":
+        memory = batch["vision"].to(dev, dtype)
+        layers, precompute = model.crosses, tfm.cross_kv_precompute
+    else:
+        memory = forward_encoder(model, batch["frames"].to(dev, dtype))
+        layers, precompute = model.decoder, tfm.xattn_kv_precompute
+    shape = (len(layers), batch_size, memory.shape[1], cfg.n_kv_heads,
+             cfg.resolved_head_dim)
+    ck, cv = (torch.empty(shape, dtype=dtype, device=dev) for _ in range(2))
+    for i, layer in enumerate(layers):
+        ck[i], cv[i] = precompute(layer, memory, cfg)
+    cache["cross_k"], cache["cross_v"] = ck, cv
     return cache
 
 
@@ -99,10 +182,26 @@ def decode_step(model: Model, cache: Dict[str, torch.Tensor],
     ``ops.PLAIN_LM`` for the plain versions)."""
     cfg = model.cfg
     clen = cache["len"]
+    k, v = cache["k"], cache["v"]
     x = model.emb[tokens].to(dtype_of(cfg))
-    for i, layer in enumerate(model.layers):
-        x = tfm.self_block_decode(layer, x, cfg, cache["k"][i],
-                                  cache["v"][i], clen, kernels=kernels)
+    if cfg.family in ("dense", "moe"):
+        for i, layer in enumerate(model.layers):
+            x = tfm.self_block_decode(layer, x, cfg, k[i], v[i], clen,
+                                      kernels=kernels)
+    elif cfg.family == "vlm":
+        i = 0
+        for g, (selfs, cross) in enumerate(zip(model.selfs, model.crosses)):
+            for layer in selfs:
+                x = tfm.self_block_decode(layer, x, cfg, k[i], v[i], clen,
+                                          kernels=kernels)
+                i += 1
+            x = tfm.cross_block_decode(cross, x, cfg, cache["cross_k"][g],
+                                       cache["cross_v"][g], kernels=kernels)
+    else:                                                   # audio
+        for i, layer in enumerate(model.decoder):
+            x = tfm.encdec_decoder_decode(
+                layer, x, cfg, k[i], v[i], clen, cache["cross_k"][i],
+                cache["cross_v"][i], kernels=kernels)
     h = rmsnorm(x[:, 0], model.ln_f, cfg.norm_eps)
     logits = _logits_head(model, h)
     cache["len"] = clen + 1

@@ -149,7 +149,7 @@ def moe_ffn(p: MoE, x: torch.Tensor, cfg, *, capacity_factor: float = 1.25,
         y = y + contrib[:, j]
 
     if p.shared is not None:
-        ys = mlp_apply(p.shared, xt)
+        ys = mlp_apply(p.shared, xt, gated=True)
         gate = torch.sigmoid((xt @ p.shared_gate.to(xt.dtype)).float())
         y = y + ys * gate.to(ys.dtype)
     return y.reshape(b, s, d)

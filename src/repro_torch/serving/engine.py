@@ -14,10 +14,16 @@ layer:
   partial bucket target a spare free slot;
 * per-request ``cache_len`` makes the aggregated batch ragged-correct.
 
-Each launch gathers the bucket's slots of the whole cache, runs
+Each launch gathers the bucket's slots of every cache leaf, runs
 ``decode_step`` on them (24 decode-attention and 72 grouped-GEMM kernel
-launches per step for qwen2-moe-a2.7b) and scatters them back, as the
-reference does.
+launches per step for qwen2-moe-a2.7b) and scatters the leaves that
+``decode_step`` writes back, as the reference does.  The vlm and audio
+families serve against a stub memory (``model.stub_batch``: zero vision
+tokens or frames, as the reference's engine); its cross-attention K and V
+(``model.CROSS_LEAVES``) are computed once at construction, gathered with
+the rest and never written back.  Admission resets a slot to the fresh
+cache's values, not to zeros: an encoded stub memory is not zero once a
+LayerNorm bias is not.
 
 Containment: a ``fault_injector`` poisons the logits rows of matched
 requests (payload site ``"decode"``, keyed by request id, the launch
@@ -111,7 +117,13 @@ class ServingEngine:
         self._store = TuneStore.open(self.agg.tune_store)
         self.buckets = tuple(b for b in self.agg.bucket_sizes()
                              if b <= max_batch) or (max_batch,)
-        self.cache = model_mod.init_cache(model, max_batch, max_len)
+        self.cache = model_mod.init_cache(
+            model, max_batch, max_len,
+            model_mod.stub_batch(cfg, max_batch, self.device))
+        # each leaf's fresh values where they are not all zero (the stub
+        # memory's cross K and V); admission resets the others to zero
+        self._fresh = {name: t.clone() for name, t in self.cache.items()
+                       if name != "len" and bool(t.any())}
         self.slots_free = list(range(max_batch))
         self.active: Dict[int, Request] = {}     # slot -> request
         self.pending: List[Request] = []
@@ -207,9 +219,13 @@ class ServingEngine:
             self.next_token[slot] = req.prompt[-1]
 
     def _zero_slot_states(self, slot: int) -> None:
-        """Reset one slot's KV cache to its fresh (zero) values."""
-        self.cache["k"][:, slot] = 0
-        self.cache["v"][:, slot] = 0
+        """Reset one slot of every cache leaf but ``len`` (slot axis 1) to
+        its fresh values."""
+        for name, t in self.cache.items():
+            if name in self._fresh:
+                t[:, slot] = self._fresh[name][:, slot]
+            elif name != "len":
+                t[:, slot] = 0
 
     def _prefill_token(self, slot: int, tok: int) -> None:
         """Single-slot prefill through the bucket-1 decode path."""
@@ -217,22 +233,25 @@ class ServingEngine:
 
     # -- the aggregated decode launch ---------------------------------------
     def _gather(self, slot_idx: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """The bucket's slots of the whole cache, as a cache of its own
-        (copies: ``decode_step`` writes into them)."""
+        """The bucket's slots of every cache leaf (``len`` along axis 0,
+        the rest along axis 1), as a cache of its own (copies:
+        ``decode_step`` writes into them)."""
         with record_function("serving.gather"):
-            return {"len": self.cache["len"].index_select(0, slot_idx),
-                    "k": self.cache["k"].index_select(1, slot_idx),
-                    "v": self.cache["v"].index_select(1, slot_idx)}
+            return {name: t.index_select(0 if name == "len" else 1,
+                                         slot_idx)
+                    for name, t in self.cache.items()}
 
     def _scatter(self, slot_idx: torch.Tensor,
                  sub: Dict[str, torch.Tensor]) -> None:
-        """Write a launch's cache back into its slots.  Pad lanes all name
-        the same spare slot, so that slot receives one of them (any one:
-        admission re-zeroes it)."""
+        """Write a launch's cache back into its slots: every leaf
+        ``decode_step`` writes (the cross K and V it only reads stay).  Pad
+        lanes all name the same spare slot, so that slot receives one of
+        them (any one: admission resets it)."""
         with record_function("serving.scatter"):
             self.cache["len"][slot_idx] = sub["len"]
-            self.cache["k"][:, slot_idx] = sub["k"]
-            self.cache["v"][:, slot_idx] = sub["v"]
+            for name, t in sub.items():
+                if name != "len" and name not in model_mod.CROSS_LEAVES:
+                    self.cache[name][:, slot_idx] = t
 
     def _launch(self, slots: np.ndarray, toks: np.ndarray) -> np.ndarray:
         n = len(slots)

@@ -670,11 +670,15 @@ def assert_close(got, want, tol):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("hq,hkv,d", [(16, 16, 128), (32, 8, 128),
-                                      (12, 4, 64), (32, 8, 80)])
+                                      (12, 4, 64), (32, 8, 80),
+                                      (48, 4, 128), (48, 8, 128),
+                                      (64, 8, 128), (16, 16, 64)])
 def test_decode_attention_kernel_matches_plain(dev, dtype, hq, hkv, d):
     """Ragged lengths (1, a tile edge, S and 0 among them) at the shapes of
-    qwen2-moe (MHA), granite-8b (GQA 4), the reference's sweep and a head
-    dimension of 80; every request equals its solo launch bit for bit."""
+    qwen2-moe (MHA), granite-8b (GQA 4), the reference's sweep, a head
+    dimension of 80 (h2o-danube), starcoder2 (group 12), dbrx (group 6),
+    llama-vision (group 8) and seamless (MHA at D 64); every request equals
+    its solo launch bit for bit."""
     s = 256
     lens = [1, 64, 65, 200, s, 0]
     b = len(lens)
@@ -728,6 +732,28 @@ def test_decode_attention_split_at_chunk_edges(dev, dtype, g):
     assert bool(torch.isfinite(got.float()).all())
     assert_close(got, want, DA_TOL[dtype])
     assert not bool(got[0].any())
+    for i in range(b):
+        solo = da.decode_attention_cuda(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                                        cl[i:i + 1])
+        assert torch.equal(solo[0], got[i]), i
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_decode_attention_cross_attention_at_6404(dev, dtype):
+    """llama-vision's cross attention: 64/8 heads of 128 over its 6,404
+    vision tokens (not a multiple of the 32-position tile) at full length,
+    as ``cross_block_decode`` launches it; every request equal to its solo
+    launch."""
+    b, s = 4, 6404
+    q = normal(21, (b, 64, 128), dev, dtype)
+    k = normal(22, (b, s, 8, 128), dev, dtype)
+    v = normal(23, (b, s, 8, 128), dev, dtype)
+    cl = torch.full((b,), s, dtype=torch.int32, device=dev)
+    got = da.decode_attention_cuda(q, k, v, cl)
+    torch.cuda.synchronize(dev)
+    assert bool(torch.isfinite(got.float()).all())
+    assert_close(got, da.decode_attention_plain(q, k, v, cl), DA_TOL[dtype])
     for i in range(b):
         solo = da.decode_attention_cuda(q[i:i + 1], k[i:i + 1], v[i:i + 1],
                                         cl[i:i + 1])
@@ -803,6 +829,88 @@ def test_grouped_gemm_kernel_matches_plain(dev, dtype):
     assert torch.equal(got2[5, 3], got[5, 3])
     assert torch.equal(got2[1, 0], got[1, 0])
     assert torch.equal(ops.grouped_gemm(x, w, gl), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_grouped_gemm_kernel_at_dbrx_shapes(dev, dtype):
+    """dbrx-132b's expert GEMM, (16, 128, 6144) @ (16, 6144, 10752), with
+    empty, ragged and full experts: within tolerance of the plain version,
+    rows past group_len exactly 0."""
+    e, c, k, n = 16, 128, 6144, 10752
+    x = normal(31, (e, c, k), dev, dtype, 0.05)
+    w = normal(32, (e, k, n), dev, dtype, 0.05)
+    gl = torch.tensor([0, 1, 2, 3, 5, 8, 13, 21, 34, 55, 89, 127, c, 0, 7,
+                       64], dtype=torch.int32, device=dev)
+    got = gg.grouped_gemm_cuda(x, w, gl)
+    torch.cuda.synchronize(dev)
+    assert_close(got, gg.grouped_gemm_plain(x, w, gl), GG_TOL[dtype])
+    for ex, rows in enumerate(gl.tolist()):
+        assert not bool(got[ex, rows:].any()), ex
+
+
+class HeldKernels:
+    """A ``kernels`` hook for ``decode_step`` that launches each serving
+    kernel and asserts it within the kernel tolerance of its plain version
+    on the same inputs."""
+
+    def __init__(self):
+        self.calls = 0
+
+    def decode_attention(self, q, k, v, cache_len):
+        got = da.decode_attention_cuda(q, k, v, cache_len)
+        assert_close(got, da.decode_attention_plain(q, k, v, cache_len),
+                     DA_TOL[q.dtype])
+        self.calls += 1
+        return got
+
+    def grouped_gemm(self, x, w, group_len):
+        got = gg.grouped_gemm_cuda(x, w, group_len)
+        assert_close(got, gg.grouped_gemm_plain(x, w, group_len),
+                     GG_TOL[x.dtype])
+        self.calls += 1
+        return got
+
+
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-90b",
+                                  "seamless-m4t-large-v2"])
+def test_family_decode_step_kernels_equal_plain(dev, arch):
+    """Reduced vlm and audio models (random norms, biases and gates, random
+    vision or frames memory, ragged lengths): four ``decode_step``s with
+    every kernel launch held to its plain version, and the logits of the
+    kernels' run within tolerance of ``ops.PLAIN_LM``'s."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import model as model_mod
+
+    cfg = reduced(get_config(arch))
+    m = model_mod.init_params(cfg, seed=3, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    with torch.no_grad():
+        for name, p in m.named_parameters():
+            leaf = name.split(".")[-1]
+            if leaf == "gate" or leaf.startswith("b") or "ln" in name:
+                p.add_(0.3 * torch.randn(p.shape, generator=gen, device=dev))
+    b, max_len = 3, 16
+    mem = {n: torch.randn(t.shape, generator=gen, device=dev)
+           for n, t in model_mod.stub_batch(cfg, b).items()}
+    caches = []
+    for _ in range(2):
+        cache = model_mod.init_cache(m, b, max_len, mem)
+        cache["len"] = torch.tensor([0, 3, 7], dtype=torch.int32, device=dev)
+        caches.append(cache)
+    held = HeldKernels()
+    toks = torch.tensor([[5], [9], [200]], device=dev)
+    for _ in range(4):
+        got, _ = model_mod.decode_step(m, caches[0], toks, kernels=held)
+        want, _ = model_mod.decode_step(m, caches[1], toks,
+                                        kernels=ops.PLAIN_LM)
+        scale = float(want.abs().max())
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=1e-4, atol=1e-4 * scale)
+        toks = torch.argmax(want, dim=-1, keepdim=True)
+    reads = (cfg.n_layers if cfg.family == "vlm" else 2 * cfg.n_layers)
+    assert held.calls == 4 * reads
 
 
 def test_grouped_gemm_kernel_rejects_without_falling_back(dev):

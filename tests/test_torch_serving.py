@@ -90,7 +90,7 @@ def test_configs_match_the_reference(arch):
         assert cfg.param_count() == jcfg.param_count()
         assert cfg.param_count(True) == jcfg.param_count(True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("dbrx-132b")
+        get_config("xlstm-125m")
     with pytest.raises(KeyError):
         get_config("no-such-model")
 
