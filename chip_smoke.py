@@ -106,9 +106,12 @@
    layouts) and Path D (512 x 8^3, 64 x 16^3): bit-equal to three
    ``rk3_step`` calls at two dts with one capture, the caller's state
    kept, an eager step after the capture equal to a fresh runner's, and
-   one replay's kernel launches (``torch.profiler``) equal to 3 x steps x
-   the path's launches per stage; prints host ms/step against the step
-   loop, device busy per step and peak memory.  Crash-consistent resume: a
+   one replay's kernel launches, counted from the captured graph's own
+   kernel nodes (``CapturedCall.kernel_names``), equal to 3 x steps x the
+   path's launches per stage; prints host ms/step against the step loop,
+   device busy and device ops per step (``torch.profiler``, whose count of
+   a replay's kernels is printed as a note where it differs from the
+   graph's) and peak memory.  Crash-consistent resume: a
    child process runs the main path under ``s3`` cap 32 with a checkpoint
    after each of 4 steps and dies by SIGKILL after checkpoint 2; the
    resumed run equals an uninterrupted one bit for bit; so does Path C's
@@ -171,8 +174,9 @@
    checks and times at the shapes the families of item 17 give the two
    kernels (``FAMILY_DA_ROWS``: h2o-danube's D 80, seamless's MHA at D 64,
    starcoder2's group of 12, dbrx's group of 6, llama-vision's cross
-   attention over 6,404 positions at full length; dbrx's (16, C, 6144) @
-   (16, 6144, 10752) and (16, C, 10752) @ (16, 10752, 6144) expert GEMMs).
+   attention over 6,404 positions at full length, zamba2's shared block
+   at MHA 32/32, D 80; dbrx's (16, C, 6144) @ (16, 6144, 10752) and (16,
+   C, 10752) @ (16, 10752, 6144) expert GEMMs).
 16. The serving path: qwen2-moe-a2.7b at full width and depth in bf16
    (14.3 B weights from a seeded generator on the card) behind
    ``ServingEngine(max_batch=8, max_len=1024)`` on 12 requests (prompts of
@@ -188,7 +192,12 @@
    logits must stay within ``F32_LOGIT_TOL`` of the kernels'.
    Prints tokens/s, ms per launch by bucket, the cache gather and scatter
    copies' device time and peak memory.
-17. The families: h2o-danube-1.8b, starcoder2-15b, seamless-m4t-large-v2
+17. The families.  First the recurrent mixers, one layer each at
+   published width in fp32 (Mamba2 at zamba2-2.7b's, mLSTM and sLSTM at
+   xlstm-125m's): the chunked forward over 512 tokens (2 chunks of 256)
+   against 512 decode steps, within the reference's decode-equals-forward
+   tolerance (atol 2e-4, rtol 2e-3).  Then h2o-danube-1.8b,
+   starcoder2-15b, seamless-m4t-large-v2, xlstm-125m, zamba2-2.7b
    (published depths), qwen1.5-32b (32 of 64 layers), dbrx-132b (4 of 40)
    and llama-3.2-vision-90b (10 of 100, the full 6,404 stub vision tokens)
    at published widths in bf16, one after the other, each freed before the
@@ -196,10 +205,11 @@
    ``ServingEngine(max_batch=8, max_len=256)`` on 6 requests (prompts of
    4-32 tokens, 8 new tokens each): every request done, decode_attention
    launched once per attention read of each engine launch (two per
-   seamless decoder layer) and grouped_gemm 3x per dbrx layer; each
-   emitted token its solo replay's argmax within ``LOGIT_TOL``; one replay
-   with every kernel launch held to its plain version; fp32 at
-   ``F32_LAYERS`` layers (one group for vlm) with the plain versions'
+   seamless decoder layer, one per application of zamba2's shared block,
+   none for xlstm) and grouped_gemm 3x per dbrx layer; each emitted token
+   its solo replay's argmax within ``LOGIT_TOL``; one replay with every
+   kernel launch held to its plain version; fp32 at ``F32_LAYERS`` layers
+   (one whole group for vlm, ssm and hybrid) with the plain versions'
    logits within ``F32_LOGIT_TOL`` of the kernels'.  Prints tokens/s, host
    ms per launch by bucket, device busy and idle share per launch at
    buckets 1 and 8 from ``torch.profiler``, the cache gather per launch
@@ -2111,7 +2121,8 @@ TRAJ_STEPS = 3
 # per s2 launch on an executor stream, ~1 ms: s2 launches 1,024 times per
 # stage on Path C, so its streams fall ~130 ms behind the host per stage
 S2_SLEEP_CYCLES = 2_000_000
-# each kernel wrapper's device kernel, as torch.profiler names it
+# each kernel wrapper's device kernel, as its function name reads in a
+# CUDA graph's kernel nodes and in torch.profiler's records
 DEVICE_KERNELS = {"hydro_rhs_cuda": "hydro_rhs_cluster_kernel",
                   "hydro_rhs_lane_cuda": "hydro_rhs_lane_kernel",
                   "hydro_reconstruct_cuda": "reconstruct_kernel",
@@ -2150,6 +2161,13 @@ def device_events(prof):
         if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA:
             out.append((e.name, float(e.device_time_total)))
     return out
+
+
+def kernels_by_wrapper(names, wrappers):
+    """How many of the kernel ``names`` are each wrapper's device kernel
+    (``DEVICE_KERNELS``)."""
+    return {w: sum(1 for name in names if DEVICE_KERNELS[w] in name)
+            for w in wrappers}
 
 
 def profiled(fn):
@@ -2239,9 +2257,12 @@ def phase_trajectory(paths, dev, card, results):
     trajectory, bit-equal to the ``rk3_step`` loop at two dts with no
     second capture; the caller's state and an earlier result unchanged by
     a later call; an eager step after the capture equal to a fresh
-    runner's; one replay's device kernels (``torch.profiler``) equal to 3
-    x steps x the path's launches per stage; host ms/step against the
-    loop, device busy per step and peak memory."""
+    runner's; the captured graph's kernel nodes (read from the graph
+    itself, ``CapturedCall.kernel_names``) equal to 3 x steps x the path's
+    launches per stage; host ms/step against the loop, device busy and
+    device ops per step from ``torch.profiler`` (a replay whose profiled
+    kernels differ from the graph's nodes is printed as a note: the
+    profiler has dropped records of a replay before) and peak memory."""
     from repro_torch.configs.base import AggregationConfig
     from repro_torch.core import StrategyRunner
 
@@ -2270,6 +2291,14 @@ def phase_trajectory(paths, dev, card, results):
         capture_s = time.perf_counter() - t0
         counted = nonzero_launch_counts()
         peak_mib = (torch.cuda.max_memory_allocated() - mem0) / 2 ** 20
+        # what one replay launches: the captured graph's own kernel nodes
+        want_launches = {k: 3 * n * v for k, v in per_stage.items()}
+        (graph,) = runner.trajectory_graphs.values()
+        node_names = graph.kernel_names()
+        in_graph = kernels_by_wrapper(node_names, want_launches)
+        check(in_graph == want_launches,
+              f"trajectory {label}: the captured graph holds {in_graph} "
+              f"kernel nodes, want {want_launches}")
         # the wrappers count the warm step (one RK3 step) and the capture
         check(counted == {k: 3 * (n + 1) * v for k, v in per_stage.items()},
               f"trajectory {label}: the wrappers counted {counted} over the "
@@ -2288,24 +2317,24 @@ def phase_trajectory(paths, dev, card, results):
         check(states_equal(u0, before) and states_equal(got, want),
               f"trajectory {label}: a replay changed the caller's state or "
               f"an earlier result")
-        want_launches = {k: 3 * n * v for k, v in per_stage.items()}
         fresh = StrategyRunner(make(), fused, device=dev)
         check(states_equal(runner.rk3_step(u0, dt), fresh.rk3_step(u0, dt)),
               f"trajectory {label}: an eager step after the capture differs "
               f"from a fresh runner's (a cache made during the capture?)")
         _, prof = profiled(lambda: runner.rk3_trajectory(u0, dt, n))
         events = device_events(prof)
-        by_kernel = {w: sum(1 for name, _ in events
-                            if DEVICE_KERNELS[w] in name)
-                     for w in want_launches}
-        check(by_kernel == want_launches,
-              f"trajectory {label}: one replay launched {by_kernel} on the "
-              f"device, want {want_launches}")
+        by_kernel = kernels_by_wrapper([name for name, _ in events],
+                                       want_launches)
+        if by_kernel != in_graph:
+            print(f"trajectory ({card}): {label}: note: torch.profiler "
+                  f"recorded {by_kernel} kernels of one replay, the graph "
+                  f"holds {in_graph} kernel nodes", flush=True)
         _, prof_loop = profiled(lambda: loop(ref, dt))
         loop_events = device_events(prof_loop)
         row = dict(
             capture_s=capture_s, peak_mib=peak_mib,
-            launches_per_replay=by_kernel,
+            launches_per_replay=in_graph, graph_kernel_nodes=len(node_names),
+            profiled_launches_per_replay=by_kernel,
             device_ops_per_step=len(events) / n,
             loop_device_ops_per_step=len(loop_events) / n,
             device_busy_ms_per_step=sum(us for _, us in events) / 1e3 / n,
@@ -2318,7 +2347,8 @@ def phase_trajectory(paths, dev, card, results):
               f"({capture_s:.2f} s, peak {peak_mib:.1f} MiB over the "
               f"state), the caller's state kept, an eager step after it "
               f"equal to a fresh runner's; one replay: "
-              f"{row['launches_per_replay']} kernel launches (the wrappers "
+              f"{row['launches_per_replay']} kernel launches of the "
+              f"{len(node_names)} kernel nodes in the graph (the wrappers "
               f"counted {counted} at the warm step and the capture), "
               f"{row['device_ops_per_step']:g} device ops/step (loop "
               f"{row['loop_device_ops_per_step']:g}), device busy "
@@ -3922,6 +3952,7 @@ FAMILY_DA_ROWS = (
     ("dbrx-132b GQA 48/8 (group 6)", 48, 8, 128, MAX_LEN, False),
     ("llama-3.2-vision-90b cross 64/8 (group 8), S 6404", 64, 8, 128, 6404,
      True),
+    ("zamba2-2.7b MHA 32/32 D 80", 32, 32, 80, MAX_LEN, False),
 )
 
 
@@ -4313,6 +4344,8 @@ FAMILY_DEPTHS = (
     ("llama-3.2-vision-90b", 10, "its 100 layers are 175 GB of bf16 "
      "weights; 10 keep two groups of 4 self-attention blocks and a gated "
      "cross-attention block over the full 6,404 stub vision tokens"),
+    ("xlstm-125m", None, ""),
+    ("zamba2-2.7b", None, ""),
 )
 FAMILY_REQUESTS = 6
 FAMILY_PROMPTS = (4, 32)        # prompt lengths, drawn in this range
@@ -4323,12 +4356,26 @@ FAMILY_PROFILED_STEPS = 4       # decode launches profiled per bucket
 
 def attention_reads(cfg):
     """Decode-attention launches per decode step: one per self-attention
-    layer, one per vlm cross block, two per enc-dec decoder layer."""
+    layer, one per vlm cross block, two per enc-dec decoder layer, one per
+    application of the hybrid's shared block, none for the ssm family."""
     if cfg.family == "vlm":
         return cfg.n_layers // cfg.cross_attn_every * cfg.cross_attn_every
     if cfg.family == "audio":
         return 2 * cfg.n_layers
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.shared_attn_every
+    if cfg.family == "ssm":
+        return 0
     return cfg.n_layers
+
+
+def f32_layers(cfg):
+    """The fp32 check's depth: ``F32_LAYERS``, or one whole group where
+    the family stacks groups (a vlm, ssm or hybrid model of fewer layers
+    would hold no group at all)."""
+    every = {"vlm": cfg.cross_attn_every, "ssm": cfg.slstm_every,
+             "hybrid": cfg.shared_attn_every}.get(cfg.family)
+    return every or F32_LAYERS
 
 
 def profile_buckets(cfg, m, dev, buckets=(1, MAX_BATCH)):
@@ -4486,11 +4533,10 @@ def serve_family(arch, layers, why, dev, card):
     gc.collect()
     torch.cuda.empty_cache()
 
-    # fp32 at full width and F32_LAYERS layers (one group for vlm): the
-    # kernels' logits and the plain versions' agree within F32_LOGIT_TOL
-    kw32 = dict(dtype="float32", n_layers=F32_LAYERS)
-    if cfg.family == "vlm":
-        kw32["n_layers"] = cfg.cross_attn_every
+    # fp32 at full width and F32_LAYERS layers (one whole group where
+    # the family has groups): the kernels' logits and the plain versions'
+    # agree within F32_LOGIT_TOL
+    kw32 = dict(dtype="float32", n_layers=f32_layers(cfg))
     if cfg.family == "audio":
         kw32["n_encoder_layers"] = F32_LAYERS
     m32 = model_mod.init_params(cfg.replace(**kw32), seed=0, device=dev)
@@ -4526,19 +4572,110 @@ def serve_family(arch, layers, why, dev, card):
                 peak_bytes=peak)
 
 
+# the mixer check: one layer of each recurrent mixer at its published
+# width in fp32, the chunked form over two chunks of the published 256
+# against as many decode steps, at the reference's decode-equals-forward
+# tolerance (tests/test_models.py)
+MIXER_TOKENS = 512
+MIXER_BATCH = 2
+MIXER_ATOL, MIXER_RTOL = 2e-4, 2e-3
+
+
+def mixer_check(dev, card):
+    """Mamba2 at zamba2-2.7b's width, mLSTM and sLSTM at xlstm-125m's, one
+    layer each in fp32 with seeded weights (the biases, ``D`` and the
+    norm weights drawn too, mLSTM's input-gate biases up to 6 so its
+    stabiliser leaves 0): the chunked forward over ``MIXER_TOKENS`` tokens
+    against that many decode steps from the fresh state, within
+    ``MIXER_ATOL`` + ``MIXER_RTOL`` |y|; returns each mixer's error and
+    times."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+    from repro_torch.models.common import Init
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(25)
+    rng = np.random.default_rng(25)
+    mixers = (
+        ("Mamba2", "zamba2-2.7b", ssm.Mamba2, ssm.mamba2_apply,
+         lambda cfg: ssm.mamba2_state_init(cfg, MIXER_BATCH, torch.float32,
+                                           dev)),
+        ("mLSTM", "xlstm-125m", ssm.MLSTM, ssm.mlstm_apply,
+         lambda cfg: ssm.mlstm_state_init(cfg, MIXER_BATCH, dev)),
+        ("sLSTM", "xlstm-125m", ssm.SLSTM, ssm.slstm_apply,
+         lambda cfg: ssm.slstm_state_init(cfg, MIXER_BATCH, dev)))
+    out = {}
+    for name, arch, cls, apply, fresh in mixers:
+        cfg = get_config(arch).replace(dtype="float32")
+        check(MIXER_TOKENS == 2 * cfg.ssm_chunk,
+              f"mixers: {arch}'s chunk {cfg.ssm_chunk} is not half of "
+              f"{MIXER_TOKENS} tokens")
+        layer = cls(cfg, Init(gen, dev), torch.float32)
+        with torch.no_grad():
+            for pname, p in layer.named_parameters():
+                shape = tuple(p.shape)
+                if pname in ("conv_b", "dt_bias", "b"):
+                    p.copy_(draw(rng, shape, p.dtype, dev, 0.2))
+                elif pname in ("D", "norm_w"):
+                    p.copy_(1.0 + draw(rng, shape, p.dtype, dev, 0.2))
+                elif pname == "b_if":
+                    h = shape[0] // 2
+                    p[:h] = torch.from_numpy(rng.uniform(0.0, 6.0, h)
+                                             .astype(np.float32)).to(dev)
+                    p[h:] = 2.0 + draw(rng, (h,), p.dtype, dev)
+        x = draw(rng, (MIXER_BATCH, MIXER_TOKENS, cfg.d_model),
+                 torch.float32, dev, 0.5)
+        sync()
+        t0 = time.perf_counter()
+        full, _ = apply(layer, x, cfg)
+        sync()
+        chunked_ms = (time.perf_counter() - t0) * 1e3
+        state, rows = fresh(cfg), []
+        t0 = time.perf_counter()
+        for i in range(MIXER_TOKENS):
+            y, state = apply(layer, x[:, i:i + 1], cfg, state=state)
+            rows.append(y)
+        steps = torch.cat(rows, dim=1)
+        sync()
+        steps_ms = (time.perf_counter() - t0) * 1e3
+        diff = (steps - full).abs()
+        err = float(diff.max())
+        check(bool(torch.isfinite(full).all() and torch.isfinite(steps).all()),
+              f"mixers: {name} output not finite")
+        check(bool((diff <= MIXER_ATOL + MIXER_RTOL * full.abs()).all()),
+              f"mixers: {name}'s {MIXER_TOKENS} decode steps differ from "
+              f"its chunked form by {err:.3e}")
+        out[name] = dict(arch=arch, d_model=cfg.d_model, max_abs_err=err,
+                         max_abs_y=float(full.abs().max()),
+                         chunked_ms=chunked_ms, steps_ms=steps_ms)
+        print(f"mixers: {name} at {arch}'s width (d_model {cfg.d_model}), "
+              f"fp32, B {MIXER_BATCH}: the chunked form over {MIXER_TOKENS} "
+              f"tokens ({MIXER_TOKENS // cfg.ssm_chunk} chunks of "
+              f"{cfg.ssm_chunk}) equals {MIXER_TOKENS} decode steps within "
+              f"{err:.3e} (max |y| {out[name]['max_abs_y']:.3e}; atol "
+              f"{MIXER_ATOL:g}, rtol {MIXER_RTOL:g}); chunked "
+              f"{chunked_ms:.1f} ms, steps {steps_ms:.1f} ms host ({card})",
+              flush=True)
+        del layer, x, full, steps, rows, state
+    return out
+
+
 def phase_families(dev, card, results):
-    """The six attention-stack families beside the serving path's
-    qwen2-moe-a2.7b, one after the other, each freed before the next."""
+    """The recurrent mixers' check, then the eight families beside the
+    serving path's qwen2-moe-a2.7b, one after the other, each freed before
+    the next."""
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
+    mixers = mixer_check(dev, card)
     out = {}
     for arch, layers, why in FAMILY_DEPTHS:
         out[arch] = serve_family(arch, layers, why, dev, card)
     seconds = time.perf_counter() - t0
     print(f"families: {len(out)} architectures served in {seconds:.1f} s",
           flush=True)
-    results["families"] = dict(card=card, seconds=seconds, archs=out)
+    results["families"] = dict(card=card, seconds=seconds, mixers=mixers,
+                               archs=out)
 
 
 def main(argv=None):
@@ -4700,7 +4837,8 @@ def main(argv=None):
     # the serving kernels, then the serving path (qwen2-moe-a2.7b)
     phase_lm_kernels(dev, card, results)
     phase_serving_path(dev, card, results)
-    # the six other attention-stack families the port serves
+    # the other eight families the port serves (six attention stacks,
+    # the ssm and the hybrid), after the recurrent mixers' check
     phase_families(dev, card, results)
 
     # launches on each kernel's own path, the s3 cap 32 row

@@ -1,10 +1,9 @@
 """The port's configs: the hydro scenarios (``sedov``, ``gravity``,
 ``amr_sedov``) and the language models it serves.
 
-``get_config(name)`` / ``--arch <id>`` resolves a model.  The port serves
-the dense, moe, vlm and audio families (8 architectures); the reference's
-ssm and hybrid architectures wait in ROADMAP.md and ``get_config`` raises
-``NotImplementedError`` for them.
+``get_config(name)`` / ``--arch <id>`` resolves a model: every
+architecture of the reference's registry, in the dense, moe, ssm, hybrid,
+vlm and audio families (10 architectures).
 """
 from __future__ import annotations
 
@@ -24,14 +23,13 @@ from repro_torch.configs.seamless_m4t_large_v2 import (
     CONFIG as seamless_m4t_large_v2,
 )
 from repro_torch.configs.starcoder2_15b import CONFIG as starcoder2_15b
+from repro_torch.configs.xlstm_125m import CONFIG as xlstm_125m
+from repro_torch.configs.zamba2_2_7b import CONFIG as zamba2_2_7b
 
 ARCHS = {c.name: c for c in (
     starcoder2_15b, granite_8b, qwen1_5_32b, h2o_danube_1_8b, dbrx_132b,
-    qwen2_moe_a2_7b, seamless_m4t_large_v2, llama_3_2_vision_90b)}
-
-# the reference's ssm and hybrid architectures: their configs and model
-# families (models/ssm.py) are not ported yet
-UNPORTED_ARCHS = ("xlstm-125m", "zamba2-2.7b")
+    qwen2_moe_a2_7b, xlstm_125m, seamless_m4t_large_v2, zamba2_2_7b,
+    llama_3_2_vision_90b)}
 
 
 def _key(name: str) -> str:
@@ -42,10 +40,6 @@ def get_config(name: str) -> ModelConfig:
     for cfg in ARCHS.values():
         if _key(cfg.name) == _key(name):
             return cfg
-    if any(_key(a) == _key(name) for a in UNPORTED_ARCHS):
-        raise NotImplementedError(
-            f"arch {name!r} is not ported yet (see ROADMAP.md); the port "
-            f"serves {sorted(ARCHS)}")
     raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}")
 
 

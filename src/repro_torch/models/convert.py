@@ -7,10 +7,14 @@ it is; only the stacked axes are split.  A port parameter
 ``<stack>.<i>[.<j>].<path>`` is the reference's ``<stack>.<path>[i[, j]]``:
 ``layers`` (dense, moe), ``selfs`` (vlm, stacked twice: ``(G, every-1,
 ...)``), ``crosses`` (vlm, its 0-d ``attn.gate`` stacked to ``(G,)``),
+``mlstm`` (ssm, stacked twice: ``(G, every-1, ...)``), ``slstm`` (ssm,
+``(G,)``), ``mamba`` (hybrid, stacked twice: ``(G, every, ...)``),
 ``encoder`` and ``decoder`` (audio).  ``emb``, ``ln_f`` and ``head`` are the
-reference's ``embed.*``; ``enc_ln`` is its own top-level leaf.  bf16 leaves
-(numpy's ``bfloat16`` extension type) pass through fp32, which holds every
-bf16 value exactly.
+reference's ``embed.*``; ``enc_ln``, ``norms (G, every, d)`` and the
+hybrid's unstacked ``shared`` block are top-level leaves as they are.  Each
+leaf keeps its dtype (the mixers' fp32 leaves stay fp32 in a bf16 model);
+bf16 leaves (numpy's ``bfloat16`` extension type) pass through fp32, which
+holds every bf16 value exactly.
 """
 from __future__ import annotations
 

@@ -1,11 +1,17 @@
-"""Model assembly for serving: init, cache and one decode step, for the
-dense, moe, vlm and audio families (``repro.models.model``'s counterpart,
-serving path only; training and the ssm and hybrid families wait in
-ROADMAP.md).
+"""Model assembly for serving: init, cache and one decode step, for every
+family of the reference (``repro.models.model``'s counterpart, serving
+path only; training waits in ROADMAP.md).
 
 ``Model`` holds the weights (an ``nn.Module`` of frozen parameters):
 
   dense/moe : ``layers``, one ``Block`` per layer
+  ssm       : ``mlstm`` (G groups of ``slstm_every - 1`` mLSTM blocks),
+              ``slstm`` (G sLSTM blocks) and the pre-norms ``norms (G,
+              every, d)``, G = n_layers / slstm_every (xlstm)
+  hybrid    : ``mamba`` (G groups of ``shared_attn_every`` Mamba2 layers),
+              their pre-norms ``norms (G, every, d)`` and ONE ``shared``
+              self-attention block applied before each group, G =
+              n_layers / shared_attn_every (zamba2)
   vlm       : ``selfs`` (G groups of ``cross_attn_every - 1`` self blocks)
               and ``crosses`` (G gated cross-attention blocks), G =
               n_layers / cross_attn_every (llama-3.2-vision)
@@ -27,10 +33,11 @@ from torch import nn
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops as default_kernels
+from repro_torch.models import ssm
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import Init, dense_init, dtype_of, frozen, rmsnorm
 
-PORTED_FAMILIES = ("dense", "moe", "vlm", "audio")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 STUB_FRAMES = 8           # audio frames of the engine's stub input
 # cache leaves written once by ``init_cache`` and only read by decode
 CROSS_LEAVES = ("cross_k", "cross_v")
@@ -43,10 +50,9 @@ class Model(nn.Module):
 
     def __init__(self, cfg, init: Init):
         super().__init__()
-        if cfg.family not in PORTED_FAMILIES:
-            raise NotImplementedError(
-                f"model family {cfg.family!r} ({cfg.name}) is not ported yet "
-                f"(see ROADMAP.md); the port serves {PORTED_FAMILIES}")
+        if cfg.family not in FAMILIES:
+            raise ValueError(f"model family {cfg.family!r} ({cfg.name}): "
+                             f"expected one of {FAMILIES}")
         self.cfg = cfg
         dtype = dtype_of(cfg)
         self.emb = frozen(init(_emb_init, cfg.vocab_size, cfg.d_model, dtype))
@@ -59,9 +65,28 @@ class Model(nn.Module):
             return nn.ModuleList(tfm.Block(cfg, init, dtype, kind)
                                  for _ in range(n))
 
+        def mixers(n, cls):
+            return nn.ModuleList(cls(cfg, init, dtype) for _ in range(n))
+
         if cfg.family in ("dense", "moe"):
             self.layers = blocks(cfg.n_layers,
                                  "moe" if cfg.n_experts else "self")
+        elif cfg.family == "ssm":
+            every = cfg.slstm_every
+            groups = cfg.n_layers // every
+            self.mlstm = nn.ModuleList(mixers(every - 1, ssm.MLSTM)
+                                       for _ in range(groups))
+            self.slstm = mixers(groups, ssm.SLSTM)
+            self.norms = frozen(init.ones((groups, every, cfg.d_model),
+                                          dtype))
+        elif cfg.family == "hybrid":
+            every = cfg.shared_attn_every
+            groups = cfg.n_layers // every
+            self.mamba = nn.ModuleList(mixers(every, ssm.Mamba2)
+                                       for _ in range(groups))
+            self.norms = frozen(init.ones((groups, every, cfg.d_model),
+                                          dtype))
+            self.shared = tfm.Block(cfg, init, dtype, "self")
         elif cfg.family == "vlm":
             every = cfg.cross_attn_every
             groups = cfg.n_layers // every
@@ -130,21 +155,53 @@ def forward_encoder(model: Model, frames: torch.Tensor) -> torch.Tensor:
     return rmsnorm(h, model.enc_ln, cfg.norm_eps)
 
 
+def _stacked(state: Dict[str, torch.Tensor], n: int,
+             prefix: str) -> Dict[str, torch.Tensor]:
+    """One mixer's decode state repeated over ``n`` layers on a new
+    leading axis, each leaf named ``<prefix>_<name>``."""
+    return {f"{prefix}_{name}": t[None].repeat((n,) + (1,) * t.dim())
+            for name, t in state.items()}
+
+
 def init_cache(model: Model, batch_size: int, max_len: int,
                batch: Optional[Dict[str, torch.Tensor]] = None
                ) -> Dict[str, torch.Tensor]:
-    """The decode cache on the model's device: ``len (B,)`` int32, the
-    stacked self-attention caches ``k, v (L, B, S, Hkv, hd)`` (L the
-    family's self-attention layers in order: vlm layer ``j`` of group
-    ``g`` is ``g (every - 1) + j``), and for vlm and audio the memory's
-    ``cross_k, cross_v (G or L, B, Sm, Hkv, hd)``, from ``batch["vision"]``
-    or the encoded ``batch["frames"]`` (``stub_batch``'s zeros when
-    ``batch`` is None).  Every leaf but ``len`` carries the slot axis at
-    position 1."""
+    """The decode cache on the model's device: ``len (B,)`` int32, and the
+    family's leaves, every one but ``len`` with the slot axis at position
+    1:
+
+      dense/moe/vlm/audio: the stacked self-attention caches ``k, v (L,
+        B, S, Hkv, hd)`` (L the family's self-attention layers in order:
+        vlm layer ``j`` of group ``g`` is ``g (every - 1) + j``), and for
+        vlm and audio the memory's ``cross_k, cross_v (G or L, B, Sm, Hkv,
+        hd)``, from ``batch["vision"]`` or the encoded ``batch["frames"]``
+        (``stub_batch``'s zeros when ``batch`` is None);
+      ssm: ``mlstm_C (Lm, B, H, hd, hd)``, ``mlstm_n (Lm, B, H, hd)``,
+        ``mlstm_m (Lm, B, H)`` (-1e30), mLSTM ``j`` of group ``g`` at ``g
+        (every - 1) + j``, and ``slstm_h, slstm_c, slstm_n, slstm_m (G, B,
+        d)`` (``n`` ones), all fp32; no K or V;
+      hybrid: ``mamba_conv (L, B, 3, inner + 2 N)`` in the model's dtype,
+        ``mamba_ssm (L, B, H, N, 64)`` fp32 (layer ``j`` of group ``g`` at
+        ``g every + j``), and the shared block's ``k, v (G, B, S, Hkv,
+        hd)``, one per application."""
     cfg = model.cfg
     dtype, dev = dtype_of(cfg), model.device
     cache = {"len": torch.zeros((batch_size,), dtype=torch.int32,
                                 device=dev)}
+    if cfg.family == "ssm":
+        groups = cfg.n_layers // cfg.slstm_every
+        cache.update(_stacked(ssm.mlstm_state_init(cfg, batch_size, dev),
+                              groups * (cfg.slstm_every - 1), "mlstm"))
+        cache.update(_stacked(ssm.slstm_state_init(cfg, batch_size, dev),
+                              groups, "slstm"))
+        return cache
+    if cfg.family == "hybrid":
+        cache.update(_stacked(ssm.mamba2_state_init(cfg, batch_size, dtype,
+                                                    dev),
+                              cfg.n_layers, "mamba"))
+        cache.update(tfm.kv_cache_init(cfg, batch_size, max_len, dtype, dev,
+                                       cfg.n_layers // cfg.shared_attn_every))
+        return cache
     if cfg.family == "vlm":
         n_self = cfg.n_layers // cfg.cross_attn_every \
             * (cfg.cross_attn_every - 1)
@@ -171,20 +228,53 @@ def init_cache(model: Model, batch_size: int, max_len: int,
     return cache
 
 
+def _mixer_step(apply, layer, x: torch.Tensor, norm_w: torch.Tensor, cfg,
+                cache: Dict[str, torch.Tensor], prefix: str, names,
+                i: int) -> torch.Tensor:
+    """A pre-norm residual mixer layer decoding one token from its state
+    (``cache[<prefix>_<name>][i]``), which it overwrites in place."""
+    state = {n: cache[f"{prefix}_{n}"][i] for n in names}
+    y, state = apply(layer, rmsnorm(x, norm_w, cfg.norm_eps), cfg,
+                     state=state)
+    for n in names:
+        cache[f"{prefix}_{n}"][i].copy_(state[n])
+    return x + y
+
+
 def decode_step(model: Model, cache: Dict[str, torch.Tensor],
                 tokens: torch.Tensor, *, kernels=default_kernels
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """tokens: (B, 1) -> (logits (B, V), cache).  ``cache["len"]`` holds
     each request's current length (ragged aggregated batches).  Each
-    layer's K and V are written into ``cache`` in place and ``len`` is
-    advanced by one; the same dict is returned.  ``kernels`` supplies
-    ``decode_attention`` and ``grouped_gemm`` (``kernels.ops`` by default;
-    ``ops.PLAIN_LM`` for the plain versions)."""
+    layer's K and V, or its mixer's state, are written into ``cache`` in
+    place and ``len`` is advanced by one; the same dict is returned.
+    ``kernels`` supplies ``decode_attention`` and ``grouped_gemm``
+    (``kernels.ops`` by default; ``ops.PLAIN_LM`` for the plain
+    versions).  The ssm family reads no attention; the hybrid applies
+    its shared block before each group's Mamba2 layers."""
     cfg = model.cfg
     clen = cache["len"]
-    k, v = cache["k"], cache["v"]
+    k, v = cache.get("k"), cache.get("v")
     x = model.emb[tokens].to(dtype_of(cfg))
-    if cfg.family in ("dense", "moe"):
+    if cfg.family == "ssm":
+        i = 0
+        for g, (mlstms, slstm) in enumerate(zip(model.mlstm, model.slstm)):
+            for j, layer in enumerate(mlstms):
+                x = _mixer_step(ssm.mlstm_apply, layer, x, model.norms[g, j],
+                                cfg, cache, "mlstm", ("C", "n", "m"), i)
+                i += 1
+            x = _mixer_step(ssm.slstm_apply, slstm, x, model.norms[g, -1],
+                            cfg, cache, "slstm", ("h", "c", "n", "m"), g)
+    elif cfg.family == "hybrid":
+        every = cfg.shared_attn_every
+        for g, layers in enumerate(model.mamba):
+            x = tfm.self_block_decode(model.shared, x, cfg, k[g], v[g], clen,
+                                      kernels=kernels)
+            for j, layer in enumerate(layers):
+                x = _mixer_step(ssm.mamba2_apply, layer, x,
+                                model.norms[g, j], cfg, cache, "mamba",
+                                ("conv", "ssm"), g * every + j)
+    elif cfg.family in ("dense", "moe"):
         for i, layer in enumerate(model.layers):
             x = tfm.self_block_decode(layer, x, cfg, k[i], v[i], clen,
                                       kernels=kernels)

@@ -16,14 +16,17 @@ layer:
 
 Each launch gathers the bucket's slots of every cache leaf, runs
 ``decode_step`` on them (24 decode-attention and 72 grouped-GEMM kernel
-launches per step for qwen2-moe-a2.7b) and scatters the leaves that
-``decode_step`` writes back, as the reference does.  The vlm and audio
-families serve against a stub memory (``model.stub_batch``: zero vision
-tokens or frames, as the reference's engine); its cross-attention K and V
+launches per step for qwen2-moe-a2.7b, 9 decode-attention launches for
+zamba2-2.7b's shared block, none for xlstm-125m) and scatters the leaves
+that ``decode_step`` writes back, as the reference does: K and V, or the
+recurrent families' mixer states.  The vlm and audio families serve
+against a stub memory (``model.stub_batch``: zero vision tokens or frames,
+as the reference's engine); its cross-attention K and V
 (``model.CROSS_LEAVES``) are computed once at construction, gathered with
 the rest and never written back.  Admission resets a slot to the fresh
 cache's values, not to zeros: an encoded stub memory is not zero once a
-LayerNorm bias is not.
+LayerNorm bias is not, mLSTM's stabiliser ``m`` starts at -1e30 and
+sLSTM's normaliser ``n`` at ones.
 
 Containment: a ``fault_injector`` poisons the logits rows of matched
 requests (payload site ``"decode"``, keyed by request id, the launch
@@ -121,7 +124,8 @@ class ServingEngine:
             model, max_batch, max_len,
             model_mod.stub_batch(cfg, max_batch, self.device))
         # each leaf's fresh values where they are not all zero (the stub
-        # memory's cross K and V); admission resets the others to zero
+        # memory's cross K and V, mlstm_m, slstm_n); admission resets the
+        # others to zero
         self._fresh = {name: t.clone() for name, t in self.cache.items()
                        if name != "len" and bool(t.any())}
         self.slots_free = list(range(max_batch))

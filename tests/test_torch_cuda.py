@@ -672,13 +672,15 @@ def assert_close(got, want, tol):
 @pytest.mark.parametrize("hq,hkv,d", [(16, 16, 128), (32, 8, 128),
                                       (12, 4, 64), (32, 8, 80),
                                       (48, 4, 128), (48, 8, 128),
-                                      (64, 8, 128), (16, 16, 64)])
+                                      (64, 8, 128), (16, 16, 64),
+                                      (32, 32, 80)])
 def test_decode_attention_kernel_matches_plain(dev, dtype, hq, hkv, d):
     """Ragged lengths (1, a tile edge, S and 0 among them) at the shapes of
     qwen2-moe (MHA), granite-8b (GQA 4), the reference's sweep, a head
     dimension of 80 (h2o-danube), starcoder2 (group 12), dbrx (group 6),
-    llama-vision (group 8) and seamless (MHA at D 64); every request equals
-    its solo launch bit for bit."""
+    llama-vision (group 8), seamless (MHA at D 64) and zamba2's shared
+    block (MHA at D 80); every request equals its solo launch bit for
+    bit."""
     s = 256
     lens = [1, 64, 65, 200, s, 0]
     b = len(lens)
@@ -911,6 +913,138 @@ def test_family_decode_step_kernels_equal_plain(dev, arch):
         toks = torch.argmax(want, dim=-1, keepdim=True)
     reads = (cfg.n_layers if cfg.family == "vlm" else 2 * cfg.n_layers)
     assert held.calls == 4 * reads
+
+
+def _perturbed(cfg, dev, seed):
+    """A reduced model on ``dev`` with its biases, ``D``, norm weights and
+    gate biases drawn (the init leaves them 0 or 1), mLSTM's input-gate
+    biases up to 6."""
+    from repro_torch.models import model as model_mod
+
+    m = model_mod.init_params(cfg, seed=seed, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 1)
+    with torch.no_grad():
+        for name, p in m.named_parameters():
+            leaf = name.split(".")[-1]
+            if leaf in ("conv_b", "dt_bias", "b", "b_if") or leaf in (
+                    "D", "norm_w", "norms") or "ln" in name:
+                p.add_(0.3 * torch.randn(p.shape, generator=gen,
+                                         device=dev).to(p.dtype))
+            if leaf == "b_if":
+                h = p.shape[0] // 2
+                p[:h] += 6.0 * torch.rand(h, generator=gen, device=dev)
+    return m
+
+
+def test_hybrid_decode_step_kernels_equal_plain(dev):
+    """Reduced zamba2 (perturbed, random mixer states, random shared K
+    and V, ragged lengths): four ``decode_step``s with every kernel
+    launch held to its plain version, one decode-attention launch per
+    group, and the logits and every cache leaf of the kernels' run within
+    tolerance of ``ops.PLAIN_LM``'s."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import model as model_mod
+
+    cfg = reduced(get_config("zamba2-2.7b"))
+    m = _perturbed(cfg, dev, 5)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    b, max_len = 3, 16
+    first = model_mod.init_cache(m, b, max_len)
+    for name, t in first.items():
+        if name != "len":
+            t.copy_(0.5 * torch.randn(t.shape, generator=gen, device=dev))
+    first["len"] = torch.tensor([0, 3, 7], dtype=torch.int32, device=dev)
+    second = {n: t.clone() for n, t in first.items()}
+    held = HeldKernels()
+    toks = torch.tensor([[5], [9], [200]], device=dev)
+    for _ in range(4):
+        got, _ = model_mod.decode_step(m, first, toks, kernels=held)
+        want, _ = model_mod.decode_step(m, second, toks,
+                                        kernels=ops.PLAIN_LM)
+        scale = float(want.abs().max())
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=1e-4, atol=1e-4 * scale)
+        toks = torch.argmax(want, dim=-1, keepdim=True)
+    assert held.calls == 4 * (cfg.n_layers // cfg.shared_attn_every)
+    for name in first:
+        w = second[name].float()
+        np.testing.assert_allclose(first[name].float().cpu().numpy(),
+                                   w.cpu().numpy(), rtol=1e-4,
+                                   atol=1e-4 * float(w.abs().max()),
+                                   err_msg=name)
+
+
+def test_ssm_decode_on_card_equals_cpu(dev):
+    """Reduced xlstm (perturbed) on the card against the same weights on
+    the CPU: six ``decode_step``s of three requests from the fresh cache
+    (mLSTM's -1e30 stabiliser, sLSTM's unit n), no kernel launched, the
+    logits within rtol 1e-4 and 1e-4 x max|logit| and every state leaf
+    within rtol 1e-4 and 1e-4 x its max."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.models import model as model_mod
+
+    cfg = reduced(get_config("xlstm-125m"))
+    cpu = torch.device("cpu")
+    m_cpu = _perturbed(cfg, cpu, 6)
+    m = model_mod.empty_model(cfg, dev)
+    with torch.no_grad():
+        for (_, p), (_, q) in zip(m.named_parameters(),
+                                  m_cpu.named_parameters()):
+            p.copy_(q)
+    caches = (model_mod.init_cache(m, 3, 16), model_mod.init_cache(m_cpu, 3,
+                                                                   16))
+    assert "k" not in caches[0]
+    before = da.decode_attention_cuda.launches
+    toks = torch.tensor([[5], [9], [200]])
+    for _ in range(6):
+        got, _ = model_mod.decode_step(m, caches[0], toks.to(dev))
+        want, _ = model_mod.decode_step(m_cpu, caches[1], toks)
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   rtol=1e-4,
+                                   atol=1e-4 * float(want.abs().max()))
+        toks = torch.argmax(want, dim=-1, keepdim=True)
+    assert da.decode_attention_cuda.launches == before
+    for name, w in caches[1].items():
+        np.testing.assert_allclose(caches[0][name].cpu().numpy(), w.numpy(),
+                                   rtol=1e-4,
+                                   atol=1e-4 * float(w.abs().max()),
+                                   err_msg=name)
+
+
+def test_graph_kernel_names_count_what_a_replay_launches(dev):
+    """``CapturedCall.kernel_names`` reads the captured graph's kernel
+    nodes: a 2-step uniform trajectory holds 3 x 2 slot_grid kernel
+    nodes; the same capture with one stage's kernel launch left out (its
+    RHS replaced by a copy of the previous one) holds one fewer, which is
+    what ``chip_smoke.py``'s trajectory check must catch."""
+    make, u0, dt = _uniform(dev)
+    fused = AggregationConfig(strategy="fused")
+    runner = StrategyRunner(make(), fused, device=dev)
+    runner.rk3_trajectory(u0, dt, 2)
+    (graph,) = runner.trajectory_graphs.values()
+    names = graph.kernel_names()
+    assert sum("hydro_rhs_cluster_kernel" in n for n in names) == 6
+    assert len(names) > 6                     # the combines' kernels too
+
+    dropping = StrategyRunner(make(), fused, device=dev)
+    rhs, calls, last = dropping.scenario.reference_rhs, [0], []
+
+    def rhs_dropping_one(*args, **kw):
+        calls[0] += 1                # 3 warm calls, then the capture's 6
+        if calls[0] == 5:
+            return last[0].clone()
+        last[:] = [rhs(*args, **kw)]
+        return last[0]
+
+    dropping.scenario.reference_rhs = rhs_dropping_one
+    dropping.rk3_trajectory(u0, dt, 2)
+    (graph,) = dropping.trajectory_graphs.values()
+    assert calls[0] == 9
+    assert sum("hydro_rhs_cluster_kernel" in n
+               for n in graph.kernel_names()) == 5
 
 
 def test_grouped_gemm_kernel_rejects_without_falling_back(dev):

@@ -20,6 +20,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from repro.configs import ARCHS as JARCHS  # noqa: E402
 from repro.configs import get_config as jget_config  # noqa: E402
 from repro.configs import reduced as jreduced  # noqa: E402
 from repro.models import model as jmodel  # noqa: E402
@@ -89,8 +90,9 @@ def test_configs_match_the_reference(arch):
         assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
         assert cfg.param_count() == jcfg.param_count()
         assert cfg.param_count(True) == jcfg.param_count(True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("xlstm-125m")
+    # every architecture of the reference's registry resolves in the port
+    for name, jc in JARCHS.items():
+        assert dataclasses.asdict(get_config(name)) == dataclasses.asdict(jc)
     with pytest.raises(KeyError):
         get_config("no-such-model")
 
