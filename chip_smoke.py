@@ -214,7 +214,19 @@
    ms per launch by bucket, device busy and idle share per launch at
    buckets 1 and 8 from ``torch.profiler``, the cache gather per launch
    and peak memory.
-18. Prints one line naming the kernels, one JSON line of kernels, the card
+18. Training (``repro_torch.launch``; no kernel on its path, and no
+   wrapper counts a launch): every architecture reduced, fp32, TF32 off:
+   one step on the card against the same step on the CPU (loss and
+   gradient norm within rtol 1e-4), then 30 steps of ``launch.train`` (seq 64,
+   batch 8, lr 3e-3, warmup 5, 50 total steps) whose loss falls, granite-8b
+   at 2 layers by the reference's 0.2; one architecture per family resumed
+   after a child process is SIGKILLed at checkpoint 3 of 6, equal to the
+   straight run in every weight, ``m``, ``v`` and ``step``; one bf16 step
+   per architecture at published widths, remat on, seq 4,096, batch 4 in 2
+   microbatches, at ``TRAIN_DEPTHS`` (or a printed reason): host and busy
+   ms/step, tokens/s, the model-FLOPs share, peak memory, the loss at
+   initialisation within rel 0.35 of ln V.
+19. Prints one line naming the kernels, one JSON line of kernels, the card
    line, and as its last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the run exits non-zero and prints no result;
@@ -230,8 +242,12 @@ import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 
-import numpy as np
-import torch
+# read when cuBLAS first runs in the process: the training phase's
+# resumed runs take torch.use_deterministic_algorithms(True), which needs it
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -2163,6 +2179,14 @@ def device_events(prof):
     return out
 
 
+def device_busy_ms(prof):
+    """Device ms of every kernel, copy and fill the trace holds, summed
+    from the profiler's raw events (building its function events costs
+    seconds per 10^5 kernels)."""
+    return sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == torch.autograd.DeviceType.CUDA) / 1e6
+
+
 def kernels_by_wrapper(names, wrappers):
     """How many of the kernel ``names`` are each wrapper's device kernel
     (``DEVICE_KERNELS``)."""
@@ -2170,13 +2194,14 @@ def kernels_by_wrapper(names, wrappers):
             for w in wrappers}
 
 
-def profiled(fn):
-    """``fn()`` under ``torch.profiler`` (CPU and CUDA), synchronised;
-    returns (fn's result, the profile)."""
+def profiled(fn, activities=("CPU", "CUDA")):
+    """``fn()`` under ``torch.profiler`` (CPU and CUDA, or the
+    ``activities`` named), synchronised; returns (fn's result, the
+    profile)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[getattr(ProfilerActivity, a)
+                             for a in activities]) as prof:
         out = fn()
         sync()
     return out, prof
@@ -4678,6 +4703,321 @@ def phase_families(dev, card, results):
                                archs=out)
 
 
+# ---------------------------------------------------------------------------
+# training: reduced runs of every architecture, resume, full-width steps
+# ---------------------------------------------------------------------------
+
+TRAIN_REDUCED_STEPS = 30    # the reference's loss-decrease bar's run
+TRAIN_REDUCED = dict(seq_len=64, batch_size=8, lr=3e-3, total_steps=50)
+TRAIN_FIRST_STEP_RTOL = 1e-4
+RESUME_STEPS, RESUME_KILL_AT = 6, 3
+RESUME_ARCHS = ("granite-8b", "qwen2-moe-a2.7b", "xlstm-125m",
+                "zamba2-2.7b", "llama-3.2-vision-90b",
+                "seamless-m4t-large-v2")     # one per family
+# one full-width step: TRAIN_4K's length, global batch 4 in 2 microbatches
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICROBATCH = 4096, 4, 2
+# state per parameter under microbatch 2: bf16 weights and gradients, and
+# fp32 m, v and gradient accumulation buffers (2 + 2 + 4 + 4 + 4)
+TRAIN_BYTES_PER_PARAM = 16
+# (arch, layers or None for the published depth or 0 for no step, why);
+# parameters counted on the meta device; each cut keeps 16 B per
+# parameter within ~64 GiB, leaving ~15 GiB of the card's 79.1 GiB for
+# the activations of one 2 x 4,096-token microbatch under remat
+TRAIN_DEPTHS = (
+    ("granite-8b", 18, "18 of 36 layers: 4.13 B parameters, 61.5 GiB of "
+     "state at 16 B each (36 would be 8.05 B, 120 GiB)"),
+    ("starcoder2-15b", 9, "9 of 40 layers: 4.06 B parameters, 60.5 GiB "
+     "(40 would be 15.96 B, 238 GiB)"),
+    ("qwen1.5-32b", 5, "5 of 64 layers: 4.19 B parameters, 62.4 GiB; its "
+     "152,064-token vocabulary holds 1.56 B of them"),
+    ("h2o-danube-1.8b", None, ""),
+    ("dbrx-132b", 1, "1 of 40 layers: 4.49 B parameters (16 experts of "
+     "6144 x 10752 x 3), 66.9 GiB; two would be 7.75 B, 115 GiB"),
+    ("qwen2-moe-a2.7b", 6, "6 of 24 layers: 4.05 B parameters (60 "
+     "experts each), 60.4 GiB (24 would be 14.32 B, 213 GiB)"),
+    ("xlstm-125m", 0, "time, not memory (4.8 GiB at one group): the sLSTM "
+     "steps through the 4,096 positions one by one in eager PyTorch, "
+     "forward, recompute and backward, ~0.7 M kernels per step: one group "
+     "of 4 layers took 36.4 s of host per step and its profiled step "
+     "~5 min, beyond this script's time"),
+    ("seamless-m4t-large-v2", None, ""),
+    ("zamba2-2.7b", None, ""),
+    ("llama-3.2-vision-90b", 0, "its smallest whole group (4 self blocks "
+     "and a gated cross block) with the 128,256-token embedding and head "
+     "holds 6.38 B parameters, 95.1 GiB of state at 16 B each (71.3 GiB at "
+     "12 B without accumulation), beyond the card's 80 GB at any batch"),
+)
+
+TRAIN_RESUME_CHILD = """
+import os, signal, sys
+from repro_torch.launch import train as t
+save = t.save_state
+
+
+def save_then_die(ckpt_dir, step, *args, **kw):
+    path = save(ckpt_dir, step, *args, **kw)
+    if step == int(sys.argv[3]):
+        os.kill(os.getpid(), signal.SIGKILL)
+    return path
+
+
+t.save_state = save_then_die
+t.train(sys.argv[1], int(sys.argv[4]), 64, 8, True, sys.argv[2],
+        save_every=1, lr=3e-3, microbatch=2, total_steps=50,
+        log_every=1000, device=sys.argv[5])
+"""
+
+
+def rel_err(a, b):
+    return abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
+
+
+def train_reduced(dev, card):
+    """Check 1: each architecture reduced, fp32 (TF32 off): one step on
+    the card against the same step on the CPU from the same weights and
+    batch (loss and gradient norm within ``TRAIN_FIRST_STEP_RTOL``), then
+    ``TRAIN_REDUCED_STEPS`` steps of ``train()`` on the card (seq 64, batch
+    8, lr 3e-3, warmup 5, 50 total steps): the mean of the last 5 losses
+    below the mean of the first 5; granite-8b at 2 layers by 0.2 (the
+    reference's bar, ``tests/test_models.py:160``)."""
+    import copy
+
+    from repro_torch.configs import ARCHS, get_config, reduced
+    from repro_torch.data import DataConfig, SyntheticLMStream
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import add_extra_inputs, train
+    from repro_torch.models import model as model_mod
+    from repro_torch.optim import OptConfig, opt_init
+
+    opt = OptConfig(lr=3e-3, warmup_steps=5, total_steps=50)
+    out = {}
+    runs = [(arch, None) for arch in sorted(ARCHS)] + [("granite-8b", 2)]
+    for arch, n_layers in runs:
+        cfg = reduced(get_config(arch))
+        if n_layers:
+            cfg = cfg.replace(n_layers=n_layers)
+        label = arch if n_layers is None else f"{arch} ({n_layers} layers)"
+        data = SyntheticLMStream(DataConfig(seq_len=64, global_batch=8,
+                                            vocab_size=cfg.vocab_size))
+        batch = add_extra_inputs(cfg, data.batch(0), 0)
+        first = {}
+        on_cpu = model_mod.init_params(cfg, 0, "cpu")
+        on_card = copy.deepcopy(on_cpu).to(dev)
+        for where, m in (("cpu", on_cpu), ("card", on_card)):
+            d = torch.device("cpu") if where == "cpu" else dev
+            step = make_train_step(cfg, opt, device=d)
+            _, _, met = step(m, opt_init(dict(m.named_parameters())),
+                             {k: v.to(d) for k, v in batch.items()})
+            first[where] = (float(met["loss"]), float(met["grad_norm"]))
+        del on_cpu, on_card
+        errs = [rel_err(first["card"][i], first["cpu"][i]) for i in (0, 1)]
+        check(max(errs) <= TRAIN_FIRST_STEP_RTOL,
+              f"training {label}: the card's first step (loss, grad norm) "
+              f"{first['card']} against the CPU's {first['cpu']}, rel err "
+              f"{errs}")
+        sync()
+        t0 = time.perf_counter()
+        _, _, losses = train(arch, TRAIN_REDUCED_STEPS,
+                             TRAIN_REDUCED["seq_len"],
+                             TRAIN_REDUCED["batch_size"], True,
+                             lr=TRAIN_REDUCED["lr"],
+                             total_steps=TRAIN_REDUCED["total_steps"],
+                             n_layers=n_layers, log_every=10_000, device=dev)
+        ms = (time.perf_counter() - t0) * 1e3 / TRAIN_REDUCED_STEPS
+        head, tail = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+        bar = 0.2 if n_layers == 2 else 0.0
+        check(np.all(np.isfinite(losses)) and tail < head - bar,
+              f"training {label}: the loss did not fall by {bar} over "
+              f"{TRAIN_REDUCED_STEPS} steps: {losses}")
+        print(f"training reduced {label}: first step card/cpu loss "
+              f"{first['card'][0]:.6f}/{first['cpu'][0]:.6f}, grad norm "
+              f"{first['card'][1]:.6f}/{first['cpu'][1]:.6f} (rel err "
+              f"{errs[0]:.2e}, {errs[1]:.2e}); {TRAIN_REDUCED_STEPS} steps: "
+              f"loss {head:.4f} -> {tail:.4f} (first 5 / last 5 means), "
+              f"{ms:.1f} host ms/step [{card}]", flush=True)
+        out[label] = dict(first_card=first["card"], first_cpu=first["cpu"],
+                          rel_err=errs, losses=losses, ms_per_step=ms)
+    return out
+
+
+def train_resume(dev, card, work):
+    """Check 2: one architecture per family, reduced: ``RESUME_STEPS``
+    steps of ``train()`` straight, against a child process SIGKILLed after
+    the checkpoint at step ``RESUME_KILL_AT`` (the six children run at
+    once) and resumed to ``RESUME_STEPS``; the weights, ``m``, ``v`` and
+    ``step`` must be equal in every bit (``train()`` runs under
+    ``torch.use_deterministic_algorithms(True)``)."""
+    from repro_torch.launch.train import train
+
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(HERE, "src")]
+        + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    children = {}
+    for arch in RESUME_ARCHS:
+        ckpt = os.path.join(work, f"train_{arch}")
+        children[arch] = (ckpt, subprocess.Popen(
+            [sys.executable, "-c", TRAIN_RESUME_CHILD, arch, ckpt,
+             str(RESUME_KILL_AT), str(RESUME_STEPS), str(dev)], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    kw = dict(lr=3e-3, microbatch=2, total_steps=50, log_every=10_000,
+              device=dev)
+    straight = {arch: train(arch, RESUME_STEPS, 64, 8, True, **kw)
+                for arch in RESUME_ARCHS}
+    out = {}
+    for arch, (ckpt, proc) in children.items():
+        _, err = proc.communicate(timeout=600)
+        check(proc.returncode == -9, f"training resume {arch}: the child "
+              f"exited {proc.returncode}, not by SIGKILL: {err[-2000:]}")
+        m_r, s_r, losses = train(arch, RESUME_STEPS, 64, 8, True, ckpt,
+                                 save_every=1, **kw)
+        m_s, s_s, _ = straight[arch]
+        check(len(losses) == RESUME_STEPS - RESUME_KILL_AT,
+              f"training resume {arch}: resumed {len(losses)} steps")
+        same = all(torch.equal(a, b) for a, b in
+                   zip(m_r.parameters(), m_s.parameters()))
+        for key in ("m", "v"):
+            same &= all(torch.equal(s_r[key][n], s_s[key][n])
+                        for n in s_s[key])
+        same &= int(s_r["step"]) == int(s_s["step"]) == RESUME_STEPS
+        check(same, f"training resume {arch}: the resumed run differs from "
+              f"the straight one")
+        print(f"training resume {arch}: killed after checkpoint "
+              f"{RESUME_KILL_AT}, resumed to step {RESUME_STEPS}: weights, "
+              f"m, v and step equal in every bit [{card}]", flush=True)
+        out[arch] = True
+    del straight
+    return out
+
+
+def train_full_width(dev, card):
+    """Check 3: one training step per architecture at published widths,
+    bf16, remat on, ``TRAIN_SEQ`` x ``TRAIN_BATCH`` tokens in
+    ``TRAIN_MICROBATCH`` microbatches, at ``TRAIN_DEPTHS``: one untimed
+    step under ``torch.profiler`` for busy (the loss at initialisation
+    within rel 0.35 of ln V, as ``tests/test_models.py:42``, the gradient
+    norm finite), then two timed by the host clock; prints host
+    ms/step, busy ms/step, tokens/s, the model-FLOPs share 6 N_active
+    tokens / step_s / 989e12, and peak memory.  Each model is freed before
+    the next.  The attention's scores are fp32 products, as the
+    reference's are; they run on TF32 here (the TPU's default precision
+    takes fp32 products in one bf16 pass too), the check-1 comparison
+    keeps it off."""
+    out = {}
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        for arch, layers, why in TRAIN_DEPTHS:
+            out[arch] = train_full_width_row(arch, layers, why, dev, card,
+                                             tokens)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_full_width_row(arch, layers, why, dev, card, tokens):
+    """One row of check 3 (``train_full_width``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMStream
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import add_extra_inputs
+    from repro_torch.models import model as model_mod
+    from repro_torch.optim import OptConfig, opt_init
+
+    cfg = get_config(arch)
+    if layers == 0:
+        print(f"training full width {arch}: no step: {why}", flush=True)
+        return dict(skipped=why)
+    if layers:
+        cfg = cfg.replace(n_layers=layers)
+    check(cfg.remat and cfg.dtype == "bfloat16",
+          f"training full width {arch}: not a bf16 remat config")
+    gc.collect()
+    sync()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t_arch = time.perf_counter()
+    model = model_mod.init_params(cfg, 0, dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    state = opt_init(dict(model.named_parameters()))
+    step = make_train_step(cfg, OptConfig(),
+                           microbatch=TRAIN_MICROBATCH, device=dev)
+    data = SyntheticLMStream(DataConfig(seq_len=TRAIN_SEQ,
+                                        global_batch=TRAIN_BATCH,
+                                        vocab_size=cfg.vocab_size))
+    batches = [add_extra_inputs(cfg, data.batch(i, dev), i, dev)
+               for i in range(3)]
+    # the untimed first step, under the profiler tracing the device only
+    # (its device work is any step's; the host's first-call costs stay out
+    # of the timed two; tracing the host's ops too, and parsing the trace
+    # into function events, cost minutes on a step of ~10^5 kernels)
+    (model, state, met), prof = profiled(
+        lambda: step(model, state, batches[0]), activities=("CUDA",))
+    busy = device_busy_ms(prof)
+    del prof
+    check(busy > 0, f"training full width {arch}: the profile holds no "
+          f"device time")
+    loss0, gnorm = float(met["loss"]), float(met["grad_norm"])
+    lnv = float(np.log(cfg.vocab_size))
+    check(abs(loss0 - lnv) <= 0.35 * lnv and np.isfinite(gnorm),
+          f"training full width {arch}: loss at init {loss0} (ln V "
+          f"{lnv:.3f}), grad norm {gnorm}")
+    sync()
+    t0 = time.perf_counter()
+    for b in batches[1:]:
+        model, state, met = step(model, state, b)
+    sync()
+    host = (time.perf_counter() - t0) * 1e3 / (len(batches) - 1)
+    check(np.isfinite(float(met["loss"])),
+          f"training full width {arch}: non-finite loss")
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    n_active = cfg.param_count(active_only=True)
+    mfu = 6 * n_active * tokens / (host / 1e3) / BF16_FLOP_PER_S
+    depth = (f"{cfg.n_layers} of {get_config(arch).n_layers} layers"
+             if layers else f"{cfg.n_layers} layers")
+    print(f"training full width {arch} ({depth}, {n_params / 1e9:.3f} "
+          f"B parameters, {n_active / 1e9:.3f} B active): loss at init "
+          f"{loss0:.4f} (ln V {lnv:.4f}), grad norm {gnorm:.4f}; host "
+          f"{host:.1f} ms/step, busy {busy:.1f} ms/step (profiled), "
+          f"{tokens / (host / 1e3):.0f} tokens/s, model-FLOPs share "
+          f"{mfu:.3f}, peak {peak:.2f} GiB; "
+          f"{time.perf_counter() - t_arch:.1f} s [{card}]", flush=True)
+    row = dict(layers=cfg.n_layers, params=n_params, active=n_active,
+               loss0=loss0, grad_norm=gnorm, host_ms=host, busy_ms=busy,
+               tokens_per_s=tokens / (host / 1e3), mfu=mfu, peak_gib=peak,
+               why=why)
+    del model, state, step, batches, met
+    return row
+
+
+def phase_training(dev, card, results):
+    """Training on the card (``repro_torch.launch``): checks 1-3 above.
+    The training path reaches no kernel (the reference trains on the MoE
+    layer's einsum branch and its jnp attention, with no custom VJP), so
+    no wrapper may count a launch here."""
+    import tempfile
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    out = {"reduced": train_reduced(dev, card)}
+    scratch = os.path.join(HERE, "results")
+    os.makedirs(scratch, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="train_", dir=scratch) as work:
+        out["resume"] = train_resume(dev, card, work)
+    out["full_width"] = train_full_width(dev, card)
+    check(not nonzero_launch_counts(), f"training: kernel launches "
+          f"{nonzero_launch_counts()} on a path that has none")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"training: {len(out['reduced'])} reduced runs, "
+          f"{len(out['resume'])} resumes, {len(out['full_width'])} "
+          f"full-width rows in {out['seconds']:.1f} s", flush=True)
+    results["training"] = out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -4840,6 +5180,9 @@ def main(argv=None):
     # the other eight families the port serves (six attention stacks,
     # the ssm and the hybrid), after the recurrent mixers' check
     phase_families(dev, card, results)
+    # training: reduced runs of every architecture, resume, and one
+    # full-width bf16 step per architecture
+    phase_training(dev, card, results)
 
     # launches on each kernel's own path, the s3 cap 32 row
     entries = [results["kernel"], results["gravity_kernel"],

@@ -1,5 +1,6 @@
 """The port's configs: the hydro scenarios (``sedov``, ``gravity``,
-``amr_sedov``) and the language models it serves.
+``amr_sedov``), the language models it serves and trains, and the shape
+cells (``TRAIN_4K``, ``PREFILL_32K``, ``DECODE_32K``, ``LONG_500K``).
 
 ``get_config(name)`` / ``--arch <id>`` resolves a model: every
 architecture of the reference's registry, in the dense, moe, ssm, hybrid,
@@ -8,8 +9,9 @@ vlm and audio families (10 architectures).
 from __future__ import annotations
 
 from repro_torch.configs.base import (  # noqa: F401
+    ALL_SHAPES, DECODE_32K, LONG_500K, PREFILL_32K, SHAPES_BY_NAME, TRAIN_4K,
     AggregationConfig, AMRHydroConfig, GravityHydroConfig, HydroConfig,
-    ModelConfig, validate_ladder,
+    ModelConfig, ShapeConfig, shape_applicable, validate_ladder,
 )
 from repro_torch.configs.dbrx_132b import CONFIG as dbrx_132b
 from repro_torch.configs.granite_8b import CONFIG as granite_8b

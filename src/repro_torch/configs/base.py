@@ -101,6 +101,42 @@ class ModelConfig:
         total += self.vocab_size * d * (1 if self.tie_embeddings else 2)
         return int(total)
 
+
+# ---------------------------------------------------------------------------
+# Shape cells
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    kind: str                 # "train" | "prefill" | "decode"
+    seq_len: int
+    global_batch: int
+
+
+TRAIN_4K = ShapeConfig("train_4k", "train", 4_096, 256)
+PREFILL_32K = ShapeConfig("prefill_32k", "prefill", 32_768, 32)
+DECODE_32K = ShapeConfig("decode_32k", "decode", 32_768, 128)
+LONG_500K = ShapeConfig("long_500k", "decode", 524_288, 1)
+
+ALL_SHAPES: Tuple[ShapeConfig, ...] = (TRAIN_4K, PREFILL_32K, DECODE_32K,
+                                       LONG_500K)
+SHAPES_BY_NAME = {s.name: s for s in ALL_SHAPES}
+
+
+def shape_applicable(cfg: ModelConfig,
+                     shape: ShapeConfig) -> Tuple[bool, str]:
+    """Whether a shape cell applies to an architecture: ``long_500k`` only
+    for sub-quadratic ones (ssm, hybrid, or a sliding window)."""
+    if shape.name == "long_500k":
+        sub_quadratic = (cfg.family in ("ssm", "hybrid")
+                         or cfg.sliding_window > 0)
+        if not sub_quadratic:
+            return False, ("pure full-attention arch: 500k dense-KV decode "
+                           "excluded per spec")
+    return True, ""
+
+
 # the launch strategies the port registers (the reference's set)
 PORTED_STRATEGIES = ("fused", "s2", "s3", "s2+s3", "mixed", "s4", "sharded")
 STAGING_MODES = ("device", "host")

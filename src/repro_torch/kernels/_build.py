@@ -71,6 +71,21 @@ def output(out: Optional["torch.Tensor"], shape: Tuple[int, ...],
     return out
 
 
+def refuse_grad(kernel: str, *tensors) -> None:
+    """Raise before any build or launch when autograd records and an input
+    requires a gradient: the kernels have no backward, so their result
+    would carry none and the gradient would be lost without an error."""
+    import torch
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            for t in tensors):
+        raise RuntimeError(
+            f"the {kernel} kernel has no backward, and an input requires a "
+            f"gradient: train through the plain versions (ops.PLAIN_LM for "
+            f"the serving kernels; the model's forward reaches no kernel) "
+            f"or call it under torch.no_grad()")
+
+
 def raise_on(err: int, error_string: Callable[[int], bytes],
              what: str) -> None:
     """Raise if a library call returned a CUDA error (``err`` != 0);

@@ -161,6 +161,7 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     ``launch_plan(S, D)`` and the scratch of per-chunk partials allocated
     here.  Counts each launch in ``decode_attention_cuda.launches`` (an
     empty bucket or cache launches nothing)."""
+    _build.refuse_grad("decode_attention", q, k_cache, v_cache)
     if q.device.type != "cuda":
         raise ValueError(
             f"decode_attention_cuda needs a CUDA tensor, got one on "

@@ -185,6 +185,7 @@ def gravity_cuda(u_slots: torch.Tensor, h_slots: torch.Tensor, *,
     (n, F, P, P, P), (n,) -> (n, 4, S, S, S), into ``out`` if given (a
     contiguous float32 tensor of that shape; checked).  Counts each launch
     in ``gravity_cuda.launches``."""
+    _build.refuse_grad("gravity", u_slots, h_slots)
     if u_slots.device.type != "cuda":
         raise ValueError(
             f"gravity_cuda needs a CUDA tensor, got one on {u_slots.device};"

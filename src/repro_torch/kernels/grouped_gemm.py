@@ -94,6 +94,7 @@ def grouped_gemm_cuda(x: torch.Tensor, w: torch.Tensor,
     """Launch the grouped-GEMM kernel on the current stream: (E, C, K),
     (E, K, N), (E,) -> (E, C, N).  Counts each launch in
     ``grouped_gemm_cuda.launches``."""
+    _build.refuse_grad("grouped_gemm", x, w)
     if x.device.type != "cuda":
         raise ValueError(
             f"grouped_gemm_cuda needs a CUDA tensor, got one on {x.device}; "

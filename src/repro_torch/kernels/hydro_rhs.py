@@ -338,6 +338,7 @@ def hydro_rhs_cuda(u_slots: torch.Tensor, *, h: Optional[float] = None,
     given (a contiguous float32 tensor of that shape, e.g. a slice of an
     output ring; checked).  Counts each launch in
     ``hydro_rhs_cuda.launches`` (an empty bucket launches nothing)."""
+    _build.refuse_grad("hydro_rhs", u_slots, h_slots)
     if u_slots.device.type != "cuda":
         raise ValueError(
             f"hydro_rhs_cuda needs a CUDA tensor, got one on "
@@ -448,6 +449,7 @@ def hydro_rhs_lane_cuda(u_t: torch.Tensor, *, h: Optional[float] = None,
     (F, S, S, S, n), ``LANES`` tasks per cluster, ``lane_plan``'s tiles for
     the device's SMs.
     Counts each launch in ``hydro_rhs_lane_cuda.launches``."""
+    _build.refuse_grad("hydro_rhs_lane", u_t, h_slots)
     if u_t.device.type != "cuda":
         raise ValueError(
             f"hydro_rhs_lane_cuda needs a CUDA tensor, got one on "

@@ -177,6 +177,7 @@ def hydro_reconstruct_cuda(u_slots: torch.Tensor) -> torch.Tensor:
     """Launch Reconstruct on the current stream: (n, F, P, P, P) -> (n, 13,
     2, F, P, P, P).  Counts each launch in
     ``hydro_reconstruct_cuda.launches``."""
+    _build.refuse_grad("hydro_reconstruct", u_slots)
     _need_cuda(u_slots, "hydro_reconstruct_cuda", "hydro_reconstruct_plain")
     check_reconstruct_args(u_slots)
     lib = build()
@@ -203,6 +204,7 @@ def hydro_flux_cuda(recon: torch.Tensor, *, h: float, gamma: float,
     S, S, S) with a scalar width ``h``, one cluster of 3 CTAs per slot,
     into ``out`` if given (a contiguous float32 tensor of that shape;
     checked).  Counts each launch in ``hydro_flux_cuda.launches``."""
+    _build.refuse_grad("hydro_flux", recon)
     _need_cuda(recon, "hydro_flux_cuda", "hydro_flux_plain")
     check_flux_args(recon, ghost, subgrid)
     n, s = recon.shape[0], subgrid

@@ -1,8 +1,8 @@
-"""Shared building blocks of the served models: initialisation, RMSNorm
-and LayerNorm, RoPE, the attention projections, the full-sequence
-attention the audio encoder runs, and the gated and plain MLPs, as plain
-functions on tensors (``repro.models.common``'s counterparts, serving path
-only).
+"""Shared building blocks of the models: initialisation, RMSNorm and
+LayerNorm, RoPE, the attention projections, the full-sequence attention
+(training, and the audio encoder), the gated and plain MLPs, and the
+cross-entropy, as plain functions on tensors (``repro.models.common``'s
+counterparts).
 
 Weights keep the reference's ``x @ W`` orientation, ``W`` of shape
 ``(d_in, d_out)``, so a JAX parameter carries across without a transpose.
@@ -18,6 +18,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
 def dtype_of(cfg) -> torch.dtype:
@@ -50,8 +51,9 @@ def stacked_init(gen: torch.Generator, n: int, d_in: int, d_out: int,
 
 
 def frozen(t: torch.Tensor) -> nn.Parameter:
-    """A weight of a served model (no gradient: the port serves, it does
-    not train)."""
+    """A model weight, created without a gradient: serving never needs
+    one; training turns gradients on for its own model
+    (``model.requires_grad_(True)``)."""
     return nn.Parameter(t, requires_grad=False)
 
 
@@ -188,8 +190,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
 
 
 # ---------------------------------------------------------------------------
-# Full-sequence attention (the audio encoder's; plain PyTorch, as the
-# reference's is plain jnp)
+# Full-sequence attention (training and the audio encoder; plain PyTorch,
+# as the reference's is plain jnp)
 # ---------------------------------------------------------------------------
 
 DEFAULT_Q_CHUNK = 512      # the reference's query-chunk length
@@ -214,6 +216,16 @@ def _attend_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(v.dtype)
 
 
+def remat(fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward instead of
+    saved (``jax.checkpoint`` with ``nothing_saveable``) when autograd
+    records; a plain call otherwise."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool, q_positions: torch.Tensor,
               kv_positions: torch.Tensor, sliding_window: int = 0,
@@ -221,10 +233,12 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q (B, Sq, Hq, hd), k, v (B, Skv, Hkv, hd) -> (B, Sq, Hq, hd), masked
     by the absolute positions (causal and/or a sliding window).  A query
     length that is a multiple of ``q_chunk`` above it runs chunk by chunk,
-    as the reference's scan does."""
+    as the reference's scan does.  Under autograd the whole attention and
+    each query chunk are rematerialised, as the reference's are (its
+    default ``save_residuals=False``): no chunk's fp32 scores or
+    probabilities are kept for the backward."""
     sq, hd = q.shape[1], q.shape[3]
     scale = 1.0 / math.sqrt(hd)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
 
     def mask_for(qpos):
         m = None
@@ -235,14 +249,21 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             m = w if m is None else (m & w)
         return None if m is None else m[None, None]
 
-    if sq <= q_chunk or sq % q_chunk != 0:
-        out = _attend_chunk(qt, kt, vt, mask_for(q_positions), scale)
-    else:
-        out = torch.cat([
-            _attend_chunk(qt[:, :, i:i + q_chunk], kt, vt,
-                          mask_for(q_positions[i:i + q_chunk]), scale)
-            for i in range(0, sq, q_chunk)], dim=2)
-    return out.transpose(1, 2)
+    def chunk(qi, kt, vt, qpos):
+        return _attend_chunk(qi, kt, vt, mask_for(qpos), scale)
+
+    def whole(q, k, v):
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        if sq <= q_chunk or sq % q_chunk != 0:
+            out = chunk(qt, kt, vt, q_positions)
+        else:
+            out = torch.cat([
+                remat(chunk, qt[:, :, i:i + q_chunk], kt, vt,
+                      q_positions[i:i + q_chunk])
+                for i in range(0, sq, q_chunk)], dim=2)
+        return out.transpose(1, 2)
+
+    return remat(whole, q, k, v)
 
 
 # ---------------------------------------------------------------------------
@@ -289,3 +310,16 @@ def mlp_apply(p, x: torch.Tensor, gated: bool) -> torch.Tensor:
     if gated:
         return swiglu(x, p.w_gate, p.w_up, p.w_down)
     return gelu_mlp(x, p.w_up, p.b_up, p.w_down, p.b_down)
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """logits (B, S, V) of any float dtype, labels (B, S) int: the mean
+    cross-entropy in nats, in fp32."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.mean(lse - ll)

@@ -15,10 +15,16 @@ hybrid's unstacked ``shared`` block are top-level leaves as they are.  Each
 leaf keeps its dtype (the mixers' fp32 leaves stay fp32 in a bf16 model);
 bf16 leaves (numpy's ``bfloat16`` extension type) pass through fp32, which
 holds every bf16 value exactly.
+
+The optimizer state carries across the same way: ``opt_state_to_reference``
+/ ``opt_state_from_reference`` map the port's ``{"m": {name: t}, "v":
+{name: t}, "step"}`` (``repro_torch.optim``) to the reference's ``{"m",
+"v", "step"}`` trees of the parameters' layout and back, so a training
+checkpoint holds the reference's keys.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Tuple
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,11 +36,16 @@ Params = Dict[str, Any]
 EMBED = ("emb", "ln_f", "head")
 
 
-def _leaves(model: Model) -> Iterator[Tuple[Tuple[str, ...], Tuple[int, ...],
-                                            torch.Tensor]]:
+def _leaves(model: Model, tensors: Optional[Mapping[str, torch.Tensor]] = None
+            ) -> Iterator[Tuple[Tuple[str, ...], Tuple[int, ...],
+                                torch.Tensor]]:
     """(path in the reference pytree, index into the leaf's stacked axes,
-    the port's tensor) for every weight of ``model``."""
+    the port's tensor) for every weight of ``model``, or, given
+    ``tensors`` (parameter name -> tensor), for each weight's tensor
+    there."""
     for name, p in model.named_parameters():
+        if tensors is not None:
+            p = tensors[name]
         parts = name.split(".")
         if len(parts) == 1:
             yield ("embed", name) if name in EMBED else (name,), (), p
@@ -68,14 +79,14 @@ def _to_torch(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a))      # a writable copy
 
 
-def params_from_reference(np_params: Params, cfg,
-                          device: DeviceLike = None) -> Model:
-    """The reference's parameters (numpy leaves) as the port's ``Model``
-    on ``device`` (the card unless ``device="cpu"``).  Raises if a leaf is
-    missing, left over, or of another shape (a stack of another depth
-    included)."""
-    model = empty_model(cfg, device)
-    leaves = list(_leaves(model))
+def fill_from_reference(np_params: Params, model: Model,
+                         tensors: Optional[Mapping[str, torch.Tensor]] = None
+                         ) -> None:
+    """Copy the reference's tree (numpy leaves) into the model's weights,
+    or into ``tensors`` (parameter name -> tensor of the weight's shape).
+    Raises if a leaf is missing, left over, or of another shape (a stack
+    of another depth included)."""
+    leaves = list(_leaves(model, tensors))
     extents: Dict[Tuple[str, ...], Tuple[int, ...]] = {}  # the port's stacks
     for path, i, _ in leaves:
         extents[path] = tuple(max(a + 1, n) for a, n in
@@ -87,7 +98,7 @@ def params_from_reference(np_params: Params, cfg,
                              f"the port's model {ext}")
     if len(extents) != _count(np_params):
         raise ValueError(f"the reference params hold {_count(np_params)} "
-                         f"leaves, the port's {cfg.name} model "
+                         f"leaves, the port's {model.cfg.name} model "
                          f"{len(extents)}")
     with torch.no_grad():
         for path, i, p in leaves:
@@ -97,15 +108,27 @@ def params_from_reference(np_params: Params, cfg,
                                  f"{tuple(src.shape)}, port "
                                  f"{tuple(p.shape)}")
             p.copy_(src.to(p.dtype))
+
+
+def params_from_reference(np_params: Params, cfg,
+                          device: DeviceLike = None) -> Model:
+    """The reference's parameters (numpy leaves) as the port's ``Model``
+    on ``device`` (the card unless ``device="cpu"``)."""
+    model = empty_model(cfg, device)
+    fill_from_reference(np_params, model)
     return model
 
 
-def params_to_reference(model: Model) -> Params:
-    """The port's weights as the reference's pytree of numpy arrays (fp32
-    for bf16 weights), the layers stacked on leading axes."""
+def params_to_reference(model: Model,
+                        tensors: Optional[Mapping[str, torch.Tensor]] = None
+                        ) -> Params:
+    """The port's weights, or ``tensors`` (parameter name -> tensor of the
+    weight's shape: its gradients, say), as the reference's pytree of
+    numpy arrays (fp32 for bf16 tensors), the layers stacked on leading
+    axes."""
     out: Params = {}
     stacks: Dict[Tuple[str, ...], Dict[Tuple[int, ...], np.ndarray]] = {}
-    for path, i, p in _leaves(model):
+    for path, i, p in _leaves(model, tensors):
         a = p.detach().float().cpu().numpy() if p.dtype == torch.bfloat16 \
             else p.detach().cpu().numpy()
         stacks.setdefault(path, {})[i] = a
@@ -121,3 +144,41 @@ def params_to_reference(model: Model) -> Params:
             node = node.setdefault(key, {})
         node[path[-1]] = leaf
     return out
+
+
+def reference_layout(model: Model) -> Params:
+    """The reference pytree's structure of ``model``'s weights, every leaf
+    0: a restore template that copies nothing off the device."""
+    out: Params = {}
+    for path, _, _ in _leaves(model):
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = 0
+    return out
+
+
+def opt_state_to_reference(model: Model, state: Dict[str, Any]) -> Params:
+    """The port's optimizer state of ``model`` as the reference's ``{"m",
+    "v", "step"}``: fp32 trees in the parameters' layout and an int32
+    0-d ``step``."""
+    return {"m": params_to_reference(model, state["m"]),
+            "v": params_to_reference(model, state["v"]),
+            "step": np.asarray(state["step"].cpu().numpy(), np.int32)}
+
+
+def opt_state_from_reference(np_state: Params, model: Model
+                             ) -> Dict[str, Any]:
+    """The reference's ``{"m", "v", "step"}`` (numpy leaves) as the port's
+    optimizer state of ``model``, fp32, on the model's device."""
+    dev = model.device
+
+    def fp32_like():
+        return {name: torch.empty(p.shape, dtype=torch.float32, device=dev)
+                for name, p in model.named_parameters()}
+    m, v = fp32_like(), fp32_like()
+    fill_from_reference(np_state["m"], model, m)
+    fill_from_reference(np_state["v"], model, v)
+    step = torch.as_tensor(np.asarray(np_state["step"]).astype(np.int32),
+                           device=dev)
+    return {"m": m, "v": v, "step": step}

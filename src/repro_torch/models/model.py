@@ -1,6 +1,6 @@
-"""Model assembly for serving: init, cache and one decode step, for every
-family of the reference (``repro.models.model``'s counterpart, serving
-path only; training waits in ROADMAP.md).
+"""Model assembly: init, the full-sequence forward and loss that training
+runs, and the cache and decode step that serving runs, for every family of
+the reference (``repro.models.model``'s counterpart).
 
 ``Model`` holds the weights (an ``nn.Module`` of frozen parameters):
 
@@ -19,10 +19,20 @@ path only; training waits in ROADMAP.md).
               (``DecoderLayer``s) and the encoder's final norm ``enc_ln``
 
 ``init_params(cfg, seed, device)`` draws them from a seeded
-``torch.Generator`` on the device, layer by layer; ``init_cache`` and
-``decode_step`` are functions of the model, as in the reference.  The
-reference's scans over stacked layers become Python loops that write each
-layer's cache in place.
+``torch.Generator`` on the device, layer by layer; ``forward_hidden``,
+``forward``, ``loss_fn``, ``init_cache`` and ``decode_step`` are functions
+of the model, as in the reference.  The reference's scans over stacked
+layers become Python loops (decode writes each layer's cache in place).
+
+Training: ``loss_fn`` is the mean cross-entropy of ``forward_hidden``'s
+states, taken by ``chunked_xent`` in 512-position chunks so the fp32 (B,
+S, V) logits never exist at once.  With ``cfg.remat`` each layer (each
+group for vlm, ssm and hybrid) is rematerialised in the backward, as the
+reference's ``_maybe_remat`` does; the full-sequence attention always is.
+The forward reaches no kernel, as the reference's does not: attention is
+plain PyTorch and the MoE layer takes its einsum branch.  The weights are
+created without gradients (``frozen``); a training run turns them on
+(``model.requires_grad_(True)``).
 """
 from __future__ import annotations
 
@@ -35,7 +45,11 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops as default_kernels
 from repro_torch.models import ssm
 from repro_torch.models import transformer as tfm
-from repro_torch.models.common import Init, dense_init, dtype_of, frozen, rmsnorm
+from repro_torch.models.common import (
+    Init, dense_init, dtype_of, frozen, remat, rmsnorm, softmax_xent,
+)
+
+Batch = Dict[str, torch.Tensor]
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 STUB_FRAMES = 8           # audio frames of the engine's stub input
@@ -128,6 +142,129 @@ def empty_model(cfg, device: DeviceLike = None) -> Model:
 def _logits_head(model: Model, h: torch.Tensor) -> torch.Tensor:
     w = model.emb.T if model.cfg.tie_embeddings else model.head
     return h @ w
+
+
+# ---------------------------------------------------------------------------
+# forward (training / prefill)
+# ---------------------------------------------------------------------------
+
+def _maybe_remat(fn, cfg):
+    """``fn`` with its activations recomputed in the backward when
+    ``cfg.remat`` (the reference's ``nothing_saveable`` policy)."""
+    if not cfg.remat:
+        return fn
+    return lambda *args: remat(fn, *args)
+
+
+def _mixer_apply(apply, layer, x: torch.Tensor, norm_w: torch.Tensor,
+                 cfg) -> torch.Tensor:
+    """A pre-norm residual mixer layer over the whole sequence."""
+    y, _ = apply(layer, rmsnorm(x, norm_w, cfg.norm_eps), cfg)
+    return x + y
+
+
+def forward_hidden(model: Model, batch: Batch) -> torch.Tensor:
+    """The final hidden states (B, S, d) before the LM head, from
+    ``batch["tokens"] (B, S)`` (and ``vision`` for vlm, ``frames`` for
+    audio, cast to the model's dtype)."""
+    cfg = model.cfg
+    dtype = dtype_of(cfg)
+    tokens = batch["tokens"]
+    x = model.emb[tokens.long()].to(dtype)
+    positions = torch.arange(tokens.shape[1], device=x.device)
+
+    if cfg.family in ("dense", "moe"):
+        def body(h, layer):
+            return tfm.self_block_apply(layer, h, cfg, positions)
+        body = _maybe_remat(body, cfg)
+        for layer in model.layers:
+            x = body(x, layer)
+
+    elif cfg.family == "vlm":
+        memory = batch["vision"].to(dtype)
+
+        def group(h, selfs, cross):
+            for layer in selfs:
+                h = tfm.self_block_apply(layer, h, cfg, positions)
+            return tfm.cross_block_apply(cross, h, memory, cfg)
+        group = _maybe_remat(group, cfg)
+        for selfs, cross in zip(model.selfs, model.crosses):
+            x = group(x, selfs, cross)
+
+    elif cfg.family == "ssm":
+        def group(h, mlstms, slstm, norms):
+            for j, layer in enumerate(mlstms):
+                h = _mixer_apply(ssm.mlstm_apply, layer, h, norms[j], cfg)
+            return _mixer_apply(ssm.slstm_apply, slstm, h, norms[-1], cfg)
+        group = _maybe_remat(group, cfg)
+        for g, (mlstms, slstm) in enumerate(zip(model.mlstm, model.slstm)):
+            x = group(x, mlstms, slstm, model.norms[g])
+
+    elif cfg.family == "hybrid":
+        def group(h, mambas, norms):
+            h = tfm.self_block_apply(model.shared, h, cfg, positions)
+            for j, layer in enumerate(mambas):
+                h = _mixer_apply(ssm.mamba2_apply, layer, h, norms[j], cfg)
+            return h
+        group = _maybe_remat(group, cfg)
+        for g, mambas in enumerate(model.mamba):
+            x = group(x, mambas, model.norms[g])
+
+    else:                                                   # audio
+        frames = batch["frames"].to(dtype)
+        enc_pos = torch.arange(frames.shape[1], device=x.device)
+
+        def enc_body(h, layer):
+            return tfm.self_block_apply(layer, h, cfg, enc_pos,
+                                        causal=False)
+        enc_body = _maybe_remat(enc_body, cfg)
+        memory = frames
+        for layer in model.encoder:
+            memory = enc_body(memory, layer)
+        memory = rmsnorm(memory, model.enc_ln, cfg.norm_eps)
+
+        def dec_body(h, layer):
+            return tfm.encdec_decoder_apply(layer, h, memory, cfg, positions)
+        dec_body = _maybe_remat(dec_body, cfg)
+        for layer in model.decoder:
+            x = dec_body(x, layer)
+    return x
+
+
+def forward(model: Model, batch: Batch) -> torch.Tensor:
+    """The full logits (B, S, V) (small models and tests only)."""
+    h = forward_hidden(model, batch)
+    h = rmsnorm(h, model.ln_f, model.cfg.norm_eps)
+    return _logits_head(model, h)
+
+
+XENT_CHUNK = 512
+
+
+def chunked_xent(model: Model, hidden: torch.Tensor, labels: torch.Tensor,
+                 chunk: int = XENT_CHUNK) -> torch.Tensor:
+    """The mean cross-entropy of the final norm and LM head over hidden
+    (B, S, d) against labels (B, S): whole when ``S <= chunk`` or S is no
+    multiple of ``chunk``; otherwise chunk by chunk, each chunk's logits
+    rematerialised, so no (B, S, V) fp32 tensor exists."""
+    b, s, _ = hidden.shape
+    hidden = rmsnorm(hidden, model.ln_f, model.cfg.norm_eps)
+    if s <= chunk or s % chunk != 0:
+        return softmax_xent(_logits_head(model, hidden), labels)
+
+    def part(hh, ll):
+        return softmax_xent(_logits_head(model, hh), ll)
+
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(0, s, chunk):
+        total = total + remat(part, hidden[:, i:i + chunk],
+                              labels[:, i:i + chunk])
+    return total / (s // chunk)
+
+
+def loss_fn(model: Model, batch: Batch) -> torch.Tensor:
+    """The mean next-token cross-entropy of ``batch["labels"]``."""
+    return chunked_xent(model, forward_hidden(model, batch), batch["labels"])
 
 
 def stub_batch(cfg, batch_size: int,

@@ -6,10 +6,16 @@ Top-k routing fragments the token batch into E small per-expert GEMMs
 a static ``(E, C, d)`` capacity layout.  Dispatch is the cumsum-position
 scheme: each token's position in its expert's buffer is its running count,
 slot 0 of every token routed before slot 1; tokens beyond capacity are
-dropped.  The expert compute is three ``grouped_gemm`` calls (gate, up,
-down) through ``kernels`` (``kernels.ops`` by default: the CUDA kernel on
-the card, its plain version on the CPU) -- the reference's ``use_pallas``
-branch, the one this port runs.
+dropped.  The expert compute takes one of the reference's two branches:
+
+* ``kernels`` given (``kernels.ops`` by default: the CUDA kernel on the
+  card, its plain version on the CPU): three ``grouped_gemm`` calls (gate,
+  up, down) -- the reference's ``use_pallas`` branch, which serving runs;
+* ``kernels=None``: batched einsums over the capacity slab, in
+  power-of-two capacity chunks each rematerialised under autograd -- the
+  reference's default (``use_pallas=False``) branch, which its training
+  and full-sequence forward run.  The kernel has no backward, so training
+  takes this branch.
 """
 from __future__ import annotations
 
@@ -22,7 +28,7 @@ from torch import nn
 
 from repro_torch.kernels import ops as default_kernels
 from repro_torch.models.common import (
-    SwiGLU, dense_init, frozen, mlp_apply, stacked_init,
+    SwiGLU, dense_init, frozen, mlp_apply, remat, stacked_init,
 )
 
 
@@ -125,19 +131,41 @@ def route(p: MoE, xt: torch.Tensor, cfg,
                    (top_p.reshape(-1) * keep))
 
 
+def _expert_ffn_chunked(p: MoE, x_cap: torch.Tensor) -> torch.Tensor:
+    """The experts' SwiGLU over the (E, C, d) slab as batched einsums, in
+    ``capacity_chunks(C)`` chunks, each rematerialised under autograd so
+    the (E, C, ff) hidden never exists at once."""
+    def body(xc):
+        g = torch.einsum("ecd,edf->ecf", xc, p.w_gate)
+        u = torch.einsum("ecd,edf->ecf", xc, p.w_up)
+        return torch.einsum("ecf,efd->ecd", F.silu(g) * u, p.w_down)
+
+    e, capacity, _ = x_cap.shape
+    n_chunks = capacity_chunks(capacity)
+    if n_chunks == 1:
+        return body(x_cap)
+    cc = capacity // n_chunks
+    return torch.cat([remat(body, x_cap[:, i:i + cc])
+                      for i in range(0, capacity, cc)], dim=1)
+
+
 def moe_ffn(p: MoE, x: torch.Tensor, cfg, *, capacity_factor: float = 1.25,
             kernels=default_kernels) -> torch.Tensor:
-    """x: (B, S, d) -> (B, S, d)."""
+    """x: (B, S, d) -> (B, S, d); ``kernels=None`` takes the einsum branch
+    (module docstring)."""
     b, s, d = x.shape
     t, k = b * s, cfg.top_k
     xt = x.reshape(t, d)
     r = route(p, xt, cfg, capacity_factor)
 
-    # aggregated expert compute: three grouped launches
-    g = kernels.grouped_gemm(r.x_cap, p.w_gate, r.group_len)
-    u = kernels.grouped_gemm(r.x_cap, p.w_up, r.group_len)
-    h = F.silu(g) * u
-    y_cap = kernels.grouped_gemm(h, p.w_down, r.group_len)
+    if kernels is None:
+        y_cap = _expert_ffn_chunked(p, r.x_cap)
+    else:
+        # aggregated expert compute: three grouped launches
+        g = kernels.grouped_gemm(r.x_cap, p.w_gate, r.group_len)
+        u = kernels.grouped_gemm(r.x_cap, p.w_up, r.group_len)
+        h = F.silu(g) * u
+        y_cap = kernels.grouped_gemm(h, p.w_down, r.group_len)
 
     # combine: gather each (token, slot) result, weight, sum over the slots
     # in order
@@ -153,3 +181,15 @@ def moe_ffn(p: MoE, x: torch.Tensor, cfg, *, capacity_factor: float = 1.25,
         gate = torch.sigmoid((xt @ p.shared_gate.to(xt.dtype)).float())
         y = y + ys * gate.to(ys.dtype)
     return y.reshape(b, s, d)
+
+
+def aux_load_balance_loss(logits: torch.Tensor, top_idx: torch.Tensor,
+                          e: int) -> torch.Tensor:
+    """The Switch-style auxiliary loss: logits (T, E), top_idx (T, k) ->
+    E * sum_e (mean router probability of e) x (share of tokens whose
+    first choice is e)."""
+    probs = torch.softmax(logits, dim=-1)
+    me = torch.mean(probs, dim=0)
+    ce = torch.mean(F.one_hot(top_idx[:, 0].long(), e).to(probs.dtype),
+                    dim=0)
+    return e * torch.sum(me * ce)

@@ -19,6 +19,12 @@ model's dtype) and fp32 SSM state, mLSTM's fp32 matrix memory ``C``,
 normaliser ``n`` and stabiliser ``m`` (which starts at -1e30), sLSTM's
 fp32 ``h, c, n, m`` (``n`` starts at ones).  The reference computes these
 mixers in ``jnp``, with no TPU kernel, so they are plain PyTorch here too.
+
+The full-sequence forms train under autograd with the reference's
+gradients: each mask is applied before its ``exp`` (``exp`` of a masked
+entry would overflow, and inf x 0 would poison the backward), the
+stabilisers reduce with ``amax`` and ``maximum``, which spread the
+gradient over ties as ``jnp.max`` and ``jnp.maximum`` do.
 """
 from __future__ import annotations
 
@@ -41,6 +47,13 @@ State = Dict[str, torch.Tensor]
 def _rms(y: torch.Tensor) -> torch.Tensor:
     """y over its RMS along the last axis (eps 1e-5), in y's dtype."""
     return y * torch.rsqrt(torch.mean(y * y, dim=-1, keepdim=True) + 1e-5)
+
+
+def _floor(x: torch.Tensor, lo: float) -> torch.Tensor:
+    """``jnp.maximum(x, lo)``: at a tie the gradient splits evenly between
+    the two sides, as JAX's does (``clamp_min`` gives x all of it)."""
+    return torch.maximum(x, torch.full((), lo, dtype=x.dtype,
+                                       device=x.device))
 
 
 def _causal_mask(n: int, device) -> torch.Tensor:
@@ -242,7 +255,7 @@ def _mlstm_parallel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Fc = torch.cumsum(logf, dim=-1)
     D = Fc[..., :, None] - Fc[..., None, :] + i_gate[..., None, :]
     D = torch.where(_causal_mask(n, q.device), D, -math.inf)
-    m = torch.clamp_min(torch.amax(D, dim=-1), 0.0)
+    m = _floor(torch.amax(D, dim=-1), 0.0)
     S = torch.einsum("bhid,bhjd->bhij", q, k) / math.sqrt(hd)
     W = S * torch.exp(D - m[..., None])
     n_vec = torch.maximum(torch.abs(torch.sum(W, dim=-1)), torch.exp(-m))
@@ -264,7 +277,7 @@ def _mlstm_chunk(carry: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
     # inter-chunk decay for position i: F_i plus the carried m
     d_in = Fc + mm[..., None]
     m_new = torch.maximum(torch.amax(D, dim=-1), d_in)
-    m_new = torch.clamp_min(m_new, 0.0)
+    m_new = _floor(m_new, 0.0)
     qs = qi / math.sqrt(hd)
     S = torch.einsum("bhid,bhjd->bhij", qs, ki)
     W = S * torch.exp(D - m_new[..., None])
@@ -391,6 +404,7 @@ def slstm_apply(p: SLSTM, x: torch.Tensor, cfg,
     else:
         h, c, n, m = state["h"], state["c"], state["n"], state["m"]
     w_h = p.w_h.float()
+    n_floor = torch.full((), 1e-6, dtype=torch.float32, device=x.device)
     hs = []
     for i in range(t):
         g = gx[:, i] + h @ w_h + p.b
@@ -400,7 +414,7 @@ def slstm_apply(p: SLSTM, x: torch.Tensor, cfg,
         fg = torch.exp(gf + m - m_new)
         c = fg * c + ig * torch.tanh(gz)
         n = fg * n + ig
-        h = torch.sigmoid(go) * c / torch.clamp_min(n, 1e-6)
+        h = torch.sigmoid(go) * c / torch.maximum(n, n_floor)
         m = m_new
         hs.append(h)
     yn = _rms(torch.stack(hs, dim=1))

@@ -1,9 +1,13 @@
-"""Pre-norm decoder blocks, serving path (``repro.models.transformer``'s
-counterpart): one new token per request against a KV cache written at
-each request's own position, the cross-attention blocks that read a fixed
-memory (llama-vision's gated image layers, the enc-dec decoder's
-cross-attention sub-layer), and the full-sequence self-attention block the
-audio encoder runs once per admission.
+"""Pre-norm decoder blocks (``repro.models.transformer``'s counterpart):
+the full-sequence forms training runs (``self_block_apply``, which the
+audio encoder also runs once per admission, llama-vision's gated
+``cross_block_apply`` and the enc-dec ``encdec_decoder_apply``), and the
+serving forms: one new token per request against a KV cache written at
+each request's own position, and the cross-attention blocks that read a
+fixed memory (llama-vision's gated image layers, the enc-dec decoder's
+cross-attention sub-layer).  The full-sequence forms take the MoE layer's
+einsum branch, as the reference's do (``use_pallas_moe=False``), and reach
+no kernel.
 
 A layer's KV cache is ``k, v (B, S, Hkv, hd)``; ``cache_len`` is a (B,)
 vector, so ragged aggregated batches work -- each request owns its slot of
@@ -82,7 +86,7 @@ class DecoderLayer(Block):
 
 
 # ---------------------------------------------------------------------------
-# full sequence (the audio encoder)
+# full sequence (training, the audio encoder)
 # ---------------------------------------------------------------------------
 
 def _ffn(p: Block, x: torch.Tensor, cfg, *,
@@ -107,7 +111,56 @@ def self_block_apply(p: Block, x: torch.Tensor, cfg,
     o = attention(q, k, v, causal=causal, q_positions=positions,
                   kv_positions=positions, sliding_window=cfg.sliding_window)
     x = x + out_proj(p.attn, o)
-    return _ffn(p, x, cfg)
+    return _ffn(p, x, cfg, kernels=None)
+
+
+def _memory_attend(attn: Attention, h: torch.Tensor, memory: torch.Tensor,
+                   cfg, bias: bool) -> torch.Tensor:
+    """Queries from h (B, S, d), keys and values from memory (B, Sm, d),
+    every position visible, no RoPE; the QKV biases where ``bias`` and the
+    config has them; the output projection."""
+    b, s, _ = h.shape
+    sm, hd = memory.shape[1], cfg.resolved_head_dim
+    q = (h @ attn.wq).reshape(b, s, cfg.n_heads, hd)
+    k = (memory @ attn.wk).reshape(b, sm, cfg.n_kv_heads, hd)
+    v = (memory @ attn.wv).reshape(b, sm, cfg.n_kv_heads, hd)
+    if bias and cfg.qkv_bias:
+        q = q + attn.bq.reshape(cfg.n_heads, hd)
+        k = k + attn.bk.reshape(cfg.n_kv_heads, hd)
+        v = v + attn.bv.reshape(cfg.n_kv_heads, hd)
+    zeros = torch.zeros((s,), dtype=torch.int32, device=h.device)
+    o = attention(q, k, v, causal=False, q_positions=zeros,
+                  kv_positions=torch.zeros((sm,), dtype=torch.int32,
+                                           device=h.device))
+    return out_proj(attn, o)
+
+
+def cross_block_apply(p: Block, x: torch.Tensor, memory: torch.Tensor,
+                      cfg) -> torch.Tensor:
+    """llama-vision's gated cross-attention block over the whole sequence:
+    x (B, S, d) attends to memory (B, Sm, d), the output scaled by
+    ``tanh(gate)``, then the FFN."""
+    o = _memory_attend(p.attn, _norm(p.ln1, x, cfg), memory, cfg, bias=True)
+    x = x + torch.tanh(p.attn.gate).to(o.dtype) * o
+    return _ffn(p, x, cfg, kernels=None)
+
+
+def encdec_decoder_apply(p: DecoderLayer, x: torch.Tensor,
+                         memory: torch.Tensor, cfg,
+                         positions: torch.Tensor) -> torch.Tensor:
+    """An enc-dec decoder layer over the whole sequence: causal
+    self-attention (RoPE, no window), ungated cross-attention over the
+    encoder's memory (no bias), the FFN."""
+    h = _norm(p.ln1, x, cfg)
+    q, k, v = qkv_proj(p.attn, h, cfg)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    o = attention(q, k, v, causal=True, q_positions=positions,
+                  kv_positions=positions)
+    x = x + out_proj(p.attn, o)
+    x = x + _memory_attend(p.xattn, _norm(p.ln_x, x, cfg), memory, cfg,
+                           bias=False)
+    return _ffn(p, x, cfg, kernels=None)
 
 
 # ---------------------------------------------------------------------------

@@ -120,9 +120,12 @@ class ServingEngine:
         self._store = TuneStore.open(self.agg.tune_store)
         self.buckets = tuple(b for b in self.agg.bucket_sizes()
                              if b <= max_batch) or (max_batch,)
-        self.cache = model_mod.init_cache(
-            model, max_batch, max_len,
-            model_mod.stub_batch(cfg, max_batch, self.device))
+        # a model whose weights require gradients (one a training run
+        # holds) serves all the same: no autograd graph is recorded
+        with torch.no_grad():
+            self.cache = model_mod.init_cache(
+                model, max_batch, max_len,
+                model_mod.stub_batch(cfg, max_batch, self.device))
         # each leaf's fresh values where they are not all zero (the stub
         # memory's cross K and V, mlstm_m, slstm_n); admission resets the
         # others to zero
@@ -257,6 +260,7 @@ class ServingEngine:
                 if name != "len" and name not in model_mod.CROSS_LEAVES:
                     self.cache[name][:, slot_idx] = t
 
+    @torch.inference_mode()
     def _launch(self, slots: np.ndarray, toks: np.ndarray) -> np.ndarray:
         n = len(slots)
         bucket = length_bucket(n, self.buckets)

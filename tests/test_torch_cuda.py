@@ -1657,3 +1657,173 @@ def test_host_sync_population_falls_to_eager_and_is_counted(dev):
     assert tb.stats["waves"] == 3
     for tid in range(2):
         assert torch.equal(out[tid], want)
+
+
+# ---------------------------------------------------------------------------
+# training on the card
+# ---------------------------------------------------------------------------
+
+TRAIN_FAMILIES = ("granite-8b", "qwen2-moe-a2.7b", "xlstm-125m",
+                  "zamba2-2.7b", "llama-3.2-vision-90b",
+                  "seamless-m4t-large-v2")      # one per family
+
+
+def _train_inputs(arch, dev, dtype="float32"):
+    """(cfg, a reduced model drawn on the CPU, step 0's batch on the CPU)
+    of ``arch``."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data import DataConfig, SyntheticLMStream
+    from repro_torch.launch.train import add_extra_inputs
+    from repro_torch.models import model as model_mod
+    cfg = reduced(get_config(arch)).replace(dtype=dtype)
+    data = SyntheticLMStream(DataConfig(seq_len=32, global_batch=4,
+                                        vocab_size=cfg.vocab_size))
+    return (cfg, model_mod.init_params(cfg, 0, "cpu"),
+            add_extra_inputs(cfg, data.batch(0), 0))
+
+
+@pytest.mark.parametrize("arch", TRAIN_FAMILIES)
+def test_reduced_train_step_on_card_equals_cpu(dev, arch):
+    """fp32, TF32 off, the same weights and batch on both devices: the
+    loss and every gradient leaf on the card within rtol 1e-4 and atol
+    1e-5 x the largest gradient of any leaf (a leaf whose exact gradient
+    is 0, a key bias under softmax, holds only rounding noise); then one
+    ``make_train_step`` step on each, its loss and gradient norm within
+    rtol 1e-4; no kernel launched."""
+    import copy
+
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as model_mod
+    from repro_torch.optim import OptConfig, opt_init
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import grouped_gemm as gg
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg, m_cpu, batch = _train_inputs(arch, dev)
+        m_dev = copy.deepcopy(m_cpu).to(dev)
+        before = (da.decode_attention_cuda.launches,
+                  gg.grouped_gemm_cuda.launches)
+        grads = []
+        for m, d in ((m_cpu, torch.device("cpu")), (m_dev, dev)):
+            m.requires_grad_(True)
+            leaves = [p for _, p in m.named_parameters()]
+            loss = model_mod.loss_fn(m, {k: v.to(d)
+                                         for k, v in batch.items()})
+            g = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
+            grads.append((float(loss), [x.cpu().numpy() for x in g]))
+        (l_cpu, g_cpu), (l_dev, g_dev) = grads
+        np.testing.assert_allclose(l_dev, l_cpu, rtol=1e-4)
+        scale = max(float(np.abs(x).max()) for x in g_cpu)
+        names = [n for n, _ in m_cpu.named_parameters()]
+        for name, a, b in zip(names, g_dev, g_cpu):
+            np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5 * scale,
+                                       err_msg=name)
+        opt = OptConfig(lr=1e-3, warmup_steps=0, total_steps=10)
+        mets = []
+        for m, d in ((m_cpu, torch.device("cpu")), (m_dev, dev)):
+            step = make_train_step(cfg, opt, device=d)
+            _, _, met = step(m, opt_init(dict(m.named_parameters())),
+                             {k: v.to(d) for k, v in batch.items()})
+            mets.append(met)
+        for key in ("loss", "grad_norm"):
+            np.testing.assert_allclose(float(mets[1][key]),
+                                       float(mets[0][key]), rtol=1e-4)
+        assert (da.decode_attention_cuda.launches,
+                gg.grouped_gemm_cuda.launches) == before
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "granite-8b"])
+def test_train_step_repeats_bit_for_bit_when_deterministic(dev, arch):
+    """The same step taken twice from one state, under ``train()``'s
+    determinism setting (``train.deterministic``: the embedding gather's
+    and the MoE slab's accumulating backward without atomics), gives
+    the same weights and state in every bit."""
+    import copy
+
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import deterministic
+    from repro_torch.optim import OptConfig, opt_init
+    cfg, m0, batch = _train_inputs(arch, dev)
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    runs = []
+    with deterministic(dev):
+        for _ in range(2):
+            m = copy.deepcopy(m0).to(dev)
+            state = opt_init(dict(m.named_parameters()))
+            step = make_train_step(cfg, OptConfig(), microbatch=2,
+                                   device=dev)
+            for _ in range(2):
+                m, state, _ = step(m, state, batch)
+            runs.append((m, state))
+    assert not torch.are_deterministic_algorithms_enabled()
+    (a, sa), (b, sb) = runs
+    for (name, x), (_, y) in zip(a.named_parameters(), b.named_parameters()):
+        assert torch.equal(x, y), name
+    for key in ("m", "v"):
+        for name in sa[key]:
+            assert torch.equal(sa[key][name], sb[key][name]), name
+
+
+def test_bf16_microbatch_step_accumulates_in_fp32(dev):
+    """A bf16 ``make_train_step(microbatch=2)`` step on the card: finite
+    gradients, the first moment fp32 and equal to (1 - beta1) x the
+    clipped mean of the two microbatches' gradients added into fp32
+    zeros, in every bit."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as model_mod
+    from repro_torch.optim import OptConfig, opt_init
+    from repro_torch.optim.adamw import _clip_scale, global_norm
+    cfg, m, batch = _train_inputs("granite-8b", dev, "bfloat16")
+    m = m.to(dev).requires_grad_(True)
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    names, leaves = zip(*m.named_parameters())
+    parts = [{k: v[i * 2:(i + 1) * 2] for k, v in batch.items()}
+             for i in range(2)]
+    per_mb = [torch.autograd.grad(model_mod.loss_fn(m, part), leaves,
+                                  allow_unused=True, materialize_grads=True)
+              for part in parts]
+    acc = [(torch.zeros(p.shape, device=dev) + a + b) / 2
+           for p, a, b in zip(leaves, *per_mb)]
+    assert all(torch.isfinite(g).all() for g in acc)
+    opt = OptConfig()
+    scale = _clip_scale(global_norm(acc), opt.clip_norm)
+    state = opt_init(dict(m.named_parameters()))
+    step = make_train_step(cfg, opt, microbatch=2, device=dev)
+    m, state, met = step(m, state, batch)
+    assert torch.isfinite(met["grad_norm"]) and float(met["grad_norm"]) > 0
+    for name, g in zip(names, acc):
+        assert state["m"][name].dtype == torch.float32
+        assert torch.equal(state["m"][name], (1 - opt.beta1) * (g * scale)), \
+            name
+
+
+def test_grouped_gemm_kernel_refuses_inputs_that_need_gradients(dev):
+    """On the card too, the wrapper raises before its launch when an input
+    requires a gradient, and counts nothing."""
+    from repro_torch.kernels import grouped_gemm as gg
+    x = torch.randn(4, 128, 64, device=dev, requires_grad=True)
+    w = torch.randn(4, 64, 64, device=dev)
+    gl = torch.full((4,), 128, dtype=torch.int32, device=dev)
+    before = gg.grouped_gemm_cuda.launches
+    with pytest.raises(RuntimeError, match=r"grouped_gemm kernel has no "
+                       r"backward.*ops\.PLAIN_LM"):
+        gg.grouped_gemm_cuda(x, w, gl)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.grouped_gemm(x, w, gl)
+    assert gg.grouped_gemm_cuda.launches == before
+    with torch.no_grad():
+        torch.testing.assert_close(gg.grouped_gemm_cuda(x, w, gl),
+                                   gg.grouped_gemm_plain(x, w, gl),
+                                   rtol=1e-5, atol=1e-4)
+
+
+def test_stream_batch_on_card_equals_cpu(dev):
+    from repro_torch.data import DataConfig, SyntheticLMStream
+    s = SyntheticLMStream(DataConfig(seq_len=64, global_batch=8))
+    a, b = s.batch(4), s.batch(4, dev)
+    assert all(b[k].device == dev and torch.equal(b[k].cpu(), a[k])
+               for k in a)
