@@ -99,7 +99,17 @@
    row bit-identical to ``fused``, the autotuned rows launching the greedy
    decomposition of their derived ladder; each prints its ladder, cost
    table, routes, flush decisions, launches, host ms and device busy per
-   step.
+   step.  The compiled bucket programs (``bucket_graphs``): the main path
+   under ``s3`` caps 32 and 512, ``s2+s3`` (4 streams, cap 32), host
+   staging and the fused stages, ``s3`` on Paths A-D, Path C on both
+   layouts and ``CONFIG_16``, and 4 tenants under ``s4``, each run with
+   the programs as CUDA graphs and again with them eager
+   (``eager_programs``): both bit-identical to ``fused``, no eager launch
+   outside a capture in the graph run's timed steps, the replays' kernel
+   nodes equal to the eager run's launches; prints the captures, the
+   graphs' memory, the device-to-device copies, host, enqueue and busy ms
+   per step of both, and the device time of a population's write into
+   its static parent and of a bucket's output copy.
 11. The whole trajectory as one CUDA graph: ``rk3_trajectory`` under
    ``fused``, 3 steps, on the main path, Path A (512 x 8^3 and
    ``configs/gravity.CONFIG``), Path B, Path C (``amr_sedov_1024``, both
@@ -234,6 +244,7 @@ so does a host without a CUDA device (exit 2), or a directory without the
 repo's ``src/repro_torch`` beside the script (exit 1).
 """
 import argparse
+import contextlib
 import gc
 import json
 import os
@@ -756,14 +767,14 @@ def phase_main_path(cfg, dev, steps, results):
             greedy_decomposition(cfg.n_subgrids, agg.bucket_sizes())))
         before = runner.stats["kernel_launches"]
         sync()
-        kern.hydro_rhs_cuda.launches = 0           # the main path's count
+        zero_launch_counts()                       # the main path's count
         t0 = time.perf_counter()
         u = u0
         for dt in dts:
             u = runner.rk3_step(u, dt)
         sync()
         wall = time.perf_counter() - t0
-        launches = kern.hydro_rhs_cuda.launches
+        launches = kernel_launches(kern.hydro_rhs_cuda)
         path_launches = runner.stats["kernel_launches"] - before
         print(f"main path {label}: {wall / steps * 1e3:.3f} ms/step, "
               f"{path_launches / steps:g} launches/step, hydro_rhs kernel "
@@ -1321,8 +1332,7 @@ def drive(runner, u0, dts, counters):
     hist0 = {k: dict(v["aggregated_hist"])
              for k, v in runner.stats["regions"].items()}
     torch.cuda.reset_peak_memory_stats()
-    for c in counters:
-        c.launches = 0
+    zero_launch_counts()
     t0 = time.perf_counter()
     u = u0
     for dt in dts:
@@ -1339,8 +1349,10 @@ def drive(runner, u0, dts, counters):
                    launches_per_step=(runner.stats["kernel_launches"]
                                       - launches0) / steps,
                    launches_by_family=fam, bucket_hists=hists,
-                   kernel_launches={c.__name__: c.launches
+                   kernel_launches={c.__name__: kernel_launches(c)
                                     for c in counters},
+                   eager_launches={c.__name__: eager_launches(c)
+                                   for c in counters},
                    peak_mib=torch.cuda.max_memory_allocated() / 2 ** 20)
 
 
@@ -1997,6 +2009,254 @@ def phase_fused_stages(cfg, gcfg, acfg, dev, card, dts, results):
 
 
 # ---------------------------------------------------------------------------
+# compiled bucket programs: a CUDA graph per bucket launch site
+# ---------------------------------------------------------------------------
+
+class eager_programs:
+    """Within the block, every compiled-program table files the eager
+    callable (``graphs.make_program`` returns the function): the port's
+    launches as they were before the programs became graphs, in this
+    process, for the same counts and results."""
+
+    def __enter__(self):
+        from repro_torch.core import graphs
+
+        self._made = graphs.make_program
+        graphs.make_program = lambda fn, device, **kw: fn
+
+    def __exit__(self, *exc):
+        from repro_torch.core import graphs
+
+        graphs.make_program = self._made
+
+
+def bucket_graph_rows(cfg, cfg16, gcfg, acfg, dev, dts):
+    """(label, scenario factory, state, dts, config, counters) of the
+    bucket_graphs phase: the main path under s3 caps 32 and 512, s2+s3 (4
+    streams, cap 32), host staging and the fused stages (len(dts) steps),
+    then Paths A-D, Path C on both layouts, and CONFIG_16 (one step
+    each)."""
+    import functools
+
+    from repro_torch.core import AMRSedovScenario, UniformSedovScenario
+    from repro_torch.hydro.state import amr_sedov_init, sedov_init
+    from repro_torch.hydro.stepper import amr_courant_dt, courant_dt
+    from repro_torch.kernels import hydro_rhs as kern
+    from repro_torch.kernels.ops import level_batched_body
+
+    paths = {p[0]: p[1:5] for p in s2_paths(cfg, gcfg, acfg, dev, dts)}
+    st = amr_sedov_init(acfg, device=dev)
+    u16 = sedov_init(cfg16, device=dev).u
+    s3 = dict(strategy="s3", max_aggregated=32)
+    main = paths["main path"]          # (make, u0, dts, counters)
+    rows = [(f"main path, {label}", main, kw) for label, kw in (
+        ("s3 cap 32", s3),
+        ("s3 cap 512", dict(strategy="s3", max_aggregated=512)),
+        ("s2+s3 4 streams cap 32", dict(strategy="s2+s3", n_executors=4,
+                                        max_aggregated=32)),
+        ("s3 cap 32 host staging", dict(staging="host", **s3)),
+        ("s3 cap 32 fused stages", dict(fuse_epilogue=True, **s3)))]
+    rows += [(f"{label}, s3 cap 32", paths[label], s3) for label in (
+        "Path A (gravity)", "Path B (split pair)", "Path C (AMR, slot_lane)",
+        "Path D (lane kernel)")]
+    rows.append(("Path C (AMR, slot_grid), s3 cap 32", (
+        lambda: AMRSedovScenario(acfg, hydro_body=functools.partial(
+            level_batched_body, acfg.gamma, acfg.ghost,
+            layout="slot_grid")), (st.uc, st.uf),
+        [amr_courant_dt(st.uc, st.uf, acfg)], (kern.hydro_rhs_cuda,)), s3))
+    rows.append(("CONFIG_16 (slot_grid), s3 cap 16", (
+        lambda: UniformSedovScenario(cfg16), u16, [courant_dt(u16, cfg16)],
+        (kern.hydro_rhs_cuda,)), dict(strategy="s3", max_aggregated=16)))
+    return [(label, make, u0, row_dts, kw, counters)
+            for label, (make, u0, row_dts, counters), kw in rows]
+
+
+def graph_row(make, u0, row_dts, agg, counters):
+    """One row through ``drive`` (warmup, one untimed step, the timed
+    steps), then one more step for the host's enqueue time (the pool's
+    ``total_dispatch_s``) and one profiled for the device's busy time and
+    its device-to-device copies (each wave's population written into the
+    static parent, the replays' outputs copied out)."""
+    from repro_torch.core import StrategyRunner
+
+    runner = StrategyRunner(make(), agg, device=levels(u0)[0].device)
+    u, row = drive(runner, u0, row_dts, counters)
+    exe = runner.executor
+    d0 = runner.pool.total_dispatch_s
+    nxt = runner.rk3_step(u, row_dts[-1])
+    sync()
+    row["dispatch_ms_per_step"] = (runner.pool.total_dispatch_s - d0) * 1e3
+    _, prof = profiled(lambda: runner.rk3_step(nxt, row_dts[-1]))
+    events = device_events(prof)
+    row["busy_ms_per_step"] = sum(us for _, us in events) / 1e3
+    row["dtod_us_per_step"] = sum(us for name, us in events
+                                  if "Memcpy DtoD" in name)
+    row["captures"] = exe.stats["captures"] if exe is not None else 0
+    row["graph_mib"] = (exe.stats["graph_bytes"] / 2 ** 20
+                        if exe is not None else 0.0)
+    del runner, prof
+    return u, row
+
+
+def phase_bucket_graphs(cfg, cfg16, gcfg, acfg, dev, card, dts, results):
+    """The reference's compiled bucket programs as CUDA graphs: for each
+    row of ``bucket_graph_rows`` and for 4 tenants under ``s4``, the run
+    with the programs as graphs and the same run with the eager programs
+    (``eager_programs``) in this process.  Every row: the graph run equals
+    the eager run and ``fused`` (the fused stage reference for the fused
+    stages) bit for bit; in the timed steps no wrapper launches its kernel
+    (every bucket launch is a replay), and the replays' kernel nodes,
+    counted from the graphs, equal the eager run's wrapper launches,
+    kernel by kernel.  Prints the captures, the graphs' memory, the
+    device-to-device copies' device us per step, and host ms, enqueue ms
+    and busy ms per step, graphs against eager."""
+    from repro_torch.configs.base import AggregationConfig
+    from repro_torch.core import StrategyRunner, UniformSedovScenario
+    from repro_torch.hydro.state import sedov_init
+    from repro_torch.kernels import hydro_rhs as kern
+
+    t_phase = time.perf_counter()
+    table = {}
+    for label, make, u0, row_dts, kw, counters in bucket_graph_rows(
+            cfg, cfg16, gcfg, acfg, dev, dts):
+        steps = len(row_dts)
+        ref_kw = dict(strategy="fused",
+                      fuse_epilogue=kw.get("fuse_epilogue", False))
+        ref, _ = drive(StrategyRunner(make(), AggregationConfig(**ref_kw),
+                                      device=dev), u0, row_dts, counters)
+        agg = AggregationConfig(**kw)
+        u, row = graph_row(make, u0, row_dts, agg, counters)
+        with eager_programs():
+            ue, eager = graph_row(make, u0, row_dts, agg, counters)
+        check(states_equal(u, ref) and states_equal(ue, ref),
+              f"bucket graphs {label}: not bit-identical to fused")
+        check(all(v == 0 for v in row["eager_launches"].values()),
+              f"bucket graphs {label}: a wrapper launched outside a capture "
+              f"in the timed steps {row['eager_launches']}: not every "
+              f"bucket launch was a replay")
+        # the replays' kernel nodes against the eager launches of the same
+        # bucket launches: where the drain's decomposition depends on when
+        # an executor is idle (host staging's per-task queue), the two runs
+        # launch different buckets, and each bucket launch is held to the
+        # eager run's kernels per bucket launch
+        same = row["bucket_hists"] == eager["bucket_hists"]
+        want = (eager["kernel_launches"] if same else {
+            k: v * row["launches_per_step"] / eager["launches_per_step"]
+            for k, v in eager["kernel_launches"].items()})
+        check(row["kernel_launches"] == want
+              and all(v > 0 for v in row["kernel_launches"].values()),
+              f"bucket graphs {label}: replayed kernel nodes "
+              f"{row['kernel_launches']}, eager launches "
+              f"{eager['kernel_launches']} ({row['launches_per_step']} and "
+              f"{eager['launches_per_step']} bucket launches per step)")
+        check(row["captures"] > 0 and eager["captures"] == 0,
+              f"bucket graphs {label}: captures {row['captures']}, eager "
+              f"{eager['captures']}")
+        print(f"bucket graphs ({card}): {label}, {steps} step(s): graphs "
+              f"{row['ms_per_step']:.3f} host ms/step (enqueue "
+              f"{row['dispatch_ms_per_step']:.3f}, busy "
+              f"{row['busy_ms_per_step']:.3f}, device-to-device copies "
+              f"{row['dtod_us_per_step']:.1f} us), eager "
+              f"{eager['ms_per_step']:.3f} (enqueue "
+              f"{eager['dispatch_ms_per_step']:.3f}, busy "
+              f"{eager['busy_ms_per_step']:.3f}, copies "
+              f"{eager['dtod_us_per_step']:.1f} us); "
+              f"{row['launches_per_step']:g} bucket launches/step, kernel "
+              f"nodes replayed {row['kernel_launches']} = eager launches; "
+              f"{row['captures']} captures, graphs "
+              f"{row['graph_mib']:.1f} MiB; peak {row['peak_mib']:.1f} MiB "
+              f"(eager {eager['peak_mib']:.1f}); bit-equal to fused",
+              flush=True)
+        table[label] = dict(graphs=row, eager=eager)
+
+    # what the graphs add on the device, on the main path: a wave's
+    # population written into its region's static parent (one device
+    # copy), and a cap-32 bucket's output copied out of its graph
+    u0 = sedov_init(cfg, device=dev).u
+    (pop,) = UniformSedovScenario(cfg).populations(u0)
+    subs = pop.parents[0]
+    static = torch.empty_like(subs)
+    out32 = UniformSedovScenario(cfg).family("hydro_rhs").batched_body(
+        subs[:32])
+    copies = dict(
+        population_us=time_graph_ms(lambda: static.copy_(subs), 20) * 1e3,
+        population_bytes=subs.numel() * subs.element_size(),
+        output_us=time_graph_ms(out32.clone, 50) * 1e3,
+        output_bytes=out32.numel() * out32.element_size())
+    print(f"bucket graphs ({card}): a wave's population written into its "
+          f"static parent ({copies['population_bytes'] / 1e6:.1f} MB, one "
+          f"device copy): {copies['population_us']:.2f} us; a cap-32 "
+          f"bucket's output copied out of its graph "
+          f"({copies['output_bytes'] / 1e3:.1f} KB): "
+          f"{copies['output_us']:.2f} us (graph replays)", flush=True)
+    del static, out32
+
+    # s4: 4 tenants of the main path, the whole drain one graph per family
+    dt = dts[0]
+    want = u0
+    fused = StrategyRunner(UniformSedovScenario(cfg), AggregationConfig(
+        strategy="fused"), device=dev)
+    for _ in range(TENANT_STEPS):
+        want = fused.rk3_step(want, dt)
+    tenants = {}
+    for mode in ("graphs", "eager"):
+        with (eager_programs() if mode == "eager"
+              else contextlib.nullcontext()):
+            tb = tenant_batcher(dev, 32, 4, lambda: UniformSedovScenario(cfg),
+                                u0, dt)
+            tb.rk3_step_all()
+            sync()
+            zero_launch_counts()
+            d0 = tb.executor.pool.total_dispatch_s
+            t0 = time.perf_counter()
+            for _ in range(TENANT_STEPS - 1):
+                out = tb.rk3_step_all()
+            sync()
+            ms = (time.perf_counter() - t0) / (TENANT_STEPS - 1) * 1e3
+            launches = kernel_launches(kern.hydro_rhs_cuda)
+            own = eager_launches(kern.hydro_rhs_cuda)
+            disp = (tb.executor.pool.total_dispatch_s - d0) / (
+                TENANT_STEPS - 1) * 1e3
+            _, prof = profiled(tb.rk3_step_all)
+            events = device_events(prof)
+            for tid in range(4):
+                check(torch.equal(out[tid], want),
+                      f"bucket graphs s4 {mode}: tenant {tid} differs from "
+                      f"fused")
+            tenants[mode] = dict(
+                host_ms_per_step=ms, dispatch_ms_per_step=disp,
+                kernel_launches=launches, eager_launches=own,
+                busy_ms_per_step=sum(us for _, us in events) / 1e3,
+                dtod_us_per_step=sum(us for name, us in events
+                                     if "Memcpy DtoD" in name),
+                captures=tb.executor.stats["captures"],
+                graph_mib=tb.executor.stats["graph_bytes"] / 2 ** 20,
+                keys=sorted(str(k[:2]) for r in tb.executor.regions.values()
+                            for k in r.compiled))
+            del tb, prof
+    g, e = tenants["graphs"], tenants["eager"]
+    check(g["eager_launches"] == 0 and g["kernel_launches"]
+          == e["kernel_launches"] > 0,
+          f"bucket graphs s4: replayed {g['kernel_launches']} (wrapper "
+          f"{g['eager_launches']}), eager {e['kernel_launches']}")
+    print(f"bucket graphs ({card}): s4, 4 tenants of {cfg.name}, cap 32: "
+          f"graphs {g['host_ms_per_step']:.3f} host ms/step (enqueue "
+          f"{g['dispatch_ms_per_step']:.3f}, busy {g['busy_ms_per_step']:.3f}"
+          f", copies {g['dtod_us_per_step']:.1f} us), eager "
+          f"{e['host_ms_per_step']:.3f} (enqueue "
+          f"{e['dispatch_ms_per_step']:.3f}, busy {e['busy_ms_per_step']:.3f}"
+          f"); programs {g['keys']}, {g['captures']} captures, graphs "
+          f"{g['graph_mib']:.1f} MiB; kernel nodes replayed "
+          f"{g['kernel_launches']} = eager launches over "
+          f"{TENANT_STEPS - 1} steps; every tenant bit-equal to fused",
+          flush=True)
+    seconds = time.perf_counter() - t_phase
+    print(f"bucket graphs: phase {seconds:.1f} s", flush=True)
+    results["bucket_graphs"] = dict(card=card, runs=table, s4=tenants,
+                                    copies=copies, seconds=seconds)
+
+
+# ---------------------------------------------------------------------------
 # measured tuning and per-family routing
 # ---------------------------------------------------------------------------
 
@@ -2143,7 +2403,9 @@ DEVICE_KERNELS = {"hydro_rhs_cuda": "hydro_rhs_cluster_kernel",
                   "hydro_rhs_lane_cuda": "hydro_rhs_lane_kernel",
                   "hydro_reconstruct_cuda": "reconstruct_kernel",
                   "hydro_flux_cuda": "flux_cluster_kernel",
-                  "gravity_cuda": "gravity_kernel"}
+                  "gravity_cuda": "gravity_kernel",
+                  "decode_attention_cuda": "decode_chunk_kernel",
+                  "grouped_gemm_cuda": "grouped_gemm_kernel"}
 
 
 def cuda_wrappers():
@@ -2161,13 +2423,40 @@ def cuda_wrappers():
             gg.grouped_gemm_cuda)
 
 
+def eager_launches(wrapper):
+    """A wrapper's own launches outside bucket-program captures: its count
+    less what it counted at captures (a capture's warm call and its
+    recording, ``graphs.captured_kernels``)."""
+    from repro_torch.core import graphs
+
+    name = DEVICE_KERNELS[wrapper.__name__]
+    return wrapper.launches - sum(
+        c for k, c in graphs.captured_kernels().items() if name in k)
+
+
+def kernel_launches(wrapper):
+    """A wrapper's kernel's launches on the path: its eager launches plus
+    the bucket-program replays' kernel nodes of its kernel
+    (``graphs.replayed_kernels``: a replay launches its graph's nodes, not
+    the wrapper)."""
+    from repro_torch.core import graphs
+
+    name = DEVICE_KERNELS[wrapper.__name__]
+    return eager_launches(wrapper) + sum(
+        c for k, c in graphs.replayed_kernels().items() if name in k)
+
+
 def zero_launch_counts():
+    from repro_torch.core import graphs
+
     for f in cuda_wrappers():
         f.launches = 0
+    graphs.reset_replayed_kernels()
 
 
 def nonzero_launch_counts():
-    return {f.__name__: f.launches for f in cuda_wrappers() if f.launches}
+    counts = {f.__name__: kernel_launches(f) for f in cuda_wrappers()}
+    return {k: v for k, v in counts.items() if v}
 
 
 def device_events(prof):
@@ -2779,12 +3068,17 @@ def contain_payload(cfg, dev, card):
     want = runner.scenario.family("hydro_rhs").batched_body(*pop.parents)
     region = next(iter(exe.regions.values()))
     sizes = []
-    recording(region, sizes)
-    kern.hydro_rhs_cuda.launches = 0
+    recording(region, sizes)        # the bisection's eager launches
+    hist0 = dict(exe.stats["aggregated_hist"])
+    zero_launch_counts()
     fut = pop.submit_to(exe)
     exe.flush()
     sync()
-    launches = kern.hydro_rhs_cuda.launches
+    launches = kernel_launches(kern.hydro_rhs_cuda)
+    # the wave's bucket launches are replays of programs captured at
+    # warmup, which run no Python: their sizes come from the histogram
+    for b, c in exe.stats["aggregated_hist"].items():
+        sizes += [b] * (c - hist0.get(b, 0))
     f = dict(exe.stats["regions"][region.signature.describe()]["faults"])
     check(fut.failed_indices() == [17],
           f"payload fault: failed {fut.failed_indices()}, want [17]")
@@ -2949,30 +3243,27 @@ def contain_degraded(cfg, dev, card, pop, pop_want):
 
 
 def contain_stall(cfg, dev, card, pop, pop_want):
-    """Check 5: a body that sleeps ~10 budgets on its stream before the
+    """Check 5: a sleep of ~10 budgets on the launch's stream ahead of its
     kernel, under launch_timeout_s=0.02: the flush raises
     LaunchTimeoutError naming the family within a few budgets; once the
-    sleep ends the executor runs a clean wave bit-equal to fused."""
+    sleep ends the executor runs a clean wave bit-equal to fused.  The
+    sleep is queued on the executor's stream: the bucket's graph,
+    captured at the first wave, replays the body as it was then, so a
+    stall switched on in the body would not reach the card."""
     from repro_torch.configs.base import AggregationConfig
     from repro_torch.core import AggregationExecutor, UniformSedovScenario
     from repro_torch.core.faults import LaunchTimeoutError
 
     body = UniformSedovScenario(cfg).family("hydro_rhs").batched_body
-    stall = {"on": False}
-
-    def stalling(*args, out=None):
-        if stall["on"]:
-            torch.cuda._sleep(STALL_CYCLES)
-        return body(*args) if out is None else body(*args, out=out)
-
     exe = AggregationExecutor(None, AggregationConfig(
         strategy="s3", max_aggregated=512, launch_timeout_s=STALL_BUDGET_S),
         device=dev)
-    exe.register("stalled_hydro", stalling)
+    exe.register("stalled_hydro", body)
     exe.submit_range(pop.parents, 0, pop.n_tasks, kernel="stalled_hydro")
-    exe.flush()                     # first-use costs, unstalled
+    exe.flush()                     # first-use costs and the capture
     sync()
-    stall["on"] = True
+    with torch.cuda.stream(exe.pool.executors[0].stream):
+        torch.cuda._sleep(STALL_CYCLES)
     t0 = time.perf_counter()
     try:
         exe.submit_range(pop.parents, 0, pop.n_tasks,
@@ -2991,7 +3282,6 @@ def contain_stall(cfg, dev, card, pop, pop_want):
     check(raised_s < 5 * STALL_BUDGET_S + 0.05 and still,
           f"real stall: raised after {raised_s:.3f} s (stall still running: "
           f"{still})")
-    stall["on"] = False
     fut = exe.submit_range(pop.parents, 0, pop.n_tasks,
                            kernel="stalled_hydro")
     exe.flush()
@@ -3047,11 +3337,11 @@ def contain_breakers(gcfg, dev, card):
         states.append(exe.breaker_state("gravity"))
     for _ in range(4):
         before = exe.stats["launches"]
-        grav.gravity_cuda.launches = 0
+        zero_launch_counts()
         out = runner.rhs(u0)
         sync()
         launches.append(exe.stats["launches"] - before)
-        grav_launches.append(grav.gravity_cuda.launches)
+        grav_launches.append(kernel_launches(grav.gravity_cuda))
         states.append(exe.breaker_state("gravity"))
         check(torch.equal(out, fused),
               "breakers: a mixed iteration differs from fused")
@@ -3224,7 +3514,7 @@ import json, sys, time
 import torch
 from repro_torch.configs.base import AggregationConfig
 from repro_torch.configs.sedov import CONFIG
-from repro_torch.core import StrategyRunner, UniformSedovScenario
+from repro_torch.core import StrategyRunner, UniformSedovScenario, graphs
 from repro_torch.core.aggregation import greedy_decomposition
 from repro_torch.kernels import _build
 from repro_torch.kernels import hydro_rhs as kern
@@ -3252,18 +3542,24 @@ out.update(tuned_by=fam.get("tuned_by"), ladder=list(fam["ladder"]),
            cost_sources=fam.get("cost_sources"),
            cost_model=fam.get("cost_model"),
            cost_model_paths=fam.get("cost_model_paths"),
+           captures=exe.stats["captures"],
            built={k: v["seconds"] for k, v in _build.BUILD_LOG.items()})
 if mode == "prior":
     out["priors"] = {p: {str(b): t * 1e3 for b, t in tbl.items()}
                      for p, tbl in region.cost.priors.items()}
     out["prior_ladder"] = list(region.buckets)
 kern.hydro_rhs_cuda.launches = 0
+graphs.reset_replayed_kernels()
 u = data["u0"].to(dev)
 for dt in data["dts"]:
     u = runner.rk3_step(u, dt.to(dev))
 torch.cuda.synchronize()
 out["equal"] = bool(torch.equal(u.cpu(), data["want"]))
-out["kernel_launches"] = kern.hydro_rhs_cuda.launches
+out["kernel_launches"] = kern.hydro_rhs_cuda.launches + sum(
+    c for k, c in graphs.replayed_kernels().items()
+    if "hydro_rhs_cluster_kernel" in k) - sum(
+    c for k, c in graphs.captured_kernels().items()
+    if "hydro_rhs_cluster_kernel" in k)
 out["after"] = dict(tuned_by=fam.get("tuned_by"), ladder=list(fam["ladder"]),
                     measurement_launches=fam["measurement_launches"],
                     cost_sources=fam.get("cost_sources"))
@@ -3378,7 +3674,9 @@ def phase_warm_start(cfg, dev, card, dts, fused_main, results):
               f"two from the store: warmup {warm['warmup_s']:.3f} s host "
               f"(process {warm['process_s']:.1f} s), tuned by the store, "
               f"0 measurement launches, no library built "
-              f"({sorted(warm['built'])} cached), cost ms per bucket "
+              f"({sorted(warm['built'])} cached), {warm['captures']} "
+              f"bucket graphs captured at warmup (neither a build nor a "
+              f"measurement launch), cost ms per bucket "
               f"{warm['cost_model']}, 3 steps bit-identical to fused",
               flush=True)
 
@@ -3511,13 +3809,14 @@ def phase_tenancy(cfg, acfg, dev, card, dts, results):
                                 u0, dt)
             tb.rk3_step_all()
             sync()
-            kern.hydro_rhs_cuda.launches = 0
+            zero_launch_counts()
             t0 = time.perf_counter()
             for _ in range(TENANT_STEPS - 1):
                 out = tb.rk3_step_all()
             sync()
             wall = time.perf_counter() - t0
-            launches = kern.hydro_rhs_cuda.launches / (TENANT_STEPS - 1)
+            launches = kernel_launches(kern.hydro_rhs_cuda) / (
+                TENANT_STEPS - 1)
             for tid in range(n):
                 check(torch.equal(out[tid], want), f"tenancy: {n} tenants "
                       f"cap {cap}, tenant {tid} differs from its solo run")
@@ -4195,14 +4494,13 @@ def phase_serving_path(dev, card, results):
         eng.submit(r)
     torch.cuda.reset_peak_memory_stats(dev)
     sync()
-    da.decode_attention_cuda.launches = 0
-    gg.grouped_gemm_cuda.launches = 0
+    zero_launch_counts()
     t0 = time.perf_counter()
     eng.run(max_steps=10_000)
     sync()
     wall = time.perf_counter() - t0
-    n_da = da.decode_attention_cuda.launches
-    n_gg = gg.grouped_gemm_cuda.launches
+    n_da = kernel_launches(da.decode_attention_cuda)
+    n_gg = kernel_launches(gg.grouped_gemm_cuda)
     peak = torch.cuda.max_memory_allocated(dev)
     launches = eng.stats["launches"]
     hist = dict(sorted(eng.stats["aggregated_hist"].items()))
@@ -4486,8 +4784,8 @@ def serve_family(arch, layers, why, dev, card):
     eng.run(max_steps=10_000)
     sync()
     wall = time.perf_counter() - t0
-    n_da = da.decode_attention_cuda.launches
-    n_gg = gg.grouped_gemm_cuda.launches
+    n_da = kernel_launches(da.decode_attention_cuda)
+    n_gg = kernel_launches(gg.grouped_gemm_cuda)
     launches = eng.stats["launches"]
     hist = dict(sorted(eng.stats["aggregated_hist"].items()))
     reads = attention_reads(cfg)
@@ -5155,6 +5453,8 @@ def main(argv=None):
                        results)
     phase_tuning(CONFIG, gravity_512, CONFIG_MIXED, dev, card, dts,
                  fused_kernel_path, results)
+    phase_bucket_graphs(CONFIG, CONFIG_16, gravity_512, amr_1024, dev, card,
+                        dts, results)
 
     # the whole trajectory as one CUDA graph, crash-consistent resume and
     # the captured AMR exchange
@@ -5174,7 +5474,10 @@ def main(argv=None):
     phase_warm_start(CONFIG, dev, card, dts, fused_kernel_path, results)
     phase_tenancy(CONFIG, AMR_CONFIG, dev, card, dts, results)
 
-    # the serving kernels, then the serving path (qwen2-moe-a2.7b)
+    # the serving kernels, then the serving path (qwen2-moe-a2.7b); the
+    # runners above are gone, and with them their bucket graphs' pools
+    gc.collect()
+    torch.cuda.empty_cache()
     phase_lm_kernels(dev, card, results)
     phase_serving_path(dev, card, results)
     # the other eight families the port serves (six attention stacks,

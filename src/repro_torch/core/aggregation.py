@@ -57,11 +57,26 @@ model and ladder from the roofline of its shapes
 (:class:`~repro_torch.core.tunestore.RooflinePrior`) until the first
 retune measures for real.  Entries are keyed by :func:`_backend_key`.
 
+Compiled bucket programs: each region keeps the reference's table
+``compiled`` under its keys, ``("ring", b)``, ``("host", b)``,
+``("prefix", b)``, ``("gather", b, pk)`` and ``("prefix_aot", b, pk)``
+(``pk`` the parent set's shapes), filled where the reference compiles:
+``warmup``, the lazy ``compiled_for``, the measurements and the retune,
+and dropped by ``reset_compiled`` when a re-sweep changes the inner chunk.
+On the CPU each entry is the eager callable; on the card a
+:class:`~repro_torch.core.graphs.BucketProgram`, one CUDA graph per slot
+offset and input buffer, so a bucket launch is a graph replay.  A graph
+reads its inputs where they are: the slot ring's two buffers, or the
+region's static parent for ``pk``, into which a wave's parents are copied
+once, at its first launch (a by-reference population is a new tensor
+every stage).
+
 ``make_s2_scatter`` builds the ``s2`` strategy's per-task launch.
 """
 from __future__ import annotations
 
 import bisect
+import functools
 import statistics
 import threading
 import time
@@ -77,6 +92,7 @@ from repro_torch.configs.base import (
     AggregationConfig, resolve_family_option, validate_ladder,
 )
 from repro_torch.core.buffers import BufferPool, SlotRing
+from repro_torch.core import graphs
 from repro_torch.core.executor import DeviceExecutor, ExecutorPool
 from repro_torch.core.faults import (
     BucketCompileError, FaultInjector, LaunchFaultError, LaunchTimeoutError,
@@ -795,15 +811,40 @@ def derive_ladder(queue_hist: Mapping[int, int], cap: int, budget: int,
     return tuple(sorted(ladder))
 
 
+def _pk(parents: Sequence[Any]) -> Tuple[Tuple[int, ...], ...]:
+    """A parent set's shape key (the reference's ``pk``)."""
+    return tuple(tuple(p.shape) if isinstance(p, torch.Tensor)
+                 else tuple(p[0]) for p in parents)
+
+
+def _greedy_sites(n: int, buckets: Sequence[int]) -> List[Tuple[int, int]]:
+    """The (slot offset, bucket) of every launch of the greedy drain of an
+    ``n``-slot range starting at slot 0."""
+    sites, start = [], 0
+    for b in greedy_decomposition(n, buckets):
+        sites.append((start, b))
+        start += b
+    return sites
+
+
 class _Region:
     """One aggregation region: per-TaskSignature queue, bucket ladder, slot
-    ring (made at the first per-task submission), the two staging
-    programs (contiguous prefix, indexed gather), and its tuning state: the
-    inner chunk, the wave count and queue-length histogram, the cost
-    model, and the parent shapes its ranges read (which measurements
-    replay); and its containment state: the quarantine list, the rungs
-    banned by degraded launches, the wave-relative task counter and the
-    circuit breaker."""
+    ring (made at the first per-task submission), its compiled bucket
+    programs (``compiled``, the shared ``host_jit`` and ``gather_jit``) and
+    the static parents they read, and its tuning state: the inner chunk,
+    the wave count and queue-length histogram, the cost model, and the
+    parent sets its ranges read (``parent_specs``, by ``pk``: which
+    measurements replay); and its containment state: the quarantine list,
+    the rungs banned by degraded launches, the wave-relative task counter
+    and the circuit breaker.
+
+    On the card the captures a region can hold are bounded by its sites:
+    per ``("prefix_aot", b, pk)`` or ``("prefix", b)`` program one graph
+    per slot offset a ``b`` launch starts at on the static parent (the
+    prefix sums of the drains: 16 at cap 32 over 512 slots, 1 at cap
+    512), per ``("ring", b)`` at most ``capacity - b + 1`` offsets on each
+    of the ring's two buffers, one graph per static parent for a
+    ``("gather", b, pk)`` and one per ``("host", b)``."""
 
     __slots__ = ("signature", "batched_fn", "queue", "queued_tasks",
                  "buckets", "stats", "ring", "chunk", "chunk_tuned",
@@ -811,11 +852,16 @@ class _Region:
                  "_retuned_peak", "warmup_wave", "parent_specs", "_outs",
                  "quarantine", "bad_buckets", "_wave_submitted",
                  "breaker_state", "_breaker_counts", "_breaker_wave_mark",
-                 "_breaker_mark", "_breaker_open_waves")
+                 "_breaker_mark", "_breaker_open_waves", "compiled",
+                 "host_jit", "gather_jit", "device", "_counters",
+                 "_graphs", "ring_staged", "_statics", "_static_src",
+                 "_static_readers")
 
     def __init__(self, signature: TaskSignature, batched_fn: Callable,
                  buckets: Tuple[int, ...], chunk: int = 0,
-                 quarantine_threshold: int = 2):
+                 quarantine_threshold: int = 2,
+                 device: torch.device = torch.device("cpu"),
+                 counters: Optional[Dict[str, Any]] = None):
         self.signature = signature
         self.batched_fn = batched_fn
         self.queue: List[_Pending] = []
@@ -831,8 +877,9 @@ class _Region:
         self._retuned_waves = -1      # waves at the last retune
         self._retuned_peak = 0        # largest wave peak at the last retune
         self.warmup_wave = 0          # the wave size warmup was told about
-        # parent shapes a range or warmup read, ((shape, dtype), ...) each
-        self.parent_specs: set = set()
+        # pk -> ((shape, dtype), ...) of each parent set a range or warmup
+        # read (the reference's ``_aot_parents``)
+        self.parent_specs: Dict[Tuple, Tuple] = {}
         self._outs: Dict[Tuple, Tuple] = {}   # chunked outputs' shapes
         self.quarantine = QuarantineList(threshold=quarantine_threshold)
         self.bad_buckets: set = set()     # rungs banned by degraded launches
@@ -844,6 +891,17 @@ class _Region:
         self._breaker_wave_mark = 0       # waves at the last breaker tick
         self._breaker_mark = 0            # cumulative faults at that tick
         self._breaker_open_waves = 0      # waves spent open (cooldown)
+        self.device = device
+        self._counters = counters         # the executor's capture counters
+        self.compiled: Dict[Tuple, Callable] = {}
+        # graphs: the programs are BucketPrograms, which read fixed inputs
+        self._graphs = isinstance(graphs.make_program(self.eval, device),
+                                  graphs.BucketProgram)
+        self.ring_staged = False          # a ring program was filed
+        self._statics: Dict[Tuple, Tuple[torch.Tensor, ...]] = {}
+        self._static_src: Dict[Tuple, Tuple[torch.Tensor, ...]] = {}
+        self._static_readers: Dict[Tuple, List[Any]] = {}
+        self.reset_compiled()
         self.stats = {"submitted": 0, "launches": 0, "aggregated_hist": {},
                       "queue_hist": {}, "ladder": list(buckets),
                       "measurement_launches": 0, "prior_hits": 0,
@@ -862,8 +920,8 @@ class _Region:
         return self.ring
 
     def remember(self, parents: Sequence[torch.Tensor]) -> None:
-        self.parent_specs.add(tuple((tuple(p.shape), p.dtype)
-                                    for p in parents))
+        self.parent_specs.setdefault(_pk(parents), tuple(
+            (tuple(p.shape), p.dtype) for p in parents))
 
     def expected_peak(self) -> int:
         """The modal observed wave peak (ties to the larger), what the
@@ -898,6 +956,131 @@ class _Region:
     def apply_gathered(self, idx: torch.Tensor, *parents: torch.Tensor):
         """Any other bucket: one gather per parent feeds the body."""
         return self.eval(*(p.index_select(0, idx) for p in parents))
+
+    # -- the compiled bucket programs --------------------------------------
+    def program(self, fn: Callable, **kw) -> Callable:
+        """``fn`` as a program: itself on the CPU, a
+        :class:`~repro_torch.core.graphs.BucketProgram` on the card whose
+        captures the executor's ``stats`` count."""
+        return graphs.make_program(fn, self.device, stats=self._counters,
+                                   **kw)
+
+    def _prefix_program(self, bucket: int) -> Callable:
+        """``(start, *parents)`` -> the body over ``[start, start+bucket)``
+        of each parent (a ring buffer or a static parent)."""
+        return self.program(functools.partial(self._apply_prefix_at, bucket))
+
+    def _apply_prefix_at(self, bucket: int, start: int, *parents):
+        return self.apply_prefix(start, bucket, *parents)
+
+    def compiled_for(self, bucket: int, mode: str = "ring") -> Callable:
+        """The ``(mode, bucket)`` program, filed at its first use:
+        ``"ring"`` and ``"prefix"`` read a slot run of their inputs in
+        place, ``"host"`` is the shared ``host_jit``."""
+        key = (mode, bucket)
+        fn = self.compiled.get(key)
+        if fn is None:
+            fn = (self._prefix_program(bucket) if mode in ("ring", "prefix")
+                  else self.host_jit)
+            self.compiled[key] = fn
+        if mode == "ring":
+            self.ring_staged = True
+        return fn
+
+    def aot_ref(self, bucket: int, pk: Tuple) -> None:
+        """File the indexed-gather and contiguous-prefix programs of one
+        bucket over one parent set (``pk``)."""
+        if ("gather", bucket, pk) not in self.compiled:
+            self.compiled[("gather", bucket, pk)] = self.program(
+                self.apply_gathered, copy_in=(0,))
+        if ("prefix_aot", bucket, pk) not in self.compiled:
+            self.compiled[("prefix_aot", bucket, pk)] = \
+                self._prefix_program(bucket)
+
+    def aot_ring(self, bucket: int) -> None:
+        """File the slot ring's prefix program of one bucket; on the card
+        capture it at slot 0 of both ring buffers."""
+        self.ring_staged = True
+        if ("ring", bucket) not in self.compiled:
+            self.compiled[("ring", bucket)] = self._prefix_program(bucket)
+        if self._graphs and bucket <= self.ring.capacity:
+            for bufs in self.ring.all_buffers():
+                self.compiled[("ring", bucket)](0, *bufs)
+
+    def prime(self, pk: Tuple, sites: Sequence[Tuple[int, int]]) -> None:
+        """On the card, capture the ``("prefix_aot", b, pk)`` programs at
+        the given (slot offset, bucket) sites of the static parent (a
+        drain's sites: what warmup and a retune know will launch)."""
+        if not self._graphs:
+            return
+        statics = self.statics_for(self.parent_specs[pk])
+        for start, b in sites:
+            prog = self.compiled.get(("prefix_aot", b, pk))
+            if prog is not None:
+                prog(start, *statics)
+
+    def reset_compiled(self) -> None:
+        """Drop every program and make the shared ``host_jit`` (the host
+        staged bucket, any size; its stacked inputs are copied into each
+        graph) and ``gather_jit`` anew.  ``gather_jit`` stays an eager
+        launch of the same kernels on the card too: it re-runs any subset
+        of a launch's positions for the guard's bisection and serves a
+        gather of an unwarmed bucket, as the reference's compiles such a
+        shape at first use.  Needed when the inner chunk changes: every
+        program baked the old one."""
+        self.compiled.clear()
+        self.host_jit = self.program(self.eval, copy_in="all")
+        self.gather_jit = self.apply_gathered
+
+    # -- the static parents the card's programs read -----------------------
+    def statics_for(self, specs: Sequence[Tuple[Tuple[int, ...],
+                                                torch.dtype]]
+                    ) -> Tuple[torch.Tensor, ...]:
+        """The static parent set of one ``pk`` (zeros when made)."""
+        pk = _pk(specs)
+        statics = self._statics.get(pk)
+        if statics is None:
+            statics = self._statics[pk] = tuple(
+                torch.zeros(shape, dtype=dtype, device=self.device)
+                for shape, dtype in specs)
+        return statics
+
+    def static_parents(self, parents: Tuple[torch.Tensor, ...]
+                       ) -> Tuple[torch.Tensor, ...]:
+        """The parents a by-reference launch reads: on the card the static
+        parent of their ``pk``, into which this wave's parents are copied
+        once (at its first launch; later launches of the same parents in
+        the wave find them there), after every launch still reading it;
+        the parents themselves on the CPU."""
+        if not self._graphs:
+            return parents
+        statics = self.statics_for(tuple((tuple(p.shape), p.dtype)
+                                         for p in parents))
+        pk = _pk(parents)
+        src = self._static_src.get(pk)
+        if all(a is b for a, b in zip(statics, parents)) or (
+                src is not None
+                and all(a is b for a, b in zip(src, parents))):
+            return statics
+        readers = self._static_readers.pop(pk, [])
+        if readers:
+            stream = torch.cuda.current_stream(self.device)
+            for event in readers:
+                stream.wait_event(event)
+        for dst, p in zip(statics, parents):
+            dst.copy_(p, non_blocking=True)
+        self._static_src[pk] = parents
+        return statics
+
+    def track_static_read(self, pk: Tuple, event) -> None:
+        """A launch reading ``pk``'s static parent ends at ``event``: the
+        next copy into it waits for it (no-op off the card)."""
+        if event is not None and pk in self._statics:
+            self._static_readers.setdefault(pk, []).append(event)
+
+    def end_wave(self) -> None:
+        """The queue drained: the next wave's parents are copied anew."""
+        self._static_src.clear()
 
 
 # inner-chunk choices, memoized per (device, timer, body, bucket, task
@@ -991,6 +1174,9 @@ class AggregationExecutor:
         self._default_kernel: Optional[str] = None
         self.stats = {"submitted": 0, "launches": 0, "aggregated_hist": {},
                       "staging_s": 0.0, "regions": {},
+                      # bucket-program graphs captured, and the device
+                      # memory their captures reserved (the card only)
+                      "captures": 0, "graph_bytes": 0,
                       "warm_start": False,   # a region restored from store
                       "flush_policy": (dict(self._flush_policy)
                                        if isinstance(self._flush_policy,
@@ -1035,7 +1221,8 @@ class AggregationExecutor:
                 raise KeyError(f"no batched body registered for kernel "
                                f"{kernel!r} (have {sorted(self._bodies)})")
             region = _Region(sig, body, self._buckets, chunk=self._chunk,
-                             quarantine_threshold=self._qthreshold)
+                             quarantine_threshold=self._qthreshold,
+                             device=self.device, counters=self.stats)
             self._regions[sig] = region
             self.stats["regions"][sig.describe()] = region.stats
         return region
@@ -1054,37 +1241,72 @@ class AggregationExecutor:
         return next(iter(self._regions.values())).ring
 
     # -- warmup ------------------------------------------------------------
-    def warmup(self, parent_shapes: Sequence[Tuple[Tuple[int, ...],
-                                                   torch.dtype]], *,
+    def warmup(self, parent_shapes: Optional[Sequence[Tuple[
+            Tuple[int, ...], torch.dtype]]] = None, *,
+               example_args: Optional[Sequence[torch.Tensor]] = None,
                kernel: Optional[str] = None,
                buckets: Optional[Sequence[int]] = None,
                store: Optional[Any] = None) -> None:
-        """Launch each ladder bucket (or each of ``buckets``) once on every
-        executor's stream, on zero-filled parents of the given ``(shape,
-        dtype)``s (the shapes a range or a host-stacked bucket reads), and
-        under device staging once more on the family's slot ring, which
-        this makes: builds the kernel at first use and pays every
-        first-launch cost (including each stream's first allocations)
-        before the timed run.  Launch statistics are not touched.
+        """Make each ladder bucket's programs (or each of ``buckets``') and
+        pay every first-launch cost before the timed run, in the
+        reference's two modes, combinable:
 
-        A tune store (``store``, a path or a ``TuneStore``, else the
-        config's) with an entry for this family on this device restores
-        its tuned state first (:meth:`_restore_region`); otherwise, under
-        ``prior="roofline"``, the roofline prior seeds its cost model and
-        ladder (:meth:`_seed_prior`).  Either way the installed ladder's
-        decomposition of the wave is warmed too.  Under
+        * ``parent_shapes`` — the ``(shape, dtype)`` of the parents a
+          range or an indexed submission will read: files the
+          ``("gather", b, pk)`` and ``("prefix_aot", b, pk)`` programs and
+          launches each prefix program on every executor's stream, on the
+          zero-filled parents (on the card: the region's static parent,
+          where the programs are captured at slot 0 and at every slot
+          offset of the warmed wave's greedy drain); under device staging
+          also launches each bucket once on the family's slot ring, which
+          this makes, eagerly (the ring's programs are filed at its first
+          ring launch, as the reference's are).
+        * ``example_args`` — one task's inputs: files the slot ring's
+          ``("ring", b)`` programs (device staging; captured at slot 0 of
+          both buffers on the card) or the ``("host", b)`` programs (host
+          staging; captured over a zero-filled bucket).
+
+        Builds the kernels at first use.  Launch statistics are not
+        touched.  A tune store (``store``, a path or a ``TuneStore``, else
+        the config's) with an entry for this family on this device
+        restores its tuned state first (:meth:`_restore_region`);
+        otherwise, under ``prior="roofline"``, the roofline prior seeds its
+        cost model and ladder (:meth:`_seed_prior`).  Either way the
+        installed ladder's decomposition of the wave is warmed too.  Under
         ``inner_chunk="auto"`` the chunks are timed (unless restored);
-        under ``cost_model=True`` the buckets without a time are timed,
-        and, for the ``mixed`` strategy's choice, the ``s2`` widths and the
-        whole-wave launch, unless the prior seeded the region (its first
-        retune measures): a restored region measures nothing."""
+        under ``cost_model=True`` the buckets without a time are timed
+        through their programs, and, for the ``mixed`` strategy's choice,
+        the ``s2`` widths and the whole-wave launch, unless the prior
+        seeded the region (its first retune measures): a restored region
+        measures nothing.  A capture is not a measurement launch."""
         kernel = self._resolve_kernel(kernel)
+        if parent_shapes is None and example_args is None:
+            raise ValueError("warmup needs parent_shapes and/or "
+                             "example_args")
         if store is not None:
             self._store = TuneStore.open(store)
+        if parent_shapes is not None:
+            self._warmup_parents(kernel, parent_shapes, buckets)
+        if example_args is not None:
+            self._warmup_example(kernel, tuple(example_args), buckets)
+
+    @staticmethod
+    def _aot_buckets(region: _Region,
+                     buckets: Optional[Sequence[int]]) -> Tuple[int, ...]:
+        want = region.buckets if buckets is None else tuple(sorted(buckets))
+        if region.stats.get("tuned_by") in ("store", "prior"):
+            # the installed ladder is what the drain launches: warm its
+            # decomposition of the wave too
+            want = tuple(sorted(set(want).union(
+                greedy_decomposition(region.warmup_wave, region.buckets))))
+        return want
+
+    def _warmup_parents(self, kernel: str, parent_shapes, buckets) -> None:
         parents = tuple(torch.zeros(shape, dtype=dtype, device=self.device)
                         for shape, dtype in parent_shapes)
         region = self._region_for(kernel, [SlotView(p, 0) for p in parents])
         region.remember(parents)
+        pk = _pk(parents)
         restored = self._restore_region(region)
         n_parent = min(p.shape[0] for p in parents)
         region.warmup_wave = max(region.warmup_wave, n_parent)
@@ -1093,12 +1315,12 @@ class AggregationExecutor:
         if (self._prior_on and not restored and not region.cost.measured()
                 and not region.cost.seeded()):
             self._seed_prior(region, parent_shapes)
-        want = region.buckets if buckets is None else tuple(sorted(buckets))
-        if region.stats.get("tuned_by") in ("store", "prior"):
-            # the installed ladder is what the drain launches: warm its
-            # decomposition of the wave too
-            want = tuple(sorted(set(want).union(
-                greedy_decomposition(region.warmup_wave, region.buckets))))
+        want = self._aot_buckets(region, buckets)
+        for b in want:
+            if b <= n_parent:
+                region.aot_ref(b, pk)
+        launch = (region.statics_for(parent_shapes) if region._graphs
+                  else parents)
         ring = None
         if self._staging == "device":
             ring = region.ensure_ring(self.config.max_aggregated,
@@ -1106,13 +1328,49 @@ class AggregationExecutor:
         for ex in self.pool.executors:
             for b in want:
                 if b <= n_parent:
-                    ex.run(region.apply_prefix, 0, b, *parents)
+                    ex.run(region.compiled[("prefix_aot", b, pk)], 0,
+                           *launch)
                 if ring is not None:
                     ex.run(region.apply_prefix, 0, b, *ring.buffers())
                     ring.track_read(0, b, ex.last_event)
+        region.prime(pk, _greedy_sites(n_parent, [
+            b for b in region.buckets if b <= n_parent]))
         self._sync()
         if self._cost_on and not region.cost.seeded():
             self._measure_region(region, want, parents)
+
+    def _warmup_example(self, kernel: str, args: Tuple[torch.Tensor, ...],
+                        buckets) -> None:
+        region = self._region_for(kernel, args)
+        restored = self._restore_region(region)
+        specs = [(tuple(a.shape), a.dtype) for a in args]
+        cap = self.config.max_aggregated
+        if self._chunk_auto and not region.chunk_tuned:
+            # a pseudo-parent of the largest bucket's stacked shape
+            self._tune_chunk(region, self._zeros(
+                [((max(region.buckets),) + shape, dt) for shape, dt in specs]))
+        if (self._prior_on and not restored and not region.cost.measured()
+                and not region.cost.seeded()):
+            # the wave is unknown before traffic: the cap bounds it
+            self._seed_prior(region, [((cap,) + shape, dt)
+                                      for shape, dt in specs])
+        want = self._aot_buckets(region, buckets)
+        if self._staging == "device":
+            ring = region.ensure_ring(cap, args, self.device)
+            for b in want:
+                region.aot_ring(b)
+            self._sync()
+            if self._cost_on and not region.cost.seeded():
+                self._measure_region(region, want, ring.buffers(),
+                                     alt_paths=False, ring=True)
+            return
+        for b in want:
+            prog = region.compiled[("host", b)] = region.program(
+                region.eval, copy_in="all")
+            if region._graphs:
+                prog(*self._zeros([((b,) + shape, dt)
+                                   for shape, dt in specs]))
+        self._sync()
 
     # -- persistent warm start (DESIGN.md §13) -----------------------------
     def _restore_region(self, region: _Region) -> bool:
@@ -1293,10 +1551,12 @@ class AggregationExecutor:
         for c in (0, 2, 4, 8):
             if c >= b or (c and b % c):
                 continue
+            # the program the drain would launch at this chunk (a graph on
+            # the card, captured here and dropped after)
+            prog = region.program(functools.partial(region.eval, chunk=c))
             region.stats["measurement_launches"] += _launches(
                 self.timer, self.device, 3)
-            t = min(_samples(self.timer,
-                             lambda c=c: region.eval(*stacked, chunk=c),
+            t = min(_samples(self.timer, lambda p=prog: p(*stacked),
                              self.device, "chunk", c, 3))
             if t < best_t:
                 best_chunk, best_t = c, t
@@ -1313,18 +1573,33 @@ class AggregationExecutor:
 
     def _measure_region(self, region: _Region, buckets: Sequence[int],
                         parents: Sequence[torch.Tensor],
-                        alt_paths: bool = True) -> None:
-        """Time each bucket's prefix launch on ``parents`` (zero-filled)
-        into the region's cost model; buckets with samples already are
-        skipped.  ``alt_paths``: also the ``s2`` widths and the whole-wave
-        launch (:meth:`_measure_alt_paths`)."""
+                        alt_paths: bool = True, ring: bool = False) -> None:
+        """Time each bucket's program, the one the drain launches, into the
+        region's cost model: the ``("prefix_aot", b, pk)`` program on
+        ``parents`` (zero-filled; on the card the region's static parent
+        of their shape), or with ``ring`` the ``("ring", b)`` program on
+        the ring's buffers, at slot 0; buckets with samples already are
+        skipped (and get no program).  ``alt_paths``: also the ``s2``
+        widths and the whole-wave launch (:meth:`_measure_alt_paths`)."""
         n_slots = min(p.shape[0] for p in parents)
+        if ring:
+            launch = tuple(parents)
+        else:
+            pk = _pk(parents)
+            launch = (region.statics_for(tuple(
+                (tuple(p.shape), p.dtype) for p in parents))
+                if region._graphs else tuple(parents))
         for b in sorted(set(buckets)):
             if b > n_slots or region.cost.time(b) is not None:
                 continue
+            if ring:
+                region.aot_ring(b)
+                prog = region.compiled[("ring", b)]
+            else:
+                region.aot_ref(b, pk)
+                prog = region.compiled[("prefix_aot", b, pk)]
             for t in self._sample(
-                    region, lambda b=b: region.apply_prefix(0, b, *parents),
-                    "s3", b):
+                    region, lambda p=prog: p(0, *launch), "s3", b):
                 region.cost.record(b, t)
         if alt_paths:
             self._measure_alt_paths(region, parents)
@@ -1632,18 +1907,24 @@ class AggregationExecutor:
         if mode == "ring" and not region.queue:
             region.ring.swap()    # in-flight launches keep the old buffer
         if not region.queue:
+            region.end_wave()
             self._wave_complete(region)
 
     def _stage(self, region: _Region, tasks: List[_Pending], k: int,
                mode: str):
         """One bucket's program and arguments, and the recipe that runs
         any subset of its positions again: ``(fn, call_args, parents,
-        indices)``.  Ref: a contiguous slot run reads a view of its
-        parents, anything else gathers by index; ring: the ring's prefix in
-        place; host: the bucket stacked.  The recipe is built only under
-        the guard (None otherwise): the submitted parents, the bucket's
-        ring slice copied on the caller's stream (later writes into the
-        ring are ordered after it), or the stacked batch."""
+        indices)``, the program looked up as the reference's ``_stage``
+        does.  Ref: a contiguous slot run is ``("prefix_aot", k, pk)``
+        (else ``("prefix", k)``) at its first slot, anything else
+        ``("gather", k, pk)`` (else ``gather_jit``) by index, both over
+        the region's static parents on the card; ring: ``("ring", k)`` at
+        the run's first slot of the active ring buffer; host:
+        ``("host", k)`` (else ``host_jit``) over the stacked bucket.  The
+        recipe is built only under the guard (None otherwise): the
+        submitted parents, the bucket's ring slice copied on the caller's
+        stream (later writes into the ring are ordered after it), or the
+        stacked batch."""
         guard = self._guard == "finite"
         if mode == "ring":
             first = tasks[0].slot
@@ -1652,23 +1933,27 @@ class AggregationExecutor:
             if guard:
                 recipe = (tuple(r.narrow(0, first, k).clone() for r in rings),
                           list(range(k)))
-            return (region.apply_prefix, (first, k) + rings) + recipe
+            return (region.compiled_for(k, "ring"), (first,) + rings) + recipe
         if mode == "host":
             stacked = tuple(self._stack([t.args[j] for t in tasks])
                             for j in range(len(tasks[0].args)))
-            return (region.batched_fn, stacked, stacked,
-                    list(range(k)) if guard else None)
+            return (region.compiled.get(("host", k), region.host_jit),
+                    stacked, stacked, list(range(k)) if guard else None)
         indices: List[int] = []
         for t in tasks:
             i0 = t.views[0].index
             indices.extend(range(i0, i0 + t.count))
         parents = tuple(v.parent for v in tasks[0].views)
         region.remember(parents)
+        pk = _pk(parents)
+        launch = region.static_parents(parents)
         if indices == list(range(indices[0], indices[0] + k)):
-            return (region.apply_prefix, (indices[0], k) + parents, parents,
-                    indices)
+            fn = (region.compiled.get(("prefix_aot", k, pk))
+                  or region.compiled_for(k, "prefix"))
+            return fn, (indices[0],) + launch, parents, indices
         idx = torch.tensor(indices, device=parents[0].device)
-        return region.apply_gathered, (idx,) + parents, parents, indices
+        fn = region.compiled.get(("gather", k, pk)) or region.gather_jit
+        return fn, (idx,) + launch, parents, indices
 
     def _stack(self, parts: List[torch.Tensor]) -> torch.Tensor:
         """One host-staged argument of a bucket: tensors on the device are
@@ -1705,6 +1990,8 @@ class AggregationExecutor:
         if mode == "ring":
             region.ring.track_read(tasks[0].slot, tasks[0].slot + k,
                                    ex.last_event)
+        elif mode == "ref":
+            region.track_static_read(_pk(parents), ex.last_event)
         wave_ids: List[int] = []
         for t in tasks:
             wave_ids.extend(range(t.wave_index, t.wave_index + t.count))
@@ -2100,16 +2387,20 @@ class AggregationExecutor:
         """Swap in the ladder minimizing the per-wave objective: expected
         launches, or under ``cost_model=True`` the predicted time, after
         re-sweeping ``inner_chunk="auto"`` and timing every candidate
-        bucket (:func:`ladder_candidates`); real measurements retire the
-        prior's seeds.  The bucket kernels need no compile, so the new
-        ladder is live at once.  With a tune store, the tuned state is
-        written back (what process two restores)."""
+        bucket's program (:func:`ladder_candidates`); real measurements
+        retire the prior's seeds.  When the ladder or the chunk changed,
+        the buckets the observed waves drain through under the new ladder
+        get their programs, as the reference AOT-compiles them: the ring's
+        (a ring-staged region) and each parent set's, captured on the card
+        at every site of those drains.  With a tune store, the tuned state
+        is written back (what process two restores)."""
         region._retuned_waves = region.waves
         region._retuned_peak = max(
             (k for k in region.stats["queue_hist"] if k > 0), default=0)
+        chunk_changed = False
         cost_model = None
         if self._cost_on:
-            self._resweep_chunk(region)
+            chunk_changed = self._resweep_chunk(region)
             cost_model = self._measure_candidates(region)
         ladder = derive_ladder(region.stats["queue_hist"],
                                self.config.max_aggregated,
@@ -2122,16 +2413,41 @@ class AggregationExecutor:
             region.stats["cost_sources"] = {
                 p: dict(t) for p, t in region.cost.sources().items()}
         region.stats["prior_hits"] = region.cost.prior_hits
+        changed = ladder != region.buckets or chunk_changed
         region.buckets = ladder
         region.stats["ladder"] = list(ladder)
+        if changed:
+            self._aot_used(region, ladder)
         if self._store is not None:
             self._persist_region(region)
             self._store.save()
 
+    @staticmethod
+    def _aot_used(region: _Region, ladder: Tuple[int, ...]) -> None:
+        """The programs of the buckets the observed waves drain through
+        under ``ladder``: the ring's (a ring-staged region; host staging
+        keeps ``host_jit``) and each parent set's, captured on the card at
+        the drains' sites."""
+        used = set()
+        for k in region.stats["queue_hist"]:
+            used.update(greedy_decomposition(k, ladder))
+        if region.ring is not None and region.ring_staged:
+            for b in sorted(used):
+                region.aot_ring(b)
+        for pk, specs in region.parent_specs.items():
+            n_parent = min(shape[0] for shape, _ in specs)
+            for b in sorted(used):
+                if b <= n_parent:
+                    region.aot_ref(b, pk)
+            for k in region.stats["queue_hist"]:
+                if k <= n_parent:
+                    region.prime(pk, _greedy_sites(k, ladder))
+
     def _resweep_chunk(self, region: _Region) -> bool:
         """A retune's ``inner_chunk="auto"`` re-sweep, past the memo.  A
-        new chunk makes every cost sample stale: they are dropped.  Returns
-        whether the chunk changed."""
+        new chunk makes every program and every cost sample stale: they
+        are dropped (``reset_compiled``).  Returns whether the chunk
+        changed."""
         if not self._chunk_auto:
             return False
         parents = self._primary_parents(region)
@@ -2141,6 +2457,7 @@ class AggregationExecutor:
         self._tune_chunk(region, parents, force=True)
         if region.chunk == old:
             return False
+        region.reset_compiled()
         region.cost.clear()
         region.stats.pop("cost_model", None)
         return True
@@ -2150,7 +2467,7 @@ class AggregationExecutor:
         """Zero-filled parents for measurements: the deepest parent set
         seen (the biggest buckets fit), else the ring's buffers."""
         if region.parent_specs:
-            specs = max(region.parent_specs,
+            specs = max(region.parent_specs.values(),
                         key=lambda sp: min(shape[0] for shape, _ in sp))
             return self._zeros(specs)
         if region.ring is not None:
@@ -2159,16 +2476,17 @@ class AggregationExecutor:
 
     def _measure_candidates(self, region: _Region
                             ) -> Optional[BucketCostModel]:
-        """Time every drain-reachable candidate bucket of the region's
-        waves (buckets with samples are free) on each parent set seen and
-        on the ring; the model, or None when nothing was measured."""
+        """Time every drain-reachable candidate bucket's program of the
+        region's waves (buckets with samples are free) on each parent set
+        seen and on the ring of a ring-staged region; the model, or None
+        when nothing was measured."""
         cands = sorted(ladder_candidates(region.stats["queue_hist"],
                                          self.config.max_aggregated))
-        for specs in region.parent_specs:
+        for specs in list(region.parent_specs.values()):
             self._measure_region(region, cands, self._zeros(specs))
-        if region.ring is not None:
+        if region.ring is not None and region.ring_staged:
             self._measure_region(region, cands, region.ring.buffers(),
-                                 alt_paths=False)
+                                 alt_paths=False, ring=True)
         return region.cost if region.cost.measured() else None
 
     def retune(self) -> Dict[str, Tuple[int, ...]]:

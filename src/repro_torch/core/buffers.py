@@ -154,6 +154,11 @@ class SlotRing:
         self.commit()
         return tuple(self._bufs[self._active])
 
+    def all_buffers(self) -> List[Tuple[torch.Tensor, ...]]:
+        """Every buffer's tensors (one per argument), active or not: the
+        fixed inputs a captured ring program reads."""
+        return [tuple(bufs) for bufs in self._bufs]
+
     def track_read(self, lo: int, hi: int, event) -> None:
         """A launch reading slots ``[lo, hi)`` of the active buffers ends at
         ``event`` (recorded on its stream); a later write into those slots

@@ -56,18 +56,20 @@ class DeviceExecutor:
         self._event = self.stream.record_event()
         return out
 
-    def launch(self, fn: Callable, *args,
-               family: Optional[str] = None) -> torch.Tensor:
-        """:meth:`run`, counted (a raising ``fn`` counts no launch)."""
+    def launch(self, fn: Callable, *args, family: Optional[str] = None,
+               count: int = 1) -> torch.Tensor:
+        """:meth:`run`, counted as ``count`` launches (a program that
+        replays several bucket launches counts each; a raising ``fn``
+        counts none)."""
         t0 = time.perf_counter()
         try:
             out = self.run(fn, *args)
         finally:
             self.dispatch_s += time.perf_counter() - t0
-        self.launches += 1
+        self.launches += count
         if family is not None:
             self.launches_by_family[family] = \
-                self.launches_by_family.get(family, 0) + 1
+                self.launches_by_family.get(family, 0) + count
         return out
 
     def follow(self, fn: Callable, *args):
@@ -138,6 +140,11 @@ class ExecutorPool:
     @property
     def total_launches(self) -> int:
         return sum(e.launches for e in self.executors)
+
+    @property
+    def total_dispatch_s(self) -> float:
+        """Host seconds spent enqueueing launches, summed over executors."""
+        return sum(e.dispatch_s for e in self.executors)
 
     @property
     def launches_by_family(self) -> dict:

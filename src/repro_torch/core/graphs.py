@@ -30,13 +30,23 @@ own kernel nodes: :meth:`CapturedCall.kernel_names` lists them, read
 from the captured ``cudaGraph_t`` through ``libcuda`` (the graph is kept
 beside its executable instance for that).  The graph's memory pool
 lives as long as the object.
+
+:class:`BucketProgram` is one entry of a compiled-program table (the
+aggregation regions', the ``s4`` regions' and the serving engine's): a
+graph per launch site, captured over inputs that already live at fixed
+addresses and never copied in (a slot ring's buffers, a region's static
+parents), and each replay's kernels tallied for
+:func:`replayed_kernels`.  :func:`make_program` files the eager callable
+itself on the CPU and a :class:`BucketProgram` on the card.
 """
 from __future__ import annotations
 
 import contextlib
 import ctypes
 import functools
-from typing import Callable, List, Optional, Sequence, Tuple
+import gc
+from collections import Counter
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -128,8 +138,58 @@ def _host_syncs_raise():
         torch.cuda.set_sync_debug_mode(prior)
 
 
+def capture_graph(fn: Callable, inputs: Sequence, device: torch.device,
+                  warm: Optional[Callable] = None, pool=None):
+    """``fn(*inputs)`` as one instantiated CUDA graph: ``warm`` (default
+    ``fn``) runs once on a side stream first, then the call is captured on
+    another under ``set_sync_debug_mode("error")``; returns ``(graph,
+    outputs)``.  The host does not wait for the warm call: the capture
+    records and runs nothing, and the caller's stream waits for the side
+    stream, so a replay follows it; a first launch inside a drain leaves
+    the host as free as an eager one.  The capture is thread-local: another
+    thread's blocking CUDA call (the launch watchdog waiting on an event)
+    leaves it valid.  Python's garbage collector is off while it records:
+    a collection there could destroy another graph (programs and the
+    regions that own them form reference cycles), which a capture
+    refuses.  Anything the capture refuses raises :class:`CaptureError`."""
+    caller = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(caller)
+    with torch.cuda.stream(side):
+        (warm or fn)(*inputs)
+    caller.wait_stream(side)
+    # kept: ``kernel_names`` reads the captured graph itself
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.stream(torch.cuda.Stream(device)):
+            graph.capture_begin(pool=pool,
+                                capture_error_mode="thread_local")
+            try:
+                with _host_syncs_raise():
+                    out = fn(*inputs)
+            except Exception as err:
+                with contextlib.suppress(RuntimeError):
+                    graph.capture_end()   # an invalidated capture
+                raise CaptureError(
+                    f"the call cannot be captured as a CUDA graph: "
+                    f"{err}") from err
+            try:
+                graph.capture_end()
+            except RuntimeError as err:
+                raise CaptureError(
+                    f"the capture was invalidated: {err}") from err
+    finally:
+        if collecting:
+            gc.enable()
+    graph.instantiate()
+    return graph, out
+
+
 class CapturedCall:
-    """``fn(*tensors) -> tensor or tuple of tensors`` as one CUDA graph."""
+    """``fn(*tensors) -> tensor or tuple of tensors`` as one CUDA graph
+    (:func:`capture_graph`)."""
 
     def __init__(self, fn: Callable, example_args: Sequence,
                  device: torch.device, warm: Optional[Callable] = None):
@@ -139,44 +199,186 @@ class CapturedCall:
             a.detach().clone() if isinstance(a, torch.Tensor)
             else torch.tensor(a, dtype=dtype, device=device)
             for a in example_args)
-        caller = torch.cuda.current_stream(device)
-        side = torch.cuda.Stream(device)
-        side.wait_stream(caller)
-        with torch.cuda.stream(side):
-            (warm or fn)(*self.inputs)
-        caller.wait_stream(side)
-        torch.cuda.synchronize(device)
-        # kept: ``kernel_names`` reads the captured graph itself
-        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
-        with torch.cuda.stream(torch.cuda.Stream(device)):
-            self.graph.capture_begin()
-            try:
-                with _host_syncs_raise():
-                    out = fn(*self.inputs)
-            except Exception as err:
-                with contextlib.suppress(RuntimeError):
-                    self.graph.capture_end()   # an invalidated capture
-                raise CaptureError(
-                    f"the call cannot be captured as a CUDA graph: "
-                    f"{err}") from err
-            self.graph.capture_end()
-        self.graph.instantiate()
-        self.outputs = out
+        self.graph, self.outputs = capture_graph(fn, self.inputs, device,
+                                                 warm)
 
     def kernel_names(self) -> List[str]:
         """The function name of every kernel node of the captured graph:
         what one replay launches, kernel by kernel."""
         return graph_kernel_names(self.graph.raw_cuda_graph())
 
-    def __call__(self, *args):
+    def replay_static(self, *args):
         """Copy ``args`` into the static inputs and replay, on the current
-        stream; returns copies of the static outputs."""
+        stream; returns the static outputs themselves, which the next call
+        overwrites (the caller orders its reads before that call)."""
         for static, a in zip(self.inputs, args):
             if isinstance(a, torch.Tensor):
                 static.copy_(a)
             else:
                 static.fill_(a)
         self.graph.replay()
-        if isinstance(self.outputs, torch.Tensor):
-            return self.outputs.clone()
-        return tuple(o.clone() for o in self.outputs)
+        return self.outputs
+
+    def __call__(self, *args):
+        """Copy ``args`` into the static inputs and replay, on the current
+        stream; returns copies of the static outputs."""
+        out = self.replay_static(*args)
+        if isinstance(out, torch.Tensor):
+            return out.clone()
+        return tuple(o.clone() for o in out)
+
+
+# kernel nodes launched by bucket-program replays, by function name: what
+# the kernel wrappers' counters no longer see once a launch is a replay
+_REPLAYED: Counter = Counter()
+# kernel launches the wrappers counted at bucket-program captures: the warm
+# call launches each of the graph's kernel nodes once, and the recording
+# calls each wrapper once more without launching it
+_CAPTURED: Counter = Counter()
+
+
+def replayed_kernels() -> Dict[str, int]:
+    """Kernel launches made by :class:`BucketProgram` replays since the last
+    :func:`reset_replayed_kernels`, by kernel function name (each replay
+    counts its graph's kernel nodes)."""
+    return dict(_REPLAYED)
+
+
+def captured_kernels() -> Dict[str, int]:
+    """What the kernel wrappers counted at :class:`BucketProgram` captures
+    since the last :func:`reset_replayed_kernels`, by kernel function name
+    (two per kernel node: the warm call and the recording).  A wrapper's
+    count less these is its launches outside captures."""
+    return dict(_CAPTURED)
+
+
+def reset_replayed_kernels() -> None:
+    _REPLAYED.clear()
+    _CAPTURED.clear()
+
+
+class _Site:
+    """One launch site's graph: its inputs (fixed tensors held, so their
+    identity stays theirs), static outputs, kernel nodes by name and the
+    event of its last replay (with the copy out of its outputs)."""
+
+    __slots__ = ("graph", "inputs", "outputs", "kernels", "done")
+
+    def __init__(self, graph, inputs, outputs, kernels):
+        self.graph = graph
+        self.inputs = inputs
+        self.outputs = outputs
+        self.kernels = kernels
+        self.done = None
+
+
+class BucketProgram:
+    """One compiled bucket program on the card: ``fn(*args)`` captured as a
+    CUDA graph per launch site, replayed on the current stream.
+
+    A graph bakes in its launch site: each non-tensor argument by value (a
+    slot offset), each tensor argument by identity (a slot ring's buffer, a
+    region's static parent: tensors that keep their address as long as the
+    program; a fresh tensor per call would capture a graph per call), and
+    each argument in ``copy_in`` (positions, or ``"all"``) by shape and
+    dtype: its values, on the card or the host, are copied into the graph's
+    own static input on the card at every call (an index tensor, a
+    host-stacked bucket, a decode batch's slots and tokens).  A site is
+    captured at its first call (:func:`capture_graph`: a warm call on a side
+    stream, then the capture, without a host sync; the kernel wrappers count
+    both, never a replay, and :func:`captured_kernels` tallies what they
+    counted there).  ``sites`` maps each site to its graph;
+    ``stats["captures"]`` and ``stats["graph_bytes"]`` (the device memory
+    the captures reserved) count them, if given.
+
+    A replay's outputs are copied out on the replaying stream (``copy_out``,
+    the default), so a result handed out never changes afterwards.  The
+    next replay of the same graph, on any stream, waits for the event
+    recorded after that copy: CUDA orders a graph's launches after each
+    other, not after a copy on another stream.  With ``copy_out=False`` the
+    static outputs are returned and the caller reads them before the next
+    call.  Every replay adds its graph's kernel nodes to
+    :func:`replayed_kernels`.  ``pool`` shares one memory pool among
+    programs that never run at once."""
+
+    def __init__(self, fn: Callable, device: torch.device, *,
+                 copy_in: Any = (), copy_out: bool = True, pool=None,
+                 stats: Optional[Dict[str, Any]] = None):
+        self.fn = fn
+        self.device = device
+        self.copy_in = copy_in
+        self.copy_out = copy_out
+        self.pool = pool
+        self.stats = stats
+        self.sites: Dict[Tuple, Any] = {}
+
+    def _copied(self, i: int) -> bool:
+        return self.copy_in == "all" or i in self.copy_in
+
+    def site(self, args: Sequence) -> Tuple:
+        """The launch site of a call: what its graph bakes in."""
+        key = []
+        for i, a in enumerate(args):
+            if not isinstance(a, torch.Tensor):
+                key.append(("value", a))
+            elif self._copied(i):
+                key.append(("copy", tuple(a.shape), a.dtype))
+            else:
+                key.append(("fixed", id(a)))
+        return tuple(key)
+
+    def __call__(self, *args):
+        key = self.site(args)
+        site = self.sites.get(key)
+        if site is None:
+            site = self.sites[key] = self._capture(args)
+            if self.stats is not None:
+                self.stats["captures"] = self.stats.get("captures", 0) + 1
+        return self._replay(site, args)
+
+    def _capture(self, args: Sequence) -> _Site:
+        inputs = tuple(a.detach().to(self.device, copy=True)
+                       if isinstance(a, torch.Tensor) and self._copied(i)
+                       else a for i, a in enumerate(args))
+        before = torch.cuda.memory_reserved(self.device)
+        graph, outputs = capture_graph(self.fn, inputs, self.device,
+                                       pool=self.pool)
+        if self.stats is not None:
+            self.stats["graph_bytes"] = self.stats.get("graph_bytes", 0) + (
+                torch.cuda.memory_reserved(self.device) - before)
+        kernels = Counter(graph_kernel_names(graph.raw_cuda_graph()))
+        _CAPTURED.update({k: 2 * n for k, n in kernels.items()})
+        return _Site(graph, inputs, outputs, kernels)
+
+    def _replay(self, site: _Site, args: Sequence):
+        stream = torch.cuda.current_stream(self.device)
+        if site.done is not None:
+            stream.wait_event(site.done)
+        for i, a in enumerate(args):
+            if isinstance(a, torch.Tensor) and self._copied(i):
+                site.inputs[i].copy_(a, non_blocking=True)
+        site.graph.replay()
+        out = self._copy_out(site.outputs) if self.copy_out else site.outputs
+        site.done = stream.record_event()
+        _REPLAYED.update(site.kernels)
+        return out
+
+    @staticmethod
+    def _copy_out(out):
+        """The replay's outputs copied out of the static ones, on the
+        current stream."""
+        if isinstance(out, torch.Tensor):
+            return out.clone()
+        return type(out)(o.clone() for o in out)
+
+    def kernel_names(self, key: Tuple) -> List[str]:
+        """The kernel nodes one replay of the site ``key`` launches."""
+        return list(self.sites[key].kernels.elements())
+
+
+def make_program(fn: Callable, device: torch.device, **kw) -> Callable:
+    """A compiled-program table's entry: ``fn`` itself on the CPU (the eager
+    call), a :class:`BucketProgram` (``kw``) on the card."""
+    if device.type != "cuda":
+        return fn
+    return BucketProgram(fn, device, **kw)

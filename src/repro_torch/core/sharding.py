@@ -9,16 +9,24 @@ The reference partitions each range over a ``("pod", "data")`` device
 mesh and drains every shard's tasks through the greedy bucket ladder in
 one program.  The port's mesh is one card (``{"pod": 1, "data": 1}``):
 a range drains as the greedy decomposition of its tasks, each bucket one
-launch of the family's body on the next ``ExecutorPool`` stream, written
-through the body's ``out=`` into its slice of ONE output for the range,
-so a whole range's result is that output with no copy, and a task's
-result does not depend on the executor.  ``ghost_gather`` and
+launch of the family's body written through its ``out=`` into its slice
+of ONE output for the range, so a whole range's result is that output,
+and a task's result does not depend on the executor.  The whole drain is
+one program of the region's table ``compiled``, under the reference's
+keys ``("shard", local, key)`` and ``("rem", count, key)`` (``key`` the
+arguments' shapes and dtypes): launched on the next ``ExecutorPool``
+stream, it spreads its buckets over as many branches as the pool has
+streams.  On the card the program is one CUDA graph per input set
+(:class:`~repro_torch.core.graphs.BucketProgram`): the
+``TenantBatcher``'s captured extract hands it outputs that keep their
+address (``submit_range(fixed=True)``), any other range is copied into
+the region's static inputs for its key first.  ``ghost_gather`` and
 ``halo_exchange``, the reference's collectives, are the identity on one
 card, as they are on the reference's one-device mesh.  A mesh over
 several cards belongs with ``distributed/`` (ROADMAP.md, Queue 1 item 14)
-and raises.  The drain is always eager, every breaker reports closed, and
-host staging is refused; under ``guard="finite"`` a non-finite row fails
-exactly its task and the others are fulfilled from the same output.
+and raises.  Every breaker reports closed, and host staging is refused;
+under ``guard="finite"`` a non-finite row fails exactly its task and the
+others are fulfilled from the same output.
 
 :class:`TenantBatcher` funnels many independent scenario instances
 ("tenants") through one executor's waves: per RK stage, every tenant's
@@ -38,6 +46,7 @@ from __future__ import annotations
 
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import AggregationConfig
@@ -45,6 +54,7 @@ from repro_torch.core.aggregation import (
     RangeFuture, TaskFuture, TaskSignature, _backend_key, _out_like,
     gather_futures, greedy_decomposition,
 )
+from repro_torch.core import graphs
 from repro_torch.core.executor import ExecutorPool
 from repro_torch.core.faults import (
     FaultInjector, TaskFailedError, poison_slots,
@@ -57,12 +67,24 @@ from repro_torch.device import DeviceLike, resolve_device
 SUBGRID_AXES: Tuple[str, ...] = ("pod", "data")
 
 
+def _dtype_str(dtype: torch.dtype) -> str:
+    """numpy's ``dtype.str`` of a torch dtype, as the reference's argument
+    keys spell it (bfloat16, which numpy lacks, as JAX's ``"<V2"``)."""
+    try:
+        return np.dtype(str(dtype).replace("torch.", "")).str
+    except TypeError:
+        return "<V2"
+
+
 class _ShardRegion:
     """One kernel family's lane: ladder, queued ranges and per-task
-    submissions, and the stats keys the reference publishes."""
+    submissions, its drain programs (``compiled``) with the static inputs
+    they read and the branch streams they spread over, and the stats keys
+    the reference publishes."""
 
     __slots__ = ("signature", "kernel", "batched_fn", "ladder", "queue",
-                 "singles", "waves", "stats")
+                 "singles", "waves", "stats", "compiled", "statics",
+                 "_readers", "branches")
 
     def __init__(self, signature: TaskSignature, batched_fn: Callable,
                  ladder: Tuple[int, ...]):
@@ -73,6 +95,12 @@ class _ShardRegion:
         self.queue: List[_ShardPending] = []
         self.singles: List[Tuple[TaskFuture, Tuple[torch.Tensor, ...]]] = []
         self.waves = 0
+        self.compiled: Dict[Tuple, Callable] = {}
+        # key -> the static inputs of a range that does not keep its
+        # address, and the events of the launches reading them
+        self.statics: Dict[Tuple, Tuple[torch.Tensor, ...]] = {}
+        self._readers: Dict[Tuple, List[Any]] = {}
+        self.branches: List[Any] = []     # the drains' streams (the card)
         self.stats: Dict[str, Any] = {
             "submitted": 0, "launches": 0, "sharded_launches": 0,
             "remainder_launches": 0, "aggregated_hist": {},
@@ -87,28 +115,32 @@ class _ShardPending:
     one at flush; ``singles`` are their futures)."""
 
     __slots__ = ("future", "parents", "start", "count", "wave_base",
-                 "singles")
+                 "singles", "fixed")
 
     def __init__(self, future: RangeFuture,
                  parents: Tuple[torch.Tensor, ...], start: int, count: int,
-                 singles: Optional[List[TaskFuture]] = None):
+                 singles: Optional[List[TaskFuture]] = None,
+                 fixed: bool = False):
         self.future = future
         self.parents = parents
         self.start = start
         self.count = count
         self.wave_base = 0          # wave-relative id of task 0 (at flush)
         self.singles = singles
+        self.fixed = fixed          # the parents keep their address
 
 
 class _ShardLaunch:
     """One drained range awaiting its audit and fulfilment."""
 
-    __slots__ = ("region", "entry", "out", "wave")
+    __slots__ = ("region", "entry", "out", "off", "n", "wave")
 
-    def __init__(self, region, entry, out, wave):
+    def __init__(self, region, entry, out, off, n, wave):
         self.region = region
         self.entry = entry
-        self.out = out
+        self.out = out              # tasks [off, off + n) of the range
+        self.off = off
+        self.n = n
         self.wave = wave
 
 
@@ -142,6 +174,10 @@ class ShardedAggregationExecutor:
         self.pool = pool or ExecutorPool(self.config.n_executors,
                                          device=self.device)
         self.n_shards = 1
+        # the drain programs are graphs, which read fixed inputs
+        self._graphs = isinstance(graphs.make_program(self.flush,
+                                                      self.device),
+                                  graphs.BucketProgram)
         self._buckets = tuple(sorted(self.config.bucket_sizes()))
         self._guard = self.config.guard
         self._injector = fault_injector
@@ -151,6 +187,7 @@ class ShardedAggregationExecutor:
         self.stats: Dict[str, Any] = {
             "submitted": 0, "launches": 0, "aggregated_hist": {},
             "staging_s": 0.0, "regions": {}, "warm_start": False,
+            "captures": 0, "graph_bytes": 0,
             "flush_policy": "eager",
             "backend_key": _backend_key(self.device),
             "mesh": {a: 1 for a in SUBGRID_AXES},
@@ -198,9 +235,12 @@ class ShardedAggregationExecutor:
 
     # -- submission --------------------------------------------------------
     def submit_range(self, parents: Tuple[torch.Tensor, ...], start: int,
-                     n: int, kernel: Optional[str] = None) -> RangeFuture:
+                     n: int, kernel: Optional[str] = None, *,
+                     fixed: bool = False) -> RangeFuture:
         """Tasks ``start .. start+n-1`` of device-resident ``parents`` as
-        one range."""
+        one range.  ``fixed``: the parents keep their address and are not
+        written while the range drains (a captured extract's outputs), so
+        the drain program reads them in place."""
         kernel = self._resolve_kernel(kernel)
         if n < 1:
             raise ValueError(f"range of {n} tasks — need at least 1")
@@ -211,7 +251,8 @@ class ShardedAggregationExecutor:
         region = self._region(TaskSignature(kernel, tuple(
             (tuple(p.shape[1:]), str(p.dtype)) for p in parents)))
         fut = RangeFuture(n)
-        region.queue.append(_ShardPending(fut, tuple(parents), start, n))
+        region.queue.append(_ShardPending(fut, tuple(parents), start, n,
+                                          fixed=fixed))
         region.stats["submitted"] += n
         self.stats["submitted"] += n
         return fut
@@ -244,7 +285,7 @@ class ShardedAggregationExecutor:
             for entry in region.queue:
                 entry.wave_base = cursor
                 cursor += entry.count
-                recs.append(self._dispatch(region, entry, occupancy))
+                recs.extend(self._dispatch(region, entry, occupancy))
             region.queue = []
             region.stats["shard_occupancy"] = occupancy
             self.stats["shard_occupancy"] = occupancy
@@ -261,41 +302,143 @@ class ShardedAggregationExecutor:
         region.queue.append(_ShardPending(RangeFuture(len(futs)), parents,
                                           0, len(futs), singles=futs))
 
-    def _dispatch(self, region: _ShardRegion, entry: _ShardPending,
-                  occupancy: List[int]) -> _ShardLaunch:
-        """One range: the greedy decomposition of its tasks, each bucket
-        one launch on the next executor stream, written into its slice of
-        the range's output."""
-        n = entry.count
-        args = tuple(p if entry.start == 0 and p.shape[0] == n
-                     else p.narrow(0, entry.start, n)
-                     for p in entry.parents)
+    # -- the drain programs ------------------------------------------------
+    @staticmethod
+    def _arg_key(args: Sequence[torch.Tensor]) -> Tuple:
+        """The arguments' shapes and dtypes, as the reference keys its
+        drain programs."""
+        return tuple((tuple(a.shape), _dtype_str(a.dtype)) for a in args)
+
+    def _sharded_fn(self, region: _ShardRegion, local: int,
+                    args: Sequence[torch.Tensor]) -> Callable:
+        """The program that drains ``local`` tasks of every shard through
+        the greedy bucket sequence (one shard on one card)."""
+        key = ("shard", local, self._arg_key(args))
+        fn = region.compiled.get(key)
+        if fn is None:
+            fn = region.compiled[key] = self._drain_program(region, local)
+        return fn
+
+    def _chunked_fn(self, region: _ShardRegion, count: int,
+                    args: Sequence[torch.Tensor]) -> Callable:
+        """The remainder's program (fewer tasks than shards): the same
+        greedy drain on the default device."""
+        key = ("rem", count, self._arg_key(args))
+        fn = region.compiled.get(key)
+        if fn is None:
+            fn = region.compiled[key] = self._drain_program(region, count)
+        return fn
+
+    def _drain_program(self, region: _ShardRegion, n: int) -> Callable:
+        """``(*args) -> out``: the greedy decomposition of ``n`` tasks, each
+        bucket the body written into its slice of one output.  On the card
+        the buckets fork over the region's branch streams (one per pool
+        stream) and join back, so a captured drain keeps them concurrent;
+        a :class:`~repro_torch.core.graphs.BucketProgram` there."""
+        chunks = greedy_decomposition(n, region.ladder)
         body = region.batched_fn
-        out = _out_like(body, args)
-        hist = region.stats["aggregated_hist"]
-        ghist = self.stats["aggregated_hist"]
-        s = 0
-        for b in greedy_decomposition(n, region.ladder):
-            part = tuple(a.narrow(0, s, b) for a in args)
-            self.pool.get().launch(
-                lambda *p, dst=out.narrow(0, s, b): body(*p, out=dst),
-                *part, family=region.kernel)
-            hist[b] = hist.get(b, 0) + 1
-            ghist[b] = ghist.get(b, 0) + 1
-            region.stats["launches"] += 1
-            self.stats["launches"] += 1
-            s += b
-        region.stats["sharded_launches"] += 1
-        occupancy[0] += n
-        return _ShardLaunch(region, entry, out, region.waves)
+        device = self.device
+        on_card = device.type == "cuda"
+        if on_card and not region.branches:
+            region.branches = [torch.cuda.Stream(device)
+                               for _ in range(len(self.pool))]
+
+        def drain(*args):
+            out = _out_like(body, args)
+            caller = (torch.cuda.current_stream(device) if on_card
+                      and len(chunks) > 1 and len(region.branches) > 1
+                      else None)
+            used = []
+            s = 0
+            for i, b in enumerate(chunks):
+                part = tuple(a.narrow(0, s, b) for a in args)
+                dst = out.narrow(0, s, b)
+                if caller is None:
+                    body(*part, out=dst)
+                else:
+                    st = region.branches[i % len(region.branches)]
+                    if st not in used:
+                        st.wait_stream(caller)
+                        used.append(st)
+                    with torch.cuda.stream(st):
+                        body(*part, out=dst)
+                s += b
+            for st in used:
+                caller.wait_stream(st)
+            return out
+
+        return graphs.make_program(drain, device, stats=self.stats)
+
+    def _inputs(self, region: _ShardRegion, entry: _ShardPending, start: int,
+                n: int) -> Tuple[Tuple[torch.Tensor, ...], Optional[Tuple]]:
+        """A launch's arguments: tasks ``[start, start + n)`` of the
+        range's parents, in place when they keep their address (or off
+        the card), else copied into the region's static inputs for their
+        key (after every launch still reading them); and that key (None
+        when read in place)."""
+        args = tuple(p if start == 0 and p.shape[0] == n
+                     else p.narrow(0, start, n) for p in entry.parents)
+        if not self._graphs or (
+                entry.fixed and all(a is p for a, p in
+                                    zip(args, entry.parents))):
+            return args, None
+        key = self._arg_key(args)
+        statics = region.statics.get(key)
+        if statics is None:
+            statics = region.statics[key] = tuple(
+                torch.empty_like(a) for a in args)
+        for event in region._readers.pop(key, []):
+            torch.cuda.current_stream(self.device).wait_event(event)
+        for dst, a in zip(statics, args):
+            dst.copy_(a, non_blocking=True)
+        return statics, key
+
+    def _dispatch(self, region: _ShardRegion, entry: _ShardPending,
+                  occupancy: List[int]) -> List[_ShardLaunch]:
+        """One range, as the reference splits it: the shards' even share
+        through ``("shard", local, key)``, the rest through
+        ``("rem", count, key)``; each one launch of its program on the
+        next executor stream (counted as its buckets)."""
+        recs = []
+        local = entry.count // self.n_shards
+        n_even = local * self.n_shards
+        rem = entry.count - n_even
+        for off, n, tag in ((0, n_even, "sharded_launches"),
+                            (n_even, rem, "remainder_launches")):
+            if not n:
+                continue
+            args, key = self._inputs(region, entry, entry.start + off, n)
+            if tag == "sharded_launches":
+                fn = self._sharded_fn(region, local, args)
+                chunks = greedy_decomposition(local, region.ladder)
+            else:
+                fn = self._chunked_fn(region, n, args)
+                chunks = greedy_decomposition(n, region.ladder)
+            ex = self.pool.get()
+            out = ex.launch(fn, *args, family=region.kernel,
+                            count=len(chunks))
+            if key is not None and ex.last_event is not None:
+                region._readers.setdefault(key, []).append(ex.last_event)
+            recs.append(_ShardLaunch(region, entry, out, off, n,
+                                     region.waves))
+            hist = region.stats["aggregated_hist"]
+            ghist = self.stats["aggregated_hist"]
+            for b in chunks:
+                hist[b] = hist.get(b, 0) + 1
+                ghist[b] = ghist.get(b, 0) + 1
+            region.stats["launches"] += len(chunks)
+            self.stats["launches"] += len(chunks)
+            region.stats[tag] += 1
+            occupancy[0] += n
+        return recs
 
     def _settle(self, rec: _ShardLaunch) -> None:
         region, entry, out = rec.region, rec.entry, rec.out
-        n = entry.count
+        n, off = rec.n, rec.off
         if self._injector is not None:
             hits = self._injector.poison_positions(
                 region.kernel, rec.wave,
-                [entry.wave_base + i for i in range(n)])
+                [entry.wave_base + off + i for i in range(n)])
             if hits:
                 poison_slots(out, sorted(hits), hits, inplace=True)
                 region.stats["faults"]["injected"] += len(hits)
@@ -306,10 +449,10 @@ class ShardedAggregationExecutor:
                 region.stats["faults"]["isolated"] += len(bad)
                 self._fulfil_with_failures(rec, bad)
                 return
-        entry.future._fulfil_range(out, 0, 0, n)
+        entry.future._fulfil_range(out, 0, off, n)
         if entry.singles is not None:
-            for i, fut in enumerate(entry.singles):
-                fut._fulfil(out, i)
+            for i in range(n):
+                entry.singles[off + i]._fulfil(out, i)
 
     @staticmethod
     def _nonfinite_rows(out: torch.Tensor, n: int) -> List[int]:
@@ -326,17 +469,17 @@ class ShardedAggregationExecutor:
         they fail one by one, and the survivors are fulfilled as
         contiguous runs of the same output."""
         region, entry, out = rec.region, rec.entry, rec.out
-        fut, n = entry.future, entry.count
+        fut, n, off = entry.future, rec.n, rec.off
         bad_set = set(bad)
         for i in bad:
-            wave_id = entry.wave_base + i
+            wave_id = entry.wave_base + off + i
             err = TaskFailedError(
                 f"non-finite output in family {region.kernel!r} "
                 f"(sharded wave {rec.wave}, task {wave_id})",
                 task_ids=[wave_id], kernel=region.kernel)
-            fut._fail_range(i, 1, err)
+            fut._fail_range(off + i, 1, err)
             if entry.singles is not None:
-                entry.singles[i]._fail(err)
+                entry.singles[off + i]._fail(err)
         run_start = None
         for i in range(n + 1):
             if i < n and i not in bad_set:
@@ -344,10 +487,11 @@ class ShardedAggregationExecutor:
                     run_start = i
                 continue
             if run_start is not None:
-                fut._fulfil_range(out, run_start, run_start, i - run_start)
+                fut._fulfil_range(out, run_start, off + run_start,
+                                  i - run_start)
                 if entry.singles is not None:
                     for j in range(run_start, i):
-                        entry.singles[j]._fulfil(out, j)
+                        entry.singles[off + j]._fulfil(out, j)
                 run_start = None
 
     # -- the reference's collectives: the identity on one card -------------
@@ -370,9 +514,11 @@ class ShardedAggregationExecutor:
                buckets: Optional[Sequence[int]] = None,
                store: Optional[Any] = None) -> None:
         """Drain one throwaway wave of ones at the given parent shapes
-        (builds the kernels and pays first-launch costs), with the guard
-        and the injector off.  ``buckets`` and ``store`` are accepted for
-        the runner's protocol: nothing here is tuned."""
+        (builds the kernels, pays first-launch costs and, on the card,
+        captures the drain program over the region's static inputs for
+        these shapes), with the guard and the injector off.  ``buckets``
+        and ``store`` are accepted for the runner's protocol: nothing here
+        is tuned."""
         kernel = self._resolve_kernel(kernel)
         parents = tuple(torch.ones(shape, dtype=dtype, device=self.device)
                         for shape, dtype in parent_shapes)
@@ -597,22 +743,28 @@ class TenantBatcher:
                 self._eager = True
                 self.stats["eager_fallbacks"] += 1
             else:
-                batches = self._drain(stage.layout, stage.extract(states))
+                batches = self._drain(stage.layout, stage.extract(states),
+                                      fixed=self.executor.device.type
+                                      == "cuda")
                 return stage.assemble(states, batches)
         pops_by = self._populations(states)
         layout = _Layout(self._tenants, pops_by)
         batches = self._drain(layout, layout.columns(pops_by))
         return self._assemble(layout, states, batches)
 
-    def _drain(self, layout: _Layout, cols) -> Dict[str, torch.Tensor]:
+    def _drain(self, layout: _Layout, cols,
+               fixed: bool = False) -> Dict[str, torch.Tensor]:
         """Submit one range per kernel, flush, gather each range (failed
-        tasks named in tenant words)."""
+        tasks named in tenant words).  ``fixed``: the columns are the
+        captured extract's static outputs, read in place by the drain
+        programs (the next extract replays on the caller's stream, which
+        the flush has made wait for every launch)."""
         exe = self.executor
         futs = {}
         for kernel in layout.order:
             total = layout.groups[kernel]["total"]
             futs[kernel] = exe.submit_range(cols[kernel], 0, total,
-                                            kernel=kernel)
+                                            kernel=kernel, fixed=fixed)
             self.stats["merged_tasks"] += total
         exe.flush()
         self.stats["waves"] += 1
@@ -744,7 +896,9 @@ def _captured_phases(extract, assemble, states, cols, batch_specs, order,
                                                    for k in order), device)
 
     def run_extract(sts):
-        flat = g_extract(*flat_states(sts))
+        # the static outputs themselves: the drain programs read them in
+        # place (fixed addresses), and nothing reads them past the wave
+        flat = g_extract.replay_static(*flat_states(sts))
         out, i = {}, 0
         for k in order:
             out[k] = tuple(flat[i:i + n_cols[k]])

@@ -2,8 +2,8 @@
 serving engine step's time goes, per bucket.
 
   PYTHONPATH=src python -m repro_torch.profile_step \
-      [--scenario sedov|gravity|amr|serve] [--body fused|split] \
-      [--layout slot_grid|slot_lane] \
+      [--scenario sedov|gravity|amr|serve|paths|families] \
+      [--body fused|split] [--layout slot_grid|slot_lane] \
       [--out results/profile_step.json]
 
 At the paper's grid (512 sub-grids of 8^3), for each strategy row (fused,
@@ -15,9 +15,11 @@ steps on the host clock (synchronised), then profiles the same steps with
 time, the kernels with the most device time, the device time summed over
 kernels and copies, and the device's idle share of the step (1 - device
 busy / wall; kernels that overlap on several streams count once each, so
-the share is a lower bound there).  The fused trajectory row runs the 3
-steps as one ``rk3_trajectory`` call, one CUDA graph replay (captured
-before the timing).
+the share is a lower bound there), with the host's enqueue time per step
+(the executors' ``dispatch_s``) and the bucket-program captures the row
+made.  The fused trajectory row runs the 3 steps as one
+``rk3_trajectory`` call, one CUDA graph replay (captured before the
+timing).
 
 ``--scenario sedov`` (default) steps the uniform Sedov ``CONFIG``;
 ``--scenario gravity`` steps the self-gravitating blast on the same grid,
@@ -38,7 +40,22 @@ it admits that many requests (64-token prompts), warms up, times engine
 steps (one aggregated launch each) on the host clock, profiles the same
 number of steps, and reports each kernel's device time and launches per
 step, the cache gather and scatter copies (CUDA events), the device's busy
-time and its idle share.  Needs a CUDA device.
+time and its idle share.
+
+``--scenario paths`` runs, in one process, the main path's bucket rows
+(s3 caps 32 and 512, s2+s3 4 x 32, host staging, the fused stages) and
+``s3`` cap 32 on Path A (gravity), Path B (split), Path C (AMR, both
+layouts), Path D (the lane kernel) and ``CONFIG_16``, printing host,
+profiled, busy and enqueue ms per step.  ``--scenario families`` serves
+every architecture of the registry at its published widths in bf16, cut
+to ``FAMILY_LAYERS`` layers (one whole group where the family stacks
+groups), behind ``ServingEngine(max_batch=8, max_len=256)``, and prints
+the host ms and the device's busy ms per engine launch at buckets 1 and
+8.  Both read only what every revision of the port has (the
+``StrategyRunner`` and ``ServingEngine`` entry points, the executors'
+``dispatch_s``), so the script run as a file against another revision's
+``src`` (``PYTHONPATH``) measures that revision the same way.
+Needs a CUDA device.
 """
 import argparse
 import functools
@@ -125,15 +142,25 @@ def make_case(scenario: str, body: str, layout: str, dev):
         CONFIG, h, layout=layout)), u0, dt
 
 
+def _dispatch_s(runner) -> float:
+    return sum(e.dispatch_s for e in runner.pool.executors)
+
+
 def profile_row(scenario, u0, dt, agg, steps, dev, trajectory=False):
     """One row: ``steps`` RK3 steps timed, then profiled; with
     ``trajectory`` as one ``rk3_trajectory`` call (its graph captured
-    first)."""
+    first).  The executor strategies take one untimed step after the
+    warmup (the bucket programs a warmup leaves are made there)."""
     runner = StrategyRunner(scenario, agg, device=dev)
     runner.warmup()
     if trajectory:
         runner.rk3_trajectory(u0, dt, steps)
+    elif runner.executor is not None:
+        runner.rk3_step(u0, dt)
+    torch.cuda.synchronize(dev)
+    d0 = _dispatch_s(runner)
     wall_ms = runner.time_step(u0, dt, steps, use_scan=trajectory) * 1e3
+    dispatch_ms = (_dispatch_s(runner) - d0) * 1e3 / steps
     torch.cuda.synchronize(dev)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -152,10 +179,13 @@ def profile_row(scenario, u0, dt, agg, steps, dev, trajectory=False):
     host = sorted((e for e in events if not _on_device(e)),
                   key=lambda e: e.self_cpu_time_total, reverse=True)[:TOP]
     device = sorted(kernels, key=_device_us, reverse=True)[:TOP]
+    exe = runner.executor
     return dict(
         ms_per_step=wall_ms, profiled_ms_per_step=prof_wall_ms,
         device_busy_ms_per_step=device_ms,
         device_idle_share=max(0.0, 1.0 - device_ms / prof_wall_ms),
+        dispatch_ms_per_step=dispatch_ms,
+        captures=(exe.stats.get("captures", 0) if exe is not None else 0),
         top_host_ops=[dict(name=e.key, calls=e.count,
                            self_cpu_ms_per_step=e.self_cpu_time_total
                            / 1e3 / steps,
@@ -279,10 +309,117 @@ def main_serve(dev, out):
                   f"{op['calls']:6d}x  {op['name'][:90]}", flush=True)
 
 
+PATH_ROWS = ("s3 cap 32", "s3 cap 512", "s2+s3 4 streams cap 32",
+             "s3 cap 32 host staging", "s3 cap 32 fused stages")
+
+
+def path_cases(dev):
+    """(label, scenario, state, dt, row labels) of ``--scenario paths``."""
+    from repro_torch.configs.sedov import CONFIG_16
+
+    cases = [("main path",) + make_case("sedov", "fused", "slot_grid", dev)
+             + (PATH_ROWS,)]
+    for label, args in (("Path A (gravity)", ("gravity", "fused",
+                                              "slot_grid")),
+                        ("Path B (split)", ("sedov", "split", "slot_grid")),
+                        ("Path C (AMR, slot_grid)", ("amr", "fused",
+                                                     "slot_grid")),
+                        ("Path C (AMR, slot_lane)", ("amr", "fused",
+                                                     "slot_lane")),
+                        ("Path D (lane kernel)", ("sedov", "fused",
+                                                  "slot_lane"))):
+        cases.append((label,) + make_case(*args, dev) + (PATH_ROWS[:1],))
+    u16 = sedov_init(CONFIG_16, device=dev).u
+    cases.append(("CONFIG_16", UniformSedovScenario(CONFIG_16), u16,
+                  courant_dt(u16, CONFIG_16), PATH_ROWS[:1]))
+    return cases
+
+
+def main_paths(dev, out):
+    rows = dict(ROWS)
+    n_cases = len(path_cases(dev))
+    for i in range(n_cases):
+        label, _, _, _, labels = path_cases(dev)[i]
+        for row_label in labels:
+            # a fresh scenario per row (a scenario caches per-step data)
+            _, scenario, u0, dt, _ = path_cases(dev)[i]
+            row = profile_row(scenario, u0, dt,
+                              AggregationConfig(**rows[row_label]), STEPS,
+                              dev)
+            row.pop("top_host_ops")
+            row.pop("top_device_ops")
+            out["rows"][f"{label}, {row_label}"] = row
+            print(f"{label}, {row_label}: {row['ms_per_step']:.3f} ms/step "
+                  f"(profiled {row['profiled_ms_per_step']:.3f}), device "
+                  f"busy {row['device_busy_ms_per_step']:.3f} ms/step, "
+                  f"enqueue {row['dispatch_ms_per_step']:.3f} ms/step, "
+                  f"captures {row['captures']}", flush=True)
+
+
+FAMILY_LAYERS = 2
+FAMILY_BUCKETS = (1, 8)
+FAMILY_STEPS = 8         # engine launches timed, then profiled, per bucket
+
+
+def profile_families(dev) -> dict:
+    """Host and busy ms per engine launch at buckets 1 and 8 for every
+    architecture (published widths, bf16, ``FAMILY_LAYERS`` layers or one
+    whole group)."""
+    import gc
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import model as model_mod
+    from repro_torch.serving import Request, ServingEngine
+
+    out = {}
+    for arch, full in ARCHS.items():
+        every = {"vlm": full.cross_attn_every, "ssm": full.slstm_every,
+                 "hybrid": full.shared_attn_every}.get(full.family)
+        cfg = full.replace(n_layers=every or FAMILY_LAYERS)
+        m = model_mod.init_params(cfg, seed=0, device=dev)
+        rows = {}
+        for bucket in FAMILY_BUCKETS:
+            eng = ServingEngine(cfg, m, max_batch=max(FAMILY_BUCKETS),
+                                max_len=256, device=dev)
+            for i in range(bucket):
+                eng.submit(Request(i, [1 + i],
+                                   max_new_tokens=2 * FAMILY_STEPS + 2))
+            eng.step()
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            for _ in range(FAMILY_STEPS):
+                eng.step()
+            torch.cuda.synchronize(dev)
+            wall = (time.perf_counter() - t0) * 1e3 / FAMILY_STEPS
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(FAMILY_STEPS):
+                    eng.step()
+                torch.cuda.synchronize(dev)
+            busy = sum(e.duration_ns() for e in
+                       prof.profiler.kineto_results.events()
+                       if e.device_type() == torch.autograd.DeviceType.CUDA
+                       ) / 1e6 / FAMILY_STEPS
+            rows[bucket] = dict(host_ms=wall, busy_ms=busy,
+                                idle_share=max(0.0, 1.0 - busy / wall),
+                                captures=eng.stats.get("captures", 0))
+            del eng, prof
+        out[arch] = dict(layers=cfg.n_layers, rows=rows)
+        print(f"{arch} ({cfg.family}, {cfg.n_layers} layers, bf16): "
+              + "; ".join(f"bucket {b}: {r['host_ms']:.3f} host ms, busy "
+                          f"{r['busy_ms']:.3f} ms per launch (idle share "
+                          f"{r['idle_share']:.3f}, captures {r['captures']})"
+                          for b, r in rows.items()), flush=True)
+        del m
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scenario", default="sedov",
-                    choices=("sedov", "gravity", "amr", "serve"))
+                    choices=("sedov", "gravity", "amr", "serve", "paths",
+                             "families"))
     ap.add_argument("--body", default="fused", choices=("fused", "split"))
     ap.add_argument("--layout", default="slot_grid", choices=LAYOUTS)
     ap.add_argument("--out", default=None)
@@ -292,8 +429,15 @@ def main(argv=None):
     dev = torch.device("cuda", 0)
     out = {"device": torch.cuda.get_device_name(0), "scenario": args.scenario,
            "body": args.body, "layout": args.layout, "rows": {}}
-    if args.scenario == "serve":
-        main_serve(dev, out)
+    if args.scenario in ("serve", "paths", "families"):
+        print(f"profile_step: scenario {args.scenario} on {out['device']}",
+              flush=True)
+        if args.scenario == "serve":
+            main_serve(dev, out)
+        elif args.scenario == "paths":
+            main_paths(dev, out)
+        else:
+            out["families"] = profile_families(dev)
         if args.out:
             with open(args.out, "w") as f:
                 json.dump(out, f, indent=1)
@@ -312,7 +456,9 @@ def main(argv=None):
         print(f"{label}: {row['ms_per_step']:.3f} ms/step (profiled "
               f"{row['profiled_ms_per_step']:.3f}), device busy "
               f"{row['device_busy_ms_per_step']:.3f} ms/step, idle share "
-              f"{row['device_idle_share']:.3f}", flush=True)
+              f"{row['device_idle_share']:.3f}, enqueue "
+              f"{row['dispatch_ms_per_step']:.3f} ms/step, captures "
+              f"{row['captures']}", flush=True)
         for op in row["top_host_ops"]:
             print(f"    {op['self_cpu_ms_per_step']:9.3f} ms cpu "
                   f"{op['device_ms_per_step']:9.3f} ms dev "

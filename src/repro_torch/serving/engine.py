@@ -14,14 +14,23 @@ layer:
   partial bucket target a spare free slot;
 * per-request ``cache_len`` makes the aggregated batch ragged-correct.
 
-Each launch gathers the bucket's slots of every cache leaf, runs
-``decode_step`` on them (24 decode-attention and 72 grouped-GEMM kernel
-launches per step for qwen2-moe-a2.7b, 9 decode-attention launches for
-zamba2-2.7b's shared block, none for xlstm-125m) and scatters the leaves
-that ``decode_step`` writes back, as the reference does: K and V, or the
-recurrent families' mixer states.  The vlm and audio families serve
-against a stub memory (``model.stub_batch``: zero vision tokens or frames,
-as the reference's engine); its cross-attention K and V
+Each launch is the engine bucket's program (``_decode_fn``, filed in
+``_decode`` per bucket as the reference jits one per bucket): it gathers
+the bucket's slots of every cache leaf, runs ``decode_step`` on them (24
+decode-attention and 72 grouped-GEMM kernel launches per step for
+qwen2-moe-a2.7b, 9 decode-attention launches for zamba2-2.7b's shared
+block, none for xlstm-125m) and scatters the leaves that ``decode_step``
+writes back, as the reference does: K and V, or the recurrent families'
+mixer states.  On the CPU the program is that eager call; on the card it
+is one CUDA graph per bucket
+(:class:`~repro_torch.core.graphs.BucketProgram`), every bucket captured
+when the engine is made (all slots are free then, and the warm calls'
+writes into them are reset) in one memory pool the four graphs share, so
+each launch, prefill included, is a replay: the slots and tokens are
+copied into the graph, the cache leaves are read and written in place.
+The vlm and audio families serve against a stub memory
+(``model.stub_batch``: zero vision tokens or frames, as the reference's
+engine); its cross-attention K and V
 (``model.CROSS_LEAVES``) are computed once at construction, gathered with
 the rest and never written back.  Admission resets a slot to the fresh
 cache's values, not to zeros: an encoded stub memory is not zero once a
@@ -56,11 +65,35 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch.configs.base import AggregationConfig
+from repro_torch.core import graphs
 from repro_torch.core.faults import FaultInjector, poison_slots
 from repro_torch.core.tunestore import TuneStore
 from repro_torch.data.pipeline import length_bucket
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import model as model_mod
+
+
+def _gather(cache: Dict[str, torch.Tensor],
+            slot_idx: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The bucket's slots of every cache leaf (``len`` along axis 0, the
+    rest along axis 1), as a cache of its own (copies: ``decode_step``
+    writes into them)."""
+    with record_function("serving.gather"):
+        return {name: t.index_select(0 if name == "len" else 1, slot_idx)
+                for name, t in cache.items()}
+
+
+def _scatter(cache: Dict[str, torch.Tensor], slot_idx: torch.Tensor,
+             sub: Dict[str, torch.Tensor]) -> None:
+    """Write a launch's cache back into its slots: every leaf
+    ``decode_step`` writes (the cross K and V it only reads stay).  Pad
+    lanes all name the same spare slot, so that slot receives one of them
+    (any one: admission resets it)."""
+    with record_function("serving.scatter"):
+        cache["len"][slot_idx] = sub["len"]
+        for name, t in sub.items():
+            if name != "len" and name not in model_mod.CROSS_LEAVES:
+                cache[name][:, slot_idx] = t
 
 
 class EngineOverloaded(RuntimeError):
@@ -140,7 +173,19 @@ class ServingEngine:
                       "warm_start": self._store is not None,
                       "tune_store": (self._store.root
                                      if self._store is not None else None),
+                      "captures": 0, "graph_bytes": 0,
                       "faults": {"trips": 0, "evicted": 0, "shed": 0}}
+        self._decode: Dict[int, Any] = {}        # bucket -> its program
+        # one pool for every bucket's graph: the engine's launches run one
+        # at a time on the caller's stream, each ending in the tokens'
+        # device-to-host copy before the next starts, so no two of these
+        # graphs ever run at once, each one's intermediates (the bucket's
+        # gathered cache) are dead when it ends, and its static logits stay
+        # allocated: the pool holds the largest bucket's gather, not all
+        self._pool = (torch.cuda.graph_pool_handle()
+                      if self.device.type == "cuda" else None)
+        if self.device.type == "cuda":
+            self._capture_buckets()
 
     # -- admission ---------------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -239,26 +284,55 @@ class ServingEngine:
         self._launch(np.array([slot]), np.array([tok], np.int32))
 
     # -- the aggregated decode launch ---------------------------------------
+    @torch.inference_mode()
+    def _capture_buckets(self) -> None:
+        """Capture every bucket's program while every slot is free (slots
+        0 .. bucket-1, token 0), then reset each slot to its fresh values:
+        the warm calls wrote into them, as pad lanes do."""
+        for b in self.buckets:
+            self._decode_fn(b)(torch.arange(b), torch.zeros((b, 1),
+                                                            dtype=torch.long))
+        for name, t in self.cache.items():
+            if name in self._fresh:
+                t.copy_(self._fresh[name])
+            else:
+                t.zero_()
+
+    def _decode_fn(self, bucket: int):
+        """The bucket's program ``(slot_idx, tokens) -> logits``: gather the
+        slots, ``decode_step``, scatter back (``fwd``, as the reference's
+        ``_decode_fn``).  On the card its slots and tokens are copied into
+        the graph, and its logits are the graph's static output, returned
+        without a copy: every launch reads them (argmax, the guard's row
+        flags, an injected poison into a new tensor) and ends in the
+        tokens' device-to-host copy before the next replay overwrites
+        them."""
+        fn = self._decode.get(bucket)
+        if fn is None:
+            # the cache dict and the model, not the engine: a program that
+            # held the engine would keep it (and its graphs) alive in a
+            # reference cycle
+            cache, model, device = self.cache, self.model, self.device
+
+            def fwd(slot_idx, tokens):
+                # a graph's static inputs are on the card already
+                slot_idx, tokens = slot_idx.to(device), tokens.to(device)
+                sub = _gather(cache, slot_idx)
+                logits, sub = model_mod.decode_step(model, sub, tokens)
+                _scatter(cache, slot_idx, sub)
+                return logits
+
+            fn = self._decode[bucket] = graphs.make_program(
+                fwd, self.device, copy_in="all", copy_out=False,
+                pool=self._pool, stats=self.stats)
+        return fn
+
     def _gather(self, slot_idx: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """The bucket's slots of every cache leaf (``len`` along axis 0,
-        the rest along axis 1), as a cache of its own (copies:
-        ``decode_step`` writes into them)."""
-        with record_function("serving.gather"):
-            return {name: t.index_select(0 if name == "len" else 1,
-                                         slot_idx)
-                    for name, t in self.cache.items()}
+        return _gather(self.cache, slot_idx)
 
     def _scatter(self, slot_idx: torch.Tensor,
                  sub: Dict[str, torch.Tensor]) -> None:
-        """Write a launch's cache back into its slots: every leaf
-        ``decode_step`` writes (the cross K and V it only reads stay).  Pad
-        lanes all name the same spare slot, so that slot receives one of
-        them (any one: admission resets it)."""
-        with record_function("serving.scatter"):
-            self.cache["len"][slot_idx] = sub["len"]
-            for name, t in sub.items():
-                if name != "len" and name not in model_mod.CROSS_LEAVES:
-                    self.cache[name][:, slot_idx] = t
+        _scatter(self.cache, slot_idx, sub)
 
     @torch.inference_mode()
     def _launch(self, slots: np.ndarray, toks: np.ndarray) -> np.ndarray:
@@ -275,14 +349,10 @@ class ServingEngine:
             toks_in = np.concatenate([toks, np.zeros(pad, np.int32)])
         else:
             slots_in, toks_in = slots, toks
-        slot_idx = torch.as_tensor(slots_in, dtype=torch.long,
-                                   device=self.device)
-        tokens = torch.as_tensor(toks_in, dtype=torch.long,
-                                 device=self.device)[:, None]
-        sub = self._gather(slot_idx)
-        logits, sub = model_mod.decode_step(self.model, sub, tokens)
-        self._scatter(slot_idx, sub)
-        logits = logits[:n]
+        # host tensors: a program on the card copies them into its graph
+        slot_idx = torch.as_tensor(slots_in, dtype=torch.long)
+        tokens = torch.as_tensor(toks_in, dtype=torch.long)[:, None]
+        logits = self._decode_fn(bucket)(slot_idx, tokens)[:n]
         self._step_no += 1
         if self._injector is not None:
             # payload site: one request's logits row goes non-finite
@@ -405,7 +475,8 @@ class ServingEngine:
         self.run(max_steps)
 
     def close(self, max_steps: int = 10000) -> None:
-        """Drain, then close permanently (a closed engine rejects every
-        submit)."""
+        """Drain, then close permanently and drop the bucket programs (a
+        closed engine rejects every submit)."""
         self.drain(max_steps)
         self._closed = True
+        self._decode.clear()

@@ -1497,11 +1497,13 @@ def test_poison_lands_after_the_kernel_on_a_delayed_stream(dev):
 
 
 def test_watchdog_catches_a_real_stall_and_the_executor_recovers(dev):
-    """A body that sleeps ~0.2 s on its stream before the kernel under
+    """A ~0.2 s sleep on the launch's stream ahead of its kernel under
     launch_timeout_s=0.02: the flush raises LaunchTimeoutError naming the
     family while the stall still runs (the host never blocked on the
     stream), counts one timeout, and once the sleep is over the executor
-    runs a clean wave equal to the kernel."""
+    runs a clean wave equal to the kernel.  The stall is queued on the
+    executor's stream, not switched on in the body: the bucket's graph,
+    captured at the first wave, replays the body as it was then."""
     import time
 
     from repro_torch.core import AggregationExecutor
@@ -1509,21 +1511,14 @@ def test_watchdog_catches_a_real_stall_and_the_executor_recovers(dev):
 
     u = random_slots(84, 32, dev)
     want = kern.hydro_rhs_cuda(u, **KW)
-    plain = ops.hydro_batched_body(CFG, KW["h"])
-    stall = {"on": False}
-
-    def body(*args, out=None):
-        if stall["on"]:
-            torch.cuda._sleep(400_000_000)
-        return plain(*args, out=out)
-
     exe = AggregationExecutor(None, AggregationConfig(
         max_aggregated=32, launch_timeout_s=0.02), device=dev)
-    exe.register("stalled", body)
+    exe.register("stalled", ops.hydro_batched_body(CFG, KW["h"]))
     exe.submit_range((u,), 0, 32, kernel="stalled")
     exe.flush()
     torch.cuda.synchronize()
-    stall["on"] = True
+    with torch.cuda.stream(exe.pool.executors[0].stream):
+        torch.cuda._sleep(400_000_000)
     t0 = time.perf_counter()
     with pytest.raises(LaunchTimeoutError, match="stalled"):
         exe.submit_range((u,), 0, 32, kernel="stalled")
@@ -1534,7 +1529,6 @@ def test_watchdog_catches_a_real_stall_and_the_executor_recovers(dev):
     torch.cuda.synchronize()
     assert exe.stats["regions"]["stalled[5x14x14x14]"]["faults"][
         "timeouts"] == 1
-    stall["on"] = False
     fut = exe.submit_range((u,), 0, 32, kernel="stalled")
     exe.flush()
     assert torch.equal(fut.result(), want)
@@ -1827,3 +1821,198 @@ def test_stream_batch_on_card_equals_cpu(dev):
     a, b = s.batch(4), s.batch(4, dev)
     assert all(b[k].device == dev and torch.equal(b[k].cpu(), a[k])
                for k in a)
+
+
+# ---------------------------------------------------------------------------
+# compiled bucket programs: a CUDA graph per bucket launch site
+# ---------------------------------------------------------------------------
+
+def _path_kernel_launches(wrapper, name):
+    """A wrapper's own launches outside captures plus the replays' kernel
+    nodes of its kernel (``graphs.captured_kernels``,
+    ``graphs.replayed_kernels``)."""
+    from repro_torch.core import graphs
+
+    def tally(counts):
+        return sum(c for k, c in counts.items() if name in k)
+
+    return (wrapper.launches - tally(graphs.captured_kernels())
+            + tally(graphs.replayed_kernels()))
+
+
+@pytest.mark.parametrize("strategy,n_exec", [("s3", 1), ("s2+s3", 4)])
+def test_bucket_graphs_on_delayed_streams_bit_equal_to_fused(dev, strategy,
+                                                             n_exec):
+    """The main path's small config at cap 8 under ``s3`` and ``s2+s3``
+    (4 streams, each launch behind a ``torch.cuda._sleep`` captured in its
+    graph): after warmup and one step, two RK3 steps launch nothing but
+    replays (the wrapper counts nothing, the replays' kernel nodes count
+    3 x the greedy drain per step, 8 offsets of the bucket-8 program on
+    the static parent) and equal ``fused`` bit for bit."""
+    from repro_torch.core import graphs
+    from repro_torch.core.aggregation import greedy_decomposition
+
+    make, u0, dt = _uniform(dev)
+    h = CFG.domain / u0.shape[-1]
+    fused = StrategyRunner(make(), AggregationConfig(strategy="fused"),
+                           device=dev)
+    want = _loop(fused, u0, dt, 3)
+    agg = AggregationConfig(strategy=strategy, n_executors=n_exec,
+                            max_aggregated=8, launch_watermark=10 ** 9)
+    runner = StrategyRunner(UniformSedovScenario(
+        CFG, batched_body=_delayed(ops.hydro_batched_body(CFG, h))), agg,
+        device=dev)
+    runner.warmup()
+    u = runner.rk3_step(u0, dt)
+    torch.cuda.synchronize(dev)
+    captures = runner.executor.stats["captures"]
+    kern.hydro_rhs_cuda.launches = 0
+    graphs.reset_replayed_kernels()
+    u = _loop(runner, u, dt, 2)
+    torch.cuda.synchronize(dev)
+    per = len(greedy_decomposition(CFG.n_subgrids, agg.bucket_sizes()))
+    assert kern.hydro_rhs_cuda.launches == 0
+    assert _path_kernel_launches(kern.hydro_rhs_cuda,
+                                 "hydro_rhs_cluster_kernel") == 2 * 3 * per
+    assert runner.executor.stats["captures"] == captures
+    (region,) = runner.executor.regions.values()
+    prog = region.compiled[("prefix_aot", 8, ((CFG.n_subgrids, 5, 14, 14,
+                                               14),))]
+    assert sorted(k[0][1] for k in prog.sites) == list(
+        range(0, CFG.n_subgrids, 8))
+    assert _equal(u, want)
+
+
+def test_result_survives_the_next_replay_of_its_graph(dev):
+    """A program's first call on a stream held back by ``torch.cuda._sleep``
+    and its next call on another stream: the first result, read after
+    both, is the first input's.  The copy of a replay's output is itself
+    delayed here: the next replay, if it did not wait for that copy's
+    event, would overwrite the input the first replay reads and the
+    output the first copy reads, so the test fails without the wait."""
+    from repro_torch.core import graphs
+
+    x1 = random_slots(90, 8, dev)
+    x2 = random_slots(91, 8, dev)
+    body = ops.hydro_batched_body(CFG, 0.01)
+    want1, want2 = body(x1), body(x2)
+    prog = graphs.BucketProgram(body, dev, copy_in=(0,))
+    prog(x1)                                  # capture (and one replay)
+    copy_out = prog._copy_out
+
+    def late_copy_out(out):
+        torch.cuda._sleep(SLEEP_CYCLES)
+        return copy_out(out)
+
+    prog._copy_out = late_copy_out
+    a, b = torch.cuda.Stream(dev), torch.cuda.Stream(dev)
+    torch.cuda.synchronize(dev)
+    with torch.cuda.stream(a):
+        torch.cuda._sleep(SLEEP_CYCLES)
+        r1 = prog(x1)
+    with torch.cuda.stream(b):
+        r2 = prog(x2)
+    torch.cuda.synchronize(dev)
+    assert torch.equal(r1, want1)
+    assert torch.equal(r2, want2)
+
+
+def test_host_sync_body_raises_capture_error_and_launches_nothing(dev):
+    """A bucket body that reads a value on the host (``.item()``) cannot
+    be captured: the drain raises ``CaptureError``, launches nothing and
+    fulfils nothing; no eager launch stands in for the bucket."""
+    from repro_torch.core import AggregationExecutor
+
+    body = ops.hydro_batched_body(CFG, 0.01)
+
+    def syncing(x, out=None):
+        float(x.sum().item())
+        return body(x, out=out)
+
+    exe = AggregationExecutor(syncing, AggregationConfig(
+        strategy="s3", max_aggregated=16, launch_watermark=10 ** 9),
+        device=dev)
+    u = random_slots(92, 8, dev)
+    fut = exe.submit_range((u,), 0, 8)
+    with pytest.raises(CaptureError, match="synchroniz"):
+        exe.flush()
+    assert not fut.ready()
+    assert exe.stats["launches"] == 0 and exe.pool.total_launches == 0
+    assert exe.stats["captures"] == 0
+
+
+def test_replay_kernel_nodes_equal_the_eager_launch(dev):
+    """Each bucket program's graph holds the kernel nodes its eager launch
+    makes: one slot_grid kernel per hydro bucket, a Reconstruct and a Flux
+    per split bucket."""
+    from repro_torch.core import AggregationExecutor
+
+    u = random_slots(93, 16, dev)
+    h = 0.01
+    cases = [(ops.hydro_batched_body(CFG, h), (u,),
+              {"hydro_rhs_cluster_kernel": 1}),
+             (ops.hydro_split_batched_body(CFG, h), (u,),
+              {"reconstruct_kernel": 1, "flux_cluster_kernel": 1})]
+    for body, parents, want in cases:
+        exe = AggregationExecutor(body, AggregationConfig(
+            strategy="s3", max_aggregated=8, launch_watermark=10 ** 9),
+            device=dev)
+        exe.warmup([(tuple(p.shape), p.dtype) for p in parents])
+        (region,) = exe.regions.values()
+        pk = tuple(tuple(p.shape) for p in parents)
+        prog = region.compiled[("prefix_aot", 8, pk)]
+        for key in prog.sites:
+            names = prog.kernel_names(key)
+            got = {k: sum(k in n for n in names) for k in want}
+            assert got == want, (key, names)
+
+
+def _eager_programs(monkeypatch):
+    from repro_torch.core import graphs
+
+    monkeypatch.setattr(graphs, "make_program", lambda fn, device, **kw: fn)
+
+
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-90b",
+                                  "seamless-m4t-large-v2", "xlstm-125m",
+                                  "zamba2-2.7b"])
+def test_engine_bucket_graphs_equal_eager_decode(dev, arch, monkeypatch):
+    """Reduced vlm, audio, ssm and hybrid engines, one graph per engine
+    bucket captured when the engine is made: the same requests give the
+    same tokens as the same engine launching ``decode_step`` eagerly, and
+    every launch after the captures is a replay."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core import graphs
+    from repro_torch.models import model as model_mod
+    from repro_torch.serving import Request, ServingEngine
+
+    cfg = reduced(get_config(arch))
+    m = _perturbed(cfg, dev, 11)
+    prompts = [[5, 7, 9], [11, 3], [2, 2, 2, 2, 9], [8], [13, 21, 4]]
+
+    def serve():
+        eng = ServingEngine(cfg, m, max_batch=4, max_len=32, device=dev)
+        reqs = [Request(i, p, max_new_tokens=4 + i)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        da.decode_attention_cuda.launches = 0
+        eng.run()
+        assert all(r.done and not r.failed for r in reqs)
+        return eng, [r.output for r in reqs]
+
+    graphs.reset_replayed_kernels()
+    eng, got = serve()
+    assert set(eng._decode) == set(eng.buckets)
+    assert eng.stats["captures"] == len(eng.buckets)
+    assert da.decode_attention_cuda.launches == 0
+    replayed = sum(c for k, c in graphs.replayed_kernels().items()
+                   if "decode_chunk_kernel" in k)
+    reads = {"vlm": cfg.n_layers, "audio": 2 * cfg.n_layers, "ssm": 0,
+             "hybrid": cfg.n_layers // max(1, cfg.shared_attn_every or 1)}
+    assert replayed == reads[cfg.family] * (eng.stats["launches"]
+                                            + len(eng.buckets))
+    with monkeypatch.context() as mp:
+        _eager_programs(mp)
+        _, want = serve()
+    assert got == want
