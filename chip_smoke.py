@@ -169,7 +169,24 @@
    launches, host ms per step per tenant against 1 tenant, device busy,
    the graphs' copies and the peak memory.  Two AMR tenants
    (``configs/amr_sedov``), staged and eager, bit-identical to the solo
-   run.
+   run.  Then ``distributed``: ``CONFIG`` under ``s4`` cap 32 on a mesh
+   of 4 shards (over ``min(4, cards)`` cards when two or more are
+   visible, else 4 shards on the one card, each on its own stream; a line
+   says which), 3 steps bit-identical to ``fused``, the hydro_rhs
+   launches counted from the replayed graphs' kernel nodes equal to the
+   greedy decomposition per shard, occupancy, the copies, host and busy
+   ms per step beside ``s3`` cap 32; 4 tenants on the mesh, each equal to
+   its solo step, every shard equally filled; ``halo_exchange`` (a one-
+   block roll) and ``ghost_gather``; a one-rank NCCL group (a
+   ``FileStore``): reduced granite-8b, 3 steps of ``make_dp_train_step``
+   (``compress=False``) bit-identical to ``make_train_step`` under
+   ``launch.train.deterministic``, then one bf16 ``compress=True`` step of
+   h2o-danube-1.8b at published widths and depth, seq 4,096, at the first
+   batch of 4, 2, 1 that fits (ms, peak, loss at init against ln V);
+   ``resilient_loop`` around the training loop's step and checkpoints with
+   a ``SimulatedFailure`` after step 2's update: restored and replayed,
+   bit-identical to a straight run; ``restore_resharded`` of its last
+   checkpoint onto the card equal to the run's weights.
 15. Holds the serving kernels (``csrc/decode_attention.cu``,
    ``csrc/grouped_gemm.cu``) against their plain versions at the full-width
    qwen2-moe-a2.7b shapes in bf16 (8 requests, a 1,024-position cache with
@@ -3885,6 +3902,382 @@ def phase_tenancy(cfg, acfg, dev, card, dts, results):
 
 
 # ---------------------------------------------------------------------------
+# distributed: s4 over a mesh of shards, the data-parallel step, the
+# resilient loop and the elastic restore
+# ---------------------------------------------------------------------------
+
+DIST_SHARDS = 4          # shards of the s4 mesh (over cards when visible)
+DIST_TENANTS = 4
+DP_ARCH = "h2o-danube-1.8b"
+DP_BATCHES = (4, 2, 1)   # the full-width DP step's batches, tried in order
+RESILIENT_STEPS, RESILIENT_FAIL_AT = 5, 2
+
+
+def dist_mesh(dev):
+    """``DIST_SHARDS`` shards over ``min(4, cards)`` cards when two or more
+    are visible, else ``DIST_SHARDS`` shards on the one card."""
+    from repro_torch.distributed.api import subgrid_mesh, visible_devices
+
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        n = min(DIST_SHARDS, cards)
+        return subgrid_mesh(n, devices=visible_devices(dev)), (
+            f"{n} shards over {n} cards")
+    return subgrid_mesh(DIST_SHARDS, devices=[dev] * DIST_SHARDS), (
+        f"{DIST_SHARDS} shards on the one card (one stream each); a real "
+        f"exchange between cards is left unverified here")
+
+
+def dist_s4(cfg, dev, card, dts, fused_main, mesh):
+    """The main path under ``s4`` cap 32 on ``mesh`` (``drive``: 3 RK3
+    steps bit-equal to ``fused``), the hydro_rhs launches counted from the
+    replayed graphs' kernel nodes against the greedy decomposition per
+    shard, occupancy, copies, and host and busy ms per step against ``s3``
+    cap 32; then 4 tenants on the mesh, each equal to its solo run and
+    every shard equally filled; ``halo_exchange`` and ``ghost_gather``."""
+    from repro_torch.configs.base import AggregationConfig
+    from repro_torch.core import (
+        ShardedAggregationExecutor, StrategyRunner, TenantBatcher,
+        UniformSedovScenario,
+    )
+    from repro_torch.core.aggregation import greedy_decomposition
+    from repro_torch.hydro.state import sedov_init
+    from repro_torch.kernels import hydro_rhs as kern
+
+    u0 = sedov_init(cfg, device=dev).u
+    shards = mesh.size
+    cap32 = AggregationConfig(strategy="s3", max_aggregated=32)
+    rows = {}
+    for label, agg, kw in (
+            ("s4 cap 32", AggregationConfig(strategy="s4",
+                                            max_aggregated=32),
+             dict(mesh=mesh)),
+            ("s3 cap 32", cap32, {})):
+        runner = StrategyRunner(UniformSedovScenario(cfg), agg, device=dev,
+                                **kw)
+        u, row = drive(runner, u0, dts, [kern.hydro_rhs_cuda])
+        check(torch.equal(u, fused_main), f"distributed: {label} on the "
+              f"mesh is not bit-identical to fused")
+
+        def steps(runner=runner):
+            x = u0
+            for dt in dts:
+                x = runner.rk3_step(x, dt)
+        row["host_ms_per_step"] = host_ms(steps, len(dts))
+        _, prof = profiled(lambda: runner.rk3_step(u0, dts[0]))
+        events = device_events(prof)
+        row["device_busy_ms_per_step"] = sum(us for _, us in events) / 1e3
+        row["dtod_copy_ms_per_step"] = sum(
+            us for name, us in events if "Memcpy DtoD" in name
+            or "Memcpy PtoP" in name) / 1e3
+        rows[label] = row
+        if agg.strategy == "s4":
+            exe = runner.executor
+            local = cfg.n_subgrids // shards
+            rem = cfg.n_subgrids - local * shards
+            per_stage = shards * len(greedy_decomposition(
+                local, agg.bucket_sizes())) + (len(greedy_decomposition(
+                    rem, agg.bucket_sizes())) if rem else 0)
+            got = row["kernel_launches"]["hydro_rhs_cuda"]
+            want = 3 * len(dts) * per_stage
+            check(got == want, f"distributed: {got} hydro_rhs launches on "
+                  f"the mesh over {len(dts)} steps, want {want} (greedy per "
+                  f"shard)")
+            check(row["eager_launches"]["hydro_rhs_cuda"] == 0,
+                  "distributed: an s4 launch ran outside its graph")
+            occ = exe.stats["shard_occupancy"]
+            check(occ == [local + rem] + [local] * (shards - 1),
+                  f"distributed: shard occupancy {occ}")
+            row.update(shard_occupancy=occ, mesh=dict(mesh.shape),
+                       gather_copies=exe.stats["gather_copies"],
+                       scatter_copies=exe.stats["scatter_copies"],
+                       captures=exe.stats["captures"],
+                       graph_mib=exe.stats["graph_bytes"] / 2 ** 20)
+        print(f"distributed ({card}): main path {label}"
+              f"{' on ' + str(mesh.shape) if kw else ''}: "
+              f"{row['host_ms_per_step']:.3f} ms/step host, busy "
+              f"{row['device_busy_ms_per_step']:.3f} ms/step (graph copies "
+              f"{row['dtod_copy_ms_per_step']:.3f} ms), hydro_rhs launches "
+              f"{row['kernel_launches']['hydro_rhs_cuda']} over {len(dts)} "
+              f"steps (from the graphs' kernel nodes)"
+              + (f", occupancy {row['shard_occupancy']}, copies gathered "
+                 f"{row['gather_copies']} scattered "
+                 f"{row['scatter_copies']}, {row['captures']} captures "
+                 f"({row['graph_mib']:.1f} MiB)" if kw else "")
+              + ", bit-identical to fused", flush=True)
+
+    # tenants on the mesh, one step each, against their solo run
+    solo = StrategyRunner(UniformSedovScenario(cfg), cap32,
+                          device=dev).rk3_step(u0, dts[0])
+    exe = ShardedAggregationExecutor(config=AggregationConfig(
+        strategy="s4", max_aggregated=32), name="tenancy", mesh=mesh)
+    tb = TenantBatcher(exe)
+    for tid in range(DIST_TENANTS):
+        tb.add(tid, UniformSedovScenario(cfg), u0, dts[0])
+    out = tb.rk3_step_all()
+    for tid in range(DIST_TENANTS):
+        check(torch.equal(out[tid], solo), f"distributed: tenant {tid} on "
+              f"the mesh differs from its solo run")
+    occ = exe.stats["shard_occupancy"]
+    check(len(set(occ)) == 1 and sum(occ) == DIST_TENANTS * cfg.n_subgrids,
+          f"distributed: {DIST_TENANTS} tenants fill the shards {occ}")
+    print(f"distributed ({card}): {DIST_TENANTS} tenants on the mesh, each "
+          f"bit-identical to its solo s3 step, shards filled {occ}",
+          flush=True)
+
+    # the reference's collectives
+    x = torch.arange(shards * 6 * 5, dtype=torch.float32,
+                     device=dev).reshape(shards * 6, 5)
+    rolled = exe.halo_exchange(x)
+    check(torch.equal(rolled, torch.roll(x, 6, dims=0)),
+          "distributed: halo_exchange is not a one-block roll")
+    check(exe.ghost_gather(out[0]) is out[0],
+          "distributed: ghost_gather copied a result already whole")
+    print(f"distributed ({card}): halo_exchange rolls {shards} shard blocks "
+          f"one step along data; ghost_gather returns a gathered wave "
+          f"uncopied", flush=True)
+    return dict(rows=rows, shard_occupancy_tenants=occ)
+
+
+def dist_dp(dev, card, work):
+    """A one-rank NCCL group (a FileStore in ``work``): reduced granite-8b
+    through ``make_dp_train_step`` (``compress=False``) bit-equal to
+    ``make_train_step``'s step under ``launch.train.deterministic``; then
+    one bf16 step of ``DP_ARCH`` at published widths and full depth, seq
+    ``TRAIN_SEQ``, ``compress=True``, at the first of ``DP_BATCHES`` that
+    fits: ms, peak memory, the loss at init against ln V."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data import DataConfig, SyntheticLMStream
+    from repro_torch.distributed import (
+        make_dp_train_step, process_group, residual_init,
+    )
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import add_extra_inputs, deterministic
+    from repro_torch.models import model as model_mod
+    from repro_torch.optim import OptConfig, opt_init
+
+    out = {}
+    with process_group(0, 1, device=dev,
+                       store_path=os.path.join(work, "store")):
+        check(torch.distributed.get_backend() == "nccl",
+              f"distributed: backend {torch.distributed.get_backend()}")
+        cfg = reduced(get_config("granite-8b"))
+        opt = OptConfig(lr=3e-3, warmup_steps=2, total_steps=10)
+        data = SyntheticLMStream(DataConfig(seq_len=64, global_batch=8,
+                                            vocab_size=cfg.vocab_size))
+        models, losses = [], []
+        with deterministic(dev):
+            for dp in (True, False):
+                m = model_mod.init_params(cfg, 0, dev)
+                state = opt_init(dict(m.named_parameters()))
+                if dp:
+                    step = make_dp_train_step(model_mod.loss_fn, opt,
+                                              compress=False)
+                    res = residual_init(m)
+                    for i in range(3):
+                        m, state, res, loss, _ = step(m, state, res,
+                                                      data.batch(i, dev))
+                else:
+                    step = make_train_step(cfg, opt, device=dev)
+                    for i in range(3):
+                        m, state, met = step(m, state, data.batch(i, dev))
+                    loss = met["loss"]
+                models.append(m)
+                losses.append(float(loss))
+        check(losses[0] == losses[1] and all(
+            torch.equal(a, b) for a, b in zip(models[0].parameters(),
+                                              models[1].parameters())),
+              "distributed: the one-rank DP step differs from train_step")
+        print(f"distributed ({card}): one-rank NCCL group, reduced granite-8b"
+              f" 3 steps through make_dp_train_step(compress=False) "
+              f"bit-equal to make_train_step (loss {losses[0]:.6f})",
+              flush=True)
+        del models
+
+        # one full-width bf16 step, compressed
+        cfg = get_config(DP_ARCH)
+        check(cfg.remat and cfg.dtype == "bfloat16",
+              f"distributed: {DP_ARCH} is not a bf16 remat config")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        m = model_mod.init_params(cfg, 0, dev)
+        n_params = sum(p.numel() for p in m.parameters())
+        state = opt_init(dict(m.named_parameters()))
+        res = residual_init(m)
+        step = make_dp_train_step(model_mod.loss_fn, OptConfig(),
+                                  compress=True)
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            for b in DP_BATCHES:
+                data = SyntheticLMStream(DataConfig(
+                    seq_len=TRAIN_SEQ, global_batch=b,
+                    vocab_size=cfg.vocab_size))
+                batch = add_extra_inputs(cfg, data.batch(0, dev), 0, dev)
+                try:
+                    sync()
+                    t0 = time.perf_counter()
+                    m, state, res, loss, met = step(m, state, res, batch)
+                    sync()
+                    ms = (time.perf_counter() - t0) * 1e3
+                    break
+                except torch.OutOfMemoryError:
+                    print(f"distributed ({card}): {DP_ARCH} DP step at batch "
+                          f"{b} x {TRAIN_SEQ} does not fit", flush=True)
+                    batch = None
+                    gc.collect()
+                    torch.cuda.empty_cache()
+            else:
+                check(False, f"distributed: no batch of {DP_BATCHES} fits "
+                      f"the {DP_ARCH} DP step")
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        loss0, gnorm = float(loss), float(met["grad_norm"])
+        lnv = float(np.log(cfg.vocab_size))
+        check(abs(loss0 - lnv) <= 0.35 * lnv and np.isfinite(gnorm),
+              f"distributed: {DP_ARCH} DP loss {loss0}, grad norm {gnorm}")
+        carried = sum(float(r.abs().sum()) for r in res.values())
+        check(carried > 0, "distributed: the int8 residual carried nothing")
+        print(f"distributed ({card}): {DP_ARCH} ({cfg.n_layers} layers, "
+              f"{n_params / 1e9:.3f} B parameters) one bf16 "
+              f"make_dp_train_step(compress=True) step at batch {b} x "
+              f"{TRAIN_SEQ}: {ms:.1f} ms (first call), loss {loss0:.4f} (ln "
+              f"V {lnv:.4f}), grad norm {gnorm:.4f}, peak {peak:.2f} GiB",
+              flush=True)
+        out = dict(granite_bit_equal=True, dp_arch=DP_ARCH, batch=b,
+                   seq=TRAIN_SEQ, params=n_params, ms_first_step=ms,
+                   peak_gib=peak, loss0=loss0, grad_norm=gnorm)
+        del m, state, res, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_resilient(dev, card, work):
+    """``resilient_loop`` around the training loop's step and checkpoints
+    (reduced granite-8b, ``save_every`` 1): at step
+    ``RESILIENT_FAIL_AT`` a ``SimulatedFailure`` after the update (the
+    weights already written in place), the loop restores the last
+    checkpoint and replays; the weights after ``RESILIENT_STEPS`` steps
+    equal a straight run's bit for bit.  Then ``restore_resharded`` of the
+    last checkpoint onto a mesh of the card equals them too."""
+    from repro_torch.checkpoint import latest_step, restore_resharded
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data import DataConfig, SyntheticLMStream
+    from repro_torch.distributed import (
+        NamedSharding, PartitionSpec, SimulatedFailure, resilient_loop,
+        subgrid_mesh,
+    )
+    from repro_torch.distributed.api import tree_map
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import (
+        deterministic, restore_state, save_state,
+    )
+    from repro_torch.models import convert
+    from repro_torch.models import model as model_mod
+    from repro_torch.optim import OptConfig, opt_init
+
+    cfg = reduced(get_config("granite-8b"))
+    opt = OptConfig(lr=3e-3, warmup_steps=2, total_steps=10)
+    data = SyntheticLMStream(DataConfig(seq_len=64, global_batch=8,
+                                        vocab_size=cfg.vocab_size))
+
+    def run(fail, ckpt):
+        m = model_mod.init_params(cfg, 0, dev).requires_grad_(True)
+        step = make_train_step(cfg, opt, device=dev)
+        failed = []
+
+        def step_fn(state, i):
+            m, s = state
+            m, s, _ = step(m, s, data.batch(i, dev))
+            if fail and i == RESILIENT_FAIL_AT and not failed:
+                failed.append(i)
+                raise SimulatedFailure(f"card lost after the update of "
+                                       f"step {i}")
+            return m, s
+
+        def restore_fn(i):
+            s, _ = restore_state(ckpt, i, m)
+            return m, s
+
+        with deterministic(dev):
+            (m, _), stats = resilient_loop(
+                step_fn, (m, opt_init(dict(m.named_parameters()))),
+                RESILIENT_STEPS, save_every=1,
+                save_fn=lambda st, i: save_state(ckpt, i, st[0], st[1]),
+                restore_fn=restore_fn)
+        return m, stats
+
+    straight, s0 = run(False, os.path.join(work, "straight"))
+    failed, s1 = run(True, os.path.join(work, "failed"))
+    check(s0["failures"] == 0 and s1["failures"] == 1
+          and s1["restores"] == 1, f"distributed: resilient stats {s1}")
+    check(all(torch.equal(a, b) for a, b in zip(straight.parameters(),
+                                                failed.parameters())),
+          "distributed: the restored trajectory differs from the straight "
+          "run")
+    ckpt = os.path.join(work, "failed")
+    last = latest_step(ckpt)
+    mesh = subgrid_mesh(1, devices=[dev])
+    layout = convert.reference_layout(failed)
+
+    def spec_fn(tree):
+        return tree_map(lambda _: NamedSharding(mesh, PartitionSpec()), tree)
+
+    params, opt_state, meta = restore_resharded(
+        ckpt, last, layout, {"m": layout, "v": layout, "step": 0}, mesh,
+        spec_fn)
+    want = convert.params_to_reference(failed)
+    flat_got = dict(_flat(params))
+    ok = all(flat_got[k].device == dev and torch.equal(
+        flat_got[k].cpu(), torch.from_numpy(v)) for k, v in _flat(want))
+    check(ok and int(opt_state["step"]) == RESILIENT_STEPS,
+          "distributed: restore_resharded onto the card differs from the "
+          "run's weights")
+    print(f"distributed ({card}): resilient_loop, SimulatedFailure after "
+          f"step {RESILIENT_FAIL_AT}'s update, {s1['restores']} restore of "
+          f"step {RESILIENT_FAIL_AT}: {RESILIENT_STEPS} steps bit-identical "
+          f"to the straight run; restore_resharded of step {last} onto "
+          f"{mesh.shape} equals the weights on {dev} (AcceleratorError: "
+          f"{hasattr(torch, 'AcceleratorError')})", flush=True)
+    return dict(stats=s1, restored_step=last,
+                accelerator_error=hasattr(torch, "AcceleratorError"))
+
+
+def _flat(tree, path=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _flat(tree[k], path + (k,))
+    else:
+        yield path, tree
+
+
+def phase_distributed(cfg, dev, card, dts, fused_main, results):
+    """``s4`` over a mesh, the data-parallel step, the resilient loop and
+    the elastic restore (``dist_s4``, ``dist_dp``, ``dist_resilient``)."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    mesh, what = dist_mesh(dev)
+    print(f"distributed ({card}): the s4 mesh {mesh.shape}: {what}",
+          flush=True)
+    out = {"mesh": dict(mesh.shape), "mesh_kind": what,
+           "s4": dist_s4(cfg, dev, card, dts, fused_main, mesh)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    scratch = os.path.join(HERE, "results")
+    os.makedirs(scratch, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="dist_", dir=scratch) as work:
+        out["dp"] = dist_dp(dev, card, work)
+        out["resilient"] = dist_resilient(dev, card, work)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"distributed ({card}): phase {out['seconds']:.1f} s", flush=True)
+    results["distributed"] = out
+
+
+# ---------------------------------------------------------------------------
 # the serving path: decode attention, the grouped GEMM, qwen2-moe-a2.7b
 # ---------------------------------------------------------------------------
 
@@ -5473,6 +5866,9 @@ def main(argv=None):
     # tenancy on one card (TenantBatcher under s4)
     phase_warm_start(CONFIG, dev, card, dts, fused_kernel_path, results)
     phase_tenancy(CONFIG, AMR_CONFIG, dev, card, dts, results)
+    # s4 over a mesh of shards, the data-parallel step on a one-rank NCCL
+    # group, the resilient loop and the elastic restore
+    phase_distributed(CONFIG, dev, card, dts, fused_kernel_path, results)
 
     # the serving kernels, then the serving path (qwen2-moe-a2.7b); the
     # runners above are gone, and with them their bucket graphs' pools

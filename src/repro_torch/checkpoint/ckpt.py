@@ -16,8 +16,8 @@ checkpoint, never an npz without its sidecar.
 
 bf16 leaves are stored as fp32 (npz has no bf16) and cast back to the
 template's dtype on restore; a restored leaf lands on its template's
-device.  The reference's ``restore_resharded`` (a restore onto a mesh)
-waits for the port's mesh (ROADMAP.md, Queue 1 item 14).
+device.  ``restore_resharded`` restores onto a mesh: each leaf placed as
+a spec function says (``repro_torch.distributed.api.place``).
 """
 from __future__ import annotations
 
@@ -120,3 +120,18 @@ def restore_checkpoint(ckpt_dir: str, step: int, params_template,
         meta = json.load(f)
     return (_rebuild(params_template, p_flat),
             _rebuild(opt_template, o_flat), meta)
+
+
+def restore_resharded(ckpt_dir: str, step: int, params_template,
+                      opt_template, mesh, spec_fn):
+    """Elastic restore: :func:`restore_checkpoint`, then each leaf placed
+    on ``mesh`` as ``spec_fn(tree) -> tree of NamedSharding`` (or of
+    devices) says; numpy leaves (non-tensor templates) become tensors
+    there.  Returns ``(params, opt_state, meta)``."""
+    from repro_torch.distributed.api import place, tree_map
+
+    params, opt, meta = restore_checkpoint(ckpt_dir, step, params_template,
+                                           opt_template)
+    params = tree_map(place, params, spec_fn(params))
+    opt = tree_map(place, opt, spec_fn(opt))
+    return params, opt, meta

@@ -177,8 +177,7 @@ class AggregationConfig:
     strategy 3: ``max_aggregated`` — on-the-fly fusion cap (bucketed)
 
     ``strategy="s4"`` (``"sharded"``) drains each range over a mesh of
-    ``shard_devices`` cards (0: every visible card); the port's mesh is one
-    card.
+    ``shard_devices`` cards (0: every visible card).
 
     ``staging="device"`` reads ranges in place and stages per-task tensors
     into the region's slot ring; ``"host"`` stacks each bucket at launch

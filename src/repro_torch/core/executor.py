@@ -110,20 +110,32 @@ class DeviceExecutor:
 
 
 class ExecutorPool:
-    """Pre-allocated pool of executors handed out round-robin (CPPuddle's
-    ``executor_pool`` analogue)."""
+    """Pre-allocated pool of executors (CPPuddle's ``executor_pool``
+    analogue), handed out round robin, or under ``scheduling="load"`` the
+    first idle one (its last event done), else the next round robin."""
 
-    def __init__(self, n_executors: int = 1, device: DeviceLike = None):
+    SCHEDULES = ("round_robin", "load")
+
+    def __init__(self, n_executors: int = 1, device: DeviceLike = None,
+                 scheduling: str = "round_robin"):
         if n_executors < 1:
             raise ValueError(f"n_executors must be >= 1, got {n_executors}")
+        if scheduling not in self.SCHEDULES:
+            raise ValueError(f"unknown scheduling {scheduling!r}; valid: "
+                             f"{self.SCHEDULES}")
         dev = resolve_device(device)
         self.executors = [DeviceExecutor(i, dev) for i in range(n_executors)]
+        self.scheduling = scheduling
         self._rr = itertools.cycle(range(n_executors))
 
     def __len__(self) -> int:
         return len(self.executors)
 
     def get(self) -> DeviceExecutor:
+        if self.scheduling == "load":
+            for e in self.executors:
+                if not e.busy():
+                    return e
         return self.executors[next(self._rr)]
 
     def any_idle(self) -> bool:

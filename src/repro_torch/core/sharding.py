@@ -1,32 +1,48 @@
-"""Sharded aggregation and multi-tenant batching on one card (DESIGN.md
+"""Sharded aggregation over a mesh and multi-tenant batching (DESIGN.md
 §15).
 
 :class:`ShardedAggregationExecutor` is the ``s4`` strategy's executor with
 the reference's surface (``register``, ``submit``, ``submit_range``,
 ``flush``, ``warmup``, ``save_tuning``, the breaker states and the
 ``mesh`` / ``n_shards`` / ``shard_occupancy`` / ``backend_key`` stats).
-The reference partitions each range over a ``("pod", "data")`` device
-mesh and drains every shard's tasks through the greedy bucket ladder in
-one program.  The port's mesh is one card (``{"pod": 1, "data": 1}``):
-a range drains as the greedy decomposition of its tasks, each bucket one
-launch of the family's body written through its ``out=`` into its slice
-of ONE output for the range, so a whole range's result is that output,
-and a task's result does not depend on the executor.  The whole drain is
-one program of the region's table ``compiled``, under the reference's
-keys ``("shard", local, key)`` and ``("rem", count, key)`` (``key`` the
-arguments' shapes and dtypes): launched on the next ``ExecutorPool``
-stream, it spreads its buckets over as many branches as the pool has
-streams.  On the card the program is one CUDA graph per input set
-(:class:`~repro_torch.core.graphs.BucketProgram`): the
-``TenantBatcher``'s captured extract hands it outputs that keep their
-address (``submit_range(fixed=True)``), any other range is copied into
-the region's static inputs for its key first.  ``ghost_gather`` and
-``halo_exchange``, the reference's collectives, are the identity on one
-card, as they are on the reference's one-device mesh.  A mesh over
-several cards belongs with ``distributed/`` (ROADMAP.md, Queue 1 item 14)
-and raises.  Every breaker reports closed, and host staging is refused;
-under ``guard="finite"`` a non-finite row fails exactly its task and the
-others are fulfilled from the same output.
+It partitions each range over a ``("pod", "data")`` mesh
+(``repro_torch.distributed.api.subgrid_mesh``; without ``mesh=``,
+``config.shard_devices`` of the visible cards, 0 taking them all).  A
+range of ``count`` tasks over ``S`` shards drains as the reference's
+wave does::
+
+    local  = count // S     # shard i takes tasks [i local, (i+1) local)
+    n_even = local * S      # one program: every shard the same ladder
+    rem    = count - n_even # one program on the primary device
+
+Each shard drains its tasks through the greedy bucket ladder, every bucket
+one launch of the family's body written through its ``out=`` into its
+slice of the range's output, on its own stream (on the card).  A task's
+result therefore does not depend on the shard or the bucket, and ``s4``
+equals ``fused``, ``s3`` and ``mixed`` bit for bit.  The remainder drains
+unsharded on the primary device (the mesh's first).
+
+When every shard lies on one device (one card, or a mesh that repeats a
+device: the port's stand-in for XLA's forced host devices) the shards
+write their slices of ONE output: a whole range's result is that output,
+with no copy.  Over several cards each card drains its shards into an
+output of its own, copying its inputs onto itself first, and the drain
+copies the shards back onto the primary card in shard order (the
+reference's all-gather at ``ghost_gather``); ``stats["scatter_copies"]``
+and ``stats["gather_copies"]`` count those copies (0 on one device).
+``halo_exchange`` rolls shard blocks one step along a mesh axis (the
+reference's ``ppermute`` ring).
+
+Each drain is one program of the region's table ``compiled``, under the
+reference's keys ``("shard", local, key)`` and ``("rem", count, key)``
+(``key`` the arguments' shapes and dtypes), launched on the next
+``ExecutorPool`` stream.  On the card a program is one CUDA graph per
+input set on its device (:class:`~repro_torch.core.graphs.BucketProgram`):
+the ``TenantBatcher``'s captured extract hands it outputs that keep their
+address (``submit_range(fixed=True)``), any other range is copied into the
+region's static inputs for its key first.  Every breaker reports closed,
+and host staging is refused; under ``guard="finite"`` a non-finite row
+fails exactly its task and the others are fulfilled from the same output.
 
 :class:`TenantBatcher` funnels many independent scenario instances
 ("tenants") through one executor's waves: per RK stage, every tenant's
@@ -51,7 +67,7 @@ import torch
 
 from repro_torch.configs.base import AggregationConfig
 from repro_torch.core.aggregation import (
-    RangeFuture, TaskFuture, TaskSignature, _backend_key, _out_like,
+    RangeFuture, TaskFuture, TaskSignature, _device_key, _out_like,
     gather_futures, greedy_decomposition,
 )
 from repro_torch.core import graphs
@@ -60,11 +76,13 @@ from repro_torch.core.faults import (
     FaultInjector, TaskFailedError, poison_slots,
 )
 from repro_torch.core.graphs import CaptureError, CapturedCall
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import DeviceLike
+from repro_torch.distributed.api import (
+    DEFAULT_RULES, Mesh, subgrid_mesh, visible_devices,
+)
 
-# the logical axes a task range distributes over, the reference's
-# DEFAULT_RULES["subgrid"]
-SUBGRID_AXES: Tuple[str, ...] = ("pod", "data")
+# the logical axes a task range distributes over
+SUBGRID_AXES: Tuple[str, ...] = tuple(DEFAULT_RULES["subgrid"])
 
 
 def _dtype_str(dtype: torch.dtype) -> str:
@@ -76,15 +94,19 @@ def _dtype_str(dtype: torch.dtype) -> str:
         return "<V2"
 
 
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    return a.type == b.type and (a.index or 0) == (b.index or 0)
+
+
 class _ShardRegion:
     """One kernel family's lane: ladder, queued ranges and per-task
     submissions, its drain programs (``compiled``) with the static inputs
-    they read and the branch streams they spread over, and the stats keys
-    the reference publishes."""
+    they read and the streams they spread over, and the stats keys the
+    reference publishes."""
 
     __slots__ = ("signature", "kernel", "batched_fn", "ladder", "queue",
                  "singles", "waves", "stats", "compiled", "statics",
-                 "_readers", "branches")
+                 "_readers", "streams")
 
     def __init__(self, signature: TaskSignature, batched_fn: Callable,
                  ladder: Tuple[int, ...]):
@@ -100,7 +122,8 @@ class _ShardRegion:
         # address, and the events of the launches reading them
         self.statics: Dict[Tuple, Tuple[torch.Tensor, ...]] = {}
         self._readers: Dict[Tuple, List[Any]] = {}
-        self.branches: List[Any] = []     # the drains' streams (the card)
+        # (device, kind) -> the drains' streams there (the card)
+        self.streams: Dict[Tuple, List[Any]] = {}
         self.stats: Dict[str, Any] = {
             "submitted": 0, "launches": 0, "sharded_launches": 0,
             "remainder_launches": 0, "aggregated_hist": {},
@@ -144,8 +167,44 @@ class _ShardLaunch:
         self.wave = wave
 
 
+class _MeshDrain:
+    """The shards' drain over several devices: each device's program
+    drains its shards (their rows copied onto it: the programs' inputs
+    are copied in), and the outputs are copied onto the primary device in
+    shard order, counted in the executor's stats."""
+
+    def __init__(self, parts, local: int, primary: torch.device,
+                 stats: Dict[str, Any]):
+        self.parts = parts          # (device, shard indices, program)
+        self.local = local
+        self.primary = primary
+        self.stats = stats
+
+    def __call__(self, *args):
+        local = self.local
+        pieces = []
+        for dev, shards, program in self.parts:
+            rows = tuple(torch.cat([a.narrow(0, i * local, local)
+                                    for i in shards])
+                         if len(shards) > 1 else a.narrow(0, shards[0] * local,
+                                                          local)
+                         for a in args)
+            self.stats["scatter_copies"] += len(shards)
+            pieces.append((shards, program(*rows)))
+        first = pieces[0][1]
+        out = torch.empty((args[0].shape[0],) + tuple(first.shape[1:]),
+                          dtype=first.dtype, device=self.primary)
+        for shards, part in pieces:
+            for j, i in enumerate(shards):
+                out.narrow(0, i * local, local).copy_(
+                    part.narrow(0, j * local, local))
+            self.stats["gather_copies"] += len(shards)
+        return out
+
+
 class ShardedAggregationExecutor:
-    """The ``s4`` executor on a one-card mesh; takes the
+    """The ``s4`` executor over ``mesh`` (default: ``subgrid_mesh`` of
+    ``config.shard_devices`` cards visible beside ``device``); takes the
     ``AggregationExecutor`` constructor (``timer`` is accepted and unused:
     nothing here is measured)."""
 
@@ -154,7 +213,8 @@ class ShardedAggregationExecutor:
                  pool: Optional[ExecutorPool] = None, name: str = "region",
                  device: DeviceLike = None,
                  timer: Optional[Callable] = None,
-                 fault_injector: Optional[FaultInjector] = None):
+                 fault_injector: Optional[FaultInjector] = None,
+                 mesh: Optional[Mesh] = None):
         self.name = name
         self.config = config or AggregationConfig()
         if self.config.staging == "host":
@@ -162,18 +222,22 @@ class ShardedAggregationExecutor:
                 "ShardedAggregationExecutor requires staging='device' — "
                 "host staging re-serializes the per-task loop the sharded "
                 "drain exists to remove")
-        self.device = resolve_device(device)
-        visible = (torch.cuda.device_count()
-                   if self.device.type == "cuda" else 1)
-        cards = self.config.shard_devices or visible
-        if cards > 1:
-            raise NotImplementedError(
-                f"a mesh over {cards} cards ({visible} visible) is not "
-                f"ported (ROADMAP.md, Queue 1 item 14: distributed/); the "
-                f"port's s4 mesh is one card (shard_devices=0 or 1)")
+        self.mesh = mesh if mesh is not None else subgrid_mesh(
+            self.config.shard_devices, devices=visible_devices(device))
+        self._shards = self.mesh.device_list
+        self.n_shards = len(self._shards)
+        self.device = self._shards[0]            # the primary device
+        # the mesh's devices, the primary first, with their shards
+        self._groups: List[Tuple[torch.device, List[int]]] = []
+        for i, d in enumerate(self._shards):
+            for dev, idx in self._groups:
+                if dev == d:
+                    idx.append(i)
+                    break
+            else:
+                self._groups.append((d, [i]))
         self.pool = pool or ExecutorPool(self.config.n_executors,
                                          device=self.device)
-        self.n_shards = 1
         # the drain programs are graphs, which read fixed inputs
         self._graphs = isinstance(graphs.make_program(self.flush,
                                                       self.device),
@@ -184,13 +248,15 @@ class ShardedAggregationExecutor:
         self._bodies: Dict[str, Callable] = {}
         self._regions: Dict[TaskSignature, _ShardRegion] = {}
         self._default_kernel: Optional[str] = None
+        kind, dev_name, _ = _device_key(self.device)
         self.stats: Dict[str, Any] = {
             "submitted": 0, "launches": 0, "aggregated_hist": {},
             "staging_s": 0.0, "regions": {}, "warm_start": False,
             "captures": 0, "graph_bytes": 0,
+            "scatter_copies": 0, "gather_copies": 0,
             "flush_policy": "eager",
-            "backend_key": _backend_key(self.device),
-            "mesh": {a: 1 for a in SUBGRID_AXES},
+            "backend_key": (kind, dev_name or kind, f"d{self.n_shards}"),
+            "mesh": dict(self.mesh.shape),
             "n_shards": self.n_shards,
             "shard_occupancy": [0] * self.n_shards,
         }
@@ -309,76 +375,107 @@ class ShardedAggregationExecutor:
         drain programs."""
         return tuple((tuple(a.shape), _dtype_str(a.dtype)) for a in args)
 
+    @property
+    def _spread(self) -> bool:
+        """The shards lie on several devices."""
+        return len(self._groups) > 1
+
     def _sharded_fn(self, region: _ShardRegion, local: int,
                     args: Sequence[torch.Tensor]) -> Callable:
         """The program that drains ``local`` tasks of every shard through
-        the greedy bucket sequence (one shard on one card)."""
+        the greedy bucket sequence."""
         key = ("shard", local, self._arg_key(args))
         fn = region.compiled.get(key)
         if fn is None:
-            fn = region.compiled[key] = self._drain_program(region, local)
+            if self._spread:
+                fn = _MeshDrain([(dev, idx, self._drain_program(
+                    region, local, len(idx), dev, copy_in="all"))
+                    for dev, idx in self._groups], local, self.device,
+                    self.stats)
+            else:
+                fn = self._drain_program(region, local, self.n_shards,
+                                         self.device)
+            region.compiled[key] = fn
         return fn
 
     def _chunked_fn(self, region: _ShardRegion, count: int,
                     args: Sequence[torch.Tensor]) -> Callable:
         """The remainder's program (fewer tasks than shards): the same
-        greedy drain on the default device."""
+        greedy drain on the primary device."""
         key = ("rem", count, self._arg_key(args))
         fn = region.compiled.get(key)
         if fn is None:
-            fn = region.compiled[key] = self._drain_program(region, count)
+            fn = region.compiled[key] = self._drain_program(
+                region, count, 1, self.device)
         return fn
 
-    def _drain_program(self, region: _ShardRegion, n: int) -> Callable:
-        """``(*args) -> out``: the greedy decomposition of ``n`` tasks, each
-        bucket the body written into its slice of one output.  On the card
-        the buckets fork over the region's branch streams (one per pool
-        stream) and join back, so a captured drain keeps them concurrent;
-        a :class:`~repro_torch.core.graphs.BucketProgram` there."""
-        chunks = greedy_decomposition(n, region.ladder)
+    def _streams(self, region: _ShardRegion, device: torch.device,
+                 kind: str, n: int) -> List[Any]:
+        if device.type != "cuda" or n < 2:
+            return []
+        got = region.streams.get((device, kind))
+        if got is None:
+            got = region.streams[(device, kind)] = [
+                torch.cuda.Stream(device) for _ in range(n)]
+        return got
+
+    def _drain_program(self, region: _ShardRegion, local: int, shards: int,
+                       device: torch.device, copy_in: Any = ()) -> Callable:
+        """``(*args) -> out`` for ``shards * local`` tasks on ``device``:
+        shard ``i`` drains rows ``[i local, (i+1) local)`` through the
+        greedy decomposition of ``local``, each bucket the body written
+        into its slice of one output.  On the card the shards fork over
+        streams of their own and join back (one shard alone spreads its
+        buckets over one stream per pool stream), so a captured drain
+        keeps them concurrent; a
+        :class:`~repro_torch.core.graphs.BucketProgram` there."""
+        chunks = greedy_decomposition(local, region.ladder)
         body = region.batched_fn
-        device = self.device
-        on_card = device.type == "cuda"
-        if on_card and not region.branches:
-            region.branches = [torch.cuda.Stream(device)
-                               for _ in range(len(self.pool))]
+        work = [(i, j, i * local + sum(chunks[:j]), b)
+                for i in range(shards) for j, b in enumerate(chunks)]
+        if shards > 1:
+            streams = self._streams(region, device, "shard", shards)
+            lane = [i for i, _, _, _ in work]
+        else:
+            streams = self._streams(region, device, "bucket", len(self.pool))
+            lane = [j for _, j, _, _ in work]
 
         def drain(*args):
             out = _out_like(body, args)
-            caller = (torch.cuda.current_stream(device) if on_card
-                      and len(chunks) > 1 and len(region.branches) > 1
-                      else None)
+            caller = (torch.cuda.current_stream(device)
+                      if streams and len(work) > 1 else None)
             used = []
-            s = 0
-            for i, b in enumerate(chunks):
+            for (_, _, s, b), k in zip(work, lane):
                 part = tuple(a.narrow(0, s, b) for a in args)
                 dst = out.narrow(0, s, b)
                 if caller is None:
                     body(*part, out=dst)
-                else:
-                    st = region.branches[i % len(region.branches)]
-                    if st not in used:
-                        st.wait_stream(caller)
-                        used.append(st)
-                    with torch.cuda.stream(st):
-                        body(*part, out=dst)
-                s += b
+                    continue
+                st = streams[k % len(streams)]
+                if st not in used:
+                    st.wait_stream(caller)
+                    used.append(st)
+                with torch.cuda.stream(st):
+                    body(*part, out=dst)
             for st in used:
                 caller.wait_stream(st)
             return out
 
-        return graphs.make_program(drain, device, stats=self.stats)
+        return graphs.make_program(drain, device, copy_in=copy_in,
+                                   stats=self.stats)
 
     def _inputs(self, region: _ShardRegion, entry: _ShardPending, start: int,
-                n: int) -> Tuple[Tuple[torch.Tensor, ...], Optional[Tuple]]:
+                n: int, copied: bool
+                ) -> Tuple[Tuple[torch.Tensor, ...], Optional[Tuple]]:
         """A launch's arguments: tasks ``[start, start + n)`` of the
-        range's parents, in place when they keep their address (or off
-        the card), else copied into the region's static inputs for their
-        key (after every launch still reading them); and that key (None
-        when read in place)."""
+        range's parents, in place when they keep their address, when the
+        program copies its inputs in (``copied``) or off the card, else
+        copied into the region's static inputs for their key (after every
+        launch still reading them); and that key (None when read in
+        place)."""
         args = tuple(p if start == 0 and p.shape[0] == n
                      else p.narrow(0, start, n) for p in entry.parents)
-        if not self._graphs or (
+        if not self._graphs or copied or (
                 entry.fixed and all(a is p for a, p in
                                     zip(args, entry.parents))):
             return args, None
@@ -398,7 +495,7 @@ class ShardedAggregationExecutor:
         """One range, as the reference splits it: the shards' even share
         through ``("shard", local, key)``, the rest through
         ``("rem", count, key)``; each one launch of its program on the
-        next executor stream (counted as its buckets)."""
+        next executor stream (counted as its bucket launches)."""
         recs = []
         local = entry.count // self.n_shards
         n_even = local * self.n_shards
@@ -407,10 +504,13 @@ class ShardedAggregationExecutor:
                             (n_even, rem, "remainder_launches")):
             if not n:
                 continue
-            args, key = self._inputs(region, entry, entry.start + off, n)
-            if tag == "sharded_launches":
+            sharded = tag == "sharded_launches"
+            args, key = self._inputs(region, entry, entry.start + off, n,
+                                     copied=sharded and self._spread)
+            if sharded:
                 fn = self._sharded_fn(region, local, args)
-                chunks = greedy_decomposition(local, region.ladder)
+                chunks = greedy_decomposition(local, region.ladder) \
+                    * self.n_shards
             else:
                 fn = self._chunked_fn(region, n, args)
                 chunks = greedy_decomposition(n, region.ladder)
@@ -429,7 +529,11 @@ class ShardedAggregationExecutor:
             region.stats["launches"] += len(chunks)
             self.stats["launches"] += len(chunks)
             region.stats[tag] += 1
-            occupancy[0] += n
+            if sharded:
+                for i in range(self.n_shards):
+                    occupancy[i] += local
+            else:
+                occupancy[0] += n     # the remainder runs on the primary
         return recs
 
     def _settle(self, rec: _ShardLaunch) -> None:
@@ -494,18 +598,37 @@ class ShardedAggregationExecutor:
                         entry.singles[off + j]._fulfil(out, j)
                 run_start = None
 
-    # -- the reference's collectives: the identity on one card -------------
+    # -- the reference's collectives ---------------------------------------
     def ghost_gather(self, x: Any) -> Any:
-        """Replicate a sharded wave output: on one card it is whole."""
-        return x
+        """Replicate a sharded wave output onto the primary device: a
+        drained range is already whole there (the drain gathered it), so
+        only a tensor elsewhere is copied, and counted."""
+        if not isinstance(x, torch.Tensor) or _same_device(x.device,
+                                                           self.device):
+            return x
+        self.stats["gather_copies"] += 1
+        return x.to(self.device)
 
-    def halo_exchange(self, x: Any, axis_name: str = "data") -> Any:
-        """Roll shard blocks one step around ``axis_name``'s ring: on a
-        one-card axis every block stays where it is."""
-        if axis_name not in SUBGRID_AXES:
+    def halo_exchange(self, x: torch.Tensor,
+                      axis_name: str = "data") -> torch.Tensor:
+        """Roll ``x``'s shard blocks (its leading axis cut into one block
+        per shard, in shard order) one step around ``axis_name``'s ring:
+        the reference's ``ppermute`` of shard ``i`` to shard ``i + 1``
+        along that axis.  On a one-shard axis every block stays where it
+        is: ``x`` itself."""
+        if axis_name not in self.mesh.shape:
             raise KeyError(f"no mesh axis {axis_name!r} (have "
-                           f"{SUBGRID_AXES})")
-        return x
+                           f"{self.mesh.axis_names})")
+        if self.mesh.shape[axis_name] == 1:
+            return x
+        if x.shape[0] % self.n_shards:
+            raise ValueError(f"{x.shape[0]} rows do not split into "
+                             f"{self.n_shards} shard blocks")
+        grid = tuple(self.mesh.shape[a] for a in self.mesh.axis_names)
+        blocks = x.reshape(grid + (x.shape[0] // self.n_shards,)
+                           + tuple(x.shape[1:]))
+        return torch.roll(blocks, 1, dims=self.mesh.axis_names.index(
+            axis_name)).reshape(x.shape)
 
     # -- runner protocol ---------------------------------------------------
     def warmup(self, parent_shapes: Sequence[Tuple[Tuple[int, ...],

@@ -15,8 +15,8 @@
              measured cost model.
 * ``fused``— whole-graph upper bound (``fused.py``).
 * ``s4`` / ``sharded`` — ``s3``'s submission through the
-             ``ShardedAggregationExecutor`` (``s4.py``); the port's mesh
-             is one card (DESIGN.md §15).
+             ``ShardedAggregationExecutor`` (``s4.py``) over a mesh of
+             devices (DESIGN.md §15).
 
 All strategies are bit-identical in results to the scenario's fused
 reference; only the launch structure differs.

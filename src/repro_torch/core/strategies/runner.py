@@ -89,12 +89,15 @@ class StrategyRunner:
     the per-family launch statistics: the aggregation executor's bucket
     histograms, or those ``s2`` publishes itself.  ``timer`` times the
     launches of measured choices (see ``AggregationExecutor``);
-    ``fault_injector`` goes to the aggregation executor."""
+    ``fault_injector`` goes to the aggregation executor, and ``mesh``
+    (``s4`` only) to the sharded executor, whose default mesh is
+    ``agg.shard_devices`` cards."""
 
     def __init__(self, scenario: Scenario, agg: AggregationConfig,
                  device: DeviceLike = None,
                  timer: Optional[Callable] = None,
-                 fault_injector: Optional[FaultInjector] = None):
+                 fault_injector: Optional[FaultInjector] = None,
+                 mesh=None):
         strategy_cls = get_strategy_class(agg.strategy)   # fail fast
         self._validate_family_strategies(scenario, agg)
         self.device = resolve_device(device)
@@ -108,10 +111,11 @@ class StrategyRunner:
                                       "staging_s": 0.0, "regions": {}}
         if strategy_cls.uses_executor:
             exe_cls = strategy_cls.executor_cls or AggregationExecutor
+            kw = {} if mesh is None else {"mesh": mesh}
             self._agg_exec = exe_cls(
                 None, agg, pool=self.pool, name=scenario.name,
                 device=self.device, timer=timer,
-                fault_injector=fault_injector)
+                fault_injector=fault_injector, **kw)
             for fam in scenario.families() + tuple(
                     scenario.stage_families()):
                 self._agg_exec.register(fam.kernel, fam.batched_body)

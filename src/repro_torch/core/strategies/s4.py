@@ -5,8 +5,9 @@ one bulk range per population.  What changes is the executor:
 ``executor_cls`` is the
 :class:`~repro_torch.core.sharding.ShardedAggregationExecutor`, and
 ``_drain`` ends with its ``ghost_gather``, the reference's one collective
-per family per wave.  The port's mesh is one card, where the gather is
-the identity and ``s4`` equals ``s3`` bit for bit (DESIGN.md §15).
+per family per wave.  The mesh is ``StrategyRunner(mesh=)`` or
+``shard_devices`` cards; ``s4`` equals ``s3`` bit for bit on any mesh
+(DESIGN.md §15).
 """
 from __future__ import annotations
 

@@ -146,6 +146,37 @@ def params_to_reference(model: Model,
     return out
 
 
+def reference_stacks(model: Model) -> Dict[Tuple[str, ...], list]:
+    """Each leaf of the reference's pytree (its path) with the names of
+    the port's parameters stacked into it, in the stack's row-major
+    order: a leaf of one parameter is a list of one name."""
+    out: Dict[Tuple[str, ...], list] = {}
+    names = (n for n, _ in model.named_parameters())
+    for (path, idx, _), name in zip(_leaves(model), names):
+        out.setdefault(path, []).append((idx, name))
+    return {path: [n for _, n in sorted(parts)]
+            for path, parts in out.items()}
+
+
+def reference_shapes(model: Model) -> Params:
+    """The reference pytree of ``model``'s weights with each leaf a meta
+    tensor of the leaf's shape (the layers stacked on leading axes) and
+    dtype: what ``jax.eval_shape`` of the reference's ``init_params``
+    gives, for sharding specs and sizes."""
+    out: Params = {}
+    stacks: Dict[Tuple[str, ...], Tuple[Tuple[int, ...], torch.Tensor]] = {}
+    for path, i, p in _leaves(model):
+        ext, _ = stacks.get(path, ((0,) * len(i), p))
+        stacks[path] = (tuple(max(a + 1, n) for a, n in zip(i, ext)), p)
+    for path, (ext, p) in stacks.items():
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = torch.empty(ext + tuple(p.shape), dtype=p.dtype,
+                                     device="meta")
+    return out
+
+
 def reference_layout(model: Model) -> Params:
     """The reference pytree's structure of ``model``'s weights, every leaf
     0: a restore template that copies nothing off the device."""

@@ -2016,3 +2016,241 @@ def test_engine_bucket_graphs_equal_eager_decode(dev, arch, monkeypatch):
         _eager_programs(mp)
         _, want = serve()
     assert got == want
+
+
+# ---------------------------------------------------------------------------
+# distributed: s4 over a mesh, NCCL groups, the resilient loop
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cards2(dev):
+    """Two or more visible cards, or skip."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more cards")
+    return [torch.device("cuda", i)
+            for i in range(min(4, torch.cuda.device_count()))]
+
+
+def _s4_on(mesh, dev, steps=2):
+    """(the s4 state after ``steps`` steps on ``mesh``, fused's, the
+    runner); the kernel counters are zeroed between the two runs."""
+    from repro_torch.core import graphs
+
+    u0 = sedov_init(CFG, device=dev).u
+    dt = courant_dt(u0, CFG)
+    fused = StrategyRunner(UniformSedovScenario(CFG), AggregationConfig(
+        strategy="fused"), device=dev)
+    want = u0
+    for _ in range(steps):
+        want = fused.rk3_step(want, dt)
+    torch.cuda.synchronize()
+    kern.hydro_rhs_cuda.launches = 0
+    graphs.reset_replayed_kernels()
+    runner = StrategyRunner(UniformSedovScenario(CFG), AggregationConfig(
+        strategy="s4", max_aggregated=32), device=dev, mesh=mesh)
+    u = u0
+    for _ in range(steps):
+        u = runner.rk3_step(u, dt)
+    return u, want, runner
+
+
+def test_s4_four_shards_on_one_card_bit_equal_to_fused(dev):
+    """Four shards of the small config's 8 sub-grids on one card, each on
+    its own stream inside one graph: bit-equal to fused, 2 buckets per
+    shard per stage counted from the replays' kernel nodes, and one
+    output for the whole range (no copies)."""
+    from repro_torch.distributed import subgrid_mesh
+
+    mesh = subgrid_mesh(4, devices=[dev] * 4)
+    u, want, runner = _s4_on(mesh, dev)
+    torch.cuda.synchronize()
+    assert torch.equal(u, want)
+    stats = runner.executor.stats
+    assert stats["shard_occupancy"] == [2, 2, 2, 2]
+    assert stats["gather_copies"] == stats["scatter_copies"] == 0
+    # 2 steps x 3 stages x 4 shards x one bucket of 2
+    assert _path_kernel_launches(kern.hydro_rhs_cuda,
+                                 "hydro_rhs_cluster_kernel") == 24
+    (region,) = runner.executor.regions.values()
+    (program,) = region.compiled.values()
+    (site,) = program.sites
+    assert sum("hydro_rhs_cluster_kernel" in k
+               for k in program.kernel_names(site)) == 4
+
+
+def test_s4_over_several_cards_bit_equal_to_fused(cards2):
+    """The mesh over up to 4 cards: each card drains its shards in its own
+    graph, the shards come back in shard order, bit-equal to fused."""
+    from repro_torch.distributed import subgrid_mesh
+
+    mesh = subgrid_mesh(len(cards2), devices=cards2)
+    u, want, runner = _s4_on(mesh, cards2[0])
+    torch.cuda.synchronize()
+    assert torch.equal(u, want)
+    stats = runner.executor.stats
+    assert stats["gather_copies"] == stats["scatter_copies"] == \
+        2 * 3 * len(cards2)
+    assert u.device == cards2[0]
+
+
+def _np_allreduce(gs):
+    scale = max(np.float32(max(np.abs(g).max(), np.float32(1e-12)))
+                / np.float32(127.0) for g in gs)
+    qs = [np.clip(np.rint(g / scale), -127, 127).astype(np.int8) for g in gs]
+    total = sum(q.astype(np.int32) for q in qs)
+    mean = total.astype(np.float32) * scale / np.float32(len(gs))
+    return mean, [g - q.astype(np.float32) * scale for g, q in zip(gs, qs)]
+
+
+def test_compressed_allreduce_one_rank_nccl_matches_numpy(dev, tmp_path):
+    from repro_torch.distributed import process_group
+    from repro_torch.optim import compressed_allreduce
+
+    g = np.random.default_rng(4).standard_normal(1000).astype(np.float32)
+    with process_group(0, 1, device=dev,
+                       store_path=str(tmp_path / "store")):
+        assert torch.distributed.get_backend() == "nccl"
+        mean, res = compressed_allreduce(torch.from_numpy(g).to(dev))
+    want, (wres,) = _np_allreduce([g])
+    np.testing.assert_array_equal(mean.cpu().numpy(), want)
+    np.testing.assert_array_equal(res.cpu().numpy(), wres)
+
+
+def test_dp_step_one_rank_nccl_bit_equal_to_train_step(dev, tmp_path):
+    """Reduced granite-8b, 2 steps: ``make_dp_train_step(compress=False)``
+    on a one-rank NCCL group equals ``make_train_step`` bit for bit under
+    ``launch.train.deterministic``."""
+    import copy
+
+    from repro_torch.distributed import (
+        make_dp_train_step, process_group, residual_init,
+    )
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import deterministic
+    from repro_torch.models import model as model_mod
+    from repro_torch.optim import OptConfig, opt_init
+
+    cfg, m0, batch = _train_inputs("granite-8b", dev)
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    with process_group(0, 1, device=dev,
+                       store_path=str(tmp_path / "store")), \
+            deterministic(dev):
+        a = copy.deepcopy(m0).to(dev)
+        sa = opt_init(dict(a.named_parameters()))
+        res = residual_init(a)
+        dp = make_dp_train_step(model_mod.loss_fn, OptConfig(),
+                                compress=False)
+        b = copy.deepcopy(m0).to(dev)
+        sb = opt_init(dict(b.named_parameters()))
+        step = make_train_step(cfg, OptConfig(), device=dev)
+        for _ in range(2):
+            a, sa, res, la, _ = dp(a, sa, res, batch)
+            b, sb, met = step(b, sb, batch)
+            assert float(la) == float(met["loss"])
+    for (name, x), (_, y) in zip(a.named_parameters(), b.named_parameters()):
+        assert torch.equal(x, y), name
+
+
+RANK_NCCL = """
+import sys
+import numpy as np
+import torch
+from repro_torch.distributed import process_group
+from repro_torch.optim import compressed_allreduce
+
+rank, world, store, work = (int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
+                            sys.argv[4])
+dev = torch.device("cuda", rank)
+with process_group(rank, world, device=dev, store_path=store, timeout_s=120):
+    g = torch.from_numpy(np.load(f"{work}/g.npy")[rank]).to(dev)
+    mean, res = compressed_allreduce(g)
+    np.savez(f"{work}/out_{rank}.npz", mean=mean.cpu().numpy(),
+             res=res.cpu().numpy())
+print("RANK-OK", rank)
+"""
+
+
+def test_compressed_allreduce_across_cards_matches_numpy(cards2, tmp_path):
+    """One NCCL rank per card (two processes): the int8 all-reduce equals
+    the numpy formula on every rank."""
+    import os
+    import subprocess
+    import sys
+
+    world = 2
+    gs = np.random.default_rng(6).standard_normal((world, 500)).astype(
+        np.float32) * np.array([[1.0], [3.0]], np.float32)
+    np.save(tmp_path / "g.npy", gs)
+    script = tmp_path / "rank.py"
+    script.write_text(RANK_NCCL)
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    env = dict(os.environ, PYTHONPATH=src)
+    procs = [subprocess.Popen([sys.executable, str(script), str(r),
+                               str(world), str(tmp_path / "store"),
+                               str(tmp_path)], env=env,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    try:
+        outs = [p.communicate(timeout=240)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0 and f"RANK-OK {r}" in out, out[-3000:]
+    want, wres = _np_allreduce(list(gs))
+    for r in range(world):
+        got = np.load(tmp_path / f"out_{r}.npz")
+        np.testing.assert_array_equal(got["mean"], want)
+        np.testing.assert_array_equal(got["res"], wres[r])
+
+
+def test_resilient_loop_restores_a_step_written_in_place(dev, tmp_path):
+    """Reduced granite-8b under ``resilient_loop`` with a ``SimulatedFailure``
+    after step 2's update (the weights already written): the checkpoint of
+    step 2 is restored and the step replayed, and after 4 steps the
+    weights equal a straight run's bit for bit."""
+    from repro_torch.distributed import SimulatedFailure, resilient_loop
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import (
+        deterministic, restore_state, save_state,
+    )
+    from repro_torch.optim import OptConfig, opt_init
+    import copy
+
+    cfg, m0, batch = _train_inputs("granite-8b", dev)
+    batch = {k: v.to(dev) for k, v in batch.items()}
+
+    def run(fail, ckpt):
+        m = copy.deepcopy(m0).to(dev)
+        step = make_train_step(cfg, OptConfig(), device=dev)
+        failed = []
+
+        def step_fn(state, i):
+            model, s = state
+            model, s, _ = step(model, s, batch)
+            if fail and i == 2 and not failed:
+                failed.append(i)
+                raise SimulatedFailure("lost")
+            return model, s
+
+        def restore_fn(i):
+            s, _ = restore_state(ckpt, i, m)
+            return m, s
+
+        with deterministic(dev):
+            (m, _), stats = resilient_loop(
+                step_fn, (m, opt_init(dict(m.named_parameters()))), 4,
+                save_every=1,
+                save_fn=lambda st, i: save_state(ckpt, i, *st),
+                restore_fn=restore_fn)
+        return m, stats
+
+    a, _ = run(False, str(tmp_path / "a"))
+    b, stats = run(True, str(tmp_path / "b"))
+    assert stats["failures"] == stats["restores"] == 1
+    for (name, x), (_, y) in zip(a.named_parameters(), b.named_parameters()):
+        assert torch.equal(x, y), name

@@ -196,7 +196,7 @@ def test_executor_pool_on_cpu_is_inline_and_round_robin():
 # ---------------------------------------------------------------------------
 
 def test_unported_config_values_raise_naming_roadmap():
-    # warm start and s4 are ported: they build, and s4 runs on one card
+    # warm start and s4 are ported: they build, and s4 runs on the CPU
     for strategy in ("s4", "sharded"):
         AggregationConfig(strategy=strategy)
         StrategyRunner(UniformSedovScenario(CFG),
@@ -204,8 +204,8 @@ def test_unported_config_values_raise_naming_roadmap():
     AggregationConfig(prior="roofline", tune_store="/nonexistent")
     with pytest.raises(ValueError, match="prior mode"):
         AggregationConfig(prior="bogus")
-    # a mesh over several cards waits for distributed/ (item 14)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # a mesh of 2 devices where the CPU is the one device
+    with pytest.raises(ValueError, match=r"outside 1\.\.1"):
         StrategyRunner(UniformSedovScenario(CFG), AggregationConfig(
             strategy="s4", shard_devices=2), device="cpu")
     # containment is ported: the guard, the watchdog and the breakers build

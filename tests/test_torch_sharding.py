@@ -1,14 +1,19 @@
 """The port's sharded aggregation and multi-tenant batching (DESIGN.md §15)
 against the JAX reference, on the CPU.
 
-One counterpart of each test of ``tests/test_sharding.py`` but the two
-``subgrid_mesh`` tests and the eight-device subprocess, which need
-``distributed/`` and several devices (ROADMAP.md, Queue 1 item 14): the
+One counterpart of each test of ``tests/test_sharding.py``: the
+``subgrid_mesh`` axes and its refusals (the reference's messages), the
 executor reproduces the body, a whole range comes back with no copy,
 ``s4`` equals ``s3`` and ``mixed`` bit for bit, the stats report the
-one-card mesh, the batcher's tenants equal their solo runs bit for bit
-(uniform and AMR, staged and eager), ``healthz`` merges a batcher's
-tenants, and the backend key carries the device count.  Then the port
+mesh, the batcher's tenants equal their solo runs bit for bit (uniform
+and AMR, staged and eager), ``healthz`` merges a batcher's tenants, and
+the backend key carries the device count.  The reference's eight-device
+child runs here on ``subgrid_mesh(8, devices=["cpu"] * 8)``: eight shards
+on one device (its own test is one of the reference's known failures,
+so the port is held to the JAX one-device results instead).  A mesh over
+two devices, ``cpu:0`` and ``cpu:1`` (distinct devices to the executor,
+one memory), drives the several-device drain: per-device programs, the
+inputs scattered and the shards gathered in shard order.  Then the port
 held to the reference: after one step the tenants are within the kernel
 tolerance of the JAX ``TenantBatcher``'s, its ``queue_depths`` and
 ``stats`` are equal, and the guard fails the same tasks with the same
@@ -30,6 +35,8 @@ from repro.core import UniformSedovScenario as JUniformSedovScenario  # noqa: E4
 from repro.core import faults as jfaults  # noqa: E402
 from repro.hydro.state import sedov_init as jsedov_init  # noqa: E402
 from repro.hydro.stepper import courant_dt as jcourant_dt  # noqa: E402
+from repro.core import StrategyRunner as JStrategyRunner  # noqa: E402
+from repro.distributed.api import subgrid_mesh as jsubgrid_mesh  # noqa: E402
 
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.configs.amr_sedov import CONFIG as AMR_CONFIG  # noqa: E402
@@ -43,7 +50,10 @@ from repro_torch.core.faults import FaultInjector, FaultSpec  # noqa: E402
 from repro_torch.core.strategies import get_strategy_class  # noqa: E402
 from repro_torch.core.tunestore import entry_key  # noqa: E402
 from repro_torch.hydro.state import amr_sedov_init, sedov_init  # noqa: E402
-from repro_torch.hydro.stepper import amr_courant_dt, courant_dt  # noqa: E402
+from repro_torch.distributed.api import subgrid_mesh  # noqa: E402
+from repro_torch.hydro.stepper import (  # noqa: E402
+    amr_courant_dt, amr_reference_step, courant_dt,
+)
 from repro_torch.models import model  # noqa: E402
 from repro_torch.serving import Request, ServingEngine  # noqa: E402
 
@@ -134,10 +144,10 @@ def test_range_future_full_wave_is_zero_copy():
 def test_host_staging_and_multi_card_meshes_refused():
     with pytest.raises(ValueError, match="staging='device'"):
         _exe(staging="host")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 "
-                                                  "item 14"):
+    # the reference's refusal of a mesh larger than the visible devices
+    with pytest.raises(ValueError, match=r"n_devices=2 outside 1\.\.1"):
         _exe(shard_devices=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match=r"outside 1\.\.1"):
         StrategyRunner(UniformSedovScenario(CFG), _agg(shard_devices=2),
                        device="cpu")
     assert _exe(shard_devices=1).n_shards == 1
@@ -365,3 +375,204 @@ def test_guard_fails_the_reference_tasks():
     assert reg["faults"] == jreg["faults"] == {"injected": 2, "trips": 1,
                                                "isolated": 2}
     assert exe.breaker_states() == jexe.breaker_states() == {"g": "closed"}
+
+
+# ---------------------------------------------------------------------------
+# the mesh: axes, the degenerate case, the reference's refusals
+# ---------------------------------------------------------------------------
+
+def test_subgrid_mesh_degenerate_and_axes():
+    m = subgrid_mesh(1, devices=["cpu"])
+    assert m.axis_names == ("pod", "data")
+    assert m.shape == {"pod": 1, "data": 1}
+    j = jsubgrid_mesh(1)
+    assert m.axis_names == tuple(j.axis_names)
+    assert m.shape == dict(j.shape)
+    m4 = subgrid_mesh(0, pod=2, devices=["cpu"] * 4)
+    assert m4.shape == {"pod": 2, "data": 2} and m4.size == 4
+    assert m4.device_list == (CPU,) * 4
+    assert subgrid_mesh(0, devices=["cpu"]).size == 1
+
+
+@pytest.mark.parametrize("n, pod, devices", [
+    (2, 1, None), (1, 3, None), (9, 1, 8), (6, 4, 8), (0, 3, 8)])
+def test_subgrid_mesh_refusals_match_the_reference(n, pod, devices):
+    """The same ``ValueError`` text as the reference's on its one CPU
+    device (``devices=None``) or on a list of devices."""
+    jdevs = None if devices is None else [jax.devices()[0]] * devices
+    with pytest.raises(ValueError) as want:
+        jsubgrid_mesh(n, pod=pod, devices=jdevs)
+    tdevs = ["cpu"] * (devices or 1)
+    with pytest.raises(ValueError) as got:
+        subgrid_mesh(n, pod=pod, devices=tdevs)
+    assert str(got.value) == str(want.value)
+
+
+# ---------------------------------------------------------------------------
+# eight shards on one device: the reference's eight-device child
+# ---------------------------------------------------------------------------
+
+MESH8 = dict(devices=["cpu"] * 8)
+
+
+@pytest.fixture(scope="module")
+def jax_mixed():
+    """One JAX ``mixed`` step of the main path (the reference's test-1
+    comparator, on its one device)."""
+    jcfg = JHydroConfig(subgrid=8, ghost=3, levels=1)
+    jst = jsedov_init(jcfg)
+    jdt = jcourant_dt(jst.u, jcfg)
+    out = JStrategyRunner(JUniformSedovScenario(jcfg), JAggregationConfig(
+        strategy="mixed", launch_watermark=WM)).rk3_step(jst.u, jdt)
+    return np.array(jst.u), float(jdt), np.asarray(out)
+
+
+def test_eight_shards_uniform_step(jax_mixed):
+    """Child check 1: the 8-shard step is bit-equal to the port's ``mixed``
+    and within the kernel tolerance of the JAX ``mixed`` step."""
+    u0, dt, want = jax_mixed
+    u = torch.from_numpy(u0)
+    r = StrategyRunner(UniformSedovScenario(CFG), _agg(shard_devices=8),
+                       device="cpu", mesh=subgrid_mesh(8, **MESH8))
+    out = r.rk3_step(u, dt)
+    mixed = StrategyRunner(UniformSedovScenario(CFG), _agg(strategy="mixed"),
+                           device="cpu").rk3_step(u, dt)
+    assert torch.equal(out, mixed)
+    np.testing.assert_allclose(out.numpy(), want, rtol=1e-5,
+                               atol=1e-6 * float(np.abs(want).max()))
+    stats = r.executor.stats
+    assert stats["mesh"] == {"pod": 1, "data": 8}
+    assert stats["n_shards"] == 8
+    assert stats["shard_occupancy"] == [1] * 8
+    assert stats["backend_key"] == ("cpu", "cpu", "d8")
+    # 8 tasks: each shard one bucket of 1, per stage
+    assert stats["aggregated_hist"] == {1: 24}
+    assert stats["gather_copies"] == stats["scatter_copies"] == 0
+
+
+def test_eight_shards_amr_equals_reference_step(amr):
+    """Child check 2: AMR Sedov over 8 shards, bit-equal to the port's
+    per-level reference step."""
+    state, dt, _ = amr
+    ref_c, ref_f = amr_reference_step(*state, dt, AMR_CONFIG)
+    out_c, out_f = StrategyRunner(
+        AMRSedovScenario(AMR_CONFIG), _agg(), device="cpu",
+        mesh=subgrid_mesh(8, **MESH8)).rk3_step(state, dt)
+    assert torch.equal(out_c, ref_c)
+    assert torch.equal(out_f, ref_f)
+
+
+def test_eight_shards_gather_is_zero_copy_and_halo_rolls():
+    """Child checks 3 and 4: a whole range over 8 shards is one output,
+    uncopied, and ``gather_futures`` concatenates two; ``halo_exchange``
+    rolls shard blocks one step along ``data`` (``np.roll``), and along
+    ``pod`` on a 2 x 4 mesh."""
+    exe = ShardedAggregationExecutor(
+        lambda x, out=None: torch.mul(x, 3.0, out=out), config=_agg(),
+        name="zc", mesh=subgrid_mesh(8, **MESH8))
+    xs = torch.arange(64.0).reshape(16, 4)
+    f1 = exe.submit_range((xs,), 0, 16)
+    f2 = exe.submit_range((xs,), 0, 16)
+    exe.flush()
+    batch = f1._parts[0][1]
+    r1 = f1.result()
+    assert r1 is batch
+    assert exe.ghost_gather(r1) is r1
+    both = gather_futures([f1, f2])
+    assert torch.equal(both, torch.cat([xs * 3.0] * 2))
+    assert exe.stats["shard_occupancy"] == [4] * 8
+    h = torch.arange(32.0).reshape(8, 4)
+    assert np.array_equal(exe.halo_exchange(h).numpy(),
+                          np.roll(h.numpy(), 1, axis=0))
+    h2 = torch.arange(48.0).reshape(16, 3)
+    assert np.array_equal(exe.halo_exchange(h2).numpy(),
+                          np.roll(h2.numpy(), 2, axis=0))
+    exe24 = ShardedAggregationExecutor(
+        lambda x, out=None: x, config=_agg(), name="h",
+        mesh=subgrid_mesh(8, pod=2, **MESH8))
+    grid = h.numpy().reshape(2, 4, 1, 4)
+    assert np.array_equal(exe24.halo_exchange(h).numpy(),
+                          np.roll(grid, 1, axis=1).reshape(8, 4))
+    assert np.array_equal(exe24.halo_exchange(h, "pod").numpy(),
+                          np.roll(grid, 1, axis=0).reshape(8, 4))
+    with pytest.raises(KeyError, match="model"):
+        exe24.halo_exchange(h, "model")
+    with pytest.raises(ValueError, match="shard blocks"):
+        exe24.halo_exchange(torch.zeros(6, 2))
+
+
+def test_eight_shards_tenants_fill_every_shard(jax_mixed):
+    """Child check 5: 4 tenants over 8 shards equal the port's solo step
+    and fill every shard evenly, 4 x ``n_subgrids`` in all."""
+    u0, dt, _ = jax_mixed
+    u = torch.from_numpy(u0)
+    solo = StrategyRunner(UniformSedovScenario(CFG), _agg(strategy="mixed"),
+                          device="cpu").rk3_step(u, dt)
+    exe = ShardedAggregationExecutor(config=_agg(), name="tenancy",
+                                     mesh=subgrid_mesh(8, **MESH8))
+    tb = TenantBatcher(exe)
+    for tid in range(4):
+        tb.add(tid, UniformSedovScenario(CFG), u, dt)
+    merged = tb.rk3_step_all()
+    for tid in range(4):
+        assert torch.equal(merged[tid], solo)
+    occ = exe.stats["shard_occupancy"]
+    assert len(occ) == 8 and len(set(occ)) == 1 and occ[0] > 0, occ
+    assert sum(occ) == 4 * CFG.n_subgrids
+    assert tb.healthz()["shard_occupancy"] == occ
+
+
+def test_remainder_drains_on_the_primary():
+    """11 tasks over 4 shards: 2 each through the shard program, 3 through
+    the remainder's on shard 0, every task equal to the body."""
+    def body(x, out=None):
+        return torch.add(x * 2.0, 1.0, out=out)
+
+    exe = ShardedAggregationExecutor(body, config=_agg(max_aggregated=4),
+                                     name="rem",
+                                     mesh=subgrid_mesh(4, devices=["cpu"] * 4))
+    xs = torch.randn(13, 3, generator=torch.Generator().manual_seed(0))
+    fut = exe.submit_range((xs,), 1, 11)
+    exe.flush()
+    assert torch.equal(fut.result(), body(xs[1:12]))
+    (region,) = exe.regions.values()
+    reg = region.stats
+    assert reg["sharded_launches"] == 1 and reg["remainder_launches"] == 1
+    assert exe.stats["shard_occupancy"] == [5, 2, 2, 2]
+    # the shards' buckets (2 each) and the remainder's (2 + 1)
+    assert exe.stats["aggregated_hist"] == {2: 5, 1: 1}
+    assert exe.pool.launches_by_family == {"rem": 6}
+    assert {k[0] for k in region.compiled} == {"shard", "rem"}
+
+
+def test_two_devices_scatter_and_gather_in_shard_order(jax_mixed):
+    """A mesh over two devices (``cpu:0``, ``cpu:1``, interleaved): each
+    device drains its shards through its own program, and the drain copies
+    every shard back in shard order; the step equals ``mixed`` and the
+    copies are counted."""
+    u0, dt, _ = jax_mixed
+    u = torch.from_numpy(u0)
+    mesh = subgrid_mesh(4, devices=["cpu:0", "cpu:1", "cpu:0", "cpu:1"])
+    r = StrategyRunner(UniformSedovScenario(CFG), _agg(), device="cpu",
+                       mesh=mesh)
+    out = r.rk3_step(u, dt)
+    mixed = StrategyRunner(UniformSedovScenario(CFG), _agg(strategy="mixed"),
+                           device="cpu").rk3_step(u, dt)
+    assert torch.equal(out, mixed)
+    stats = r.executor.stats
+    # 3 stages x 4 shards, each one copy in and one copy out
+    assert stats["scatter_copies"] == stats["gather_copies"] == 12
+    assert stats["shard_occupancy"] == [2] * 4
+    (region,) = r.executor.regions.values()
+    (key,) = region.compiled
+    assert key[:2] == ("shard", 2)
+    drain = region.compiled[key]
+    assert [(str(d), idx) for d, idx, _ in drain.parts] == [
+        ("cpu:0", [0, 2]), ("cpu:1", [1, 3])]
+    exe = ShardedAggregationExecutor(
+        lambda x, out=None: torch.mul(x, -1.0, out=out), config=_agg(),
+        name="t", mesh=mesh)
+    xs = torch.arange(24.0).reshape(8, 3)
+    f = exe.submit_range((xs,), 0, 8)
+    exe.flush()
+    assert torch.equal(f.result(), -xs)
