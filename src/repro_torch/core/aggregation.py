@@ -88,6 +88,7 @@ from typing import (
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs.base import (
     AggregationConfig, resolve_family_option, validate_ladder,
 )
@@ -963,7 +964,7 @@ class _Region:
         :class:`~repro_torch.core.graphs.BucketProgram` on the card whose
         captures the executor's ``stats`` count."""
         return graphs.make_program(fn, self.device, stats=self._counters,
-                                   **kw)
+                                   tag=self.signature.kernel, **kw)
 
     def _prefix_program(self, bucket: int) -> Callable:
         """``(start, *parents)`` -> the body over ``[start, start+bucket)``
@@ -1069,6 +1070,8 @@ class _Region:
                 stream.wait_event(event)
         for dst, p in zip(statics, parents):
             dst.copy_(p, non_blocking=True)
+        if tracing.on():
+            tracing.add("copy_bytes", tracing.nbytes(parents))
         self._static_src[pk] = parents
         return statics
 
@@ -1978,54 +1981,57 @@ class AggregationExecutor:
         recorded for the audit at :meth:`flush`.  A compile or launch
         fault degrades the bucket (:meth:`_degrade`) instead of
         propagating."""
-        t0 = time.perf_counter()
-        fn, call_args, parents, indices = self._stage(region, tasks, k, mode)
-        self.stats["staging_s"] += time.perf_counter() - t0
-        try:
-            out, ex = self._dispatch(region, fn, call_args, k)
-        except (BucketCompileError, LaunchFaultError,
-                LaunchTimeoutError) as err:
-            self._degrade(region, tasks, k, mode, err)
-            return
-        if mode == "ring":
-            region.ring.track_read(tasks[0].slot, tasks[0].slot + k,
-                                   ex.last_event)
-        elif mode == "ref":
-            region.track_static_read(_pk(parents), ex.last_event)
-        wave_ids: List[int] = []
-        for t in tasks:
-            wave_ids.extend(range(t.wave_index, t.wave_index + t.count))
-        poisoned: Dict[int, str] = {}
-        hit = {}
-        if self._injector is not None:
-            # payload site: the matched tasks' outputs go non-finite
-            hit = self._injector.poison_positions(
-                region.signature.kernel, region.waves, wave_ids)
-            poisoned = {wave_ids[p]: m for p, m in hit.items()}
-        verdict = True
-        if hit or self._guard == "finite":
-            verdict = ex.follow(self._poison_and_check, out, hit,
-                                self._guard == "finite")
-        slot = 0
-        for t in tasks:
-            if isinstance(t.future, RangeFuture):
-                t.future._fulfil_range(out, slot, t.fut_offset, t.count)
-            else:
-                t.future._fulfil(out, slot)
-            slot += t.count
-        if self._guard == "finite":
-            self._guard_records.append(_LaunchRecord(
-                region=region, out=out, k=k, parents=parents,
-                indices=indices, tasks=list(tasks), wave_ids=wave_ids,
-                wave=region.waves, poisoned=poisoned, verdict=verdict))
-        self.stats["launches"] += 1
-        hist = self.stats["aggregated_hist"]
-        hist[k] = hist.get(k, 0) + 1
-        region.stats["launches"] += 1
-        rhist = region.stats["aggregated_hist"]
-        rhist[k] = rhist.get(k, 0) + 1
-        if degraded:
-            region.stats["faults"]["degraded_launches"] += 1
+        with tracing.span("repro_torch.agg.launch", region.signature.kernel):
+            t0 = time.perf_counter()
+            with tracing.span("repro_torch.agg.stage"):
+                fn, call_args, parents, indices = self._stage(region, tasks, k,
+                                                              mode)
+            self.stats["staging_s"] += time.perf_counter() - t0
+            try:
+                out, ex = self._dispatch(region, fn, call_args, k)
+            except (BucketCompileError, LaunchFaultError,
+                    LaunchTimeoutError) as err:
+                self._degrade(region, tasks, k, mode, err)
+                return
+            if mode == "ring":
+                region.ring.track_read(tasks[0].slot, tasks[0].slot + k,
+                                       ex.last_event)
+            elif mode == "ref":
+                region.track_static_read(_pk(parents), ex.last_event)
+            wave_ids: List[int] = []
+            for t in tasks:
+                wave_ids.extend(range(t.wave_index, t.wave_index + t.count))
+            poisoned: Dict[int, str] = {}
+            hit = {}
+            if self._injector is not None:
+                # payload site: the matched tasks' outputs go non-finite
+                hit = self._injector.poison_positions(
+                    region.signature.kernel, region.waves, wave_ids)
+                poisoned = {wave_ids[p]: m for p, m in hit.items()}
+            verdict = True
+            if hit or self._guard == "finite":
+                verdict = ex.follow(self._poison_and_check, out, hit,
+                                    self._guard == "finite")
+            slot = 0
+            for t in tasks:
+                if isinstance(t.future, RangeFuture):
+                    t.future._fulfil_range(out, slot, t.fut_offset, t.count)
+                else:
+                    t.future._fulfil(out, slot)
+                slot += t.count
+            if self._guard == "finite":
+                self._guard_records.append(_LaunchRecord(
+                    region=region, out=out, k=k, parents=parents,
+                    indices=indices, tasks=list(tasks), wave_ids=wave_ids,
+                    wave=region.waves, poisoned=poisoned, verdict=verdict))
+            self.stats["launches"] += 1
+            hist = self.stats["aggregated_hist"]
+            hist[k] = hist.get(k, 0) + 1
+            region.stats["launches"] += 1
+            rhist = region.stats["aggregated_hist"]
+            rhist[k] = rhist.get(k, 0) + 1
+            if degraded:
+                region.stats["faults"]["degraded_launches"] += 1
 
     @staticmethod
     def _poison_and_check(out: torch.Tensor, hit: Dict[int, str],
@@ -2508,19 +2514,20 @@ class AggregationExecutor:
         order: the watchdog bounds the launches' completion (before
         anything reads a result on the host), the guard reads its verdicts
         in one copy and contains what tripped, and the breakers advance."""
-        live = [r for r in self._regions.values() if r.queue]
-        while live:
-            for region in live:
-                if region.queue:
-                    self._launch(region, self._largest_bucket(
-                        region, region.queued_tasks))
-            live = [r for r in live if r.queue]
-        self.pool.join()
-        if self._watchdog_records:
-            self._enforce_watchdog()
-        if self._guard_records:
-            self._run_guard()
-        self._update_breakers()
+        with tracing.span("repro_torch.agg.flush"):
+            live = [r for r in self._regions.values() if r.queue]
+            while live:
+                for region in live:
+                    if region.queue:
+                        self._launch(region, self._largest_bucket(
+                            region, region.queued_tasks))
+                live = [r for r in live if r.queue]
+            self.pool.join()
+            if self._watchdog_records:
+                self._enforce_watchdog()
+            if self._guard_records:
+                self._run_guard()
+            self._update_breakers()
 
     def map(self, task_args: Sequence[Tuple[Any, ...]],
             kernel: Optional[str] = None) -> List[torch.Tensor]:

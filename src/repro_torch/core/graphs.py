@@ -50,6 +50,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch import tracing
+
 _KERNEL_NODE = 0           # CU_GRAPH_NODE_TYPE_KERNEL
 _CHILD_GRAPH_NODE = 4      # CU_GRAPH_NODE_TYPE_GRAPH
 
@@ -259,16 +261,19 @@ def reset_replayed_kernels() -> None:
 
 class _Site:
     """One launch site's graph: its inputs (fixed tensors held, so their
-    identity stays theirs), static outputs, kernel nodes by name and the
-    event of its last replay (with the copy out of its outputs)."""
+    identity stays theirs), static outputs, kernel nodes by name, the
+    bytes a replay copies in and out, and the event of its last replay
+    (with the copy out of its outputs)."""
 
-    __slots__ = ("graph", "inputs", "outputs", "kernels", "done")
+    __slots__ = ("graph", "inputs", "outputs", "kernels", "copy_bytes",
+                 "done")
 
-    def __init__(self, graph, inputs, outputs, kernels):
+    def __init__(self, graph, inputs, outputs, kernels, copy_bytes):
         self.graph = graph
         self.inputs = inputs
         self.outputs = outputs
         self.kernels = kernels
+        self.copy_bytes = copy_bytes
         self.done = None
 
 
@@ -299,17 +304,21 @@ class BucketProgram:
     static outputs are returned and the caller reads them before the next
     call.  Every replay adds its graph's kernel nodes to
     :func:`replayed_kernels`.  ``pool`` shares one memory pool among
-    programs that never run at once."""
+    programs that never run at once.  Each replay is a
+    ``repro_torch.graphs.replay`` span tagged with ``tag`` (a kernel
+    family), counting the bytes it copies."""
 
     def __init__(self, fn: Callable, device: torch.device, *,
                  copy_in: Any = (), copy_out: bool = True, pool=None,
-                 stats: Optional[Dict[str, Any]] = None):
+                 stats: Optional[Dict[str, Any]] = None,
+                 tag: Optional[str] = None):
         self.fn = fn
         self.device = device
         self.copy_in = copy_in
         self.copy_out = copy_out
         self.pool = pool
         self.stats = stats
+        self.tag = tag
         self.sites: Dict[Tuple, Any] = {}
 
     def _copied(self, i: int) -> bool:
@@ -348,20 +357,28 @@ class BucketProgram:
                 torch.cuda.memory_reserved(self.device) - before)
         kernels = Counter(graph_kernel_names(graph.raw_cuda_graph()))
         _CAPTURED.update({k: 2 * n for k, n in kernels.items()})
-        return _Site(graph, inputs, outputs, kernels)
+        copied = [a for i, a in enumerate(inputs)
+                  if isinstance(a, torch.Tensor) and self._copied(i)]
+        if self.copy_out:
+            copied += ([outputs] if isinstance(outputs, torch.Tensor)
+                       else list(outputs))
+        return _Site(graph, inputs, outputs, kernels, tracing.nbytes(copied))
 
     def _replay(self, site: _Site, args: Sequence):
-        stream = torch.cuda.current_stream(self.device)
-        if site.done is not None:
-            stream.wait_event(site.done)
-        for i, a in enumerate(args):
-            if isinstance(a, torch.Tensor) and self._copied(i):
-                site.inputs[i].copy_(a, non_blocking=True)
-        site.graph.replay()
-        out = self._copy_out(site.outputs) if self.copy_out else site.outputs
-        site.done = stream.record_event()
-        _REPLAYED.update(site.kernels)
-        return out
+        with tracing.span("repro_torch.graphs.replay", self.tag):
+            tracing.add("copy_bytes", site.copy_bytes)
+            stream = torch.cuda.current_stream(self.device)
+            if site.done is not None:
+                stream.wait_event(site.done)
+            for i, a in enumerate(args):
+                if isinstance(a, torch.Tensor) and self._copied(i):
+                    site.inputs[i].copy_(a, non_blocking=True)
+            site.graph.replay()
+            out = (self._copy_out(site.outputs) if self.copy_out
+                   else site.outputs)
+            site.done = stream.record_event()
+            _REPLAYED.update(site.kernels)
+            return out
 
     @staticmethod
     def _copy_out(out):

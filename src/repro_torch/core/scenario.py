@@ -26,6 +26,7 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs.base import (
     AMRHydroConfig, GravityHydroConfig, HydroConfig,
 )
@@ -456,16 +457,23 @@ class AMRSedovScenario(Scenario):
         copies of the graph's outputs, so a launch that still reads one on
         an executor's stream is safe from the next call's replay, whatever
         the strategy orders: the copy is freed only after every stream that
-        recorded it is done."""
-        if (uc.device.type != "cuda"
-                or torch.cuda.is_current_stream_capturing()):
-            return self._exchange_eager(uc, uf)
-        key = (uc.device, tuple(uc.shape), tuple(uf.shape), uc.dtype)
-        graph = self.exchange_graphs.get(key)
-        if graph is None:
-            graph = CapturedCall(self._exchange_eager, (uc, uf), uc.device)
-            self.exchange_graphs[key] = graph
-        return graph(uc, uf)
+        recorded it is done.  A ``repro_torch.scenario.exchange`` span
+        counts the bytes the graph's call copies in and out."""
+        with tracing.span("repro_torch.scenario.exchange"):
+            if (uc.device.type != "cuda"
+                    or torch.cuda.is_current_stream_capturing()):
+                return self._exchange_eager(uc, uf)
+            key = (uc.device, tuple(uc.shape), tuple(uf.shape), uc.dtype)
+            graph = self.exchange_graphs.get(key)
+            if graph is None:
+                graph = CapturedCall(self._exchange_eager, (uc, uf),
+                                     uc.device)
+                self.exchange_graphs[key] = graph
+            if tracing.on():
+                # the levels copied in, the outputs' clones out
+                tracing.add("copy_bytes", tracing.nbytes(graph.inputs)
+                            + tracing.nbytes(graph.outputs))
+            return graph(uc, uf)
 
     def populations(self, state):
         uc, uf = state

@@ -30,6 +30,7 @@ under ``guard="finite"`` a non-finite output raises
 """
 from __future__ import annotations
 
+from repro_torch import tracing
 from repro_torch.configs.base import resolve_family_option
 from repro_torch.core.aggregation import SlotView, TaskSignature
 from repro_torch.core.faults import (
@@ -92,11 +93,12 @@ class MixedStrategy(Strategy):
         futs = self._s3._submit_populations(
             exe, s3_pops, host=ctx.config.staging == "host")
         outs = [None] * len(pops)
-        for i, (pop, route) in enumerate(zip(pops, routes)):
-            if route == "s2":
-                outs[i] = self._s2.launch_population(scenario, pop, ctx)
-            elif route == "fused":
-                outs[i] = self._launch_fused(scenario, pop, ctx)
+        with tracing.span("repro_torch.agg.submit"):
+            for i, (pop, route) in enumerate(zip(pops, routes)):
+                if route == "s2":
+                    outs[i] = self._s2.launch_population(scenario, pop, ctx)
+                elif route == "fused":
+                    outs[i] = self._launch_fused(scenario, pop, ctx)
         for i, out in zip(s3_idx, self._s3._drain(scenario, exe, s3_pops,
                                                   futs)):
             outs[i] = out
@@ -161,14 +163,19 @@ class MixedStrategy(Strategy):
 
     # -- strategy protocol -------------------------------------------------
     def run_iteration(self, scenario, state, ctx: RunContext):
-        pops = scenario.populations(state)
-        return scenario.assemble(state, self._run_wave(scenario, pops, ctx))
+        with tracing.span("repro_torch.scenario.populations"):
+            pops = scenario.populations(state)
+        outs = self._run_wave(scenario, pops, ctx)
+        with tracing.span("repro_torch.scenario.assemble"):
+            return scenario.assemble(state, outs)
 
     def run_stage(self, scenario, u0, v, dt, c0, c1, ctx: RunContext):
         if ctx.config.staging == "host":
             return None                  # the baseline stays per task
-        pops = scenario.stage_populations(u0, v, dt, c0, c1)
+        with tracing.span("repro_torch.scenario.populations"):
+            pops = scenario.stage_populations(u0, v, dt, c0, c1)
         if pops is None:
             return None
         outs = self._run_wave(scenario, pops, ctx)
-        return scenario.assemble_stage(v, outs, dt, c0, c1)
+        with tracing.span("repro_torch.scenario.assemble"):
+            return scenario.assemble_stage(v, outs, dt, c0, c1)

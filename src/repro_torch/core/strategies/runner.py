@@ -37,6 +37,7 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.checkpoint.ckpt import (
     latest_step, restore_checkpoint, save_checkpoint,
 )
@@ -228,7 +229,9 @@ class StrategyRunner:
     def rhs(self, state):
         self._check_state(state)
         self.stats["iterations"] += 1
-        out = self._strategy.run_iteration(self.scenario, state, self.ctx)
+        with tracing.span("repro_torch.stage"):
+            out = self._strategy.run_iteration(self.scenario, state,
+                                               self.ctx)
         if self.agg.guard == "finite" and self._agg_exec is None:
             # executor-less strategies have no per-bucket containment: the
             # guard is a whole-iteration tripwire (one host read)
@@ -247,11 +250,16 @@ class StrategyRunner:
         ``rk3_step`` and ``amr_rk3_step``), or through the fused stages.
         ``dt`` is a float or a 0-dim tensor (e.g. ``courant_dt``'s, which
         stays on the device)."""
-        if self._fuse_epilogue:
-            out = self._rk3_step_fused_stages(state, dt)
-            if out is not None:
-                return out
-        return self.scenario.finalize_step(shu_osher(self.rhs, state, dt))
+        with tracing.span("repro_torch.rk3_step"):
+            if self._fuse_epilogue:
+                out = self._rk3_step_fused_stages(state, dt)
+                if out is not None:
+                    return out
+            return self._finalize(shu_osher(self.rhs, state, dt))
+
+    def _finalize(self, state):
+        with tracing.span("repro_torch.scenario.assemble"):
+            return self.scenario.finalize_step(state)
 
     def _rk3_step_fused_stages(self, state, dt):
         """RK3 through the epilogue-fused stage path: each Shu-Osher stage
@@ -259,16 +267,21 @@ class StrategyRunner:
         and the stage update in one launch per bucket.  Returns None (the
         generic path follows) when the strategy's ``run_stage`` declines."""
         self._check_state(state)
-        stage = self._strategy.run_stage
         sc = self.scenario
-        u1 = stage(sc, state, state, dt, 0.0, 1.0, self.ctx)
+
+        def stage(v, c0, c1):
+            with tracing.span("repro_torch.stage"):
+                return self._strategy.run_stage(sc, state, v, dt, c0, c1,
+                                                self.ctx)
+
+        u1 = stage(state, 0.0, 1.0)
         if u1 is None:
             self._fuse_epilogue = False
             return None
-        u2 = stage(sc, state, u1, dt, 0.75, 0.25, self.ctx)
-        out = stage(sc, state, u2, dt, 1.0 / 3.0, 2.0 / 3.0, self.ctx)
+        u2 = stage(u1, 0.75, 0.25)
+        out = stage(u2, 1.0 / 3.0, 2.0 / 3.0)
         self.stats["iterations"] += 3
-        return sc.finalize_step(out)
+        return self._finalize(out)
 
     # -- whole trajectories ------------------------------------------------
     def _trajectory_impl(self, n_steps: int, state, dt):

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.aggregation import gather_futures
 from repro_torch.core.faults import LaunchTimeoutError, TaskFailedError
 from repro_torch.core.strategies.base import (
@@ -38,31 +39,32 @@ class S3Strategy(Strategy):
         """One wave: a range per population (device staging), or one
         submission per task, round-robin across kernel families (host
         staging)."""
-        futs = [[] for _ in pops]
-        if not host:
+        with tracing.span("repro_torch.agg.submit"):
+            futs = [[] for _ in pops]
+            if not host:
+                for pi, pop in enumerate(pops):
+                    if pop.n_tasks:
+                        futs[pi].append(pop.submit_to(exe))
+                return futs
+            # each family's populations as one ordered task list, then one
+            # submission per family per turn
+            lanes = {}
             for pi, pop in enumerate(pops):
-                if pop.n_tasks:
-                    futs[pi].append(pop.submit_to(exe))
+                lanes.setdefault(pop.kernel, []).extend(
+                    (pi, pop, i) for i in range(pop.n_tasks))
+            cursors = [iter(lane) for lane in lanes.values()]
+            while cursors:
+                live = []
+                for cur in cursors:
+                    nxt = next(cur, None)
+                    if nxt is None:
+                        continue
+                    pi, pop, i = nxt
+                    futs[pi].append(exe.submit(
+                        *(par[i] for par in pop.parents), kernel=pop.kernel))
+                    live.append(cur)
+                cursors = live
             return futs
-        # each family's populations as one ordered task list, then one
-        # submission per family per turn
-        lanes = {}
-        for pi, pop in enumerate(pops):
-            lanes.setdefault(pop.kernel, []).extend(
-                (pi, pop, i) for i in range(pop.n_tasks))
-        cursors = [iter(lane) for lane in lanes.values()]
-        while cursors:
-            live = []
-            for cur in cursors:
-                nxt = next(cur, None)
-                if nxt is None:
-                    continue
-                pi, pop, i = nxt
-                futs[pi].append(exe.submit(
-                    *(par[i] for par in pop.parents), kernel=pop.kernel))
-                live.append(cur)
-            cursors = live
-        return futs
 
     @staticmethod
     def _drain(scenario, exe, pops, futs):
@@ -79,25 +81,28 @@ class S3Strategy(Strategy):
             raise LaunchTimeoutError(
                 f"watchdog timeout while draining wave of families "
                 f"{fams}: {err}") from err
-        outs = []
-        for pop, f in zip(pops, futs):
-            if f:
-                try:
-                    outs.append(gather_futures(f))
-                except TaskFailedError as err:
-                    what = ", ".join(
-                        scenario.describe_task(pop.kernel, tid)
-                        for tid in err.task_ids) or "unknown task"
-                    raise TaskFailedError(
-                        f"{what} failed during aggregated execution: {err}",
-                        task_ids=err.task_ids, kernel=pop.kernel) from err
-                continue
-            body = scenario.family(pop.kernel).batched_body
-            spec = body(*(torch.empty(p.shape, dtype=p.dtype, device="meta")
-                          for p in pop.parents))
-            outs.append(torch.empty(spec.shape, dtype=spec.dtype,
-                                    device=pop.parents[0].device))
-        return outs
+        with tracing.span("repro_torch.agg.gather"):
+            outs = []
+            for pop, f in zip(pops, futs):
+                if f:
+                    try:
+                        outs.append(gather_futures(f))
+                    except TaskFailedError as err:
+                        what = ", ".join(
+                            scenario.describe_task(pop.kernel, tid)
+                            for tid in err.task_ids) or "unknown task"
+                        raise TaskFailedError(
+                            f"{what} failed during aggregated execution: "
+                            f"{err}", task_ids=err.task_ids,
+                            kernel=pop.kernel) from err
+                    continue
+                body = scenario.family(pop.kernel).batched_body
+                spec = body(*(torch.empty(p.shape, dtype=p.dtype,
+                                          device="meta")
+                              for p in pop.parents))
+                outs.append(torch.empty(spec.shape, dtype=spec.dtype,
+                                        device=pop.parents[0].device))
+            return outs
 
     def _wave(self, scenario, pops, ctx: RunContext, host: bool):
         exe = ctx.executor
@@ -111,15 +116,20 @@ class S3Strategy(Strategy):
         return outs
 
     def run_iteration(self, scenario, state, ctx: RunContext):
-        outs = self._wave(scenario, scenario.populations(state), ctx,
+        with tracing.span("repro_torch.scenario.populations"):
+            pops = scenario.populations(state)
+        outs = self._wave(scenario, pops, ctx,
                           host=ctx.config.staging == "host")
-        return scenario.assemble(state, outs)
+        with tracing.span("repro_torch.scenario.assemble"):
+            return scenario.assemble(state, outs)
 
     def run_stage(self, scenario, u0, v, dt, c0, c1, ctx: RunContext):
         if ctx.config.staging == "host":
             return None                  # the baseline stays per task
-        pops = scenario.stage_populations(u0, v, dt, c0, c1)
+        with tracing.span("repro_torch.scenario.populations"):
+            pops = scenario.stage_populations(u0, v, dt, c0, c1)
         if pops is None:
             return None
         outs = self._wave(scenario, pops, ctx, host=False)
-        return scenario.assemble_stage(v, outs, dt, c0, c1)
+        with tracing.span("repro_torch.scenario.assemble"):
+            return scenario.assemble_stage(v, outs, dt, c0, c1)

@@ -15,6 +15,7 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs.base import AMRHydroConfig, HydroConfig
 from repro_torch.hydro.euler import max_signal_speed
 from repro_torch.hydro.flux import flux_divergence
@@ -108,9 +109,10 @@ def rk3_trajectory(u: torch.Tensor, dt, cfg: HydroConfig, n_steps: int,
 def courant_dt(u: torch.Tensor, cfg: HydroConfig) -> torch.Tensor:
     """Courant time step as a 0-dim tensor on ``u``'s device (no host
     sync)."""
-    h = cfg.domain / u.shape[-1]
-    speed = max_signal_speed(u, cfg.gamma)
-    return torch.div(torch.full_like(speed, cfg.cfl * h), speed)
+    with tracing.span("repro_torch.courant_dt"):
+        h = cfg.domain / u.shape[-1]
+        speed = max_signal_speed(u, cfg.gamma)
+        return torch.div(torch.full_like(speed, cfg.cfl * h), speed)
 
 
 def total_conserved(u: torch.Tensor, h: float) -> torch.Tensor:
@@ -212,11 +214,12 @@ def amr_courant_dt(uc: torch.Tensor, uf: torch.Tensor,
                    cfg: AMRHydroConfig) -> torch.Tensor:
     """Shared two-level Courant dt (the fine level is the binding one), as
     a 0-dim tensor on the levels' device (no host sync)."""
-    sc = max_signal_speed(uc, cfg.gamma)
-    sf = max_signal_speed(uf, cfg.gamma)
-    return cfg.cfl * torch.minimum(
-        torch.div(torch.full_like(sc, cfg.h_coarse), sc),
-        torch.div(torch.full_like(sf, cfg.h_fine), sf))
+    with tracing.span("repro_torch.courant_dt"):
+        sc = max_signal_speed(uc, cfg.gamma)
+        sf = max_signal_speed(uf, cfg.gamma)
+        return cfg.cfl * torch.minimum(
+            torch.div(torch.full_like(sc, cfg.h_coarse), sc),
+            torch.div(torch.full_like(sf, cfg.h_fine), sf))
 
 
 def amr_run(state: AMRState, cfg: AMRHydroConfig, n_steps: int,

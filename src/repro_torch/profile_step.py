@@ -12,12 +12,12 @@ with 4 streams, s3 cap 32 under host staging, and s3 cap 32 and s2+s3 4 x
 32 through the epilogue-fused stages) it warms up, times 3 RK3
 steps on the host clock (synchronised), then profiles the same steps with
 ``torch.profiler`` and prints the host operations with the most self CPU
-time, the kernels with the most device time, the device time summed over
-kernels and copies, and the device's idle share of the step (1 - device
-busy / wall; kernels that overlap on several streams count once each, so
-the share is a lower bound there), with the host's enqueue time per step
-(the executors' ``dispatch_s``) and the bucket-program captures the row
-made.  The fused trajectory row runs the 3 steps as one
+time, the kernels with the most device time, the device's busy time (the
+union of every kernel, copy and fill interval over all streams, so
+kernels that overlap on several streams count once), and the device's
+idle share of the step (1 - device busy / wall), with the host's enqueue
+time per step (the executors' ``dispatch_s``) and the bucket-program
+captures the row made.  The fused trajectory row runs the 3 steps as one
 ``rk3_trajectory`` call, one CUDA graph replay (captured before the
 timing).
 
@@ -65,6 +65,7 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from repro_torch import tracing
 from repro_torch.configs.base import (
     AggregationConfig, AMRHydroConfig, GravityHydroConfig,
 )
@@ -104,6 +105,12 @@ def _on_device(evt) -> bool:
     """A kernel or memcpy on the card (an aten op's own event carries its
     kernels' time too, so summing every event would count it twice)."""
     return getattr(evt, "device_type", None) == torch.autograd.DeviceType.CUDA
+
+
+def _busy_ms(prof, steps: int) -> float:
+    """Device busy ms per step: the union of the profile's device
+    intervals over all streams."""
+    return tracing.union_ns(tracing.device_intervals(prof)) / 1e6 / steps
 
 
 def _device_us(evt) -> float:
@@ -175,7 +182,7 @@ def profile_row(scenario, u0, dt, agg, steps, dev, trajectory=False):
         prof_wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     events = prof.key_averages()
     kernels = [e for e in events if _on_device(e)]
-    device_ms = sum(_device_us(e) for e in kernels) / 1e3 / steps
+    device_ms = _busy_ms(prof, steps)
     host = sorted((e for e in events if not _on_device(e)),
                   key=lambda e: e.self_cpu_time_total, reverse=True)[:TOP]
     device = sorted(kernels, key=_device_us, reverse=True)[:TOP]
@@ -256,7 +263,7 @@ def profile_serve(layers: int, steps: int, dev) -> dict:
             prof_wall_ms = (time.perf_counter() - t0) * 1e3 / steps
         events = prof.key_averages()
         kernels = [e for e in events if _on_device(e)]
-        busy_ms = sum(_device_us(e) for e in kernels) / 1e3 / steps
+        busy_ms = _busy_ms(prof, steps)
         ours = {}
         for op, names in SERVE_KERNELS.items():
             hits = [e for e in kernels if any(n in e.key for n in names)]
@@ -395,10 +402,7 @@ def profile_families(dev) -> dict:
                 for _ in range(FAMILY_STEPS):
                     eng.step()
                 torch.cuda.synchronize(dev)
-            busy = sum(e.duration_ns() for e in
-                       prof.profiler.kineto_results.events()
-                       if e.device_type() == torch.autograd.DeviceType.CUDA
-                       ) / 1e6 / FAMILY_STEPS
+            busy = _busy_ms(prof, FAMILY_STEPS)
             rows[bucket] = dict(host_ms=wall, busy_ms=busy,
                                 idle_share=max(0.0, 1.0 - busy / wall),
                                 captures=eng.stats.get("captures", 0))

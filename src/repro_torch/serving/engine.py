@@ -62,8 +62,8 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from repro_torch import tracing
 from repro_torch.configs.base import AggregationConfig
 from repro_torch.core import graphs
 from repro_torch.core.faults import FaultInjector, poison_slots
@@ -78,7 +78,7 @@ def _gather(cache: Dict[str, torch.Tensor],
     """The bucket's slots of every cache leaf (``len`` along axis 0, the
     rest along axis 1), as a cache of its own (copies: ``decode_step``
     writes into them)."""
-    with record_function("serving.gather"):
+    with tracing.span("repro_torch.serving.gather"):
         return {name: t.index_select(0 if name == "len" else 1, slot_idx)
                 for name, t in cache.items()}
 
@@ -89,7 +89,7 @@ def _scatter(cache: Dict[str, torch.Tensor], slot_idx: torch.Tensor,
     ``decode_step`` writes (the cross K and V it only reads stay).  Pad
     lanes all name the same spare slot, so that slot receives one of them
     (any one: admission resets it)."""
-    with record_function("serving.scatter"):
+    with tracing.span("repro_torch.serving.scatter"):
         cache["len"][slot_idx] = sub["len"]
         for name, t in sub.items():
             if name != "len" and name not in model_mod.CROSS_LEAVES:
