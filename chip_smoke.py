@@ -5,8 +5,8 @@
 
 1. Prints the card's name and power limit, then builds the hand-written
    CUDA kernels ``src/repro_torch/csrc/{hydro_rhs,gravity,hydro_split,
-   hydro_rhs_lane,decode_attention,grouped_gemm}.cu`` with nvcc for
-   sm_90a, all six at once.
+   hydro_rhs_lane,decode_attention,grouped_gemm,extract}.cu`` with nvcc
+   for sm_90a, all seven at once.
 2. Holds the fused hydro kernel (one thread-block cluster per slot)
    against its plain PyTorch version on the card, with atol scaled per slot
    and field: on the main path's own input (the Sedov IC's 512 padded
@@ -30,8 +30,16 @@
 3. Drives the main path — uniform Sedov ``CONFIG`` (512 sub-grids of 8^3)
    stepped by TVD-RK3 through ``StrategyRunner`` — under ``fused``, ``s3``
    (caps 32 and 512) and ``s2+s3`` (4 streams, cap 32), counting the
-   kernel's launches in each run; every strategy must equal ``fused`` bit
-   for bit and agree with the plain PyTorch path on the card.
+   kernel's launches in each run, and the extraction kernel's (one a
+   stage) and the parents copied into static ones (none: each stage's
+   population is written in place); every strategy must equal ``fused``
+   bit for bit and agree with the plain PyTorch path on the card.  Then
+   the sub-grid extraction kernel against its plain version, bit for bit,
+   at the benchmark cells' shapes (4,096 and 32,768 slots of 14^3, both
+   levels of the two-level c16 exchange) and where each thread stores its
+   own elements (15^3, 5^3 interiors), each timed against its plain
+   version and its bound; the c16 scenario under ``s3`` cap 512 launches
+   it 6 times a step and copies no parent.
 4. Holds the gravity kernel and the split pair (Reconstruct, Flux) against
    their plain versions at 512 slots of the Sedov IC and on random slots,
    and times each against its plain version and its bound, 512 slots back
@@ -748,6 +756,7 @@ def phase_main_path(cfg, dev, steps, results):
     from repro_torch.core.aggregation import greedy_decomposition
     from repro_torch.hydro.state import sedov_init
     from repro_torch.hydro.stepper import courant_dt, total_conserved
+    from repro_torch.kernels import extract as ext
     from repro_torch.kernels import hydro_rhs as kern
     from repro_torch.kernels.hydro_rhs import hydro_rhs_plain
 
@@ -783,8 +792,11 @@ def phase_main_path(cfg, dev, steps, results):
         per_stage = (1 if agg.strategy == "fused" else len(
             greedy_decomposition(cfg.n_subgrids, agg.bucket_sizes())))
         before = runner.stats["kernel_launches"]
+        exe = runner.executor
+        copies0 = exe.stats["static_parent_copies"] if exe else 0
         sync()
         zero_launch_counts()                       # the main path's count
+        ext.extract_cuda.launches = 0
         t0 = time.perf_counter()
         u = u0
         for dt in dts:
@@ -792,18 +804,29 @@ def phase_main_path(cfg, dev, steps, results):
         sync()
         wall = time.perf_counter() - t0
         launches = kernel_launches(kern.hydro_rhs_cuda)
+        extracts = ext.extract_cuda.launches
+        copies = (exe.stats["static_parent_copies"] - copies0 if exe
+                  else 0)
         path_launches = runner.stats["kernel_launches"] - before
         print(f"main path {label}: {wall / steps * 1e3:.3f} ms/step, "
               f"{path_launches / steps:g} launches/step, hydro_rhs kernel "
-              f"launches {launches} over {steps} steps", flush=True)
+              f"launches {launches}, extraction kernel launches {extracts}, "
+              f"parents copied into static ones {copies} over {steps} "
+              f"steps", flush=True)
         check(launches > 0, f"{label}: the kernel was never launched")
         check(launches == path_launches == 3 * steps * per_stage,
               f"{label}: kernel launches {launches}, runner {path_launches},"
               f" greedy decomposition {3 * steps * per_stage}")
+        check(extracts == 3 * steps, f"{label}: extraction kernel launches "
+              f"{extracts}, want one a stage ({3 * steps})")
+        check(copies == 0, f"{label}: {copies} parents copied into static "
+              f"ones: a population was not written in place")
         outs[label] = u
         rows[label] = dict(ms_per_step=wall / steps * 1e3,
                            launches_per_step=path_launches / steps,
-                           kernel_launches=launches)
+                           kernel_launches=launches,
+                           extract_launches=extracts,
+                           static_parent_copies=copies)
 
     fused = outs["fused"]
     for label, u in outs.items():
@@ -827,6 +850,134 @@ def phase_main_path(cfg, dev, steps, results):
                                 mass_drift=mass, energy_drift=energy)
     results["kernel"]["launches"] = rows["s3 cap 32"]["kernel_launches"]
     return dts, fused
+
+
+# ---------------------------------------------------------------------------
+# the sub-grid extraction kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def same_bits(a, b):
+    """Equal shapes, dtypes and bytes (NaN included)."""
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(a.contiguous().view(torch.uint8),
+                            b.contiguous().view(torch.uint8)))
+
+
+def extract_level(n, seed, dev):
+    """A random (5, n, n, n) fp32 level on the card."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn((5, n, n, n), generator=g, device=dev)
+
+
+def phase_extract_kernel(dev, card, results):
+    """The sub-grid extraction kernel (``csrc/extract.cu``) against its
+    plain version (``F.pad`` and ``unfold``) bit for bit, allocating and
+    into a caller's ``out``, at the benchmark cells' shapes: 4,096 and
+    32,768 slots of 14^3 (128^3 and 256^3 levels, outflow; 128^3 also
+    periodic), both levels of the two-level c16 exchange (the coarse
+    128^3 level after restriction, outflow, and the fine 134^3 level after
+    its ghosts are prolongated, padded) and, where each thread stores its
+    own elements, 15^3 (512 slots of 9^3, ghost 3) and 5^3 (512 interiors
+    of 5^3).  Each timed by graph replay against its plain version and its
+    bound: the bytes written plus the level read once, over HBM bandwidth.
+    Then the c16 scenario under ``s3`` cap 512 on the card: one step
+    launches the kernel 6 times (each stage's exchange graph holds 2
+    extraction nodes) and copies no parent into a static one."""
+    from repro_torch.configs.base import AggregationConfig, AMRHydroConfig
+    from repro_torch.core import AMRSedovScenario, StrategyRunner
+    from repro_torch.hydro.state import (
+        _fine_fill_ghosts, amr_sedov_init, sync_coarse,
+    )
+    from repro_torch.hydro.stepper import amr_courant_dt
+    from repro_torch.kernels import extract as ext
+
+    acfg = AMRHydroConfig(name="amr_sedov_c16", coarse_grids_per_edge=16,
+                          cover=64)
+    st = amr_sedov_init(acfg, device=dev)
+    ucs = sync_coarse(st.uc, st.uf, acfg)
+    cases = (("l4 128^3 outflow", extract_level(128, 1, dev), 8, 3,
+              "outflow"),
+             ("l4 128^3 periodic", extract_level(128, 2, dev), 8, 3,
+              "periodic"),
+             ("l5 256^3 outflow", extract_level(256, 3, dev), 8, 3,
+              "outflow"),
+             ("c16 coarse 128^3 outflow", ucs, acfg.coarse_subgrid,
+              acfg.ghost, "outflow"),
+             ("c16 fine 134^3 padded", _fine_fill_ghosts(ucs, st.uf, acfg),
+              acfg.fine_subgrid, acfg.ghost, "padded"),
+             ("15^3 per element", extract_level(72, 4, dev), 9, 3,
+              "outflow"),
+             ("5^3 interiors per element", extract_level(40, 5, dev), 5, 0,
+              "outflow"))
+    rows = {}
+    for label, src, s, g, boundary in cases:
+        want = ext.extract_plain(src, s, g, boundary)
+        got = ext.extract_cuda(src, s, g, boundary)
+        out = torch.full_like(want, float("nan"))
+        ext.extract_cuda(src, s, g, boundary, out=out)
+        check(same_bits(got, want) and same_bits(out, want),
+              f"extract {label}: the kernel differs from its plain version")
+        ms = time_graph_ms(
+            lambda: ext.extract_cuda(src, s, g, boundary, out=out), reps=20)
+        plain_ms = time_cuda_ms(
+            lambda: ext.extract_plain(src, s, g, boundary, out=out), reps=5,
+            warm=1)
+        n_bytes = (out.numel() + src.numel()) * out.element_size()
+        b_ms, b_by = bound_ms(n_bytes, 0)
+        rows[label] = dict(slots=out.shape[0], p=out.shape[-1], ms=ms,
+                           plain_ms=plain_ms, bound_ms=b_ms, bytes=n_bytes,
+                           written_tb_per_s=out.numel() * out.element_size()
+                           / (ms * 1e-3) / 1e12)
+        print(f"extract ({card}): {label}, {out.shape[0]} slots of "
+              f"{out.shape[-1]}^3: bit-equal to the plain version, "
+              f"allocating and into out=; {ms:.4f} ms (graph replay), plain "
+              f"version {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}: "
+              f"{n_bytes / 1e6:.1f} MB), {ms / b_ms:.2f}x its bound, "
+              f"{rows[label]['written_tb_per_s']:.2f} TB/s written",
+              flush=True)
+        del want, got, out
+    del cases, ucs
+
+    # the c16 exchange on its path: launches per step, no parent copied
+    sc = AMRSedovScenario(acfg)
+    runner = StrategyRunner(sc, AggregationConfig(strategy="s3",
+                                                  max_aggregated=512),
+                            device=dev)
+    runner.warmup()
+    state = (st.uc, st.uf)
+    dt = amr_courant_dt(st.uc, st.uf, acfg)
+    state = runner.rk3_step(state, dt)           # one untimed step
+    sync()
+    calls = []
+    exchange = sc.exchange
+    sc.exchange = lambda *a, **kw: (calls.append(1), exchange(*a, **kw))[1]
+    copies0 = runner.executor.stats["static_parent_copies"]
+    ext.extract_cuda.launches = 0
+    runner.rk3_step(state, dt)
+    sync()
+    # every exchange graph (one per state shape and output pair) holds
+    # the same nodes
+    (nodes,) = {sum("extract_kernel" in k for k in g.kernel_names())
+                for g in sc.exchange_graphs.values()}
+    launches = ext.extract_cuda.launches + len(calls) * nodes
+    copies = runner.executor.stats["static_parent_copies"] - copies0
+    print(f"extract ({card}): c16 under s3 cap 512, one step: "
+          f"{len(calls)} exchanges of {nodes} extraction nodes, "
+          f"{ext.extract_cuda.launches} eager launches: {launches} "
+          f"launches; {copies} parents copied into static ones", flush=True)
+    check(ext.extract_cuda.launches == 0 and nodes == 2 and launches == 6,
+          f"extract c16: {launches} launches a step, want 6")
+    check(copies == 0, f"extract c16: {copies} parents copied a step")
+    del runner, sc, st, state
+    first = rows["l4 128^3 outflow"]
+    results["extract_kernel"] = dict(
+        name="extract", route="cuda", source="src/repro_torch/csrc/extract.cu",
+        replaces="src/repro/hydro/state.py:96 (jnp.pad and XLA's gather; no "
+                 "TPU kernel)",
+        max_abs_err=0.0, ms=first["ms"], plain_ms=first["plain_ms"],
+        bound_ms=first["bound_ms"], bound_by="bytes", library_ms=None)
+    results["extract_detail"] = dict(rows=rows, c16_launches_per_step=launches,
+                                     c16_static_parent_copies=copies)
 
 
 # ---------------------------------------------------------------------------
@@ -2186,9 +2337,10 @@ def phase_bucket_graphs(cfg, cfg16, gcfg, acfg, dev, card, dts, results):
               flush=True)
         table[label] = dict(graphs=row, eager=eager)
 
-    # what the graphs add on the device, on the main path: a wave's
-    # population written into its region's static parent (one device
-    # copy), and a cap-32 bucket's output copied out of its graph
+    # what the graphs add on the device: a population copied into its
+    # region's static parent (one device copy; the main path's is written
+    # there in place, a second family reading it, as gravity's, copies
+    # it), and a cap-32 bucket's output copied out of its graph
     u0 = sedov_init(cfg, device=dev).u
     (pop,) = UniformSedovScenario(cfg).populations(u0)
     subs = pop.parents[0]
@@ -5732,6 +5884,7 @@ def main(argv=None):
     from repro_torch.configs.sedov import CONFIG, CONFIG_16
     from repro_torch.kernels import _build
     from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import extract as ext
     from repro_torch.kernels import gravity as grav
     from repro_torch.kernels import grouped_gemm as gg
     from repro_torch.kernels import hydro_rhs as kern
@@ -5749,7 +5902,8 @@ def main(argv=None):
     t0 = time.perf_counter()
     libs = {"hydro_rhs": kern.build, "gravity": grav.build,
             "hydro_split": split.build, "hydro_rhs_lane": kern.build_lane,
-            "decode_attention": da.build, "grouped_gemm": gg.build}
+            "decode_attention": da.build, "grouped_gemm": gg.build,
+            "extract": ext.build}
     with ThreadPoolExecutor(len(libs)) as pool:
         for fut in [pool.submit(build) for build in libs.values()]:
             fut.result()
@@ -5770,6 +5924,7 @@ def main(argv=None):
     phase_kernel(CONFIG, dev, results)
     phase_kernel_16(CONFIG_16, dev, results)
     dts, fused_kernel_path = phase_main_path(CONFIG, dev, STEPS, results)
+    phase_extract_kernel(dev, card, results)
 
     gravity_512 = GravityHydroConfig(name="gravity_sedov_512", hydro=CONFIG)
     phase_gravity_kernel(gravity_512, dev, results)
@@ -5887,7 +6042,8 @@ def main(argv=None):
     entries = [results["kernel"], results["gravity_kernel"],
                results["reconstruct_kernel"], results["flux_kernel"],
                results["lane_kernel"], results["decode_attention_kernel"],
-               results["grouped_gemm_kernel"], results["kernel_16"]]
+               results["grouped_gemm_kernel"], results["kernel_16"],
+               results["extract_kernel"]]
     entries[1]["launches"] = \
         path_a["s3 cap 32"]["kernel_launches"]["gravity_cuda"]
     entries[2]["launches"] = \
@@ -5898,6 +6054,8 @@ def main(argv=None):
         "s3 cap 32"]["kernel_launches"]["hydro_rhs_lane_cuda"]
     entries[7]["launches"] = \
         path_d16["s3 cap 32"]["kernel_launches"]["hydro_rhs_cuda"]
+    entries[8]["launches"] = \
+        results["main_path"]["runs"]["s3 cap 32"]["extract_launches"]
     results["seconds"] = time.perf_counter() - t_start
     print(f"chip_smoke: every phase passed in {results['seconds']:.1f} s, "
           f"the builds included", flush=True)
@@ -5916,8 +6074,10 @@ def main(argv=None):
           f"src/repro_torch/csrc/decode_attention.cu, replaces "
           f"src/repro/kernels/decode_attention.py:28, the serving path); "
           f"grouped_gemm (cuda, src/repro_torch/csrc/grouped_gemm.cu, "
-          f"replaces src/repro/kernels/grouped_gemm.py:30, the serving path)",
-          flush=True)
+          f"replaces src/repro/kernels/grouped_gemm.py:30, the serving path);"
+          f" extract (cuda, src/repro_torch/csrc/extract.cu, replaces "
+          f"src/repro/hydro/state.py:96's pad and gather, no TPU kernel, "
+          f"every scenario's extraction on the card)", flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

@@ -66,10 +66,13 @@ and dropped by ``reset_compiled`` when a re-sweep changes the inner chunk.
 On the CPU each entry is the eager callable; on the card a
 :class:`~repro_torch.core.graphs.BucketProgram`, one CUDA graph per slot
 offset and input buffer, so a bucket launch is a graph replay.  A graph
-reads its inputs where they are: the slot ring's two buffers, or the
-region's static parent for ``pk``, into which a wave's parents are copied
-once, at its first launch (a by-reference population is a new tensor
-every stage).
+reads its inputs where they are: the slot ring's two buffers, or a static
+parent set of the region for ``pk``.  A population written in place
+(:meth:`AggregationExecutor.population_buffers`: the scenario extracts
+straight into the static parents) is read there as it is; any other
+by-reference parent set is copied into the ``pk``'s first static set
+once, at its first launch (``stats["static_parent_copies"]`` counts the
+copies).
 
 ``make_s2_scatter`` builds the ``s2`` strategy's per-task launch.
 """
@@ -313,10 +316,16 @@ class SlotView:
         self.index = index
 
 
+def _slot_spec(shape: Sequence[int], dtype: torch.dtype
+               ) -> Tuple[Tuple[int, ...], str]:
+    """(per-task shape, dtype name) of a slot of a parent of ``shape``."""
+    return tuple(shape[1:]), str(dtype)
+
+
 def _spec_of(a: Any) -> Tuple[Tuple[int, ...], str]:
     """(per-task shape, dtype name) of one task argument."""
     if isinstance(a, SlotView):
-        return tuple(a.parent.shape[1:]), str(a.parent.dtype)
+        return _slot_spec(a.parent.shape, a.parent.dtype)
     return tuple(a.shape), str(a.dtype)
 
 
@@ -332,6 +341,15 @@ class TaskSignature:
     @classmethod
     def from_args(cls, kernel: str, args: Sequence[Any]) -> "TaskSignature":
         return cls(kernel, tuple(_spec_of(a) for a in args))
+
+    @classmethod
+    def from_parents(cls, kernel: str,
+                     specs: Sequence[Tuple[Tuple[int, ...], torch.dtype]]
+                     ) -> "TaskSignature":
+        """The signature of tasks that are slots of parents of these
+        ``(shape, dtype)``, as :meth:`from_args` gives it for their
+        views."""
+        return cls(kernel, tuple(_slot_spec(*spec) for spec in specs))
 
     def describe(self) -> str:
         """Unique readable key: shapes, with the dtype appended unless it
@@ -818,6 +836,13 @@ def _pk(parents: Sequence[Any]) -> Tuple[Tuple[int, ...], ...]:
                  else tuple(p[0]) for p in parents)
 
 
+def _specs(parents: Sequence[Any]) -> Tuple[Tuple[Tuple[int, ...],
+                                                 torch.dtype], ...]:
+    """``(shape, dtype)`` of each parent, given as a tensor or as itself."""
+    return tuple((tuple(p.shape), p.dtype) if isinstance(p, torch.Tensor)
+                 else (tuple(p[0]), p[1]) for p in parents)
+
+
 def _greedy_sites(n: int, buckets: Sequence[int]) -> List[Tuple[int, int]]:
     """The (slot offset, bucket) of every launch of the greedy drain of an
     ``n``-slot range starting at slot 0."""
@@ -856,7 +881,7 @@ class _Region:
                  "_breaker_mark", "_breaker_open_waves", "compiled",
                  "host_jit", "gather_jit", "device", "_counters",
                  "_graphs", "ring_staged", "_statics", "_static_src",
-                 "_static_readers")
+                 "_static_readers", "_static_held", "_static_ids")
 
     def __init__(self, signature: TaskSignature, batched_fn: Callable,
                  buckets: Tuple[int, ...], chunk: int = 0,
@@ -899,9 +924,16 @@ class _Region:
         self._graphs = isinstance(graphs.make_program(self.eval, device),
                                   graphs.BucketProgram)
         self.ring_staged = False          # a ring program was filed
+        # (pk, slot) -> a static parent set, the parents last copied into
+        # it in this wave, the events of the launches still reading it, and
+        # the tensors whose values its positions hold (``write_in_place``)
         self._statics: Dict[Tuple, Tuple[torch.Tensor, ...]] = {}
         self._static_src: Dict[Tuple, Tuple[torch.Tensor, ...]] = {}
         self._static_readers: Dict[Tuple, List[Any]] = {}
+        self._static_held: Dict[Tuple, Dict[int, torch.Tensor]] = {}
+        # the ids of each static set's tensors -> its key (the sets live as
+        # long as the region, so no id is reused while it is a key here)
+        self._static_ids: Dict[Tuple[int, ...], Tuple] = {}
         self.reset_compiled()
         self.stats = {"submitted": 0, "launches": 0, "aggregated_hist": {},
                       "queue_hist": {}, "ladder": list(buckets),
@@ -1035,51 +1067,95 @@ class _Region:
 
     # -- the static parents the card's programs read -----------------------
     def statics_for(self, specs: Sequence[Tuple[Tuple[int, ...],
-                                                torch.dtype]]
-                    ) -> Tuple[torch.Tensor, ...]:
-        """The static parent set of one ``pk`` (zeros when made)."""
-        pk = _pk(specs)
-        statics = self._statics.get(pk)
+                                                torch.dtype]],
+                    slot: int = 0) -> Tuple[torch.Tensor, ...]:
+        """Static parent set ``slot`` of one ``pk`` (zeros when made).  Set
+        0 is the one warmup primes and other parents are copied into; the
+        populations of a wave written in place take sets 0, 1, ... in
+        order (:meth:`write_in_place`)."""
+        key = (_pk(specs), slot)
+        statics = self._statics.get(key)
         if statics is None:
-            statics = self._statics[pk] = tuple(
+            statics = self._statics[key] = tuple(
                 torch.zeros(shape, dtype=dtype, device=self.device)
                 for shape, dtype in specs)
+            self._static_ids[tuple(map(id, statics))] = key
         return statics
 
-    def static_parents(self, parents: Tuple[torch.Tensor, ...]
-                       ) -> Tuple[torch.Tensor, ...]:
-        """The parents a by-reference launch reads: on the card the static
-        parent of their ``pk``, into which this wave's parents are copied
-        once (at its first launch; later launches of the same parents in
-        the wave find them there), after every launch still reading it;
-        the parents themselves on the CPU."""
-        if not self._graphs:
-            return parents
-        statics = self.statics_for(tuple((tuple(p.shape), p.dtype)
-                                         for p in parents))
-        pk = _pk(parents)
-        src = self._static_src.get(pk)
-        if all(a is b for a, b in zip(statics, parents)) or (
-                src is not None
-                and all(a is b for a, b in zip(src, parents))):
-            return statics
-        readers = self._static_readers.pop(pk, [])
+    def _static_key(self, parents: Sequence[torch.Tensor]) -> Optional[Tuple]:
+        """The key of the static set ``parents`` is, tensor by tensor, or
+        None."""
+        return self._static_ids.get(tuple(map(id, parents)))
+
+    def _wait_for_readers(self, key: Tuple) -> None:
+        """The caller's stream waits for every launch still reading the
+        static set ``key``: what it writes there next comes after them."""
+        readers = self._static_readers.pop(key, [])
         if readers:
             stream = torch.cuda.current_stream(self.device)
             for event in readers:
                 stream.wait_event(event)
-        for dst, p in zip(statics, parents):
-            dst.copy_(p, non_blocking=True)
-        if tracing.on():
-            tracing.add("copy_bytes", tracing.nbytes(parents))
-        self._static_src[pk] = parents
+
+    def write_in_place(self, parents: Sequence[Any], slot: int
+                       ) -> Tuple[torch.Tensor, ...]:
+        """Static parent set ``slot`` for a population the caller writes
+        there itself, on its current stream, once that stream waits for
+        every launch still reading the set.  ``parents``: per position a
+        ``(shape, dtype)`` the caller writes, or a tensor whose values the
+        position must hold (a parent that never changes, such as the cell
+        widths), copied in only when the position does not hold that
+        tensor's values already (the tensor must keep them)."""
+        specs = _specs(parents)
+        statics = self.statics_for(specs, slot)
+        key = (_pk(specs), slot)
+        self._wait_for_readers(key)
+        self._static_src.pop(key, None)
+        held = self._static_held.setdefault(key, {})
+        for j, p in enumerate(parents):
+            if isinstance(p, torch.Tensor) and held.get(j) is not p:
+                statics[j].copy_(p, non_blocking=True)
+                held[j] = p
+                if tracing.on():
+                    tracing.add("copy_bytes", tracing.nbytes((p,)))
         return statics
 
-    def track_static_read(self, pk: Tuple, event) -> None:
-        """A launch reading ``pk``'s static parent ends at ``event``: the
-        next copy into it waits for it (no-op off the card)."""
-        if event is not None and pk in self._statics:
-            self._static_readers.setdefault(pk, []).append(event)
+    def static_parents(self, parents: Tuple[torch.Tensor, ...]
+                       ) -> Tuple[torch.Tensor, ...]:
+        """The parents a by-reference launch reads.  On the card: the
+        parents themselves where they are a static set (written in place);
+        else the ``pk``'s static set 0, into which this wave's parents are
+        copied once (at its first launch; later launches of the same
+        parents in the wave find them there), after every launch still
+        reading it.  The parents themselves on the CPU."""
+        if not self._graphs or self._static_key(parents) is not None:
+            return parents
+        statics = self.statics_for(_specs(parents))
+        key = (_pk(parents), 0)
+        src = self._static_src.get(key)
+        if src is not None and all(a is b for a, b in zip(src, parents)):
+            return statics
+        self._wait_for_readers(key)
+        for dst, p in zip(statics, parents):
+            dst.copy_(p, non_blocking=True)
+        if self._counters is not None:
+            self._counters["static_parent_copies"] = self._counters.get(
+                "static_parent_copies", 0) + len(parents)
+        if tracing.on():
+            tracing.add("copy_bytes", tracing.nbytes(parents))
+        self._static_src[key] = parents
+        self._static_held.pop(key, None)
+        return statics
+
+    def track_static_read(self, launched: Sequence[Any], event) -> None:
+        """A launch reading the static set ``launched`` (its parent
+        arguments) ends at ``event``: the next write into the set waits
+        for it (no-op off the card, or for parents that are no static
+        set)."""
+        if event is None:
+            return
+        key = self._static_key(launched)
+        if key is not None:
+            self._static_readers.setdefault(key, []).append(event)
 
     def end_wave(self) -> None:
         """The queue drained: the next wave's parents are copied anew."""
@@ -1175,11 +1251,16 @@ class AggregationExecutor:
         self._bodies: Dict[str, Callable] = {}
         self._regions: Dict[TaskSignature, _Region] = {}
         self._default_kernel: Optional[str] = None
+        # the bucket programs are graphs, which read static parents
+        self._graphs_on = isinstance(graphs.make_program(
+            lambda: None, self.device), graphs.BucketProgram)
         self.stats = {"submitted": 0, "launches": 0, "aggregated_hist": {},
                       "staging_s": 0.0, "regions": {},
                       # bucket-program graphs captured, and the device
                       # memory their captures reserved (the card only)
                       "captures": 0, "graph_bytes": 0,
+                      # tensors copied into static parents (the card only)
+                      "static_parent_copies": 0,
                       "warm_start": False,   # a region restored from store
                       "flush_policy": (dict(self._flush_policy)
                                        if isinstance(self._flush_policy,
@@ -1216,7 +1297,10 @@ class AggregationExecutor:
         return kernel
 
     def _region_for(self, kernel: str, args: Sequence[Any]) -> _Region:
-        sig = TaskSignature.from_args(kernel, args)
+        return self._region_of(TaskSignature.from_args(kernel, args))
+
+    def _region_of(self, sig: TaskSignature) -> _Region:
+        kernel = sig.kernel
         region = self._regions.get(sig)
         if region is None:
             body = self._bodies.get(kernel)
@@ -1788,6 +1872,41 @@ class AggregationExecutor:
         self._enqueue(region, _Pending(fut, views=views, count=n))
         return fut
 
+    @property
+    def writes_in_place(self) -> bool:
+        """Whether by-reference launches read static parents, which a
+        population can be written into (:meth:`population_buffers`)."""
+        return self._graphs_on and self._staging == "device"
+
+    def population_buffers(self, requests: Sequence[Tuple[
+            str, Sequence[Any]]]) -> Optional[List[Tuple[torch.Tensor, ...]]]:
+        """The tensors a wave's populations may be written into in place,
+        so that their launches read them where they are, with no copy into
+        a static parent: per request ``(kernel, parents)``, each parent a
+        ``(shape, dtype)`` with the leading task axis or a tensor whose
+        values never change, the static parent set of that family's region
+        (:meth:`_Region.write_in_place`).  Populations of one region take
+        static sets of their own, in request order.  The caller's current
+        stream first waits for every launch still reading them; the caller
+        writes them on that stream and submits them (``submit_range``)
+        before the next request.  None where launches read no static
+        parent (off the card, under host staging, inside a capture): the
+        caller makes its own tensors."""
+        if not self.writes_in_place or (
+                self.device.type == "cuda"
+                and torch.cuda.is_current_stream_capturing()):
+            return None
+        slots: Dict[Tuple, int] = {}
+        out = []
+        for kernel, parents in requests:
+            specs = _specs(parents)
+            region = self._region_of(TaskSignature.from_parents(
+                self._resolve_kernel(kernel), specs))
+            key = (id(region), _pk(specs))
+            slot = slots[key] = slots.get(key, -1) + 1
+            out.append(region.write_in_place(parents, slot))
+        return out
+
     def _enqueue(self, region: _Region, entry: _Pending) -> None:
         self._check_mode(region, entry)
         # wave-relative task identity: the position in the current wave,
@@ -1997,7 +2116,7 @@ class AggregationExecutor:
                 region.ring.track_read(tasks[0].slot, tasks[0].slot + k,
                                        ex.last_event)
             elif mode == "ref":
-                region.track_static_read(_pk(parents), ex.last_event)
+                region.track_static_read(call_args[1:], ex.last_event)
             wave_ids: List[int] = []
             for t in tasks:
                 wave_ids.extend(range(t.wave_index, t.wave_index + t.count))

@@ -18,11 +18,24 @@ launch per bucket produces the next stage's state per slot.
 ``stage_populations`` builds a stage's submission waves, ``assemble_stage``
 the next state from their outputs, and ``reference_stage`` is the stage
 path's oracle, as ``reference_rhs`` is the generic path's.
+
+``populations(state, buffers=...)``: a strategy whose launches read fixed
+tensors (``s3`` on the card: the aggregation executor's static parents)
+passes ``buffers``, and the scenario writes its populations there, one
+extraction straight into the tensors the launches read.  ``buffers``
+takes one ``(kernel, parents)`` request per population, each parent a
+``(shape, dtype)`` the scenario writes or a tensor that never changes
+(the cell widths), and gives one tuple of tensors per request, or None
+(the scenario makes its own).  Every ``populations`` takes the keyword:
+a subclass that overrides it accepts ``buffers=None`` and passes it on
+to the scenario it extends, or ignores it and returns tensors of its own
+(their launches then copy them into the static parents).
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -94,6 +107,17 @@ def _coeff_cache(scn) -> dict:
     return cache
 
 
+# (kernel, parents) requests -> one tuple of tensors per request, or None
+Buffers = Callable[[Sequence[Tuple[str, Sequence[Any]]]],
+                   Optional[List[Tuple[torch.Tensor, ...]]]]
+
+
+def _subgrid_spec(u: torch.Tensor, subgrid: int, ghost: int):
+    """``(shape, dtype)`` of the padded sub-grids of the level ``u``."""
+    grids, p = u.shape[-1] // subgrid, subgrid + 2 * ghost
+    return (grids ** 3, u.shape[0], p, p, p), u.dtype
+
+
 @dataclass(frozen=True)
 class TaskPopulation:
     """One iteration's submission wave for one family: per-task parent
@@ -114,7 +138,7 @@ class TaskPopulation:
 
 class Scenario:
     """Base class / protocol.  Subclasses implement ``families()``,
-    ``populations(state)``, ``assemble(state, outs)`` and
+    ``populations(state, buffers=None)``, ``assemble(state, outs)`` and
     ``warmup_parent_specs()`` — ``(kernel, ((shape, dtype), ...))`` pairs
     describing the submission waves — and may override ``finalize_step``
     and the epilogue-fused stage protocol (``stage_families``,
@@ -128,7 +152,11 @@ class Scenario:
     def families(self) -> Tuple[KernelFamily, ...]:
         raise NotImplementedError
 
-    def populations(self, state) -> Tuple[TaskPopulation, ...]:
+    def populations(self, state, buffers: Optional[Buffers] = None
+                    ) -> Tuple[TaskPopulation, ...]:
+        """One iteration's submission waves, written into ``buffers``'
+        tensors where it is given and the scenario takes it (module
+        docstring); an override must accept the keyword."""
         raise NotImplementedError
 
     def assemble(self, state, outs: Sequence[Any]):
@@ -222,9 +250,12 @@ class UniformSedovScenario(Scenario):
     def families(self):
         return self._families
 
-    def populations(self, state):
-        subs = extract_subgrids(state, self.cfg.subgrid, self.cfg.ghost,
-                                self.bc)
+    def populations(self, state, buffers: Optional[Buffers] = None):
+        cfg = self.cfg
+        into = buffers and buffers(
+            [("hydro_rhs", (_subgrid_spec(state, cfg.subgrid, cfg.ghost),))])
+        subs = extract_subgrids(state, cfg.subgrid, cfg.ghost, self.bc,
+                                out=into[0][0] if into else None)
         return (TaskPopulation("hydro_rhs", (subs,)),)
 
     def assemble(self, state, outs):
@@ -320,10 +351,17 @@ class GravityScenario(Scenario):
             self._h_vec[device] = h
         return h
 
-    def populations(self, state):
+    def populations(self, state, buffers: Optional[Buffers] = None):
+        """Both families read one parent set: written in place for the
+        hydro family's region, copied by the gravity family's."""
         hc = self.cfg.hydro
-        subs = extract_subgrids(state, hc.subgrid, hc.ghost, self.bc)
         h = self.h_vec(state.device)
+        into = buffers and buffers(
+            [("hydro_rhs", (_subgrid_spec(state, hc.subgrid, hc.ghost), h))])
+        subs = extract_subgrids(state, hc.subgrid, hc.ghost, self.bc,
+                                out=into[0][0] if into else None)
+        if into:
+            h = into[0][1]
         return (TaskPopulation("hydro_rhs", (subs, h)),
                 TaskPopulation("gravity", (subs, h)))
 
@@ -445,16 +483,20 @@ class AMRSedovScenario(Scenario):
             self._h_vec[key] = h
         return h
 
-    def _exchange_eager(self, uc, uf):
-        return extract_subgrids_multilevel(uc, uf, self.cfg, self.bc)
+    def _exchange_eager(self, uc, uf, out=None):
+        return extract_subgrids_multilevel(uc, uf, self.cfg, self.bc,
+                                           out=out)
 
-    def exchange(self, uc: torch.Tensor, uf: torch.Tensor):
+    def exchange(self, uc: torch.Tensor, uf: torch.Tensor,
+                 out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
         """The two-level ghost exchange, ``(subs_coarse, subs_fine)``
-        (``extract_subgrids_multilevel``).  On the card, one CUDA graph per
-        state shape with static ``(uc, uf)`` inputs and static outputs,
-        bit-equal to the eager exchange (inside another capture, e.g. a
-        trajectory's, the exchange is captured with it).  A call returns
-        copies of the graph's outputs, so a launch that still reads one on
+        (``extract_subgrids_multilevel``), written into ``out`` (a pair) if
+        given.  On the card, one CUDA graph per state shape and ``out``,
+        with static ``(uc, uf)`` inputs, bit-equal to the eager exchange
+        (inside another capture, e.g. a trajectory's, the exchange is
+        captured with it).  With ``out`` the graph writes the pair itself
+        and a call returns it; without, the graph has static outputs and a
+        call returns copies of them, so a launch that still reads one on
         an executor's stream is safe from the next call's replay, whatever
         the strategy orders: the copy is freed only after every stream that
         recorded it is done.  A ``repro_torch.scenario.exchange`` span
@@ -462,26 +504,42 @@ class AMRSedovScenario(Scenario):
         with tracing.span("repro_torch.scenario.exchange"):
             if (uc.device.type != "cuda"
                     or torch.cuda.is_current_stream_capturing()):
-                return self._exchange_eager(uc, uf)
-            key = (uc.device, tuple(uc.shape), tuple(uf.shape), uc.dtype)
+                return self._exchange_eager(uc, uf, out=out)
+            key = (uc.device, tuple(uc.shape), tuple(uf.shape), uc.dtype,
+                   None if out is None else tuple(map(id, out)))
             graph = self.exchange_graphs.get(key)
             if graph is None:
-                graph = CapturedCall(self._exchange_eager, (uc, uf),
-                                     uc.device)
+                graph = CapturedCall(
+                    functools.partial(self._exchange_eager, out=out),
+                    (uc, uf), uc.device)
                 self.exchange_graphs[key] = graph
+            if out is not None:
+                if tracing.on():
+                    tracing.add("copy_bytes", tracing.nbytes(graph.inputs))
+                return graph.replay_static(uc, uf)
             if tracing.on():
                 # the levels copied in, the outputs' clones out
                 tracing.add("copy_bytes", tracing.nbytes(graph.inputs)
                             + tracing.nbytes(graph.outputs))
             return graph(uc, uf)
 
-    def populations(self, state):
+    def populations(self, state, buffers: Optional[Buffers] = None):
+        """One population per level; with ``buffers`` the exchange writes
+        each level's sub-grids into its own static parent set, beside the
+        level's widths."""
         uc, uf = state
-        subs = dict(zip(self.LEVELS, self.exchange(uc, uf)))
-        return tuple(
-            TaskPopulation(self._kernel[lvl],
-                           (subs[lvl], self.h_vec(lvl, uc.device)))
-            for lvl in self.LEVELS)
+        parents = [(self._kernel[lvl], (
+            _subgrid_spec(u, self._subgrid[lvl], self.cfg.ghost),
+            self.h_vec(lvl, uc.device)))
+            for lvl, u in zip(self.LEVELS, state)]
+        into = buffers and buffers(parents)
+        if into:
+            self.exchange(uc, uf, out=tuple(b[0] for b in into))
+            return tuple(TaskPopulation(kernel, b)
+                         for (kernel, _), b in zip(parents, into))
+        subs = self.exchange(uc, uf)
+        return tuple(TaskPopulation(kernel, (sub, h))
+                     for (kernel, (_, h)), sub in zip(parents, subs))
 
     def assemble(self, state, outs):
         return tuple(assemble_global(out, self._subgrid[lvl])

@@ -299,6 +299,11 @@ class ShardedAggregationExecutor:
     def regions(self) -> Dict[TaskSignature, _ShardRegion]:
         return dict(self._regions)
 
+    # each range is read where its tenancy keeps it
+    # (``submit_range(fixed=True)``) or staged here: no population is
+    # written into this executor's buffers
+    writes_in_place = False
+
     # -- submission --------------------------------------------------------
     def submit_range(self, parents: Tuple[torch.Tensor, ...], start: int,
                      n: int, kernel: Optional[str] = None, *,

@@ -11,6 +11,11 @@ own, one per family in turn, and each bucket is stacked at launch.
 ``s2+s3`` is the same strategy over a pool of several CUDA streams (the
 paper's best rows).
 
+On the card each population is written in place: the scenario extracts
+it straight into the executor's static parents
+(``AggregationExecutor.population_buffers``), which the bucket graphs read
+where they are, so no launch copies its parents first.
+
 ``run_stage`` drives a whole RK stage through the scenario's epilogue-fused
 stage families (device staging only); a stage wave may carry several
 families (the AMR levels' twins, or gravity's hydro twin beside the plain
@@ -116,8 +121,11 @@ class S3Strategy(Strategy):
         return outs
 
     def run_iteration(self, scenario, state, ctx: RunContext):
+        exe = ctx.executor
+        buffers = exe.population_buffers if exe.writes_in_place else None
         with tracing.span("repro_torch.scenario.populations"):
-            pops = scenario.populations(state)
+            pops = (scenario.populations(state, buffers=buffers) if buffers
+                    else scenario.populations(state))
         outs = self._wave(scenario, pops, ctx,
                           host=ctx.config.staging == "host")
         with tracing.span("repro_torch.scenario.assemble"):

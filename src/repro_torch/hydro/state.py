@@ -3,15 +3,19 @@ the uniform grid and the two-level AMR grid.
 
 The octree leaves form a uniform ``G^3`` array of ``S^3`` sub-grids.  The
 per-sub-grid view ``(n_subgrids, F, P, P, P)`` with ``P = S + 2*ghost`` is
-the unit of work of the aggregation strategies; ``extract_subgrids`` (pad +
-gather, the one-device ghost exchange) and ``assemble_global`` convert
-between it and the assembled ``(F, N, N, N)`` grid.
+the unit of work of the aggregation strategies; ``extract_subgrids`` (the
+one-device ghost exchange: ``kernels.extract``'s kernel on the card, pad +
+gather on the CPU) and ``assemble_global`` convert between it and the
+assembled ``(F, N, N, N)`` grid.  The extractions take ``out=``: a
+contiguous tensor of the result's shape that they write into (an
+aggregation executor's static parent).
 
 Two-level AMR (``AMRState``): a coarse grid over the whole domain and one
 centred fine patch.  ``extract_subgrids_multilevel`` is the two-level ghost
 exchange: the coarse level sees the restricted fine solution under the
 patch, the fine level's ghost band is prolongated from the coarse level.
-Every function returns new tensors; no level aliases another.
+Every function returns new tensors (or writes the ``out=`` it is given);
+no level aliases another.
 
 ``state_from_numpy`` / ``state_to_numpy`` carry a conserved state across
 from (and back to) the JAX reference.
@@ -19,14 +23,15 @@ from (and back to) the JAX reference.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import AMRHydroConfig, HydroConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.hydro.euler import prim_to_cons
+from repro_torch.kernels.extract import PAD_MODES, extract
 
 
 @dataclass
@@ -81,30 +86,22 @@ def sedov_init(cfg: HydroConfig, dtype=torch.float32,
 # decomposition
 # ---------------------------------------------------------------------------
 
-def fill_ghosts(u: torch.Tensor, ghost: int, bc: str = "outflow"):
-    """(F, N, N, N) -> (F, N+2g, N+2g, N+2g) with boundary condition."""
-    mode = {"outflow": "replicate", "periodic": "circular"}.get(bc)
-    if mode is None:
-        raise ValueError(f"unknown boundary condition {bc!r}")
-    return F.pad(u, (ghost,) * 6, mode=mode)
-
-
-def extract_padded(up: torch.Tensor, subgrid: int,
-                   ghost: int) -> torch.Tensor:
-    """Already padded (F, N+2g, N+2g, N+2g) -> per-task (G^3, F, P, P, P)
-    padded sub-grids, contiguous."""
-    f, n = up.shape[0], up.shape[-1] - 2 * ghost
-    grids, p = n // subgrid, subgrid + 2 * ghost
-    blocks = up.unfold(1, p, subgrid).unfold(2, p, subgrid).unfold(
-        3, p, subgrid)                                # (F, G, G, G, P, P, P)
-    return blocks.permute(1, 2, 3, 0, 4, 5, 6).reshape(grids ** 3, f, p, p, p)
+def extract_padded(up: torch.Tensor, subgrid: int, ghost: int,
+                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Already padded (F, N+2g, N+2g, N+2g), any strides -> per-task (G^3,
+    F, P, P, P) padded sub-grids, contiguous (into ``out`` if given)."""
+    return extract(up, subgrid, ghost, "padded", out=out)
 
 
 def extract_subgrids(u: torch.Tensor, subgrid: int, ghost: int,
-                     bc: str = "outflow") -> torch.Tensor:
+                     bc: str = "outflow",
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Assembled (F, N, N, N) -> per-task (G^3, F, P, P, P) padded
-    sub-grids, contiguous."""
-    return extract_padded(fill_ghosts(u, ghost, bc), subgrid, ghost)
+    sub-grids, contiguous (into ``out`` if given); the ghost cells follow
+    ``bc``: clamped (``outflow``) or wrapped (``periodic``)."""
+    if bc not in PAD_MODES:
+        raise ValueError(f"unknown boundary condition {bc!r}")
+    return extract(u, subgrid, ghost, bc, out=out)
 
 
 def assemble_global(sub_interior: torch.Tensor, subgrid: int) -> torch.Tensor:
@@ -173,17 +170,21 @@ def _fine_fill_ghosts(uc_synced: torch.Tensor, uf: torch.Tensor,
     return fp
 
 
-def extract_subgrids_multilevel(uc: torch.Tensor, uf: torch.Tensor,
-                                cfg: AMRHydroConfig, bc: str = "outflow"):
+def extract_subgrids_multilevel(
+        uc: torch.Tensor, uf: torch.Tensor, cfg: AMRHydroConfig,
+        bc: str = "outflow",
+        out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
     """Two-level ghost exchange + decomposition: ``(subs_coarse,
-    subs_fine)`` padded per-task tensors, contiguous.  The coarse level
-    sees the restricted fine solution under the patch; the fine level's
-    boundary ghosts are prolongated from the coarse level."""
+    subs_fine)`` padded per-task tensors, contiguous (written into ``out``,
+    a pair, if given).  The coarse level sees the restricted fine solution
+    under the patch; the fine level's boundary ghosts are prolongated from
+    the coarse level."""
+    out_c, out_f = (None, None) if out is None else out
     ucs = sync_coarse(uc, uf, cfg)
-    subs_c = extract_padded(fill_ghosts(ucs, cfg.ghost, bc),
-                            cfg.coarse_subgrid, cfg.ghost)
+    subs_c = extract_subgrids(ucs, cfg.coarse_subgrid, cfg.ghost, bc,
+                              out=out_c)
     subs_f = extract_padded(_fine_fill_ghosts(ucs, uf, cfg),
-                            cfg.fine_subgrid, cfg.ghost)
+                            cfg.fine_subgrid, cfg.ghost, out=out_f)
     return subs_c, subs_f
 
 

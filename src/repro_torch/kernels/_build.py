@@ -52,20 +52,23 @@ def nvcc_path() -> str:
 
 
 def output(out: Optional["torch.Tensor"], shape: Tuple[int, ...],
-           like: "torch.Tensor", name: str) -> "torch.Tensor":
-    """A wrapper's fp32 output: a new tensor of ``shape`` on ``like``'s
-    device, or the caller's ``out`` once checked to be exactly that — a
-    contiguous float32 tensor of ``shape`` on the same device (a slice of
-    a larger buffer is fine if it is contiguous)."""
+           like: "torch.Tensor", name: str,
+           dtype: Optional["torch.dtype"] = None) -> "torch.Tensor":
+    """A wrapper's output (float32 unless ``dtype``): a new tensor of
+    ``shape`` on ``like``'s device, or the caller's ``out`` once checked to
+    be exactly that — a contiguous tensor of that dtype and ``shape`` on
+    the same device (a slice of a larger buffer is fine if it is
+    contiguous)."""
     import torch
 
+    dtype = torch.float32 if dtype is None else dtype
     if out is None:
-        return torch.empty(shape, dtype=torch.float32, device=like.device)
-    if (out.dtype != torch.float32 or tuple(out.shape) != tuple(shape)
+        return torch.empty(shape, dtype=dtype, device=like.device)
+    if (out.dtype != dtype or tuple(out.shape) != tuple(shape)
             or out.device != like.device or not out.is_contiguous()):
         raise ValueError(
-            f"{name}: out= must be a contiguous float32 {tuple(shape)} "
-            f"tensor on {like.device}, got {out.dtype} "
+            f"{name}: out= must be a contiguous {str(dtype)[6:]} "
+            f"{tuple(shape)} tensor on {like.device}, got {out.dtype} "
             f"{tuple(out.shape)} on {out.device}"
             f"{'' if out.is_contiguous() else ', not contiguous'}")
     return out

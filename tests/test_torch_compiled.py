@@ -338,7 +338,7 @@ def test_stub_offsets_per_key_and_static_parents(stub):
         assert torch.equal(fut.result(), affine(parent))
     assert exe.stats["captures"] == captured
     assert _offsets(prog) == list(range(0, n, cap))
-    (static,) = region._statics[pk]
+    (static,) = region._statics[(pk, 0)]
     assert all(site[1] == ("fixed", id(static)) for site in prog.sites)
     # cap 512: one offset
     exe = AggregationExecutor(affine, AggregationConfig(
@@ -395,6 +395,135 @@ def test_stub_engine_is_untouched_and_s4_reads_fixed_inputs(stub):
         assert torch.equal(f.result(), affine(fixed))
     assert len(prog.sites) == 2
     assert ("fixed", id(fixed)) in {s[0] for s in prog.sites}
+
+
+def _stub_runs(make_scenario, state, dt, steps=2):
+    """``s3`` (cap 8) and ``fused`` runs of ``steps`` RK3 steps; the s3
+    runner."""
+    outs, runner = [], None
+    for strategy in ("s3", "fused"):
+        r = StrategyRunner(make_scenario(), AggregationConfig(
+            strategy=strategy, max_aggregated=8), device=CPU)
+        r.warmup(wave_only=True)
+        s = state
+        for _ in range(steps):
+            s = r.rk3_step(s, dt)
+        outs.append(s if isinstance(s, tuple) else (s,))
+        runner = runner or r
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+    return runner
+
+
+def test_stub_populations_written_in_place_copy_nothing(stub):
+    """Under the stub the executor's statics are what ``s3`` hands the
+    scenario: the uniform wave is extracted straight into static set 0,
+    the two AMR levels (one family, one shape) into sets 0 and 1 with
+    their widths, and no launch copies a parent; the results equal
+    ``fused`` bit for bit."""
+    from repro_torch.configs.base import HydroConfig
+    from repro_torch.core import UniformSedovScenario
+    from repro_torch.hydro.state import amr_sedov_init, sedov_init
+    from repro_torch.hydro.stepper import amr_courant_dt, courant_dt
+
+    cfg = HydroConfig(levels=2)
+    u = sedov_init(cfg, device=CPU).u
+    r = _stub_runs(lambda: UniformSedovScenario(cfg), u,
+                   float(courant_dt(u, cfg)))
+    assert r.executor.stats["static_parent_copies"] == 0
+    (region,) = r.executor.regions.values()
+    assert [k[1] for k in region._statics] == [0]
+
+    acfg = amr_configs.CONFIG
+    st = amr_sedov_init(acfg, device=CPU)
+    sc = AMRSedovScenario(acfg)
+    r = _stub_runs(lambda: sc, (st.uc, st.uf),
+                   float(amr_courant_dt(st.uc, st.uf, acfg)))
+    assert r.executor.stats["static_parent_copies"] == 0
+    (region,) = r.executor.regions.values()
+    assert sorted(k[1] for k in region._statics) == [0, 1]
+    for slot, lvl in enumerate(sc.LEVELS):
+        (pk,) = {k[0] for k in region._statics}
+        assert torch.equal(region._statics[(pk, slot)][1],
+                           sc.h_vec(lvl, CPU))
+
+
+@pytest.mark.parametrize("strategy", ["s3", "s4"])
+def test_stub_buffers_follow_the_executor(stub, strategy):
+    """``s3`` hands ``populations`` its executor's ``population_buffers``
+    at every stage; under ``s4`` the sharded executor writes nothing in
+    place (``writes_in_place`` is False), so ``populations`` gets None."""
+    from repro_torch.configs.base import HydroConfig
+    from repro_torch.core import UniformSedovScenario
+    from repro_torch.hydro.state import sedov_init
+    from repro_torch.hydro.stepper import courant_dt
+
+    seen = []
+
+    class Spy(UniformSedovScenario):
+        def populations(self, state, buffers=None):
+            seen.append(buffers)
+            return super().populations(state, buffers=buffers)
+
+    cfg = HydroConfig(levels=2)
+    u = sedov_init(cfg, device=CPU).u
+    r = StrategyRunner(Spy(cfg), AggregationConfig(
+        strategy=strategy, max_aggregated=8), device=CPU)
+    r.warmup(wave_only=True)
+    r.rk3_step(u, float(courant_dt(u, cfg)))
+    assert r.executor.writes_in_place is (strategy == "s3")
+    assert len(seen) == 3
+    if strategy == "s3":
+        assert all(b == r.executor.population_buffers for b in seen)
+    else:
+        assert seen == [None] * 3
+
+
+def test_stub_gravity_families_share_one_parent_set(stub):
+    """Gravity's two families read one parent set: written in place for
+    the hydro region, copied by the gravity region (two tensors per
+    stage)."""
+    from repro_torch.configs.gravity import CONFIG_SMALL
+    from repro_torch.core import GravityScenario
+    from repro_torch.hydro.state import sedov_init
+    from repro_torch.hydro.stepper import courant_dt
+
+    u = sedov_init(CONFIG_SMALL.hydro, device=CPU).u
+    r = _stub_runs(lambda: GravityScenario(CONFIG_SMALL), u,
+                   float(courant_dt(u, CONFIG_SMALL.hydro)))
+    assert r.executor.stats["static_parent_copies"] == 2 * 3 * 2
+
+
+def test_stub_write_in_place_waits_and_reseeds_constant_parents(stub):
+    """``population_buffers`` gives the region's static sets in request
+    order; a constant parent is copied in once, and again only after
+    other parents were copied over it."""
+    n = 16
+    exe = AggregationExecutor(lambda x, w, out=None: affine(x) * w[:, None],
+                              AggregationConfig(strategy="s3",
+                                                max_aggregated=8,
+                                                launch_watermark=WM),
+                              device=CPU)
+    exe.warmup([((n, 2), torch.float32), ((n,), torch.float32)])
+    w = torch.arange(float(n))
+    ((x0, w0), (x1, w1)) = exe.population_buffers(
+        [("region", (((n, 2), torch.float32), w))] * 2)
+    assert x0 is not x1 and torch.equal(w0, w) and torch.equal(w1, w)
+    x0.copy_(torch.ones(n, 2))
+    fut = exe.submit_range((x0, w0), 0, n)
+    exe.flush()
+    assert torch.equal(fut.result(), affine(torch.ones(n, 2)) * w[:, None])
+    assert exe.stats["static_parent_copies"] == 0
+    w0.zero_()                      # the set's widths are not reseeded...
+    ((again, w_again),) = exe.population_buffers(
+        [("region", (((n, 2), torch.float32), w))])
+    assert again is x0 and not w_again.any()
+    fresh = (torch.zeros(n, 2), torch.ones(n))   # ...until a copy lands
+    exe.submit_range(fresh, 0, n)
+    exe.flush()
+    assert exe.stats["static_parent_copies"] == 2
+    ((_, w_again),) = exe.population_buffers(
+        [("region", (((n, 2), torch.float32), w))])
+    assert torch.equal(w_again, w)
 
 
 def test_pool_total_dispatch_s_sums_every_executor():

@@ -1332,6 +1332,96 @@ def test_captured_exchange_result_survives_next_call_on_delayed_stream(dev):
     assert not torch.equal(second[1], want[1])
 
 
+def _copying(cls):
+    """``cls`` with populations made as fresh tensors, whatever the
+    strategy hands it: the executor copies them into its static parents,
+    the path before parents were written in place."""
+    class Copying(cls):
+        def populations(self, state, buffers=None):
+            return super().populations(state)
+    return Copying
+
+
+def _in_place_cases(dev):
+    cfg = HydroConfig(levels=2)
+    u0 = sedov_init(cfg, device=dev).u
+    st = amr_sedov_init(ACFG, device=dev)
+    return {"uniform": (lambda cls: cls(cfg), UniformSedovScenario, u0,
+                        courant_dt(u0, cfg)),
+            "amr": (lambda cls: cls(ACFG), AMRSedovScenario,
+                    (st.uc, st.uf), amr_courant_dt(st.uc, st.uf, ACFG))}
+
+
+@pytest.mark.parametrize("case", ["uniform", "amr"])
+def test_parents_written_in_place_bit_equal_to_copied(dev, case):
+    """One generic RK3 step with the populations extracted straight into
+    the executor's static parents equals the same step through the copy
+    into them, bit for bit; written in place, steps 2 and 3 copy no
+    parent."""
+    make, cls, state, dt = _in_place_cases(dev)[case]
+    outs, copies = [], []
+    for sc_cls in (cls, _copying(cls)):
+        runner = StrategyRunner(make(sc_cls), AggregationConfig(
+            strategy="s3", max_aggregated=32), device=dev)
+        runner.warmup(wave_only=True)
+        stats = runner.executor.stats
+        outs.append(runner.rk3_step(state, dt))
+        before = stats["static_parent_copies"]
+        _loop(runner, state, dt, 2)
+        copies.append(stats["static_parent_copies"] - before)
+    assert _equal(outs[0], outs[1])
+    n_pops = len(_levels(state))
+    assert copies == [0, 2 * 3 * n_pops * (1 if case == "uniform" else 2)]
+
+
+@pytest.mark.parametrize("case", ["uniform", "amr"])
+def test_parents_written_in_place_on_delayed_streams(dev, case):
+    """Launches delayed on four executor streams read the static parents
+    long after the caller's stream moved on; the next stage's extraction
+    into them still waits, and the run equals ``fused`` bit for bit."""
+    make, cls, state, dt = _in_place_cases(dev)[case]
+    outs = []
+    for kw in (dict(strategy="s2+s3", n_executors=4, max_aggregated=16),
+               dict(strategy="fused")):
+        sc = make(cls)
+        if kw["strategy"] != "fused":
+            if case == "amr":
+                sc = AMRSedovScenario(ACFG, hydro_body=_slow_level_body(
+                    SLEEP_CYCLES))
+            else:
+                sc = UniformSedovScenario(sc.cfg, batched_body=_delayed(
+                    sc.batched_body))
+        runner = StrategyRunner(sc, AggregationConfig(**kw), device=dev)
+        outs.append(_loop(runner, state, dt, 2))
+    assert _equal(outs[0], outs[1])
+
+
+def test_static_write_waits_for_a_delayed_reader(dev):
+    """A replay reading a static parent set is held back on the
+    executor's stream (``torch.cuda._sleep``) while the next write into
+    the set is enqueued on the caller's stream: the request for the set
+    makes the caller wait, so the replay reads what it was launched on."""
+    from repro_torch.core import AggregationExecutor
+
+    n = 32
+    body = _delayed(lambda x, out=None: (2.0 * x if out is None
+                                         else torch.mul(x, 2.0, out=out)))
+    exe = AggregationExecutor(body, AggregationConfig(
+        strategy="s3", max_aggregated=n), device=dev)
+    spec = ((n, 4096), torch.float32)
+    exe.warmup([spec])
+    first = torch.randn(n, 4096, device=dev)
+    ((buf,),) = exe.population_buffers([("region", (spec,))])
+    buf.copy_(first)
+    fut = exe.submit_range((buf,), 0, n)        # a full bucket: launched
+    ((again,),) = exe.population_buffers([("region", (spec,))])
+    assert again is buf
+    again.fill_(-1.0)
+    exe.flush()
+    assert torch.equal(fut.result(), 2.0 * first)
+    assert exe.stats["static_parent_copies"] == 0
+
+
 _RESUME_CHILD = """
 import os, signal, sys
 from repro_torch.configs.base import AggregationConfig, HydroConfig
@@ -1635,9 +1725,9 @@ class _HostSyncScenario(UniformSedovScenario):
     """The main path's scenario with a population that reads a value on
     the host (``.item()``), which no CUDA graph can capture."""
 
-    def populations(self, state):
+    def populations(self, state, buffers=None):
         assert state.sum().item() > 0
-        return super().populations(state)
+        return super().populations(state, buffers=buffers)
 
 
 def test_host_sync_population_falls_to_eager_and_is_counted(dev):

@@ -221,8 +221,8 @@ def test_tenant_batcher_bit_identical_to_solo_runs(sedov, solo):
 class _WithEmptyPopulation(UniformSedovScenario):
     """The main path's scenario with a second, zero-task population."""
 
-    def populations(self, state):
-        (pop,) = super().populations(state)
+    def populations(self, state, buffers=None):
+        (pop,) = super().populations(state, buffers=buffers)
         return pop, TaskPopulation("hydro_rhs", (pop.parents[0][:0],))
 
     def assemble(self, state, outs):
